@@ -1,0 +1,188 @@
+"""Optimizer (counterpart of deblur_e_nerf_tpu/training/optim.py): Adam
+with per-group learning rates, coupled weight decay on the NeRF MLPs, the
+refractory period's relative lr, a MultiStepLR schedule, freeze masks and
+the optional decoupled fine-table row decay.
+
+The update equals the JAX package's optax chain per parameter:
+  g' = g + wd * p                       (nerf_mlp group only)
+  m, v = Adam moments of g' (b1 0.9, b2 0.999, eps 1e-8, bias-corrected)
+  p <- p - lr * sched(t) * m_hat / (sqrt(v_hat) + eps)
+       [- default_lr * sched(t) * table_wd * p on table rows >= start_row]
+where sched(t) = gamma ** (number of milestones <= t), t counting applied
+updates from 0. Frozen parameters are left out of the optimizer and get
+no gradient. An update whose loss or gradients are not finite is skipped
+whole: parameters, moments and the step count stay as they were.
+"""
+
+import torch
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+_PB_NAMES = ("tau_mil_it_eff_prod", "A_amp_inv", "A_loop_inv", "tau_out",
+             "tau_sf", "tau_diff")
+
+
+def _jax_path(name):
+    """'nerf.field.mlp_base.hidden_0.weight' -> the JAX package's path
+    'nerf/field/mlp_base/hidden_0/kernel'."""
+    return name.replace(".", "/").replace("/weight", "/kernel")
+
+
+def _is_nerf_mlp(path):
+    return (("mlp_base" in path or "mlp_head" in path
+             or "sigma_layer" in path or "bottleneck_layer" in path
+             or "rgb_layer" in path or "/base/" in path)
+            and "table" not in path)
+
+
+def _label_for_path(path):
+    if path.startswith("refractory_period/"):
+        return "refractory_period"
+    if path.startswith("contrast_threshold/"):
+        if "p2n_contrast_threshold_ratio" in path:
+            return "ct_p2n"
+        if "mean_contrast_threshold" in path:
+            return "ct_mean"
+        return "default"
+    if path.startswith("pixel_bandwidth/"):
+        for name in _PB_NAMES:
+            if name in path:
+                return f"pb_{name}"
+        return "default"
+    return "default"
+
+
+def param_label(name, table_decay=None):
+    path = _jax_path(name)
+    if (table_decay is not None and path.startswith("nerf/")
+            and path.endswith("/table")):
+        return "hash_table"
+    return "nerf_mlp" if _is_nerf_mlp(path) else _label_for_path(path)
+
+
+def trainable(name, model_configs):
+    """False where the component's `freeze` config (bool or
+    {param_name: bool, default: bool}) freezes the parameter."""
+    path = _jax_path(name)
+    cfg = model_configs.get(path.split("/")[0])
+    if cfg is None:
+        return True
+    freeze = cfg.get("freeze", False)
+    if isinstance(freeze, bool):
+        return not freeze
+    for param_name, freeze_param in freeze.items():
+        if param_name != "default" and param_name in path:
+            return not freeze_param
+    return not freeze.get("default", False)
+
+
+def multi_step_scale(count, milestones, gamma):
+    return gamma ** sum(1 for m in milestones if count >= m)
+
+
+class Optimizer:
+    """Per-group Adam over the trainable parameters of a module."""
+
+    def __init__(self, groups, milestones, gamma, table_decay=None,
+                 default_lr=None):
+        """groups: [(label, lr, weight_decay, [(name, param), ...])];
+        table_decay: (start_row, wd) for the 'hash_table' group."""
+        self.groups = groups
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        self.table_decay = table_decay
+        self.default_lr = default_lr
+        self.count = 0
+        self.state = {}
+        for _, _, _, named in groups:
+            for _, p in named:
+                self.state[p] = (torch.zeros_like(p), torch.zeros_like(p))
+
+    def params(self):
+        return [p for _, _, _, named in self.groups for _, p in named]
+
+    def zero_grad(self):
+        for p in self.params():
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self, loss=None):
+        """Apply one update; returns False (and changes nothing) when the
+        loss or any gradient is not finite."""
+        grads = [p.grad for p in self.params() if p.grad is not None]
+        checks = [torch.isfinite(g).all() for g in grads]
+        if loss is not None:
+            checks.append(torch.isfinite(loss).all())
+        if checks and not bool(torch.stack(checks).all()):
+            return False
+        sched = multi_step_scale(self.count, self.milestones, self.gamma)
+        t = self.count + 1
+        bc1 = 1.0 - B1 ** t
+        bc2 = 1.0 - B2 ** t
+        for label, lr, wd, named in self.groups:
+            for _, p in named:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if wd:
+                    g = g + wd * p
+                m, v = self.state[p]
+                m.mul_(B1).add_(g, alpha=1.0 - B1)
+                v.mul_(B2).addcmul_(g, g, value=1.0 - B2)
+                upd = (m / bc1) / (torch.sqrt(v / bc2) + EPS)
+                if label == "hash_table" and self.table_decay is not None:
+                    start_row, table_wd = self.table_decay
+                    p[start_row:].sub_(
+                        self.default_lr * sched * table_wd * p[start_row:])
+                p.sub_(lr * sched * upd)
+        self.count += 1
+        return True
+
+
+def build(params, optimizer_config, lr_scheduler_config,
+          nerf_mlp_weight_decay, max_refractory_period, steps_per_epoch,
+          model_configs, table_decay=None):
+    """Build the Optimizer over `params` (an nn.Module) and freeze the
+    parameters the config freezes (requires_grad False).
+
+    Returns (optimizer, {name: trainable})."""
+    if optimizer_config.algo != "adam":
+        raise NotImplementedError(f"optimizer {optimizer_config.algo!r}")
+    if lr_scheduler_config.algo != "multi_step_lr":
+        raise NotImplementedError(f"lr scheduler {lr_scheduler_config.algo!r}")
+    scale = steps_per_epoch if lr_scheduler_config.interval == "epoch" else 1
+    milestones = [int(m) * scale
+                  for m in lr_scheduler_config.multi_step_lr.milestones]
+    gamma = float(lr_scheduler_config.multi_step_lr.gamma)
+
+    lr_cfg = optimizer_config.lr
+    default_lr = float(lr_cfg.default)
+    ct_lr = lr_cfg.get("contrast_threshold", {})
+    group_lrs = {
+        "default": default_lr,
+        "nerf_mlp": default_lr,
+        "hash_table": default_lr,
+        "refractory_period": float(max_refractory_period)
+        * float(optimizer_config.relative_lr.refractory_period),
+        "ct_p2n": float(ct_lr.get("p2n_contrast_threshold_ratio",
+                                  default_lr)),
+        "ct_mean": float(ct_lr.get("mean_contrast_threshold", default_lr)),
+    }
+    pb_lrs = lr_cfg.get("pixel_bandwidth", {})
+    for name in _PB_NAMES:
+        group_lrs[f"pb_{name}"] = float(pb_lrs.get(name, default_lr))
+
+    mask = {}
+    grouped = {}
+    for name, p in params.named_parameters():
+        mask[name] = trainable(name, model_configs)
+        p.requires_grad_(mask[name])
+        if mask[name]:
+            grouped.setdefault(param_label(name, table_decay), []).append(
+                (name, p))
+    groups = [
+        (label, group_lrs[label],
+         nerf_mlp_weight_decay if label == "nerf_mlp" else 0.0, named)
+        for label, named in grouped.items()
+    ]
+    return Optimizer(groups, milestones, gamma, table_decay=table_decay,
+                     default_lr=default_lr), mask

@@ -1,0 +1,217 @@
+"""Training loop (counterpart of deblur_e_nerf_tpu/training/trainer.py),
+training only:
+
+  - occupancy updates: every optimizer step during warmup, then every
+    `occ_grid.n` steps;
+  - the dynamic active-batch-size controller;
+  - metrics consumed one step behind (the host reads step s-1's scalars
+    after step s is queued on the device);
+  - an update whose loss or gradients are not finite is skipped, and the
+    run stops after 25 consecutive skipped updates. (The JAX package skips
+    on non-finite gradients but counts non-finite losses, so a finite loss
+    with NaN gradients is skipped without counting; here both count.)
+  - scalars go to `metrics.jsonl` in the log directory, one JSON object
+    per logged step.
+
+Evaluation, checkpoints and resume are still to be ported (ROADMAP
+Queue A 9 and 11).
+"""
+
+import json
+import math
+import os
+import time
+
+import torch
+
+from ..data import events as events_data
+from ..models import event_gen, nerf_model
+from ..utils.device import resolve_device
+from . import optim, pipeline, setup as setup_lib, step as step_lib
+
+NONFINITE_STREAK_LIMIT = 25
+EVAL_TODO = ("evaluation, checkpoints and resume are not ported yet "
+             "(ROADMAP Queue A 9 and 11)")
+
+
+class JsonlWriter:
+    """Scalar log: one JSON object per line."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def write(self, step, scalars):
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"step": int(step), **scalars}) + "\n")
+
+
+def _set_matmul_precision(precision):
+    if precision is None:
+        return
+    torch.set_float32_matmul_precision(str(precision))
+    if str(precision) == "highest":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+class Trainer:
+    def __init__(self, config, log_dir, batch_capacity=8192,
+                 sample_budget=None, device=None):
+        self.config = config
+        self.log_dir = log_dir
+        self.device = resolve_device(device)
+        os.makedirs(log_dir, exist_ok=True)
+        if config.model.get("checkpoint_filepath"):
+            raise NotImplementedError(EVAL_TODO)
+        if config.trainer.get("resume_from_checkpoint"):
+            raise NotImplementedError(EVAL_TODO)
+        if int(config.trainer.get("accumulate_grad_batches") or 1) != 1:
+            raise NotImplementedError(
+                "gradient accumulation is not ported yet (ROADMAP Queue A 9)")
+        _set_matmul_precision(config.get("float32_matmul_precision"))
+
+        root = config.data.dataset_directory
+        self.bundle, self.params = setup_lib.build(
+            config, root, sample_budget=sample_budget, device=self.device)
+        self.batch_capacity = batch_capacity
+        trainer_cfg = config.trainer
+        self.max_epochs = int(trainer_cfg.max_epochs)
+        self.steps_per_epoch = int(trainer_cfg.limit_train_batches)
+        model = self.params.nerf
+        self.optimizer, self.trainable_mask = optim.build(
+            self.params, config.optimizer, config.lr_scheduler,
+            float(config.loss.weight.nerf_mlp_weight_decay),
+            float(self.bundle.consts["refractory_period"]
+                  ["max_refractory_period"]),
+            steps_per_epoch=self.steps_per_epoch,
+            model_configs={c: config.model[c] for c in
+                           ("contrast_threshold", "refractory_period",
+                            "nerf", "pixel_bandwidth")},
+            table_decay=model.table_decay,
+        )
+        self.step_fn = step_lib.make_train_step(
+            self.params, self.bundle.consts, self.optimizer,
+            self.bundle.static_config, self.bundle.loss_config)
+        self.occ_state = nerf_model.init_occupancy(model, self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(config.get("seed") or 0))
+
+        events = events_data.EventDataset(
+            root, config.data.get("train_dataset_perm_seed")).events
+        ratio = config.data.train_dataset_ratio
+        if isinstance(ratio, float):
+            dataset_len = int(ratio * len(events["position"]))
+        else:
+            dataset_len = int(ratio) * int(
+                config.data.train_init_eff_batch_size)
+        self.batcher = pipeline.EventBatcher(
+            events, capacity=batch_capacity,
+            seed=int(config.get("seed") or 0), dataset_len=dataset_len,
+            has_bayer=self.bundle.static_config.has_bayer)
+        self.batch_controller = pipeline.BatchSizeController(
+            target_ray_samples=int(
+                config.data.train_eff_ray_sample_batch_size),
+            init_batch_size=int(config.data.train_init_eff_batch_size),
+            capacity=batch_capacity,
+            min_batch=int(config.data.get("train_min_eff_batch_size", 1)),
+        )
+        self.writer = JsonlWriter(os.path.join(log_dir, "metrics.jsonl"))
+        self.log_every = int(trainer_cfg.get("log_every_n_steps") or 100)
+        self.global_step = 0
+        self._pending_metrics = None
+        self._nonfinite_streak = 0
+        self.last_metrics = None
+
+    def update_occupancy(self, step=None):
+        """One occupancy update at optimizer step `step` (default: the
+        current step); a step below occ_grid.warmup_steps updates the
+        full grid."""
+        step = self.global_step if step is None else int(step)
+        model = self.params.nerf
+        self.occ_state = nerf_model.update_occupancy(
+            model, self.occ_state, step, self.generator,
+            level_mask=nerf_model.level_mask_for_step(model, step,
+                                                      self.device))
+        return self.occ_state
+
+    def _to_device(self, batch):
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def _consume_metrics(self, step, metrics):
+        """Host-side processing of one step's metrics (one step behind)."""
+        scalars = {k: float(v) for k, v in metrics.items()
+                   if not torch.is_tensor(v) or v.numel() == 1}
+        self.last_metrics = scalars
+        self.batch_controller.update(scalars["mean_num_samples_per_ray"])
+        if scalars["update_skipped"]:
+            self._nonfinite_streak += 1
+            print(f"WARNING: skipped a non-finite update at step {step} "
+                  f"(loss {scalars['loss']}, streak "
+                  f"{self._nonfinite_streak})", flush=True)
+            if self._nonfinite_streak >= NONFINITE_STREAK_LIMIT:
+                raise FloatingPointError(
+                    f"{self._nonfinite_streak} consecutive non-finite "
+                    f"updates (at step {step}); metrics: {scalars}")
+        else:
+            self._nonfinite_streak = 0
+        if step % self.log_every == 0 or step == 1:
+            p, c = self.params, self.bundle.consts
+            _, _, mean_ct = event_gen.contrast_thresholds(
+                p.contrast_threshold, c["contrast_threshold"])
+            tau = event_gen.refractory_period(p.refractory_period,
+                                              c["refractory_period"])
+            self.writer.write(step, {
+                **{f"train/{k}": v for k, v in scalars.items()
+                   if math.isfinite(v)},
+                "train/mean_contrast_threshold": float(mean_ct),
+                "train/refractory_period": float(tau),
+            })
+
+    def _flush_pending_metrics(self):
+        if self._pending_metrics is not None:
+            prev, self._pending_metrics = self._pending_metrics, None
+            self._consume_metrics(*prev)
+
+    def train_step(self):
+        """One optimizer step (with its occupancy update, if due)."""
+        model = self.params.nerf
+        occ_cfg = model.occ_grid_config
+        step = self.global_step
+        if step < int(occ_cfg.warmup_steps) or step % int(occ_cfg.n) == 0:
+            self.update_occupancy(step)
+        batch = self._to_device(
+            self.batcher.next_batch(self.batch_controller.active))
+        draws = step_lib.draw_step(
+            self.bundle.static_config, self.batch_capacity, self.occ_state,
+            self.generator, self.device)
+        metrics = self.step_fn(
+            self.occ_state, batch, draws,
+            level_mask=nerf_model.level_mask_for_step(model, step,
+                                                      self.device))
+        self.global_step += 1
+        prev = self._pending_metrics
+        self._pending_metrics = (self.global_step, metrics)
+        if prev is not None:
+            self._consume_metrics(*prev)
+        return metrics
+
+    def train(self, max_steps=None):
+        """Train for max_epochs x limit_train_batches steps (or
+        `max_steps`); returns the elapsed seconds."""
+        total = self.max_epochs * self.steps_per_epoch
+        if max_steps is not None:
+            total = min(total, int(max_steps))
+        t_start = time.time()
+        while self.global_step < total:
+            self.train_step()
+            if self.global_step % self.steps_per_epoch == 0:
+                self._flush_pending_metrics()
+        self._flush_pending_metrics()
+        return time.time() - t_start
+
+    def evaluate(self, *args, **kwargs):
+        raise NotImplementedError(EVAL_TODO)
+
+    def resume(self, path):
+        raise NotImplementedError(EVAL_TODO)

@@ -1,0 +1,86 @@
+"""CUDA kernels of the port against their plain PyTorch versions, on a
+CUDA card only (skipped here otherwise). This file imports neither jax
+nor the JAX package, so it runs on the GPU machine, where jax is absent:
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deblur_e_nerf_tpu_torch.models import contraction, fields
+from deblur_e_nerf_tpu_torch.ops import scatter_rows
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n,n_rows,width", [
+    (524289, 65536, 16),     # cellhash levels of the flagship step
+    (524289, 4096, 16),      # dense level 0 (heavy collisions)
+    (4194312, 524288, 2),    # vertex-hash levels, 8 corners per sample
+    (1000, 7, 16),           # tiny, ragged
+])
+def test_scatter_kernel_matches_plain(cuda, n, n_rows, width):
+    rng = np.random.default_rng(0)
+    idx = torch.from_numpy(rng.integers(0, n_rows, n).astype(np.int32))
+    val = torch.from_numpy(rng.normal(size=(n, width)).astype(np.float32))
+    i, v = idx.to(cuda), val.to(cuda)
+    before = scatter_rows.LAUNCHES
+    out = scatter_rows.scatter_add_rows(i, v, n_rows)
+    torch.cuda.synchronize()
+    assert scatter_rows.LAUNCHES == before + 1
+    exact = scatter_rows.scatter_add_rows_reference(idx, val, n_rows,
+                                                    dtype=torch.float64)
+    # any order of k f32 additions is within (k - 1) eps sum|x| of exact
+    counts = np.bincount(idx.numpy(), minlength=n_rows)
+    abs_sum = scatter_rows.scatter_add_rows_reference(
+        idx, val.abs(), n_rows, dtype=torch.float64)
+    bound = max(counts.max() - 1, 1) * np.finfo(np.float32).eps \
+        * float(abs_sum.max())
+    assert float((out.cpu().double() - exact).abs().max()) <= bound
+
+
+def test_scatter_wrapper_raises_instead_of_falling_back(cuda):
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        scatter_rows.scatter_add_rows(idx, torch.zeros(
+            (4, 2), dtype=torch.float64, device=cuda), 3)
+    with pytest.raises(ValueError):
+        scatter_rows.scatter_add_rows(idx, torch.zeros(
+            (2, 8), device=cuda)[:, ::2], 3)
+
+
+def test_field_table_grad_on_card_matches_cpu(cuda):
+    """The NGP field's outputs and table gradient through the kernel
+    against the plain version on the CPU (bf16 gathers in both)."""
+    outs = {}
+    for device in ("cpu", cuda):
+        gen = torch.Generator().manual_seed(1)
+        field = fields.NGPField(
+            aabb=(-1.5, -1.5, -1.5, 1.5, 1.5, 1.5),
+            contraction_type=contraction.ContractionType.AABB,
+            radiance_dim=1, pos_otype="HybridHashGrid", n_levels=8,
+            log2_hashmap_size=12, base_resolution=4, per_level_scale=2.0,
+            grid_compute_dtype="bfloat16", generator=gen)
+        with torch.no_grad():
+            field.table.uniform_(-1.0, 1.0, generator=gen)
+        field = field.to(device)
+        gen = torch.Generator().manual_seed(2)
+        x = (torch.rand((4096, 3), generator=gen) * 3.2 - 1.6).to(device)
+        d = torch.nn.functional.normalize(
+            torch.randn((4096, 3), generator=gen), dim=-1).to(device)
+        rgb, sigma = field(x, d)
+        (rgb.sum() + sigma.sum()).backward()
+        outs[str(device)] = [t.detach().cpu()
+                             for t in (rgb, sigma, field.table.grad)]
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        # f32 sums in another order (atomics on the card)
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)

@@ -1,0 +1,56 @@
+"""The port and chip_smoke.py import nothing that the GPU machine lacks:
+no jax, flax, optax, orbax, yaml, cv2, tensorboard or deblur_e_nerf_tpu
+(checked in a fresh interpreter)."""
+
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "yaml", "cv2", "tensorboard",
+             "tensorboardX", "deblur_e_nerf_tpu", "triton",
+             "torch.utils.cpp_extension")
+
+SCRIPT = f"""
+import importlib, pkgutil, sys
+import deblur_e_nerf_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in {FORBIDDEN!r}
+                or m in {FORBIDDEN!r})
+print(len(names), loaded)
+"""
+
+
+def test_port_and_chip_smoke_import_no_forbidden_module():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    n_modules, loaded = proc.stdout.strip().split(" ", 1)
+    assert int(n_modules) >= 25  # every module of the package was imported
+    assert loaded == "[]", loaded
+
+
+def test_sources_use_neither_torch_builders_nor_top_level_imports():
+    """No PyTorch extension builder or torch.compile anywhere, and yaml /
+    cv2 / jax never imported at module top (only inside functions)."""
+    pkg = os.path.join(REPO, "deblur_e_nerf_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(pkg):
+        paths += [os.path.join(root, f) for f in files
+                  if f.endswith((".py", ".cu", ".cuh"))]
+    top_level_import = re.compile(
+        r"^(import|from)\s+(jax|yaml|cv2|tensorboard\w*)\b", re.M)
+    for path in paths:
+        with open(path) as f:
+            text = f.read()
+        for banned in ("torch/extension.h", "cpp_extension",
+                       "torch.compile"):
+            assert banned not in text, f"{banned!r} in {path}"
+        assert not top_level_import.search(text), path
