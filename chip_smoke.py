@@ -8,15 +8,20 @@ Phases, each printing a start and an end line with elapsed seconds:
      limit, nvcc, triton;
   2. build: the CUDA kernels, with nvcc from the sources in this checkout;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes, with times of the kernel, the plain version
-     and one PyTorch library call computing the same function;
-  4. training: the port's Trainer takes 3 steps of the flagship
-     configuration (configs/train/synthetic.yaml, pixel-bandwidth filter
-     off) at full width on a synthetic dataset, then one forced occupancy
-     update; the kernels' launch counts are read over this phase;
-  5. reference: on a small input, the NGP field's outputs and table
-     gradient computed on the card (through the kernels) agree with the
-     plain version on the CPU.
+     the main paths' shapes (and the Pallas probes K2/K3's), with times of
+     the kernel, the plain version and one PyTorch library call computing
+     the same function;
+  4. training, two paths of configs/train/synthetic.yaml at full width on
+     a synthetic dataset, each with the kernels' launch counts set to 0
+     just before it and read just after:
+       a. filter off: the port's Trainer takes 2 steps, then one forced
+          occupancy update;
+       b. the flagship as written (pixel-bandwidth filter on, S = 30, the
+          default sample budget K = 15,728,640): 3 steps (with --profile,
+          each profiled, then 3 more past the occupancy warmup);
+  5. reference: on small inputs, the card (through the kernels) against
+     the plain version on the CPU: the NGP field's outputs and table
+     gradient, and one filter-on step's loss and gradients.
 
 Any failed check raises and the script exits non-zero. The line before
 the last is a JSON object describing each kernel; the last line is
@@ -36,15 +41,15 @@ import time
 from contextlib import contextmanager
 
 BUDGET_S = 15 * 60
-# H100 SXM published peaks: HBM bytes/s, dense float32 FLOP/s (no tensor
-# cores), at the full 700 W power limit
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
 SCATTER_SOURCE = "deblur_e_nerf_tpu_torch/csrc/scatter_rows.cu"
 SCATTER_REPLACES = "deblur_e_nerf_tpu/ops/pallas_scatter.py:46"
+GATHER_SOURCE = "deblur_e_nerf_tpu_torch/csrc/gather_rows.cu"
+GATHER_REPLACES = "scripts/perf_microbench.py:190"
 # the flagship's default sample budget K: train_eff_ray_sample_batch_size
-# (131072) x 4 render slices (diff and subdiff start/end)
-MAIN_PATH_SAMPLE_BUDGET = 4 * 131072
+# (131072) x S (30 with the filter on) x 4 render slices (diff and subdiff
+# start/end)
+MAIN_PATH_SAMPLE_BUDGET = 131072 * 30 * 4
+FILTER_OFF_SAMPLE_BUDGET = 131072 * 4
 
 
 def _on_alarm(signum, frame):
@@ -60,8 +65,9 @@ def phase(name):
           flush=True)
 
 
-def flagship_config(dataset_directory):
-    """configs/train/synthetic.yaml's values, pixel-bandwidth filter off."""
+def flagship_config(dataset_directory, filter_on=True):
+    """configs/train/synthetic.yaml's values (with `filter_on` False, the
+    pixel-bandwidth filter off)."""
     from deblur_e_nerf_tpu_torch.utils.config import ConfigDict
 
     return ConfigDict.from_dict({
@@ -89,8 +95,16 @@ def flagship_config(dataset_directory):
                            "default": True},
             },
             "refractory_period": {"load_state_dict": False, "freeze": True},
-            "pixel_bandwidth": {"enable": False, "it_sample_size": 30,
-                                "load_state_dict": False, "freeze": True},
+            "pixel_bandwidth": {
+                "enable": filter_on, "it_sample_size": 30,
+                "f_c_dominant_min": 21,
+                "target_cumprob": {"max_sample_lifetime": 0.95},
+                "load_state_dict": False,
+                "freeze": {"tau_mil_it_eff_prod": True, "A_amp_inv": True,
+                           "A_loop_inv": True, "tau_out": True,
+                           "tau_sf": True, "tau_diff": True,
+                           "default": True},
+            },
             "nerf": {
                 "aabb": [-1.5, -1.5, -1.5, 1.5, 1.5, 1.5],
                 "contraction_type": "aabb",
@@ -155,19 +169,15 @@ def flagship_config(dataset_directory):
 
 def time_ms(fn, iters=20, warmup=3):
     """Mean milliseconds per call, by CUDA events around `iters` calls."""
-    import torch
+    from deblur_e_nerf_tpu_torch import perf_microbench
 
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return perf_microbench.time_ms(fn, iters, warmup)
+
+
+def bound(nbytes, nops=0):
+    from deblur_e_nerf_tpu_torch import perf_microbench
+
+    return perf_microbench.bound(nbytes, nops)
 
 
 def phase_environment(torch):
@@ -229,15 +239,13 @@ def scatter_case(torch, scatter_rows, name, width, n_rows, n, gen):
         lambda: scatter_rows.scatter_add_rows_reference(idx, val, n_rows))
     library_ms = time_ms(lambda: torch.zeros(
         (n_rows, width), device=dev).index_add_(0, idx64, val))
-    nbytes = n * width * 4 + n * 4 + n_rows * width * 4
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = n * width / PEAK_F32_FLOPS * 1e3
+    bound_ms, bound_by = bound(n * width * 4 + n * 4 + n_rows * width * 4,
+                               n * width)
     row = {
         "shape": name, "width": width, "n_rows": n_rows, "n": n,
         "max_abs_err": err, "max_abs_err_vs_f64": err_exact,
         "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "max_row_count": int(counts.max()),
     }
     print(f"K1 {name}: W={width} n_rows={n_rows} N={n} max_abs_err "
@@ -250,27 +258,105 @@ def scatter_case(torch, scatter_rows, name, width, n_rows, n, gen):
     return row
 
 
+def gather_case(torch, gather_rows, name, width, n_rows, n, round_to, gen):
+    """The gather kernel against its plain version at one shape: bit for
+    bit (a copy, rounded to nearest even); returns the row."""
+    from deblur_e_nerf_tpu_torch import perf_microbench
+
+    idx = torch.randint(0, n_rows, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    tbl = torch.randn((n_rows, width), generator=gen, device="cuda")
+    out = gather_rows.gather_rows(tbl, idx, round_to)
+    plain = gather_rows.gather_rows_reference(tbl, idx, round_to)
+    torch.cuda.synchronize()
+    err = float((out - plain).abs().max())
+    exact = bool(torch.equal(out, plain))
+    del out, plain
+    idx64 = idx.long()
+    ms = time_ms(lambda: gather_rows.gather_rows(tbl, idx, round_to))
+    plain_ms = time_ms(
+        lambda: gather_rows.gather_rows_reference(tbl, idx, round_to))
+    library_ms = time_ms(lambda: torch.index_select(tbl, 0, idx64))
+    bound_ms, bound_by = bound(perf_microbench.gather_bytes(tbl, idx))
+    rounding = "bf16" if round_to is not None else "none"
+    row = {
+        "shape": name, "width": width, "n_rows": n_rows, "n": n,
+        "round": rounding, "max_abs_err": err, "bit_exact": exact,
+        "tolerance": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+    print(f"gather_rows {name} (round {rounding}): W={width} n_rows="
+          f"{n_rows} N={n} max_abs_err {err:.3e} (bit exact: {exact}); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
+    if not exact:
+        raise AssertionError(f"gather_rows {name}: differs from plain")
+    return row
+
+
+def probe_case(case):
+    """K2/K3 through the port's microbenchmark (the JAX script's check)."""
+    from deblur_e_nerf_tpu_torch import perf_microbench
+
+    row = perf_microbench.CASES[case]("cuda")
+    print(f"{case} ({row['kernel']}): {json.dumps(row)}", flush=True)
+    if not row["max_abs_err"] <= row["tolerance"]:
+        raise AssertionError(f"{case}: error {row['max_abs_err']} above "
+                             f"{row['tolerance']}")
+    return dict(row, shape=f"{case} probe")
+
+
 def phase_kernels(torch):
-    from deblur_e_nerf_tpu_torch.ops import scatter_rows
+    from deblur_e_nerf_tpu_torch.ops import gather_rows, scatter_rows
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    n, K1 = 131072, MAIN_PATH_SAMPLE_BUDGET + 1
-    cases = [
-        # the training step's calls: one per level, on all K + 1 slots
-        ("main path: cellhash levels 7-15", 16, 65536, K1),
-        ("main path: dense level 0", 16, 4096, K1),
-        ("main path: vertex-hash levels 5-6", 2, 524288, 8 * K1),
+    n = 131072
+    k1 = MAIN_PATH_SAMPLE_BUDGET + 1
+    k1_off = FILTER_OFF_SAMPLE_BUDGET + 1
+    scatter_cases = [
+        # the filter-on step's calls: one per level, on all K + 1 slots
+        ("main path: cellhash levels 7-15", 16, 65536, k1),
+        ("main path: dense level 0", 16, 4096, k1),
+        ("main path: vertex-hash levels 5-6", 2, 524288, 8 * k1),
+        # the filter-off step's
+        ("filter off: cellhash levels 7-15", 16, 65536, k1_off),
+        ("filter off: dense level 0", 16, 4096, k1_off),
+        ("filter off: vertex-hash levels 5-6", 2, 524288, 8 * k1_off),
         # the same tables at N = 131072 rows
         ("cellhash table, N=131072", 16, 65536, n),
         ("dense level 0 table, N=131072", 16, 4096, n),
         ("vertex-hash table, N=131072", 2, 524288, n),
     ]
-    return [scatter_case(torch, scatter_rows, *c, gen) for c in cases]
+    scatter = [scatter_case(torch, scatter_rows, *c, gen)
+               for c in scatter_cases]
+    torch.cuda.empty_cache()
+    gather_cases = [
+        # the filter-on step's encode (and the occupancy update's):
+        # one gather per level over all K + 1 slots
+        ("main path: cellhash view, levels 7-15", 16, 65536, k1),
+        ("main path: packed dense level 0", 16, 16 ** 3, k1),
+        ("main path: packed dense level 4", 16, 70 ** 3, k1),
+        ("main path: vertex-hash levels 5-6", 2, 524288, 8 * k1),
+    ]
+    gather = [gather_case(torch, gather_rows, *c, round_to, gen)
+              for c in gather_cases
+              for round_to in (torch.bfloat16, None)]
+    torch.cuda.empty_cache()
+    scatter.append(probe_case("pallas_probe"))
+    gather.append(probe_case("pallas_gather_probe"))
+    return {"scatter_add_rows": scatter, "gather_rows": gather}
+
+
+KERNEL_NAMES = {"scatter_add_rows": "scatter_add_rows_kernel",
+                "gather_rows": "gather_rows_kernel"}
 
 
 def _device_table(prof, label, n):
-    """Print kernel (device) time and the operators that launched it."""
+    """Print kernel (device) time and the operators that launched it;
+    returns (busy ms per call, {kernel: ms per call} of the port's
+    kernels)."""
     from torch.autograd import DeviceType
 
     avgs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
@@ -285,12 +371,17 @@ def _device_table(prof, label, n):
                   f"{e.self_device_time_total / n / 1e3:8.3f} ms "
                   f"{100 * e.self_device_time_total / total:5.1f}% "
                   f"x{e.count / n:<6.1f} {e.key[:80]}", flush=True)
-    return total / n / 1e3
+    ours = {name: sum(e.self_device_time_total for e in kernels
+                      if key in e.key) / n / 1e3
+            for name, key in KERNEL_NAMES.items()}
+    return total / n / 1e3, ours
 
 
 def profile_steps(torch, trainer, n_steps=3):
     """Device time by kernel (torch.profiler) of steady-state steps and of
-    one warmup (full-grid) occupancy update, with their wall times."""
+    one warmup (full-grid) occupancy update, with their wall times; per
+    profiled step, the marched samples and the empty sample slots beside
+    the port's kernels' device times."""
     from torch.profiler import ProfilerActivity, profile
 
     # past the warmup and off the occupancy schedule: these steps run no
@@ -299,6 +390,7 @@ def profile_steps(torch, trainer, n_steps=3):
                               .warmup_steps) + 1
     for _ in range(2):
         trainer.train_step()
+    K = trainer.params.nerf.render_config.sample_budget
 
     def timed(fn, n):
         torch.cuda.synchronize()
@@ -313,84 +405,165 @@ def profile_steps(torch, trainer, n_steps=3):
              lambda: trainer.update_occupancy(step=0), 1))
     for label, fn, n in runs:
         wall = timed(fn, n)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        busy = _device_table(prof, label, n)
-        print(f"profile {label}: wall {wall:.3f} ms without the profiler, "
-              f"device busy {100 * busy / wall:.1f}% of it", flush=True)
+        for i in range(n):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = fn()
+                torch.cuda.synchronize()
+            busy, ours = _device_table(prof, f"{label} {i}", 1)
+            kernels = ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items())
+            if label == "step":
+                marched = int(out["num_marched_samples"])
+                print(f"profile step {i}: marched samples {marched}, empty "
+                      f"slots {K + 1 - min(marched, K)} of K + 1 = {K + 1}; "
+                      f"{kernels}", flush=True)
+            else:
+                print(f"profile {label}: {kernels}", flush=True)
+        print(f"profile {label}: wall {wall:.3f} ms per call without the "
+              f"profiler, device busy {100 * busy / wall:.1f}% of the last "
+              f"profiled call's wall", flush=True)
+
+
+def reset_launches():
+    from deblur_e_nerf_tpu_torch.ops import gather_rows, scatter_rows
+
+    scatter_rows.LAUNCHES = 0
+    gather_rows.LAUNCHES = 0
+
+
+def read_launches():
+    from deblur_e_nerf_tpu_torch.ops import gather_rows, scatter_rows
+
+    return {"scatter_add_rows": scatter_rows.LAUNCHES,
+            "gather_rows": gather_rows.LAUNCHES}
+
+
+def run_steps(torch, trainer, n_steps, label, profile=False):
+    """Take `n_steps` training steps; print and check each. With
+    `profile`, each step runs under torch.profiler (its step time then
+    includes the profiler's overhead) and its device time by kernel is
+    printed beside its marched samples and empty slots."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    field = trainer.params.nerf.field
+    K = trainer.params.nerf.render_config.sample_budget
+    card = torch.cuda.get_device_name(0)
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if profile:
+            with profiler(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                m = trainer.train_step()
+                torch.cuda.synchronize()
+        else:
+            m = trainer.train_step()
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        marched = int(m["num_marched_samples"])
+        wsum = (f"{float(m['pb_min_abs_weight_sum']):.6f}"
+                if "pb_min_abs_weight_sum" in m else "n/a (filter off)")
+        print(f"{label} step {i}: loss {loss:.6f}, active events "
+              f"{int(m['batch_size'])}, rays {int(m['num_rays'])}, marched "
+              f"samples {marched} (empty slots "
+              f"{K + 1 - min(marched, K)} of {K + 1}), samples/ray "
+              f"{float(m['mean_num_samples_per_ray']):.2f}, truncated "
+              f"rays {float(m['ray_truncation_rate']):.4f}, valid "
+              f"{float(m['mean_valid_rate']):.3f}, min |weight sum| {wsum}, "
+              f"skipped {m['update_skipped']}, step time {dt:.3f} s, peak "
+              f"device memory {peak:.2f} GiB on {card}", flush=True)
+        if not torch.isfinite(m["loss"]) or m["update_skipped"]:
+            raise AssertionError(f"{label} step {i}: non-finite loss or "
+                                 f"skip")
+        grad = field.table.grad
+        if grad is None or not bool(torch.isfinite(grad).all()) \
+                or float(grad.abs().max()) == 0.0:
+            raise AssertionError(f"{label} step {i}: table gradient "
+                                 f"missing/zero")
+        print(f"{label} step {i}: table grad max |g| "
+              f"{float(grad.abs().max()):.3e}, nonzero rows "
+              f"{int((grad != 0).any(dim=1).sum())}", flush=True)
+        if profile:
+            _, ours = _device_table(prof, f"{label} step {i}", 1)
+            print(f"profile {label} step {i} (profiled): marched samples "
+                  f"{marched}, empty slots {K + 1 - min(marched, K)}; "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items()),
+                  flush=True)
+
+
+def build_trainer(torch, root, tmp, filter_on):
+    from deblur_e_nerf_tpu_torch.training.trainer import Trainer
+
+    config = flagship_config(root, filter_on=filter_on)
+    t0 = time.perf_counter()
+    trainer = Trainer(config, f"{tmp}/log_{int(filter_on)}", device="cuda")
+    field = trainer.params.nerf.field
+    sc = trainer.bundle.static_config
+    print(f"trainer (filter {'on' if filter_on else 'off'}) built in "
+          f"{time.perf_counter() - t0:.2f} s: table "
+          f"{tuple(field.table.shape)}, levels "
+          f"{[(r, m) for r, _, _, m in field.levels]}, batch capacity "
+          f"{trainer.batch_capacity}, pixel bandwidth "
+          f"{sc.pixel_bandwidth_enabled} (S {sc.it_sample_size}), sample "
+          f"budget {trainer.params.nerf.render_config.sample_budget}",
+          flush=True)
+    return trainer
 
 
 def phase_training(torch, tmp, profile=False):
+    """Both paths; returns {path: {kernel: launches}}."""
     from deblur_e_nerf_tpu_torch.data import synthetic
-    from deblur_e_nerf_tpu_torch.ops import scatter_rows
-    from deblur_e_nerf_tpu_torch.training.trainer import Trainer
 
     t0 = time.perf_counter()
     root = synthetic.make_dataset(f"{tmp}/dataset", img_height=64,
                                   img_width=64, num_poses=61)
     print(f"synthetic dataset in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    config = flagship_config(root)
-    t0 = time.perf_counter()
-    trainer = Trainer(config, f"{tmp}/log", device="cuda")
-    field = trainer.params.nerf.field
-    print(f"trainer built in {time.perf_counter() - t0:.2f} s: table "
-          f"{tuple(field.table.shape)}, levels "
-          f"{[(r, m) for r, _, _, m in field.levels]}, batch capacity "
-          f"{trainer.batch_capacity}, sample budget "
-          f"{trainer.params.nerf.render_config.sample_budget}", flush=True)
+    launches = {}
 
-    torch.cuda.reset_peak_memory_stats()
-    scatter_rows.LAUNCHES = 0
-    losses = []
-    for i in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        m = trainer.train_step()
-        loss = float(m["loss"])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        losses.append(loss)
-        print(f"step {i}: loss {loss:.6f}, active events "
-              f"{int(m['batch_size'])}, rays {int(m['num_rays'])}, marched "
-              f"samples {int(m['num_marched_samples'])}, samples/ray "
-              f"{float(m['mean_num_samples_per_ray']):.2f}, truncated "
-              f"rays {float(m['ray_truncation_rate']):.3f}, valid "
-              f"{float(m['mean_valid_rate']):.3f}, skipped "
-              f"{m['update_skipped']}, step time {dt:.3f} s", flush=True)
-        if not torch.isfinite(m["loss"]) or m["update_skipped"]:
-            raise AssertionError(f"step {i}: non-finite loss or skip")
-        grad = field.table.grad
-        if grad is None or not bool(torch.isfinite(grad).all()) \
-                or float(grad.abs().max()) == 0.0:
-            raise AssertionError(f"step {i}: table gradient missing/zero")
-        print(f"step {i}: table grad max |g| {float(grad.abs().max()):.3e}"
-              f", nonzero rows {int((grad != 0).any(dim=1).sum())}",
-              flush=True)
+    trainer = build_trainer(torch, root, tmp, filter_on=False)
+    if trainer.params.nerf.render_config.sample_budget \
+            != FILTER_OFF_SAMPLE_BUDGET:
+        raise AssertionError("filter-off sample budget is not the default")
+    reset_launches()
+    run_steps(torch, trainer, 2, "filter off")
     t0 = time.perf_counter()
-    occ = trainer.update_occupancy(
-        step=int(config.model.nerf.occ_grid.warmup_steps))
+    occ = trainer.update_occupancy(step=int(
+        trainer.params.nerf.occ_grid_config.warmup_steps))
     torch.cuda.synchronize()
-    print(f"forced (post-warmup) occupancy update in "
+    print(f"filter off: forced (post-warmup) occupancy update in "
           f"{time.perf_counter() - t0:.3f} s: occupied fraction "
           f"{float(occ.binary.float().mean()):.4f}", flush=True)
-    launches = scatter_rows.LAUNCHES
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches["filter off"] = read_launches()
+    trainer._flush_pending_metrics()
+    del trainer, occ
+    torch.cuda.empty_cache()
+
+    trainer = build_trainer(torch, root, tmp, filter_on=True)
+    sc = trainer.bundle.static_config
+    if not (sc.pixel_bandwidth_enabled and sc.it_sample_size == 30
+            and trainer.params.nerf.render_config.sample_budget
+            == MAIN_PATH_SAMPLE_BUDGET):
+        raise AssertionError("the flagship step is not the one configured")
+    reset_launches()
+    run_steps(torch, trainer, 3, "flagship (filter on)", profile=profile)
+    launches["filter on"] = read_launches()
+    trainer._flush_pending_metrics()
     if profile:
         profile_steps(torch, trainer)
-    print(f"training phase: K1 launches {launches}, peak device memory "
-          f"{peak:.2f} GiB", flush=True)
-    if launches <= 0:
-        raise AssertionError("the training phase never launched K1")
-    trainer._flush_pending_metrics()
-    return {"scatter_add_rows": launches}
+    for path, counts in launches.items():
+        print(f"training, {path}: launches {counts}", flush=True)
+        for name, count in counts.items():
+            if count <= 0:
+                raise AssertionError(f"{path}: {name} never launched")
+    return launches
 
 
-def phase_reference(torch):
-    """Field outputs and table gradient: card (kernels) vs CPU (plain)."""
+def _field_reference(torch):
+    """NGP field outputs and table gradient: card (kernels) vs CPU."""
     from deblur_e_nerf_tpu_torch.models import contraction, fields
 
     def make(device):
@@ -428,11 +601,125 @@ def phase_reference(torch):
             raise AssertionError(f"{name}: card and CPU disagree ({err})")
 
 
+def _to(value, device):
+    if isinstance(value, dict):
+        return {k: _to(v, device) for k, v in value.items()}
+    return value.to(device)
+
+
+def filter_on_step_card_vs_cpu(torch, tmp, device="cuda"):
+    """One filter-on step (S = 30) of a small model on the card (`device`)
+    and on the CPU, from the same weights, occupancy grid, batch and
+    draws.
+    Returns [(name, max abs err, tolerance)]; raises on a disagreement.
+
+    The card differs from the CPU in its libm (an ulp in the poses'
+    transcendental functions, which can move a sample across a march
+    boundary) and in summation order (atomics): the marched samples agree
+    within 1e-4, the loss within 1e-4, each field gradient within 2e-3 of
+    its largest entry, and the filter-parameter gradients (sums over
+    events that cancel) within 1e-2 of the largest of them."""
+    from deblur_e_nerf_tpu_torch.data import events as events_data
+    from deblur_e_nerf_tpu_torch.data import synthetic
+    from deblur_e_nerf_tpu_torch.models import nerf_model
+    from deblur_e_nerf_tpu_torch.training import pipeline, setup
+    from deblur_e_nerf_tpu_torch.training import step as step_lib
+
+    root = synthetic.make_dataset(f"{tmp}/small", img_height=16,
+                                  img_width=16, num_poses=21)
+    config = flagship_config(root, filter_on=True)
+    pe = config.model.nerf.ngp.pos_encoding
+    pe.n_levels, pe.base_resolution, pe.per_level_scale = 6, 4, 2.0
+    pe.log2_hashmap_size = 12
+    config.model.nerf.ngp.mlp_base.n_neurons = 16
+    config.model.nerf.ngp.mlp_head.n_neurons = 16
+    config.model.nerf.occ_grid.resolution = 32
+    # ~300 samples per ray x 6 events x 4 x 30 rays fit K = 2^19
+    capacity, active, budget = 8, 6, 1 << 19
+    cpu = torch.device("cpu")
+    bundle_c, params_c = setup.build(config, root, sample_budget=budget,
+                                     device=cpu)
+    bundle_g, params_g = setup.build(config, root, sample_budget=budget,
+                                     device=torch.device(device))
+    params_g.load_state_dict(params_c.state_dict())
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(5)
+    occ_c = nerf_model.update_occupancy(
+        params_c.nerf, nerf_model.init_occupancy(params_c.nerf, cpu), 0,
+        gen)
+    occ_g = type(occ_c)(*(t.to(device) for t in occ_c))
+    events = events_data.EventDataset(root).events
+    batch_np = pipeline.EventBatcher(events, capacity, seed=0).next_batch(
+        active)
+    batch_c = {k: torch.as_tensor(v) for k, v in batch_np.items()}
+    sc = bundle_c.static_config
+    draws_c = step_lib.draw_step(sc, capacity, occ_c, gen, cpu)
+    results = {}
+    for name, bundle, params, occ, batch, draws in (
+            ("cpu", bundle_c, params_c, occ_c, batch_c, draws_c),
+            ("card", bundle_g, params_g, occ_g, _to(batch_c, device),
+             _to(draws_c, device))):
+        loss, metrics = step_lib.compute_loss(
+            params, bundle.consts, occ, batch, draws, sc,
+            bundle.loss_config)
+        loss.backward()
+        results[name] = (float(loss.detach()), metrics, {
+            n: p.grad.detach().double().cpu()
+            for n, p in params.named_parameters()})
+    loss_c, metrics_c, grads_c = results["cpu"]
+    loss_g, metrics_g, grads_g = results["card"]
+    rows = []
+
+    def check(name, err, tol):
+        rows.append((name, err, tol))
+        print(f"reference filter-on step {name}: max abs err {err:.3e} "
+              f"(tolerance {tol:.3e})", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"filter-on step {name}: card and CPU "
+                                 f"disagree ({err} > {tol})")
+
+    if not (loss_c > 0 and float(metrics_c["mean_valid_rate"]) > 0.5):
+        raise AssertionError("filter-on reference step is degenerate")
+    spr = [float(m["mean_num_samples_per_ray"])
+           for m in (metrics_c, metrics_g)]
+    check("samples per ray", abs(spr[1] - spr[0]), 1e-4 * spr[0])
+    check("loss", abs(loss_g - loss_c), 1e-4 * abs(loss_c))
+    pb_scale = max(float(g.abs().max()) for n, g in grads_c.items()
+                   if n.startswith("pixel_bandwidth."))
+    for n, g in grads_c.items():
+        err = float((grads_g[n] - g).abs().max())
+        if not bool(torch.isfinite(grads_g[n]).all()):
+            raise AssertionError(f"filter-on step grad {n} not finite")
+        tol = (1e-2 * pb_scale if n.startswith("pixel_bandwidth.")
+               else 2e-3 * float(g.abs().max()) + 1e-12)
+        check(f"grad {n}", err, tol)
+    return rows
+
+
+def phase_reference(torch, tmp):
+    _field_reference(torch)
+    filter_on_step_card_vs_cpu(torch, tmp)
+
+
+def kernel_line(name, source, replaces, rows, launches, main_shape):
+    main = next(r for r in rows if r["shape"] == main_shape)
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches["filter on"][name],
+        "launches_by_path": {p: c[name] for p, c in launches.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        "timed_shape": main_shape, "shapes": rows,
+    }
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="after the training phase, print the device "
-                             "time by kernel over 3 more steps")
+                        help="profile the flagship steps, then print the "
+                             "device time by kernel over 3 more filter-on "
+                             "steps past the warmup")
     args = parser.parse_args()
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(BUDGET_S)
@@ -452,21 +739,19 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         with phase("4 training"):
             launches = phase_training(torch, tmp, profile=args.profile)
-    with phase("5 reference"):
-        phase_reference(torch)
+        with phase("5 reference"):
+            phase_reference(torch, tmp)
 
-    main_row = rows[0]
-    kernel = {
-        "name": "scatter_add_rows", "route": "cuda",
-        "source": SCATTER_SOURCE, "replaces": SCATTER_REPLACES,
-        "launches": launches["scatter_add_rows"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
-        "timed_shape": main_row["shape"], "shapes": rows,
-    }
+    kernels = [
+        kernel_line("scatter_add_rows", SCATTER_SOURCE, SCATTER_REPLACES,
+                    rows["scatter_add_rows"], launches,
+                    "main path: cellhash levels 7-15"),
+        kernel_line("gather_rows", GATHER_SOURCE, GATHER_REPLACES,
+                    rows["gather_rows"], launches,
+                    "main path: cellhash view, levels 7-15"),
+    ]
     print(card, flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -144,8 +144,9 @@ def make_dataset(root, img_height=64, img_width=64, num_events=200_000,
     arguments as the JAX generator give the same files (views aside)."""
     if pixel_filter not in (None, "none", "first_order"):
         raise NotImplementedError(
-            f"pixel_filter={pixel_filter!r} needs the pixel-bandwidth "
-            "circuit, which is not ported yet (ROADMAP Queue A 6)")
+            f"pixel_filter={pixel_filter!r}: the generator's full "
+            "pixel-circuit filter (filter_log_frames_full) is not ported "
+            "yet (ROADMAP Queue A 8)")
     os.makedirs(root, exist_ok=True)
     rng = np.random.default_rng(seed)
     H, W = img_height, img_width

@@ -4,7 +4,8 @@ deblur_e_nerf_tpu/models/hash_encoding.py).
 Same level geometry and table layout as the JAX package (`grid_layout`,
 including the 128-row segment alignment), so tables move between the two
 packages unchanged. Per level the forward finds the sample's cell, gathers
-the corner features in `compute_dtype` (bfloat16 on the flagship) and
+the corner features rounded to `compute_dtype` (bfloat16 on the flagship)
+through `ops/gather_rows.py` (the CUDA kernel on the card) and
 interpolates trilinearly in float32:
 
   - 'dense' levels gather one (8F)-float row per sample from the packed
@@ -28,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from ..ops import scatter_rows
+from ..ops import gather_rows, scatter_rows
 
 _HASH_PRIMES = (1, 2654435761, 805459861)
 _MASK32 = 0xFFFFFFFF
@@ -152,28 +153,35 @@ def _fold_dense_segment_grad(packed_grad, res, F):
 
 
 def _encode_impl(table, u, levels, compute_dtype=None):
-    """(N, 3) positions -> (N, L*F) features. `compute_dtype` rounds the
-    gathered table values only; weights and sums stay in float32 (in the
-    table's dtype when no rounding is asked for)."""
+    """(N, 3) positions -> (N, L*F) features. Each level's gather goes
+    through `gather_rows` (the CUDA kernel on the card), which rounds the
+    gathered values to `compute_dtype` itself; weights and sums stay in
+    float32 (in the table's dtype when no rounding is asked for)."""
     uc = torch.clamp(u, 0.0, 1.0)
     T, F = table.shape
-    cdtype = table.dtype if compute_dtype is None else compute_dtype
     acc = table.dtype if compute_dtype is None else torch.float32
-    tbl = table.to(cdtype)
     features = []
     for res, size, offset, mode in levels:
         if mode == "dense":
+            # packed from the float32 table: rounding is elementwise, so
+            # the gathered values equal those of a packed rounded table
             packed = _pack_dense_segment(
-                tbl[offset:offset + (res + 1) ** 3], res)
+                table[offset:offset + (res + 1) ** 3], res)
             flat, w = _dense_cell_index_weights(uc, res, acc)
-            rows = packed[flat].reshape(-1, 8, F)
+            rows = gather_rows.gather_rows(
+                packed, flat.to(torch.int32), compute_dtype)
         elif mode == "cellhash":
             h, w = _cellhash_index_weights(uc, res, size, acc)
-            rows = tbl.reshape(T // 8, 8 * F)[h + offset // 8]
-            rows = rows.reshape(-1, 8, F)
+            view = table.reshape(T // 8, 8 * F)[
+                offset // 8:(offset + size) // 8]
+            rows = gather_rows.gather_rows(view, h.to(torch.int32),
+                                           compute_dtype)
         else:
             idx, w = _level_indices_weights(uc, res, size, offset, mode, acc)
-            rows = tbl[idx]  # (N, 8, F)
+            rows = gather_rows.gather_rows(
+                table[offset:offset + size],
+                (idx - offset).reshape(-1).to(torch.int32), compute_dtype)
+        rows = rows.reshape(-1, 8, F)
         features.append(torch.sum(rows.to(acc) * w[..., None], dim=-2))
     return torch.cat(features, dim=-1)
 

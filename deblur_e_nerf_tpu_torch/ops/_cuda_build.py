@@ -78,5 +78,10 @@ def library():
                        ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.gather_rows_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+                       ctypes.c_int32, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib

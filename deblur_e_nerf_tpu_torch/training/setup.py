@@ -1,5 +1,5 @@
 """Model assembly from a dataset directory and a config (counterpart of
-deblur_e_nerf_tpu/training/setup.py), pixel-bandwidth filter off."""
+deblur_e_nerf_tpu/training/setup.py)."""
 
 from typing import Any, Dict, NamedTuple
 
@@ -8,7 +8,8 @@ import torch
 
 from ..data import camera_poses as camera_poses_data
 from ..data import events as events_data
-from ..models import event_gen, nerf_model, trajectory as trajectory_lib
+from ..models import (event_gen, nerf_model, pixel_bandwidth,
+                      trajectory as trajectory_lib)
 from . import step as step_lib
 
 
@@ -22,14 +23,14 @@ class ModelBundle(NamedTuple):
 def build(config, dataset_directory=None, sample_budget=None, device=None):
     """Build (ModelBundle, TrainParams) on `device` (a torch.device).
 
-    sample_budget defaults to train_eff_ray_sample_batch_size x the number
-    of render slices (2 per enabled loss term) x
-    data.train_sample_budget_margin. Weights are drawn from a generator
-    seeded with config.seed.
+    sample_budget defaults to train_eff_ray_sample_batch_size x S (the
+    filter's it_sample_size, 1 with the filter off) x the number of render
+    slices (2 per enabled loss term) x data.train_sample_budget_margin.
+    Weights are drawn from a generator seeded with config.seed.
     """
     mc = config.model
-    if bool(mc.pixel_bandwidth.enable):
-        raise NotImplementedError(step_lib.PIXEL_BANDWIDTH_TODO)
+    pb_enabled = bool(mc.pixel_bandwidth.enable)
+    S = int(mc.pixel_bandwidth.get("it_sample_size", 1))
     root = dataset_directory or config.data.dataset_directory
     calib = dict(np.load(f"{root}/camera_calibration.npz",
                          allow_pickle=False))
@@ -43,7 +44,7 @@ def build(config, dataset_directory=None, sample_budget=None, device=None):
                   + 2 * (float(config.loss.weight.log_intensity_tv) > 0))
         sample_budget = int(
             int(config.data.train_eff_ray_sample_batch_size)
-            * max(slices, 1)
+            * (S if pb_enabled else 1) * max(slices, 1)
             * float(config.data.get("train_sample_budget_margin", 1.0)))
 
     generator = torch.Generator(device=device)
@@ -59,8 +60,6 @@ def build(config, dataset_directory=None, sample_budget=None, device=None):
     max_rp = events_data.load_max_refractory_period(root)
     rp_params, rp_consts = event_gen.init_refractory_period(
         calib, max_rp, device=device)
-    params = step_lib.TrainParams(model, ct_params, rp_params)
-
     consts = {
         "contrast_threshold": ct_consts,
         "refractory_period": rp_consts,
@@ -69,9 +68,19 @@ def build(config, dataset_directory=None, sample_budget=None, device=None):
             np.linalg.inv(calib[events_data.INTRINSICS_KEY]),
             dtype=torch.float32, device=device),
     }
+    pb_params = None
+    if pb_enabled:
+        pb_params, consts["pixel_bandwidth"] = (
+            pixel_bandwidth.init_pixel_bandwidth(
+                calib, min_ts=int(camera_poses["T_wc_timestamp"].min()),
+                f_c_dominant_min=float(mc.pixel_bandwidth.f_c_dominant_min),
+                target_cumprob_max_sample_lifetime=float(
+                    mc.pixel_bandwidth.target_cumprob.max_sample_lifetime),
+                device=device))
+    params = step_lib.TrainParams(model, ct_params, rp_params, pb_params)
     static_config = step_lib.StaticConfig(
-        pixel_bandwidth_enabled=False,
-        it_sample_size=int(mc.pixel_bandwidth.get("it_sample_size", 1)),
+        pixel_bandwidth_enabled=pb_enabled,
+        it_sample_size=S,
         has_bayer=bayer,
         min_modeled_intensity=float(mc.min_modeled_intensity),
         loss_weight_diff=float(config.loss.weight.log_intensity_diff),

@@ -1,17 +1,19 @@
 """The training step: event physics -> renders -> loss -> update
-(counterpart of deblur_e_nerf_tpu/training/step.py), with the
-pixel-bandwidth filter off.
+(counterpart of deblur_e_nerf_tpu/training/step.py).
 
 All interval endpoints of a step (diff start/end, subdiff start/end) are
-rendered as one batch of R*N rays. Timestamps are split: exact int64 ns
+rendered as one batch of R*N rays; with the pixel-bandwidth filter on,
+each endpoint is S lifetime samples, so one render of S*R*N rays feeds
+`pixel_bandwidth.forward_fused`. Timestamps are split: exact int64 ns
 bases plus small float32 differentiable deltas (the learnable refractory
 shift, the sampled interval offsets), renormalized with a straight-through
 round before use.
 
 Every random draw of the step is an input (`draws`): the normalized
-interval samples, the stratified-march jitter and the sparsity-prior
-cells. `draw_step` makes them from a torch.Generator; tests hand in the
-JAX package's draws instead.
+interval samples (with the filter on, also the (S-1, N) interval
+generator), the stratified-march jitter (one per rendered ray) and the
+sparsity-prior cells. `draw_step` makes them from a torch.Generator; tests
+hand in the JAX package's draws instead.
 
 Batch layout (capacity N, prefix-active):
   position (N, 2) f32, start_ts (N,) i64, end_ts (N,) i64,
@@ -25,7 +27,7 @@ from torch import nn
 
 from ..models import (contraction as contraction_lib, event_gen,
                       nerf_model, occupancy as occupancy_lib,
-                      trajectory as trajectory_lib)
+                      pixel_bandwidth, trajectory as trajectory_lib)
 from ..ops import samplers
 from . import loss as loss_lib
 
@@ -47,29 +49,19 @@ class StaticConfig(NamedTuple):
     sparsity_targeted_fraction: float = 0.5
 
 
-PIXEL_BANDWIDTH_TODO = (
-    "the pixel-bandwidth filter path is not ported yet (ROADMAP Queue A 6: "
-    "pixel_bandwidth.py, linalg.py, control.py and forward_fused, with the "
-    "Queue B 8 weight-chain kernel); set model.pixel_bandwidth.enable: false"
-)
-
-
 class TrainParams(nn.Module):
     """The trainable parameters, keyed like the JAX package's param tree:
-    `nerf`, `contrast_threshold`, `refractory_period`."""
+    `nerf`, `contrast_threshold`, `refractory_period` and, with the filter
+    on, `pixel_bandwidth`."""
 
-    def __init__(self, nerf, contrast_threshold, refractory_period):
+    def __init__(self, nerf, contrast_threshold, refractory_period,
+                 pixel_bandwidth=None):
         super().__init__()
         self.nerf = nerf
         self.contrast_threshold = contrast_threshold
         self.refractory_period = refractory_period
-
-
-def split_time(base, delta):
-    """Move the integer part of `delta` into the int64 `base` with a
-    straight-through gradient, leaving a sub-ns float32 remainder."""
-    r = torch.round(delta)
-    return base + r.detach().to(torch.int64), delta - r.detach()
+        if pixel_bandwidth is not None:
+            self.pixel_bandwidth = pixel_bandwidth
 
 
 def derive_intervals(start_base, start_delta, end_base, normalized,
@@ -98,29 +90,40 @@ def derive_intervals(start_base, start_delta, end_base, normalized,
     return diff, subdiff
 
 
-def draw_normalized_samples(n, generator, device):
+def draw_normalized_samples(n, generator, device, sc=None):
     """ts_diff ~ dirac(1), diff_start_ts ~ U[0,1], ts_subdiff ~
-    triangular(mode 0), subdiff_start_ts ~ U[0,1]."""
+    triangular(mode 0), subdiff_start_ts ~ U[0,1]; with the filter on,
+    interval_gen ~ dirac(0.5) of shape (S-1, n)."""
     def u():
         return torch.rand(n, generator=generator, device=device)
 
-    return {
+    normalized = {
         "ts_diff": samplers.dirac_delta((n,), 1.0, device),
         "diff_start_ts": u(),
         "ts_subdiff": samplers.triangular(u(), mode=0.0),
         "subdiff_start_ts": u(),
     }
+    if sc is not None and sc.pixel_bandwidth_enabled:
+        normalized["interval_gen"] = samplers.dirac_delta(
+            (sc.it_sample_size - 1, n), 0.5, device)
+    return normalized
 
 
 def n_render_slices(sc):
     return 2 * (sc.loss_weight_diff > 0) + 2 * (sc.loss_weight_tv > 0)
 
 
+def n_rendered_rays(sc, n):
+    """Rays of one step's render: R*N, times S with the filter on."""
+    s = sc.it_sample_size if sc.pixel_bandwidth_enabled else 1
+    return s * n_render_slices(sc) * n
+
+
 def draw_step(sc, n, occ_state, generator, device):
     """All random draws of one step (see the module docstring)."""
     draws = {
-        "normalized": draw_normalized_samples(n, generator, device),
-        "jitter": torch.rand(n * n_render_slices(sc), generator=generator,
+        "normalized": draw_normalized_samples(n, generator, device, sc),
+        "jitter": torch.rand(n_rendered_rays(sc, n), generator=generator,
                              device=device),
     }
     if sc.loss_weight_sparsity > 0.0:
@@ -142,29 +145,59 @@ def draw_step(sc, n, occ_state, generator, device):
 def render_train_pixels(params, consts, occ_state, sc, ts, ts_delta,
                         pixel_position, channel_idx, valid, jitter,
                         level_mask=None):
-    """Render the pixels at split timestamps; returns (intensity, stats,
-    is_valid, complete), all flat over the R*N rays."""
+    """Render the pixels at split timestamps `ts`/`ts_delta` of shape
+    ([S,] R*N); per-pixel inputs are (R*N, ...) and broadcast over S.
+    Returns (intensity, stats, is_valid, complete), each shaped like
+    `ts`."""
     model = params.nerf
+    batch_shape = ts.shape
     pos, orient = trajectory_lib.interpolate_pose(
         consts["trajectory"], ts, ts_delta)
+    pixel = pixel_position.to(torch.float32).expand(*batch_shape, 2)
     rays_o, rays_d = nerf_model.pixel_params_to_ray(
-        consts["train_intrinsics_inv"], pixel_position.to(torch.float32),
-        pos, orient)
-    out = nerf_model.render(model, occ_state, rays_o, rays_d, valid,
-                            jitter=jitter, level_mask=level_mask)
-    opacity = out["opacity"]
-    intensity = out["radiance"] + sc.min_modeled_intensity
-    if sc.has_bayer:
-        intensity = torch.gather(
-            intensity, -1, channel_idx.to(torch.int64)[:, None])[:, 0]
+        consts["train_intrinsics_inv"], pixel, pos, orient)
+    mask = valid.expand(batch_shape)
+    if len(batch_shape) == 2:
+        # Event-major ray order for the S lifetime samples: the march keeps
+        # the first samples in ray order when the buffer overflows, so an
+        # overflow drops whole events at the tail. The JAX package renders
+        # sample-major, where an overflow truncates the last lifetime
+        # sample of every event, and `complete` (all over S) then masks
+        # every event of the step (ROADMAP Queue C). `jitter` stays in the
+        # sample-major order of the JAX package's draws.
+        def flat(x):
+            return x.transpose(0, 1).reshape(-1, *x.shape[2:])
+
+        def unflat(x):
+            return x.reshape(batch_shape[1], batch_shape[0],
+                             *x.shape[1:]).transpose(0, 1)
+        if jitter is not None:
+            jitter = flat(jitter.reshape(batch_shape))
     else:
-        intensity = intensity[:, 0]
+        def flat(x):
+            return x
+
+        def unflat(x):
+            return x
+    out = nerf_model.render(model, occ_state, flat(rays_o).reshape(-1, 3),
+                            flat(rays_d).reshape(-1, 3),
+                            flat(mask).reshape(-1), jitter=jitter,
+                            level_mask=level_mask)
+    opacity = unflat(out["opacity"])
+    intensity = unflat(out["radiance"]) + sc.min_modeled_intensity
+    if sc.has_bayer:
+        ch = channel_idx.to(torch.int64).expand(batch_shape)
+        intensity = torch.gather(intensity, -1, ch[..., None])[..., 0]
+    else:
+        intensity = intensity[..., 0]
     if model.render_bkgd_mode is None:
         is_valid = opacity > 0
     else:
         is_valid = torch.ones_like(opacity, dtype=torch.bool)
-    complete = out["ray_complete"]
-    validf = valid.to(torch.float32)
+    # buffer-truncated rays leave the loss through `complete`, which the
+    # filter all-reduces over S (is_valid is any-reduced)
+    complete = unflat(out["ray_complete"])
+    validf = mask.to(torch.float32)
     stats = {
         "mean_ray_occ_rate": loss_lib.masked_mean(
             (opacity > 0).to(torch.float32), validf),
@@ -176,7 +209,8 @@ def render_train_pixels(params, consts, occ_state, sc, ts, ts_delta,
         "block_overflow_rate": out["block_overflow_rate"],
         "superblock_overflow_rate": out["superblock_overflow_rate"],
         "prepass_overflow_rate": out["prepass_overflow_rate"],
-        "num_rays": valid.sum(),
+        "num_rays": valid.sum() * (batch_shape[0] if len(batch_shape) == 2
+                                   else 1),
     }
     return intensity, stats, is_valid, complete
 
@@ -206,8 +240,6 @@ def _sparsity_prior(params, occ_state, draws, level_mask):
 def compute_loss(params, consts, occ_state, batch, draws, sc, loss_config,
                  level_mask=None):
     """Forward pass: (scalar loss, metrics dict of tensors)."""
-    if sc.pixel_bandwidth_enabled:
-        raise NotImplementedError(PIXEL_BANDWIDTH_TODO)
     valid = batch["valid"]
     n = valid.shape[0]
     ct_params = params.contrast_threshold
@@ -236,16 +268,35 @@ def compute_loss(params, consts, occ_state, batch, draws, sc, loss_config,
     if subdiff is not None:
         delta_slices += [subdiff["start_delta"], subdiff["end_delta"]]
     R = len(delta_slices)
-    ts_all, delta_all = split_time(start_base.repeat(R),
-                                   torch.cat(delta_slices))
+    ts_all, delta_all = pixel_bandwidth.split_time(
+        start_base.repeat(R), torch.cat(delta_slices))
     channel_idx = batch.get("channel_idx")
-    intensity, stats, is_valid_all, complete_all = render_train_pixels(
-        params, consts, occ_state, sc, ts_all, delta_all,
-        batch["position"].repeat(R, 1),
-        None if channel_idx is None else channel_idx.repeat(R),
-        valid.repeat(R), draws.get("jitter"), level_mask)
+    pixel_all = batch["position"].repeat(R, 1)
+    channel_all = None if channel_idx is None else channel_idx.repeat(R)
+    valid_all = valid.repeat(R)
 
-    outs = torch.log(intensity).reshape(R, n)
+    def sampling_fn(sample_ts, sample_ts_delta):
+        return render_train_pixels(
+            params, consts, occ_state, sc, sample_ts, sample_ts_delta,
+            pixel_all, channel_all, valid_all, draws.get("jitter"),
+            level_mask)
+
+    if sc.pixel_bandwidth_enabled:
+        interval_gen_all = draws["normalized"]["interval_gen"].repeat(1, R)
+        log_it_all, aux, _ = pixel_bandwidth.forward_fused(
+            params.pixel_bandwidth, consts["pixel_bandwidth"],
+            interval_gen_all, ts_all, delta_all, sampling_fn, n)
+        stats, is_valid_s, complete_s = aux
+        is_valid_all = is_valid_s.any(dim=0)
+        # ALL blur samples must be complete: the filtered log intensity
+        # integrates every sample, so one truncated render corrupts it
+        complete_all = complete_s.all(dim=0)
+    else:
+        intensity, stats, is_valid_all, complete_all = sampling_fn(
+            ts_all, delta_all)
+        log_it_all = torch.log(intensity)
+
+    outs = log_it_all.reshape(R, n)
     valids = is_valid_all.reshape(R, n)
     completes = complete_all.reshape(R, n)
     i = 0
@@ -291,6 +342,8 @@ def compute_loss(params, consts, occ_state, batch, draws, sc, loss_config,
         "num_rays": stats["num_rays"],
         "num_marched_samples": stats["num_marched_samples"],
     }
+    if "pb_min_abs_weight_sum" in stats:
+        metrics["pb_min_abs_weight_sum"] = stats["pb_min_abs_weight_sum"]
     return total, metrics
 
 

@@ -25,7 +25,7 @@ import time
 import torch
 
 from ..data import events as events_data
-from ..models import event_gen, nerf_model
+from ..models import event_gen, nerf_model, pixel_bandwidth
 from ..utils.device import resolve_device
 from . import optim, pipeline, setup as setup_lib, step as step_lib
 
@@ -161,11 +161,16 @@ class Trainer:
                 p.contrast_threshold, c["contrast_threshold"])
             tau = event_gen.refractory_period(p.refractory_period,
                                               c["refractory_period"])
+            physics = {"train/mean_contrast_threshold": float(mean_ct),
+                       "train/refractory_period": float(tau)}
+            if hasattr(p, "pixel_bandwidth"):
+                eff = pixel_bandwidth.effective_params(p.pixel_bandwidth)
+                physics.update({f"train/pixel_bandwidth/{k}": float(v)
+                                for k, v in eff.items()})
             self.writer.write(step, {
                 **{f"train/{k}": v for k, v in scalars.items()
                    if math.isfinite(v)},
-                "train/mean_contrast_threshold": float(mean_ct),
-                "train/refractory_period": float(tau),
+                **physics,
             })
 
     def _flush_pending_metrics(self):

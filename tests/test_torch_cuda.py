@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from deblur_e_nerf_tpu_torch.models import contraction, fields
-from deblur_e_nerf_tpu_torch.ops import scatter_rows
+from deblur_e_nerf_tpu_torch.ops import gather_rows, scatter_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +85,58 @@ def test_field_table_grad_on_card_matches_cpu(cuda):
     for a, b in zip(outs["cpu"], outs["cuda"]):
         # f32 sums in another order (atomics on the card)
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("round_to", [None, torch.bfloat16])
+@pytest.mark.parametrize("n,n_rows,width", [
+    (524289, 65536, 16),     # cellhash view of the flagship step
+    (524289, 343000, 16),    # packed dense level 4
+    (4194312, 524288, 2),    # vertex-hash levels, 8 corners per sample
+    (1000, 7, 16),           # tiny, ragged
+    (999, 13, 3),            # odd width: the scalar path
+])
+def test_gather_kernel_matches_plain_bit_for_bit(cuda, n, n_rows, width,
+                                                  round_to):
+    rng = np.random.default_rng(1)
+    idx = torch.from_numpy(rng.integers(0, n_rows, n).astype(np.int32))
+    tbl = torch.from_numpy(rng.normal(size=(n_rows, width)).astype(
+        np.float32))
+    before = gather_rows.LAUNCHES
+    out = gather_rows.gather_rows(tbl.to(cuda), idx.to(cuda), round_to)
+    torch.cuda.synchronize()
+    assert gather_rows.LAUNCHES == before + 1
+    want = gather_rows.gather_rows_reference(tbl, idx, round_to)
+    assert torch.equal(out.cpu(), want)
+
+
+def test_gather_kernel_on_a_segment_view(cuda):
+    """The encode gathers from row slices of the table (a level's
+    segment, the cellhash (T/8, 8F) view): offsets that are not 16-byte
+    aligned take the narrower path."""
+    tbl = torch.randn((4099, 2), device=cuda)
+    idx = torch.randint(0, 1000, (5000,), dtype=torch.int32, device=cuda)
+    for offset in (0, 1, 3, 128):
+        seg = tbl[offset:offset + 1000]
+        out = gather_rows.gather_rows(seg, idx, torch.bfloat16)
+        assert torch.equal(out, gather_rows.gather_rows_reference(
+            seg, idx, torch.bfloat16))
+
+
+def test_gather_wrapper_raises_instead_of_falling_back(cuda):
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        gather_rows.gather_rows(torch.zeros((4, 2), dtype=torch.float64,
+                                            device=cuda), idx)
+    with pytest.raises(TypeError):
+        gather_rows.gather_rows(torch.zeros((4, 2), device=cuda), idx,
+                                torch.float16)
+    with pytest.raises(ValueError):
+        gather_rows.gather_rows(torch.zeros((4, 8), device=cuda)[:, ::2],
+                                idx)
+
+
+def test_filter_on_step_on_card_matches_cpu(cuda, tmp_path):
+    """One small filter-on step (S = 30) on the card against the CPU:
+    loss and every gradient, within chip_smoke's stated tolerances."""
+    rows = chip_smoke.filter_on_step_card_vs_cpu(torch, str(tmp_path))
+    assert len(rows) > 10 and all(err <= tol for _, err, tol in rows)

@@ -1,9 +1,12 @@
-"""One filter-off training step of the port against the JAX package: the
-loss, its terms and every parameter gradient, from the same weights
-(`convert.params_from_jax`), the same occupancy grid, the same event batch
-and the same random draws (the JAX package's draws from its step key,
-handed to the port). Also the optimizer's update against the JAX optax
-chain, and the trainer loop on the CPU."""
+"""One training step of the port against the JAX package, with the
+pixel-bandwidth filter off and on: the loss, its terms and every
+parameter gradient, from the same weights (`convert.params_from_jax`), the
+same occupancy grid, the same event batch and the same random draws (the
+JAX package's draws from its step key, handed to the port). Also the
+optimizer's update against the JAX optax chain, and the trainer loop on
+the CPU."""
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -30,12 +33,15 @@ from deblur_e_nerf_tpu_torch.utils.config import ConfigDict
 CAPACITY, ACTIVE, BUDGET = 32, 24, 1 << 15
 
 
-def small_config(root, sparsity=0.0):
-    """The in-repo flagship config, filter off, cut to test size."""
+def small_config(root, sparsity=0.0, it_sample_size=None):
+    """The in-repo flagship config cut to test size: filter off, or on
+    with `it_sample_size` lifetime samples."""
     cfg = jload_config("configs/train/synthetic.yaml")
     cfg.seed = 0
     cfg.data.dataset_directory = str(root)
-    cfg.model.pixel_bandwidth.enable = False
+    cfg.model.pixel_bandwidth.enable = it_sample_size is not None
+    if it_sample_size is not None:
+        cfg.model.pixel_bandwidth.it_sample_size = it_sample_size
     pe = cfg.model.nerf.ngp.pos_encoding
     pe.n_levels, pe.base_resolution, pe.per_level_scale = 6, 4, 2.0
     pe.log2_hashmap_size = 12      # dense 4, 8; hash 16; cellhash 32-128
@@ -65,7 +71,7 @@ def _jax_draws(key, n, sc, occ_binary, sparsity_cfg=None):
         "normalized": {k: torch.tensor(np.asarray(v))
                        for k, v in normalized.items()},
         "jitter": torch.tensor(np.asarray(jax.random.uniform(
-            k_render, (4 * n,), jnp.float32))),
+            k_render, (tstep.n_rendered_rays(sc, n),), jnp.float32))),
     }
     if sc.loss_weight_sparsity > 0:
         k_cells, k_occ, k_jitter = jax.random.split(
@@ -91,20 +97,18 @@ def _jax_draws(key, n, sc, occ_binary, sparsity_cfg=None):
     return draws
 
 
-def test_filter_off_step_loss_and_grads_match_jax(dataset):
-    # the flagship's loss terms plus the density sparsity prior
-    cfg = small_config(dataset, sparsity=0.01)
-    bundle, params = jsetup.build(cfg, str(dataset), sample_budget=BUDGET,
-                                  batch_capacity=CAPACITY)
+def _jax_step(cfg, dataset, capacity, active, budget):
+    """The JAX step's loss, metrics and gradients, with its inputs."""
+    bundle, params = jsetup.build(cfg, str(dataset), sample_budget=budget,
+                                  batch_capacity=capacity)
     model, sc = bundle.model, bundle.static_config
-    assert not sc.pixel_bandwidth_enabled
     occ = jax.jit(lambda p: jnerf.update_occupancy(
         model, p, jnerf.init_occupancy(model), jax.random.PRNGKey(1),
         bundle.consts["trajectory"].T_wc_position, jnp.asarray(0)))(
             params["nerf"])
     events = jevents.EventDataset(str(dataset)).events
-    batch_np = jpipeline.EventBatcher(events, CAPACITY, seed=0).next_batch(
-        ACTIVE)
+    batch_np = jpipeline.EventBatcher(events, capacity, seed=0).next_batch(
+        active)
     key = jax.random.PRNGKey(3)
 
     def loss_fn(p):
@@ -115,60 +119,186 @@ def test_filter_off_step_loss_and_grads_match_jax(dataset):
 
     (loss_j, metrics_j), grads_j = jax.jit(jax.value_and_grad(
         loss_fn, has_aux=True))(params)
+    return dict(cfg=cfg, sc=sc, params=params, occ=occ, batch_np=batch_np,
+                key=key, loss=loss_j, metrics=metrics_j, grads=grads_j,
+                capacity=capacity, active=active, budget=budget)
 
+
+def _assert_port_step_matches(j, dataset, samples_rtol=1e-6, grad_atol=2e-4,
+                              pb_grad_atol=None):
+    """The port's compute_loss on the JAX step's inputs against it.
+
+    samples_rtol: tolerance on the mean marched samples per ray (exact,
+    1e-6, when both packages march the same sample set);
+    grad_atol: each gradient's tolerance as a fraction of its largest
+    entry; pb_grad_atol: the filter parameters' tolerance as a fraction of
+    the largest filter-parameter gradient."""
+    cfg, sc, capacity, active = j["cfg"], j["sc"], j["capacity"], \
+        j["active"]
     tbundle, tparams = tsetup.build(ConfigDict.from_dict(cfg.to_dict()),
-                                    str(dataset), sample_budget=BUDGET,
+                                    str(dataset), sample_budget=j["budget"],
                                     device=torch.device("cpu"))
+    assert tuple(tbundle.static_config) == tuple(sc)
     tparams.load_state_dict(convert.params_from_jax(
-        jax.tree_util.tree_map(np.asarray, params)), strict=True)
+        jax.tree_util.tree_map(np.asarray, j["params"])), strict=True)
+    occ = j["occ"]
     tocc_state = tocc.OccupancyGridState(
         torch.tensor(np.asarray(occ.occs)), torch.tensor(np.asarray(
             occ.binary)))
-    batch = {k: torch.tensor(v) for k, v in batch_np.items()}
-    draws = _jax_draws(key, CAPACITY, sc, occ.binary)
+    batch = {k: torch.tensor(v) for k, v in j["batch_np"].items()}
+    draws = _jax_draws(j["key"], capacity, sc, occ.binary)
     loss_t, metrics_t = tstep.compute_loss(
         tparams, tbundle.consts, tocc_state, batch, draws,
         tbundle.static_config, tbundle.loss_config)
     loss_t.backward()
+    metrics_j = j["metrics"]
 
     # the same sample sets: integer statistics agree exactly
-    for k in ("batch_size", "num_rays"):
-        assert int(metrics_t[k]) == ACTIVE * (4 if k == "num_rays" else 1)
-    for k in ("mean_num_samples_per_ray", "ray_truncation_rate",
-              "mean_valid_rate", "block_overflow_rate"):
+    s = sc.it_sample_size if sc.pixel_bandwidth_enabled else 1
+    assert int(metrics_t["batch_size"]) == active
+    assert int(metrics_t["num_rays"]) == active * 4 * s
+    assert float(metrics_t["mean_num_samples_per_ray"]) == pytest.approx(
+        float(metrics_j["mean_num_samples_per_ray"]), rel=samples_rtol)
+    for k in ("ray_truncation_rate", "mean_valid_rate",
+              "block_overflow_rate"):
         assert float(metrics_t[k]) == pytest.approx(float(metrics_j[k]),
                                                     rel=1e-6), k
     assert 0 < float(metrics_t["mean_valid_rate"])
     # loss terms: f32 renders summed in another order
-    assert "loss_density_sparsity" in metrics_j
     for k in [k for k in metrics_j if k.startswith("loss")]:
         assert float(metrics_t[k].detach()) == pytest.approx(
             float(metrics_j[k]), rel=1e-5, abs=1e-7), k
-    assert float(loss_t.detach()) == pytest.approx(float(loss_j), rel=1e-5)
+    assert float(loss_t.detach()) == pytest.approx(float(j["loss"]),
+                                                   rel=1e-5)
 
     # every parameter gradient. Table rows: the JAX sort path sums each
     # row near-exactly, the port's scatter-add in f32 index order; MLP and
     # physics grads: f32 sums over all samples in another order, whose
     # error scales with the sum of |terms|, not with the (cancelling)
-    # result. Measured on these inputs: at most 4.4e-5 of each gradient's
-    # largest entry.
+    # result. Measured on these inputs (filter off): at most 4.4e-5 of
+    # each gradient's largest entry.
     want = convert.params_from_jax(
-        jax.tree_util.tree_map(np.asarray, grads_j))
+        jax.tree_util.tree_map(np.asarray, j["grads"]))
     got = dict(tparams.named_parameters())
     assert set(want) == set(got)
+    pb_scale = max([float(g.abs().max()) for name, g in want.items()
+                    if name.startswith("pixel_bandwidth.")], default=0.0)
     for name, g in want.items():
         g = g.numpy()
-        scale = float(np.abs(g).max())
+        if name.startswith("pixel_bandwidth."):
+            atol = pb_grad_atol * pb_scale
+        else:
+            atol = grad_atol * float(np.abs(g).max()) + 1e-15
         np.testing.assert_allclose(got[name].grad.numpy(), g, rtol=2e-4,
-                                   atol=2e-4 * scale + 1e-15, err_msg=name)
+                                   atol=atol, err_msg=name)
     assert float(np.abs(got["nerf.field.table"].grad.numpy()).max()) > 0
+    return metrics_t, got
 
 
-def test_pixel_bandwidth_on_raises_with_roadmap_item(dataset):
-    cfg = ConfigDict.from_dict(small_config(dataset).to_dict())
-    cfg.model.pixel_bandwidth.enable = True
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        tsetup.build(cfg, str(dataset), device=torch.device("cpu"))
+def test_filter_off_step_loss_and_grads_match_jax(dataset):
+    # the flagship's loss terms plus the density sparsity prior
+    cfg = small_config(dataset, sparsity=0.01)
+    j = _jax_step(cfg, dataset, CAPACITY, ACTIVE, BUDGET)
+    assert not j["sc"].pixel_bandwidth_enabled
+    assert "loss_density_sparsity" in j["metrics"]
+    _assert_port_step_matches(j, dataset)
+
+
+# (S, capacity, active events, sample budget): S = 4 at the filter-off
+# test's batch, and the flagship's S = 30 at a handful of events
+FILTER_ON_CASES = {4: (CAPACITY, ACTIVE, 4 * BUDGET), 30: (8, 4, 8 * BUDGET)}
+
+
+@pytest.fixture(scope="module")
+def filter_on_jax(dataset):
+    """The JAX filter-on steps, compiled once for the module."""
+    return {s: _jax_step(small_config(dataset, it_sample_size=s), dataset,
+                         *case) for s, case in FILTER_ON_CASES.items()}
+
+
+@pytest.mark.parametrize("it_sample_size", sorted(FILTER_ON_CASES))
+def test_filter_on_step_loss_and_grads_match_jax(dataset, filter_on_jax,
+                                                 it_sample_size):
+    j = filter_on_jax[it_sample_size]
+    assert j["sc"].pixel_bandwidth_enabled
+    assert j["sc"].it_sample_size == it_sample_size
+    # The S x 4 x N rays' poses go through slerp's transcendental
+    # functions, whose float32 results differ by an ulp between XLA and
+    # torch; with 384-480 rays one sample of ~1.3e5 lands on the other
+    # side of a march boundary (measured: 1 sample, in both cases), which
+    # moves one ray's intensity. Its effect, measured on these inputs: the
+    # losses within 1e-6, the field gradients within 4.7e-4 of their
+    # largest entry, and the filter-parameter gradients (sums over events
+    # that cancel to ~1e-5) within 3e-3 of the largest of them; a 3e-7
+    # perturbation of the jitter alone moves the latter by 2e-4.
+    _, got = _assert_port_step_matches(j, dataset, samples_rtol=2e-5,
+                                       grad_atol=1e-3, pb_grad_atol=5e-3)
+    # the six filter parameters and the refractory period (whose gradient
+    # reaches the timestamps through the sample steps and the reset decay)
+    # get non-zero gradients
+    for name in ("pixel_bandwidth.tau_diff_raw",
+                 "pixel_bandwidth.tau_mil_it_eff_prod_raw",
+                 "refractory_period.refractory_period_logit"):
+        assert float(got[name].grad.abs()) > 0, name
+
+
+def test_filter_on_overflow_masks_tail_events_and_names_the_divergence(
+        dataset):
+    """When the step's samples overflow the budget, the JAX package
+    (sample-major ray order) truncates the last lifetime sample of every
+    event and masks the whole step; the port renders event-major, so the
+    overflow masks the trailing events only (ROADMAP Queue C)."""
+    j = _jax_step(small_config(dataset, it_sample_size=4), dataset,
+                  CAPACITY, ACTIVE, 100_000)  # demand ~126K samples
+    assert float(j["metrics"]["ray_truncation_rate"]) > 0
+    assert float(j["metrics"]["mean_valid_rate"]) == 0.0  # every event
+    cfg, sc = j["cfg"], j["sc"]
+    tbundle, tparams = tsetup.build(ConfigDict.from_dict(cfg.to_dict()),
+                                    str(dataset), sample_budget=100_000,
+                                    device=torch.device("cpu"))
+    tparams.load_state_dict(convert.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, j["params"])), strict=True)
+    occ = j["occ"]
+    loss, m = tstep.compute_loss(
+        tparams, tbundle.consts, tocc.OccupancyGridState(
+            torch.tensor(np.asarray(occ.occs)),
+            torch.tensor(np.asarray(occ.binary))),
+        {k: torch.tensor(v) for k, v in j["batch_np"].items()},
+        _jax_draws(j["key"], CAPACITY, sc, occ.binary),
+        tbundle.static_config, tbundle.loss_config)
+    # (which coarse blocks survive an overflow depends on the ray order,
+    # so the demand counts differ from the JAX package's here)
+    # the tail rays are the last render slices' (subdiff end): the diff
+    # term keeps its events
+    assert float(m["ray_truncation_rate"]) > 0
+    assert float(m["mean_valid_rate"]) > 0.3
+    assert float(loss.detach()) > 0
+    loss.backward()
+    assert float(tparams.nerf.field.table.grad.abs().max()) > 0
+
+
+def test_pixel_bandwidth_on_raises_with_roadmap_item(dataset, tmp_path):
+    """The filter-on model builds (its six parameters keyed like the JAX
+    tree, the budget sized x S); what still raises, naming its roadmap
+    item, is loading the model's state from a checkpoint."""
+    cfg = ConfigDict.from_dict(small_config(dataset, it_sample_size=4)
+                               .to_dict())
+    bundle, params = tsetup.build(cfg, str(dataset),
+                                  device=torch.device("cpu"))
+    assert bundle.static_config.pixel_bandwidth_enabled
+    assert bundle.static_config.it_sample_size == 4
+    assert sorted(n for n, _ in params.named_parameters()
+                  if n.startswith("pixel_bandwidth.")) == sorted(
+        f"pixel_bandwidth.{k}_raw" for k in (
+            "A_amp_inv", "A_loop_inv", "tau_diff", "tau_mil_it_eff_prod",
+            "tau_out", "tau_sf"))
+    assert params.nerf.render_config.sample_budget == \
+        131072 * 4 * 4  # train_eff_ray_sample_batch_size x S x 4 slices
+    cfg.model.checkpoint_filepath = str(tmp_path / "model.ckpt")
+    cfg.model.pixel_bandwidth.load_state_dict = True
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 9"):
+        Trainer(cfg, str(tmp_path / "log"), batch_capacity=CAPACITY,
+                sample_budget=BUDGET, device="cpu")
 
 
 def test_optimizer_matches_optax_chain():
@@ -269,3 +399,43 @@ def test_trainer_runs_on_cpu_and_logs(dataset, tmp_path):
         "refractory_period_logit"].requires_grad
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trainer.evaluate()
+
+
+def test_trainer_takes_filter_on_steps_on_cpu(dataset, tmp_path):
+    """Two flagship-shaped steps with the filter on (S = 4): finite
+    losses, the frozen filter parameters unchanged, and their effective
+    values in the scalar log."""
+    cfg = ConfigDict.from_dict(small_config(dataset, it_sample_size=4)
+                               .to_dict())
+    cfg.trainer.log_every_n_steps = 1
+    trainer = Trainer(cfg, str(tmp_path / "log"), batch_capacity=CAPACITY,
+                      sample_budget=4 * BUDGET, device="cpu")
+    pb0 = {k: v.detach().clone()
+           for k, v in trainer.params.pixel_bandwidth.items()}
+    table0 = trainer.params.nerf.field.table.detach().clone()
+    trainer.train(max_steps=2)
+    assert trainer.global_step == 2
+    assert np.isfinite(trainer.last_metrics["loss"])
+    assert not trainer.last_metrics["update_skipped"]
+    assert not torch.equal(table0, trainer.params.nerf.field.table)
+    for k, v in trainer.params.pixel_bandwidth.items():
+        assert not v.requires_grad and torch.equal(v.detach(), pb0[k]), k
+    lines = (tmp_path / "log" / "metrics.jsonl").read_text().splitlines()
+    logged = json.loads(lines[-1])
+    for name in ("tau_out", "tau_diff", "A_amp_inv"):
+        assert logged[f"train/pixel_bandwidth/{name}"] > 0, name
+
+
+def test_chip_smoke_reference_step_harness_runs_on_cpu(tmp_path):
+    """chip_smoke.py's card-vs-CPU filter-on step, with the CPU standing
+    in for the card: the harness builds a non-degenerate step (some valid
+    events, a positive loss) and compares every gradient."""
+    import chip_smoke
+
+    rows = chip_smoke.filter_on_step_card_vs_cpu(torch, str(tmp_path),
+                                                 device="cpu")
+    names = {name for name, _, _ in rows}
+    assert {"loss", "samples per ray",
+            "grad pixel_bandwidth.tau_diff_raw",
+            "grad nerf.field.table"} <= names
+    assert all(err == 0.0 for _, err, _ in rows)  # the same device
