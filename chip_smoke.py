@@ -6,11 +6,16 @@
 Phases, each printing a start and an end line with elapsed seconds:
   1. environment: torch/CUDA versions, device, nvidia-smi name and power
      limit, nvcc, triton;
-  2. build: the CUDA kernels, with nvcc from the sources in this checkout;
+  2. build: the CUDA kernels, with nvcc from the sources in this checkout,
+     and the atomics the compiler emitted for each scatter-add instance
+     (cuobjdump -sass): the main path's widths must use vector reductions;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main paths' shapes (and the Pallas probes K2/K3's), with times of
      the kernel, the plain version and one PyTorch library call computing
-     the same function;
+     the same function; the scatter-add also against the plain model of
+     its summation order, on uniform indices and on the training step's
+     index structures (the empty-slot tail, ray-ordered runs), and its
+     wrapper's host time per call beside its profiled kernel time;
   4. training, two paths of configs/train/synthetic.yaml at full width on
      a synthetic dataset, each with the kernels' launch counts set to 0
      just before it and read just after:
@@ -18,7 +23,10 @@ Phases, each printing a start and an end line with elapsed seconds:
           occupancy update;
        b. the flagship as written (pixel-bandwidth filter on, S = 30, the
           default sample budget K = 15,728,640): 3 steps (with --profile,
-          each profiled, then 3 more past the occupancy warmup);
+          each profiled, then 3 more past the occupancy warmup), then one
+          steady step (past the warmup) under
+          torch.cuda.set_sync_debug_mode("warn"), whose host syncs are
+          counted by source line (none may come from the optimizer);
   5. reference: on small inputs, the card (through the kernels) against
      the plain version on the CPU: the NGP field's outputs and table
      gradient, and one filter-on step's loss and gradients.
@@ -32,6 +40,7 @@ the kernels' build directory (deblur_e_nerf_tpu_torch/_build).
 
 import argparse
 import json
+import re
 import shutil
 import signal
 import subprocess
@@ -210,51 +219,217 @@ def phase_build():
           f"(reused: {info['reused']})", flush=True)
     if info["log"]:
         print(info["log"], flush=True)
+    check_scatter_sass(_cuda_build.sass_atomics(info["path"]))
     return info
 
 
-def scatter_case(torch, scatter_rows, name, width, n_rows, n, gen):
-    """K1 against its plain version at one shape; returns the row."""
-    dev = "cuda"
-    idx = torch.randint(0, n_rows, (n,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    val = torch.randn((n, width), generator=gen, device=dev)
-    out = scatter_rows.scatter_add_rows(idx, val, n_rows)
-    plain = scatter_rows.scatter_add_rows_reference(idx, val, n_rows)
-    exact = scatter_rows.scatter_add_rows_reference(idx, val, n_rows,
+# the scatter-add instances of the main path's widths, by their mangled
+# template arguments <VEC, CPR, index type>
+SCATTER_MAIN_INSTANCES = {"W=16 (float4 chunks)": "ILi4ELi4EiE",
+                          "W=2 (float2 rows)": "ILi2ELi1EiE"}
+
+
+def check_scatter_sass(atomics):
+    """Print each scatter-add instance's atomic SASS instructions; fail
+    unless the main path's widths use vector reductions (a RED whose
+    opcode names a 2- or 4-float vector) and no returning ATOM."""
+    for fn, ops in sorted(atomics.items()):
+        if "scatter_add_rows_kernel" in fn:
+            print(f"sass {fn}: {sorted(set(ops))}", flush=True)
+    for width, args in SCATTER_MAIN_INSTANCES.items():
+        ops = [op for fn, o in atomics.items()
+               if f"scatter_add_rows_kernel{args}" in fn for op in o]
+        vector = [op for op in ops if op.startswith("RED")
+                  and re.search(r"(x2|x4|V2|V4|\.64|\.128)", op)]
+        print(f"sass scatter_add_rows {width}: vector reductions "
+              f"{sorted(set(vector))}", flush=True)
+        if not vector or any(op.startswith("ATOM") for op in ops):
+            raise AssertionError(f"scatter_add_rows {width}: no vector RED "
+                                 f"in the SASS ({sorted(set(ops))})")
+
+
+def k1_inputs(kind, n, n_rows, width, seed=0):
+    """K1's inputs as numpy arrays, idx (n,) int32 and val (n, width)
+    float32 (standard normal), with the index structure `kind`:
+      uniform       indices uniform in [0, n_rows);
+      empty_tail    the training step's empty sample slots: the last 40%
+                    of the rows are zero rows at one index, after uniform
+                    rows;
+      ray_runs      runs of equal indices (a ray's adjacent samples in one
+                    cell), run lengths geometric with mean 8;
+      one_run       every row at one index;
+      all_zero      uniform, every row zero (the kernel's reads alone);
+      signed_zeros  uniform, a quarter of the rows +0.0, a quarter -0.0;
+      nonfinite     uniform, some rows holding a NaN, +inf or -inf;
+      out_of_range  uniform, a tenth of the indices -1 or n_rows (they
+                    add nothing)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n_rows, n, dtype=np.int32)
+    val = rng.standard_normal((n, width), dtype=np.float32)
+    if kind == "empty_tail":
+        tail = n - int(round(0.6 * n))
+        idx[n - tail:] = n_rows - 1
+        val[n - tail:] = 0.0
+    elif kind == "ray_runs":
+        starts = rng.random(n) < 1.0 / 8.0
+        starts[0] = True
+        idx = idx[np.cumsum(starts) - 1]
+    elif kind == "one_run":
+        idx[:] = n_rows // 2
+    elif kind == "all_zero":
+        val[:] = 0.0
+    elif kind == "signed_zeros":
+        rows = rng.permutation(n)
+        val[rows[:n // 4]] = 0.0
+        val[rows[n // 4:n // 2]] = -0.0
+    elif kind == "nonfinite":
+        rows = rng.choice(n, size=3 * max(n // 1000, 1), replace=False)
+        for part, value in zip(np.array_split(rows, 3),
+                               (np.nan, np.inf, -np.inf)):
+            val[part, rng.integers(0, width, part.size)] = value
+    elif kind == "out_of_range":
+        rows = rng.choice(n, size=max(n // 10, 1), replace=False)
+        idx[rows] = np.where(rng.random(rows.size) < 0.5, -1, n_rows)
+    elif kind != "uniform":
+        raise ValueError(f"unknown K1 index structure {kind!r}")
+    return idx, val
+
+
+def k1_check(torch, out, idx, val, n_rows, label):
+    """K1's result against the plain version and the plain model of the
+    kernel's summation order (scatter_rows.scatter_add_rows_combined), all
+    on out's device; the in-range rows only reach index_add_. Returns
+    (max abs error against each and against float64, tolerance): any
+    summation order of k terms is within (k - 1) eps sum|x| of the exact
+    sum, and the two sides each are, hence 2x, with k the largest count of
+    non-zero contributions to one row. Non-finite results must agree
+    exactly (NaN where the plain version has NaN, the same infinities)."""
+    from deblur_e_nerf_tpu_torch.ops import scatter_rows
+
+    keep = (idx >= 0) & (idx < n_rows)
+    i_in, v_in = idx[keep], val[keep]
+    plain = scatter_rows.scatter_add_rows_reference(i_in, v_in, n_rows)
+    model = scatter_rows.scatter_add_rows_combined(idx, val, n_rows)
+    exact = scatter_rows.scatter_add_rows_reference(i_in, v_in, n_rows,
                                                     dtype=torch.float64)
-    torch.cuda.synchronize()
-    err = float((out - plain).abs().max())
-    err_exact = float((out.double() - exact).abs().max())
-    # any summation order of k terms is within (k-1) eps sum|x| of the
-    # exact sum; the kernel and the plain version each are, hence 2x
-    counts = torch.bincount(idx.long(), minlength=n_rows)
+    nonzero = (v_in != 0).any(dim=1)
+    counts = torch.bincount(i_in[nonzero].long(), minlength=n_rows)
+    finite = torch.isfinite(v_in).all(dim=1)
     abs_sum = scatter_rows.scatter_add_rows_reference(
-        idx, val.abs(), n_rows, dtype=torch.float64)
+        i_in[finite], v_in[finite].abs(), n_rows, dtype=torch.float64)
     eps = torch.finfo(torch.float32).eps
     tol = 2.0 * max(int(counts.max()) - 1, 1) * eps * float(abs_sum.max())
+    errs = []
+    for name, want in (("plain", plain), ("model", model),
+                       ("float64", exact)):
+        fin = torch.isfinite(want)
+        if not torch.equal(fin, torch.isfinite(out)) or not torch.equal(
+                out[~fin].double().nan_to_num(),
+                want[~fin].double().nan_to_num()):
+            raise AssertionError(f"K1 {label}: non-finite entries differ "
+                                 f"from the {name} version")
+        errs.append(float((out.double() - want.double())[fin].abs().max())
+                    if bool(fin.any()) else 0.0)
+    if not max(errs) <= tol:
+        raise AssertionError(f"K1 {label}: error {errs} above {tol}")
+    return errs, tol
+
+
+def scatter_case(torch, scatter_rows, name, width, n_rows, n,
+                 kind="uniform", seed=0):
+    """K1 against its plain version and the model of its order at one
+    shape and index structure; returns the row."""
+    idx_np, val_np = k1_inputs(kind, n, n_rows, width, seed)
+    idx = torch.from_numpy(idx_np).to("cuda")
+    val = torch.from_numpy(val_np).to("cuda")
+    del idx_np, val_np
+    out = scatter_rows.scatter_add_rows(idx, val, n_rows)
+    torch.cuda.synchronize()
+    (err, err_model, err_exact), tol = k1_check(torch, out, idx, val, n_rows,
+                                                name)
+    del out
+    counts = torch.bincount(idx.long(), minlength=n_rows)
     idx64 = idx.long()
     ms = time_ms(lambda: scatter_rows.scatter_add_rows(idx, val, n_rows))
     plain_ms = time_ms(
         lambda: scatter_rows.scatter_add_rows_reference(idx, val, n_rows))
     library_ms = time_ms(lambda: torch.zeros(
-        (n_rows, width), device=dev).index_add_(0, idx64, val))
+        (n_rows, width), device="cuda").index_add_(0, idx64, val))
     bound_ms, bound_by = bound(n * width * 4 + n * 4 + n_rows * width * 4,
                                n * width)
     row = {
-        "shape": name, "width": width, "n_rows": n_rows, "n": n,
-        "max_abs_err": err, "max_abs_err_vs_f64": err_exact,
+        "shape": name, "index_structure": kind, "width": width,
+        "n_rows": n_rows, "n": n, "max_abs_err": err,
+        "max_abs_err_vs_model": err_model, "max_abs_err_vs_f64": err_exact,
         "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "max_row_count": int(counts.max()),
     }
-    print(f"K1 {name}: W={width} n_rows={n_rows} N={n} max_abs_err "
-          f"{err:.3e} (vs f64 {err_exact:.3e}, tolerance {tol:.3e}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
-          f"{library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']})", flush=True)
-    if not (err <= tol and err_exact <= tol):
-        raise AssertionError(f"K1 {name}: error {err} above {tol}")
+    print(f"K1 {name} ({kind}): W={width} n_rows={n_rows} N={n} "
+          f"max_abs_err {err:.3e} (vs model {err_model:.3e}, vs f64 "
+          f"{err_exact:.3e}, tolerance {tol:.3e}); kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    return row
+
+
+def _call_split(torch, fn, calls):
+    """fn's host time per call (enqueue only: `calls` calls without a
+    sync), its time per call by CUDA events, and {kernel: device ms per
+    call} from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    event_ms = time_ms(fn, iters=calls, warmup=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device = {e.key: e.self_device_time_total / calls / 1e3
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA}
+    return host_ms, event_ms, device
+
+
+def k1_call_split(torch, scatter_rows, name, width, n_rows, n, calls=200):
+    """The K1 wrapper's host time per call beside its time by CUDA events
+    and the device time of its kernel and of the output's zero fill; the
+    same for the library call (torch.zeros + index_add_)."""
+    idx_np, val_np = k1_inputs("uniform", n, n_rows, width)
+    idx = torch.from_numpy(idx_np).to("cuda")
+    val = torch.from_numpy(val_np).to("cuda")
+    idx64 = idx.long()
+    host_ms, event_ms, device = _call_split(
+        torch, lambda: scatter_rows.scatter_add_rows(idx, val, n_rows), calls)
+    kernel_ms = sum(ms for k, ms in device.items()
+                    if KERNEL_NAMES["scatter_add_rows"] in k)
+    fill_ms = sum(device.values()) - kernel_ms
+    lib_host_ms, lib_event_ms, lib_device = _call_split(
+        torch, lambda: torch.zeros((n_rows, width), device="cuda")
+        .index_add_(0, idx64, val), calls)
+    row = {"shape": name, "n": n, "n_rows": n_rows, "width": width,
+           "host_ms_per_call": host_ms, "event_ms_per_call": event_ms,
+           "kernel_device_ms": kernel_ms, "zero_fill_device_ms": fill_ms,
+           "library_host_ms_per_call": lib_host_ms,
+           "library_event_ms_per_call": lib_event_ms,
+           "library_device_ms": sum(lib_device.values())}
+    print(f"K1 call split, {name}: wrapper host {host_ms:.4f} ms per call "
+          f"(enqueue), {event_ms:.4f} ms per call by CUDA events; device: "
+          f"kernel {kernel_ms:.4f} ms, zero fill {fill_ms:.4f} ms. "
+          f"index_add_ (with its torch.zeros): host {lib_host_ms:.4f} ms, "
+          f"CUDA events {lib_event_ms:.4f} ms, device "
+          f"{row['library_device_ms']:.4f} ms", flush=True)
+    if kernel_ms <= 0:
+        raise AssertionError(f"K1 call split {name}: no kernel time")
     return row
 
 
@@ -320,6 +495,16 @@ def phase_kernels(torch):
         ("main path: cellhash levels 7-15", 16, 65536, k1),
         ("main path: dense level 0", 16, 4096, k1),
         ("main path: vertex-hash levels 5-6", 2, 524288, 8 * k1),
+        # the step's index structures: a warmup step's ~6.3M empty slots
+        # (zero rows at one index) after the marched samples, and the
+        # ray-ordered runs of samples sharing a cell
+        ("main path: cellhash levels 7-15", 16, 65536, k1, "empty_tail"),
+        ("main path: cellhash levels 7-15", 16, 65536, k1, "ray_runs"),
+        ("main path: dense level 0", 16, 4096, k1, "ray_runs"),
+        # the reads alone: every row zero, no atomic issued
+        ("main path: cellhash levels 7-15", 16, 65536, k1, "all_zero"),
+        ("main path: vertex-hash levels 5-6", 2, 524288, 8 * k1,
+         "all_zero"),
         # the filter-off step's
         ("filter off: cellhash levels 7-15", 16, 65536, k1_off),
         ("filter off: dense level 0", 16, 4096, k1_off),
@@ -329,9 +514,16 @@ def phase_kernels(torch):
         ("dense level 0 table, N=131072", 16, 4096, n),
         ("vertex-hash table, N=131072", 2, 524288, n),
     ]
-    scatter = [scatter_case(torch, scatter_rows, *c, gen)
-               for c in scatter_cases]
-    torch.cuda.empty_cache()
+    scatter = []
+    for case in scatter_cases:
+        scatter.append(scatter_case(torch, scatter_rows, *case))
+        torch.cuda.empty_cache()
+    from deblur_e_nerf_tpu_torch import perf_microbench
+
+    splits = [k1_call_split(torch, scatter_rows, *c) for c in (
+        ("cellhash table, N=131072", 16, 65536, n),
+        ("pallas_probe", perf_microbench.PROBE_WIDTH,
+         perf_microbench.PROBE_TABLE_ROWS, perf_microbench.PROBE_ROWS))]
     gather_cases = [
         # the filter-on step's encode (and the occupancy update's):
         # one gather per level over all K + 1 slots
@@ -346,7 +538,8 @@ def phase_kernels(torch):
     torch.cuda.empty_cache()
     scatter.append(probe_case("pallas_probe"))
     gather.append(probe_case("pallas_gather_probe"))
-    return {"scatter_add_rows": scatter, "gather_rows": gather}
+    return {"scatter_add_rows": scatter, "gather_rows": gather,
+            "scatter_add_rows_call_split": splits}
 
 
 KERNEL_NAMES = {"scatter_add_rows": "scatter_add_rows_kernel",
@@ -375,6 +568,18 @@ def _device_table(prof, label, n):
                       if key in e.key) / n / 1e3
             for name, key in KERNEL_NAMES.items()}
     return total / n / 1e3, ours
+
+
+def _kernel_calls(prof, name):
+    """Device ms of each launch of the port's kernel `name`, in launch
+    order (for the scatter-add, one per hash level)."""
+    from torch.autograd import DeviceType
+
+    key = KERNEL_NAMES[name]
+    calls = sorted((e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and key in e.name),
+                   key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() / 1e3 for e in calls]
 
 
 def profile_steps(torch, trainer, n_steps=3):
@@ -414,9 +619,12 @@ def profile_steps(torch, trainer, n_steps=3):
             kernels = ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items())
             if label == "step":
                 marched = int(out["num_marched_samples"])
+                calls = [round(t, 4)
+                         for t in _kernel_calls(prof, "scatter_add_rows")]
                 print(f"profile step {i}: marched samples {marched}, empty "
                       f"slots {K + 1 - min(marched, K)} of K + 1 = {K + 1}; "
-                      f"{kernels}", flush=True)
+                      f"{kernels}; scatter_add_rows per call (ms) {calls}",
+                      flush=True)
             else:
                 print(f"profile {label}: {kernels}", flush=True)
         print(f"profile {label}: wall {wall:.3f} ms per call without the "
@@ -473,9 +681,9 @@ def run_steps(torch, trainer, n_steps, label, profile=False):
               f"{float(m['mean_num_samples_per_ray']):.2f}, truncated "
               f"rays {float(m['ray_truncation_rate']):.4f}, valid "
               f"{float(m['mean_valid_rate']):.3f}, min |weight sum| {wsum}, "
-              f"skipped {m['update_skipped']}, step time {dt:.3f} s, peak "
-              f"device memory {peak:.2f} GiB on {card}", flush=True)
-        if not torch.isfinite(m["loss"]) or m["update_skipped"]:
+              f"skipped {bool(m['update_skipped'])}, step time {dt:.3f} s, "
+              f"peak device memory {peak:.2f} GiB on {card}", flush=True)
+        if not torch.isfinite(m["loss"]) or bool(m["update_skipped"]):
             raise AssertionError(f"{label} step {i}: non-finite loss or "
                                  f"skip")
         grad = field.table.grad
@@ -488,10 +696,59 @@ def run_steps(torch, trainer, n_steps, label, profile=False):
               f"{int((grad != 0).any(dim=1).sum())}", flush=True)
         if profile:
             _, ours = _device_table(prof, f"{label} step {i}", 1)
+            calls = [round(t, 4)
+                     for t in _kernel_calls(prof, "scatter_add_rows")]
             print(f"profile {label} step {i} (profiled): marched samples "
                   f"{marched}, empty slots {K + 1 - min(marched, K)}; "
-                  + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items()),
-                  flush=True)
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items())
+                  + f"; scatter_add_rows per call (ms) {calls}", flush=True)
+
+
+def count_step_syncs(torch, trainer):
+    """One steady flagship step (past the occupancy warmup, off the
+    occupancy schedule) under torch.cuda.set_sync_debug_mode("warn"):
+    returns {source line: host syncs}, each sync attributed to the
+    innermost line of the port on the stack, and prints it. A sync in
+    the optimizer fails the run."""
+    import traceback
+    import warnings
+
+    sites = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack if "deblur_e_nerf_tpu_torch" in f.filename]
+        if ours:
+            site = f"{ours[-1].filename}:{ours[-1].lineno}".split(
+                "deblur_e_nerf_tpu_torch/")[-1]
+        else:  # no frame of the port: name the callers
+            site = " <- ".join(f"{f.filename.split('/')[-1]}:{f.lineno}"
+                               f" {f.name}" for f in reversed(stack[-4:]))
+        sites[site] = sites.get(site, 0) + 1
+
+    trainer.global_step = int(trainer.params.nerf.occ_grid_config
+                              .warmup_steps) + 1
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.train_step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"host syncs in one steady flagship step: {sum(sites.values())} "
+          f"({sites})", flush=True)
+    if any("training/optim.py" in site for site in sites):
+        raise AssertionError(f"the optimizer synchronizes: {sites}")
+    if not any("ops/linalg.py" in site for site in sites):
+        # the expm's squaring count is read on the host every step
+        raise AssertionError(f"the sync counter missed ops/linalg.py's "
+                             f"known sync: {sites}")
+    return sites
 
 
 def build_trainer(torch, root, tmp, filter_on):
@@ -551,6 +808,8 @@ def phase_training(torch, tmp, profile=False):
     reset_launches()
     run_steps(torch, trainer, 3, "flagship (filter on)", profile=profile)
     launches["filter on"] = read_launches()
+    trainer._flush_pending_metrics()
+    count_step_syncs(torch, trainer)
     trainer._flush_pending_metrics()
     if profile:
         profile_steps(torch, trainer)
@@ -702,7 +961,8 @@ def phase_reference(torch, tmp):
 
 
 def kernel_line(name, source, replaces, rows, launches, main_shape):
-    main = next(r for r in rows if r["shape"] == main_shape)
+    main = next(r for r in rows if r["shape"] == main_shape
+                and r.get("index_structure", "uniform") == "uniform")
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches["filter on"][name],
@@ -743,9 +1003,10 @@ def main():
             phase_reference(torch, tmp)
 
     kernels = [
-        kernel_line("scatter_add_rows", SCATTER_SOURCE, SCATTER_REPLACES,
-                    rows["scatter_add_rows"], launches,
-                    "main path: cellhash levels 7-15"),
+        dict(kernel_line("scatter_add_rows", SCATTER_SOURCE,
+                         SCATTER_REPLACES, rows["scatter_add_rows"],
+                         launches, "main path: cellhash levels 7-15"),
+             call_split=rows["scatter_add_rows_call_split"]),
         kernel_line("gather_rows", GATHER_SOURCE, GATHER_REPLACES,
                     rows["gather_rows"], launches,
                     "main path: cellhash view, levels 7-15"),

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops import gather_rows, scatter_rows
+from ..utils.device import constant
 
 _HASH_PRIMES = (1, 2654435761, 805459861)
 _MASK32 = 0xFFFFFFFF
@@ -79,7 +80,7 @@ def grid_layout(otype, n_levels, base_resolution, per_level_scale,
 
 
 def _corner_offsets(device):
-    return torch.as_tensor(_CORNER_OFFSETS, device=device)
+    return constant(_CORNER_OFFSETS, torch.int64, device)
 
 
 def _hash(x, y, z):
@@ -88,11 +89,16 @@ def _hash(x, y, z):
             ^ (z * _HASH_PRIMES[2])) & _MASK32
 
 
-def _trilinear_weights(frac):
-    """(..., 3) in-cell fractions -> (..., 8) corner weights."""
+def _trilinear_weights(frac, corner_major=False):
+    """(..., 3) in-cell fractions -> (..., 8) corner weights, or (8, ...)
+    with `corner_major`."""
     upper = _corner_offsets(frac.device).bool()
-    w = torch.where(upper, frac[..., None, :], 1.0 - frac[..., None, :])
-    return w.prod(dim=-1)
+    if corner_major:
+        upper = upper.reshape(8, *([1] * (frac.dim() - 1)), 3)
+        frac = frac[None]
+    else:
+        frac = frac[..., None, :]
+    return torch.where(upper, frac, 1.0 - frac).prod(dim=-1)
 
 
 def _clipped_cell(uc, res, dtype):
@@ -117,20 +123,25 @@ def _cellhash_index_weights(uc, res, size, dtype):
     return h, _trilinear_weights(frac)
 
 
-def _level_indices_weights(uc, res, size, offset, mode, dtype):
-    """(table rows (N, 8), weights (N, 8)) for a 'hash'/'tiled' level."""
+def _level_indices_weights(uc, res, size, offset, mode, dtype,
+                           corner_major=False):
+    """(table rows (N, 8), weights (N, 8)) for a 'hash'/'tiled' level;
+    (8, N) each with `corner_major`."""
     scaled = uc * res
     cell = torch.floor(scaled)
     frac = (scaled - cell).to(dtype)
-    corners = cell.to(torch.int64)[..., None, :] \
-        + _corner_offsets(uc.device)
+    offsets = _corner_offsets(uc.device)
+    if corner_major:
+        corners = cell.to(torch.int64)[None] + offsets[:, None, :]
+    else:
+        corners = cell.to(torch.int64)[..., None, :] + offsets
     corners = corners.clamp(0, res)
     x, y, z = corners.unbind(-1)
     if mode == "hash":
         idx = _hash(x, y, z) % size
     else:  # tiled
         idx = ((z * (res + 1) + y) * (res + 1) + x) % size
-    return offset + idx, _trilinear_weights(frac)
+    return offset + idx, _trilinear_weights(frac, corner_major)
 
 
 def _pack_dense_segment(segment, res):
@@ -209,8 +220,12 @@ def table_grad(g, u, levels, table_rows):
                 h.to(torch.int32), contrib, size // 8)
             grad[offset:offset + size] = packed.reshape(size, F)
         else:
-            idx, w = _level_indices_weights(uc, res, size, offset, mode, dt)
-            contrib = (w[..., None] * g_level[:, None, :]).reshape(-1, F)
+            # corner-major rows: a ray's consecutive samples in one cell
+            # put equal indices next to each other, which the kernel sums
+            # before its atomic (sample-major, they sit 8 rows apart)
+            idx, w = _level_indices_weights(uc, res, size, offset, mode, dt,
+                                            corner_major=True)
+            contrib = (w[..., None] * g_level[None]).reshape(-1, F)
             grad[offset:offset + size] = scatter_rows.scatter_add_rows(
                 (idx - offset).reshape(-1).to(torch.int32), contrib, size)
     return grad

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from . import contraction as contraction_lib
+from ..utils.device import constant
 
 
 class OccupancyGridState(NamedTuple):
@@ -118,7 +119,7 @@ def update(state, occ_eval_fn, warmup, draws, *, resolution, aabb,
     is evaluated in chunks of `chunk` cells to bound memory."""
     device = state.occs.device
     num_cells = state.occs.shape[0]
-    aabb = torch.as_tensor(aabb, dtype=torch.float32, device=device)
+    aabb = constant(aabb, torch.float32, device)
 
     def eval_cells(cells):
         coords = cell_coords(resolution, device, cells).to(torch.float32)

@@ -26,6 +26,7 @@ from torch import nn
 from torch.utils import checkpoint
 
 from ..ops import activations, control, linalg
+from ..utils.device import constant
 
 TAU_IN_IT_EFF_PROD_KEY = "input_time_const_eff_it_prod"
 TAU_MIL_IT_EFF_PROD_KEY = "miller_time_const_eff_it_prod"
@@ -130,7 +131,7 @@ def linearize_sys(params, consts, steady_state_intensity,
     B = torch.stack([omega_n_square, zeros, zeros, zeros], dim=-1)[..., None]
     rows = [[0, 0, 1, 0], [0, 0, 0, 1]] if output_sf_log_it \
         else [[0, 0, 0, 1]]
-    C = torch.tensor(rows, dtype=dtype, device=device).expand(
+    C = constant(rows, dtype, device).expand(
         *shape, len(rows), 4)
     D = torch.zeros((*shape, len(rows), 1), dtype=dtype, device=device)
     return control.StateSpace(A=A, B=B, C=C, D=D)
@@ -206,7 +207,7 @@ def sample_lifetimes(params, consts, normalized_interval_gen):
     # linspace(1, 0, S) as the JAX package's jnp.linspace evaluates it:
     # 1 - i * (1 / (S - 1)), then an exact 0
     step = torch.arange(S - 1, dtype=torch.float32, device=device) \
-        * torch.tensor(1.0 / (S - 1), dtype=torch.float32, device=device)
+        * torch.full((), 1.0 / (S - 1), dtype=torch.float32, device=device)
     boundary = torch.cat([1.0 - step, step.new_zeros(1)])
     boundary = boundary.reshape(-1, *([1] * batch_ndim))
     gen = normalized_interval_gen.to(torch.float32)
@@ -234,8 +235,8 @@ def _weight(output_sf_log_it, consts, intensity_sample, sample_dt,
     sysd = control.foh_cont2discrete(
         lin_sys, NS_TO_S * sample_dt, is_state_preserved=True,
         is_efficient=True)
-    x0_dir = torch.tensor(_X0_DIR, dtype=intensity_sample.dtype,
-                          device=intensity_sample.device).reshape(4, 1)
+    x0_dir = constant(_X0_DIR, intensity_sample.dtype,
+                      intensity_sample.device).reshape(4, 1)
     weight = discretized_sys_to_weight(sysd, x0_dir=x0_dir)  # (S,...,o,1)
     return weight[..., 0]
 

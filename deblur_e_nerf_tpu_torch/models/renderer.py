@@ -30,6 +30,7 @@ import torch
 
 from . import contraction as contraction_lib
 from . import occupancy
+from ..utils.device import constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,8 +82,7 @@ def _ray_t_bounds(rays_o, rays_d, rc):
                         device=rays_o.device)
     t_far = torch.full(shape, far, dtype=torch.float32, device=rays_o.device)
     if rc.contraction_type == contraction_lib.ContractionType.AABB:
-        aabb = torch.tensor(rc.aabb, dtype=torch.float32,
-                            device=rays_o.device)
+        aabb = constant(rc.aabb, torch.float32, rays_o.device)
         safe_d = torch.where(rays_d.abs() < 1e-10,
                              torch.full_like(rays_d, 1e-10), rays_d)
         inv_d = 1.0 / safe_d
@@ -177,7 +177,7 @@ def march_rays(binary, rays_o, rays_d, ray_mask, jitter, rc):
     n_blocks = -(-S // BLOCK_STEPS)
     KB = rc.block_capacity
     res = rc.grid_resolution
-    aabb = torch.tensor(rc.aabb, dtype=torch.float32, device=device)
+    aabb = constant(rc.aabb, torch.float32, device)
     ray_ids = torch.arange(R, device=device)
 
     t_near, t_far = _ray_t_bounds(rays_o, rays_d, rc)
@@ -197,7 +197,7 @@ def march_rays(binary, rays_o, rays_d, ray_mask, jitter, rc):
         and rc.superblock_budget != 0
     )
     num_superblocks = None
-    first_bad_ray = torch.tensor(R, device=device)
+    first_bad_ray = torch.full((), R, dtype=torch.int64, device=device)
     if use_superblocks:
         pooled_res = res // POOL
         pooled = _maxpool_binary(dilated, res, POOL)
@@ -275,12 +275,17 @@ def march_rays(binary, rays_o, rays_d, ray_mask, jitter, rc):
     t_buf = torch.where(live, 0.5 * (s_t0 + s_t1), zero)
     dt_buf = torch.where(live, s_t1 - s_t0, zero)
 
-    # per-ray demand counts (every valid sample, before the budget)
-    valid_rays = torch.where(
-        sample_valid.reshape(-1),
-        torch.clamp(sample_code.reshape(-1) // S, max=R - 1),
-        torch.full_like(sample_code.reshape(-1), R))
-    counts = torch.bincount(valid_rays, minlength=R + 1)[:R]
+    # per-ray demand counts (every valid sample, before the budget). The
+    # lanes are in ray order (blk_ray never decreases: both compactions
+    # keep the ray-major lane order, and the fill lanes sit at the end as
+    # ray R - 1), so each ray's lanes are one segment and its count is a
+    # difference of the lanes' valid-flag cumsum at the segment bounds.
+    # (torch.bincount would read its output size back to the host.)
+    csum = torch.cumsum(sample_valid.reshape(-1).to(torch.int64), dim=0)
+    csum = torch.cat([csum.new_zeros(1), csum])
+    lane_ray = blk_ray[:, None].expand(-1, BLOCK_STEPS).reshape(-1)
+    bounds = torch.searchsorted(lane_ray, torch.arange(R + 1, device=device))
+    counts = csum[bounds[1:]] - csum[bounds[:-1]]
     offsets = torch.cumsum(counts, dim=0) - counts
     return RaySamples(
         t_mid=t_buf, dt=dt_buf, ray_idx=ray_idx, counts=counts,

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels: plain nvcc into one shared
 library with a C interface, loaded with ctypes.
 
-All of `csrc/*.cu` compiles in one nvcc call for sm_90a (Hopper). Nothing
-includes PyTorch's headers, so the build takes seconds. The library lands
+Each of `csrc/*.cu` compiles in its own nvcc process for sm_90a
+(Hopper), all started together, and one more nvcc call links the objects.
+Nothing includes PyTorch's headers, so the build takes seconds. The library lands
 in `_build/` under the package (listed in .gitignore), named by a hash of
 the sources and flags, so a second run reuses it. The build happens at the
 first kernel call, never at import.
@@ -20,7 +21,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_info = {}  # path, seconds, reused, ptxas log of the last build
@@ -53,19 +54,74 @@ def build():
         build_info.update(path=lib_path, seconds=0.0, reused=True, log="")
         return lib_path
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources if s.endswith(".cu")]]
+    nvcc = _nvcc()
+    units = [(src, f"{tmp}.{i}.o")
+             for i, src in enumerate(s for s in sources if s.endswith(".cu"))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                         for src, obj in units)]
+    log = []
+    try:
+        for cmd, proc in procs:
+            log.append(proc.communicate(timeout=120)[0])
+            if proc.returncode != 0:
+                print(log[-1], flush=True)
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+        cmd = [nvcc, "-shared", "-o", tmp, *[obj for _, obj in units]]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=120)
+        if proc.returncode != 0:
+            print(proc.stdout, proc.stderr, sep="\n", flush=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for _, obj in units:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        print(proc.stdout, proc.stderr, sep="\n", flush=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
     os.replace(tmp, lib_path)
     build_info.update(path=lib_path, seconds=seconds, reused=False,
-                      log=(proc.stdout + proc.stderr).strip())
+                      log="\n".join(log).strip())
     return lib_path
+
+
+def _cuobjdump():
+    path = shutil.which("cuobjdump")
+    if path is None and os.path.isfile("/usr/local/cuda/bin/cuobjdump"):
+        path = "/usr/local/cuda/bin/cuobjdump"
+    if path is None:
+        raise RuntimeError("cuobjdump not found: the SASS cannot be read")
+    return path
+
+
+def sass_atomics(lib_path=None):
+    """{kernel function (mangled): [its atomic/reduction SASS
+    instructions]} of the built library, from `cuobjdump -sass`: the
+    evidence of which atomics the compiler emitted."""
+    lib_path = lib_path or build()
+    proc = subprocess.run([_cuobjdump(), "-sass", lib_path],
+                          capture_output=True, text=True, timeout=120,
+                          check=True)
+    found, current = {}, None
+    for line in proc.stdout.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            current = line[len("Function : "):]
+            found[current] = []
+        elif current is not None and line.startswith("/*"):
+            tokens = line.split("*/", 1)[-1].split()
+            if tokens and tokens[0].startswith("@"):  # a predicate
+                tokens = tokens[1:]
+            if tokens and tokens[0].startswith(("RED", "ATOM")):
+                found[current].append(tokens[0])
+    return found
 
 
 def library():

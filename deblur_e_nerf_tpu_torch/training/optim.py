@@ -10,8 +10,12 @@ The update equals the JAX package's optax chain per parameter:
        [- default_lr * sched(t) * table_wd * p on table rows >= start_row]
 where sched(t) = gamma ** (number of milestones <= t), t counting applied
 updates from 0. Frozen parameters are left out of the optimizer and get
-no gradient. An update whose loss or gradients are not finite is skipped
-whole: parameters, moments and the step count stay as they were.
+no gradient. With `skip_nonfinite` (the default, the JAX package's
+`trainer.skip_nonfinite_updates`), an update whose loss or gradients are
+not finite is skipped whole: parameters, moments and the step count stay
+as they were. The skip is decided on the device (`torch.where` on a
+device bool), so a step reads nothing back to the host; the count and the
+schedule scale are device tensors.
 """
 
 import torch
@@ -75,27 +79,27 @@ def trainable(name, model_configs):
     return not freeze.get("default", False)
 
 
-def multi_step_scale(count, milestones, gamma):
-    return gamma ** sum(1 for m in milestones if count >= m)
-
-
 class Optimizer:
     """Per-group Adam over the trainable parameters of a module."""
 
     def __init__(self, groups, milestones, gamma, table_decay=None,
-                 default_lr=None):
+                 default_lr=None, skip_nonfinite=True):
         """groups: [(label, lr, weight_decay, [(name, param), ...])];
         table_decay: (start_row, wd) for the 'hash_table' group."""
         self.groups = groups
-        self.milestones = list(milestones)
         self.gamma = gamma
         self.table_decay = table_decay
         self.default_lr = default_lr
-        self.count = 0
+        self.skip_nonfinite = skip_nonfinite
         self.state = {}
         for _, _, _, named in groups:
             for _, p in named:
                 self.state[p] = (torch.zeros_like(p), torch.zeros_like(p))
+        params = self.params()
+        device = params[0].device if params else torch.device("cpu")
+        self.milestones = torch.tensor(list(milestones), dtype=torch.int64,
+                                       device=device)
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
 
     def params(self):
         return [p for _, _, _, named in self.groups for _, p in named]
@@ -106,18 +110,29 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, loss=None):
-        """Apply one update; returns False (and changes nothing) when the
-        loss or any gradient is not finite."""
-        grads = [p.grad for p in self.params() if p.grad is not None]
-        checks = [torch.isfinite(g).all() for g in grads]
-        if loss is not None:
-            checks.append(torch.isfinite(loss).all())
-        if checks and not bool(torch.stack(checks).all()):
-            return False
-        sched = multi_step_scale(self.count, self.milestones, self.gamma)
-        t = self.count + 1
-        bc1 = 1.0 - B1 ** t
-        bc2 = 1.0 - B2 ** t
+        """Apply one update. Returns a device bool: True where the update
+        was applied, False where it was skipped (a non-finite loss or
+        gradient with `skip_nonfinite`)."""
+        ok = torch.ones((), dtype=torch.bool, device=self.count.device)
+        if self.skip_nonfinite:
+            checks = [torch.isfinite(p.grad).all() for p in self.params()
+                      if p.grad is not None]
+            if loss is not None:
+                checks.append(torch.isfinite(loss).all())
+            if checks:
+                ok = torch.stack(checks).all()
+
+        def commit(dst, new):
+            dst.copy_(torch.where(ok, new, dst) if self.skip_nonfinite
+                      else new)
+
+        # sched(t) and the bias corrections in float64 on the device,
+        # rounded to float32 once
+        n_passed = (self.count >= self.milestones).sum()
+        sched = (self.gamma ** n_passed.to(torch.float64)).float()
+        t = (self.count + 1).to(torch.float64)
+        bc1 = (1.0 - B1 ** t).float()
+        bc2 = (1.0 - B2 ** t).float()
         for label, lr, wd, named in self.groups:
             for _, p in named:
                 if p.grad is None:
@@ -126,21 +141,26 @@ class Optimizer:
                 if wd:
                     g = g + wd * p
                 m, v = self.state[p]
-                m.mul_(B1).add_(g, alpha=1.0 - B1)
-                v.mul_(B2).addcmul_(g, g, value=1.0 - B2)
-                upd = (m / bc1) / (torch.sqrt(v / bc2) + EPS)
+                m_new = m.mul(B1).add_(g, alpha=1.0 - B1)
+                v_new = v.mul(B2).addcmul_(g, g, value=1.0 - B2)
+                upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + EPS)
+                p_new = p.clone()
                 if label == "hash_table" and self.table_decay is not None:
                     start_row, table_wd = self.table_decay
-                    p[start_row:].sub_(
-                        self.default_lr * sched * table_wd * p[start_row:])
-                p.sub_(lr * sched * upd)
-        self.count += 1
-        return True
+                    p_new[start_row:].sub_(
+                        (self.default_lr * table_wd) * sched
+                        * p_new[start_row:])
+                p_new.sub_((lr * sched) * upd)
+                commit(m, m_new)
+                commit(v, v_new)
+                commit(p, p_new)
+        self.count.add_(ok.to(torch.int64))
+        return ok
 
 
 def build(params, optimizer_config, lr_scheduler_config,
           nerf_mlp_weight_decay, max_refractory_period, steps_per_epoch,
-          model_configs, table_decay=None):
+          model_configs, table_decay=None, skip_nonfinite=True):
     """Build the Optimizer over `params` (an nn.Module) and freeze the
     parameters the config freezes (requires_grad False).
 
@@ -185,4 +205,5 @@ def build(params, optimizer_config, lr_scheduler_config,
         for label, named in grouped.items()
     ]
     return Optimizer(groups, milestones, gamma, table_decay=table_decay,
-                     default_lr=default_lr), mask
+                     default_lr=default_lr,
+                     skip_nonfinite=skip_nonfinite), mask

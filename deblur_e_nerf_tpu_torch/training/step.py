@@ -29,6 +29,7 @@ from ..models import (contraction as contraction_lib, event_gen,
                       nerf_model, occupancy as occupancy_lib,
                       pixel_bandwidth, trajectory as trajectory_lib)
 from ..ops import samplers
+from ..utils.device import constant
 from . import loss as loss_lib
 
 
@@ -231,7 +232,7 @@ def _sparsity_prior(params, occ_state, draws, level_mask):
     device = cells.device
     coords = occupancy_lib.cell_coords(res, device, cells).to(torch.float32)
     u = (coords + draws["jitter"]) / res
-    aabb = torch.tensor(rc.aabb, dtype=torch.float32, device=device)
+    aabb = constant(rc.aabb, torch.float32, device)
     x = contraction_lib.contract_inv(u, aabb, rc.contraction_type)
     sigma = nerf_model.density_fn(model, x, level_mask)
     return torch.mean(1.0 - torch.exp(-sigma[..., 0] * rc.render_step_size))
@@ -351,8 +352,9 @@ def make_train_step(params, consts, optimizer, sc, loss_config):
     """Build step_fn(occ_state, batch, draws, level_mask=None) -> metrics.
 
     One step: loss -> backward -> optimizer update -> refractory-logit
-    projection. The optimizer skips an update whose loss or gradients are
-    not finite (`metrics["update_skipped"]`)."""
+    projection. The optimizer may skip an update whose loss or gradients
+    are not finite; `metrics["update_skipped"]` is that decision as a
+    device bool, so the step reads nothing back to the host."""
 
     def step_fn(occ_state, batch, draws, level_mask=None):
         optimizer.zero_grad()
@@ -363,7 +365,7 @@ def make_train_step(params, consts, optimizer, sc, loss_config):
         event_gen.clamp_refractory_logit(params.refractory_period,
                                          consts["refractory_period"])
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["update_skipped"] = not applied
+        metrics["update_skipped"] = ~applied
         return metrics
 
     return step_fn

@@ -4,17 +4,23 @@ training only:
   - occupancy updates: every optimizer step during warmup, then every
     `occ_grid.n` steps;
   - the dynamic active-batch-size controller;
-  - metrics consumed one step behind (the host reads step s-1's scalars
-    after step s is queued on the device);
-  - an update whose loss or gradients are not finite is skipped, and the
-    run stops after 25 consecutive skipped updates. (The JAX package skips
-    on non-finite gradients but counts non-finite losses, so a finite loss
+  - metrics consumed one step behind: each step queues one non-blocking
+    device-to-host copy of its scalars (and, on a logged step, of the
+    physics scalars), and the host waits for step s-1's copy after step s
+    is queued, so the loop itself never synchronizes the device;
+  - with `trainer.skip_nonfinite_updates` (default true) an update whose
+    loss or gradients are not finite is skipped on the device, and the run
+    stops after 25 consecutive skipped updates. (The JAX package skips on
+    non-finite gradients but counts non-finite losses, so a finite loss
     with NaN gradients is skipped without counting; here both count.)
+    With it false the update is applied and the run stops at the first
+    non-finite loss, as in the JAX package;
   - scalars go to `metrics.jsonl` in the log directory, one JSON object
     per logged step.
 
-Evaluation, checkpoints and resume are still to be ported (ROADMAP
-Queue A 9 and 11).
+Evaluation, checkpoints, resume, gradient accumulation and the
+evaluation EMA of the parameters (`trainer.ema_decay`) are still to be
+ported (ROADMAP Queue A 9 and 11).
 """
 
 import json
@@ -68,6 +74,12 @@ class Trainer:
         if int(config.trainer.get("accumulate_grad_batches") or 1) != 1:
             raise NotImplementedError(
                 "gradient accumulation is not ported yet (ROADMAP Queue A 9)")
+        if float(config.trainer.get("ema_decay") or 0.0) > 0.0:
+            raise NotImplementedError(
+                "trainer.ema_decay (the evaluation EMA of the parameters) "
+                "is not ported yet (ROADMAP Queue A 9)")
+        self.skip_nonfinite = bool(
+            config.trainer.get("skip_nonfinite_updates", True))
         _set_matmul_precision(config.get("float32_matmul_precision"))
 
         root = config.data.dataset_directory
@@ -88,6 +100,7 @@ class Trainer:
                            ("contrast_threshold", "refractory_period",
                             "nerf", "pixel_bandwidth")},
             table_decay=model.table_decay,
+            skip_nonfinite=self.skip_nonfinite,
         )
         self.step_fn = step_lib.make_train_step(
             self.params, self.bundle.consts, self.optimizer,
@@ -138,35 +151,71 @@ class Trainer:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
-    def _consume_metrics(self, step, metrics):
+    def _logs(self, step):
+        return step % self.log_every == 0 or step == 1
+
+    def _physics_scalars(self):
+        """The physical quantities behind the parameters, as tensors."""
+        p, c = self.params, self.bundle.consts
+        _, _, mean_ct = event_gen.contrast_thresholds(
+            p.contrast_threshold, c["contrast_threshold"])
+        tau = event_gen.refractory_period(p.refractory_period,
+                                          c["refractory_period"])
+        physics = {"train/mean_contrast_threshold": mean_ct,
+                   "train/refractory_period": tau}
+        if hasattr(p, "pixel_bandwidth"):
+            eff = pixel_bandwidth.effective_params(p.pixel_bandwidth)
+            physics.update({f"train/pixel_bandwidth/{k}": v
+                            for k, v in eff.items()})
+        return physics
+
+    @torch.no_grad()
+    def _stage_metrics(self, step, metrics):
+        """Queue the copy of step `step`'s scalars to the host; returns
+        what `_consume_metrics` reads."""
+        scalars = {k: v for k, v in metrics.items()
+                   if torch.is_tensor(v) and v.numel() == 1}
+        if self._logs(step):
+            scalars.update(self._physics_scalars())
+        stacked = torch.stack([
+            torch.as_tensor(v, device=self.device).detach().reshape(())
+            .to(torch.float64) for v in scalars.values()])
+        event = None
+        if stacked.device.type == "cuda":
+            # a pinned host buffer, filled when the device reaches here
+            stacked = stacked.to("cpu", non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        return step, list(scalars), stacked, event
+
+    def _consume_metrics(self, step, names, values, event):
         """Host-side processing of one step's metrics (one step behind)."""
-        scalars = {k: float(v) for k, v in metrics.items()
-                   if not torch.is_tensor(v) or v.numel() == 1}
+        if event is not None:
+            event.synchronize()
+        scalars = dict(zip(names, values.tolist()))
+        physics = {k: scalars.pop(k) for k in list(scalars)
+                   if k.startswith("train/")}
         self.last_metrics = scalars
         self.batch_controller.update(scalars["mean_num_samples_per_ray"])
-        if scalars["update_skipped"]:
+        if self.skip_nonfinite:
+            bad = bool(scalars["update_skipped"])
+            limit = NONFINITE_STREAK_LIMIT
+        else:
+            bad = not math.isfinite(scalars["loss"])
+            limit = 1
+        if bad:
             self._nonfinite_streak += 1
-            print(f"WARNING: skipped a non-finite update at step {step} "
-                  f"(loss {scalars['loss']}, streak "
-                  f"{self._nonfinite_streak})", flush=True)
-            if self._nonfinite_streak >= NONFINITE_STREAK_LIMIT:
+            print(f"WARNING: non-finite update at step {step} (loss "
+                  f"{scalars['loss']}, update "
+                  f"{'skipped' if self.skip_nonfinite else 'APPLIED'}, "
+                  f"streak {self._nonfinite_streak})", flush=True)
+            if self._nonfinite_streak >= limit:
                 raise FloatingPointError(
                     f"{self._nonfinite_streak} consecutive non-finite "
                     f"updates (at step {step}); metrics: {scalars}")
         else:
             self._nonfinite_streak = 0
-        if step % self.log_every == 0 or step == 1:
-            p, c = self.params, self.bundle.consts
-            _, _, mean_ct = event_gen.contrast_thresholds(
-                p.contrast_threshold, c["contrast_threshold"])
-            tau = event_gen.refractory_period(p.refractory_period,
-                                              c["refractory_period"])
-            physics = {"train/mean_contrast_threshold": float(mean_ct),
-                       "train/refractory_period": float(tau)}
-            if hasattr(p, "pixel_bandwidth"):
-                eff = pixel_bandwidth.effective_params(p.pixel_bandwidth)
-                physics.update({f"train/pixel_bandwidth/{k}": float(v)
-                                for k, v in eff.items()})
+        if self._logs(step):
             self.writer.write(step, {
                 **{f"train/{k}": v for k, v in scalars.items()
                    if math.isfinite(v)},
@@ -196,7 +245,8 @@ class Trainer:
                                                       self.device))
         self.global_step += 1
         prev = self._pending_metrics
-        self._pending_metrics = (self.global_step, metrics)
+        self._pending_metrics = self._stage_metrics(self.global_step,
+                                                    metrics)
         if prev is not None:
             self._consume_metrics(*prev)
         return metrics

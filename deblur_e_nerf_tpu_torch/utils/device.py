@@ -4,7 +4,30 @@ Entry points run on CUDA unless the caller asks for the CPU explicitly;
 without a GPU they raise — they never fall back to the CPU quietly.
 """
 
+import functools
+
 import torch
+
+
+def _frozen(values):
+    if isinstance(values, (list, tuple)):
+        return tuple(_frozen(v) for v in values)
+    return values
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values, dtype, device):
+    return torch.tensor(values, dtype=dtype).to(device)
+
+
+def constant(values, dtype, device):
+    """A small constant tensor (numbers, nested lists or tuples) on
+    `device`, copied there once per process: torch.tensor(..., device=
+    "cuda") would copy from the host on every call, and a blocking copy
+    waits for the device. Callers must not write to it."""
+    if hasattr(values, "tolist"):  # a CPU tensor or numpy array
+        values = values.tolist()
+    return _constant(_frozen(values), dtype, torch.device(device))
 
 
 def resolve_device(device=None):

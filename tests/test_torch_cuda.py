@@ -49,6 +49,64 @@ def test_scatter_kernel_matches_plain(cuda, n, n_rows, width):
     assert float((out.cpu().double() - exact).abs().max()) <= bound
 
 
+K1_KINDS = ["uniform", "empty_tail", "ray_runs", "one_run", "all_zero",
+            "signed_zeros", "nonfinite", "out_of_range"]
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 4, 8, 16, 32])
+@pytest.mark.parametrize("kind", K1_KINDS)
+def test_scatter_kernel_matches_plain_and_model(cuda, kind, width):
+    """The kernel against index_add_, the plain model of its summation
+    order and float64, through chip_smoke's check: 2 (k - 1) eps sum|x|
+    for a row of k non-zero contributions, non-finite entries exactly
+    (NaN and infinities reach the table as index_add_ puts them there),
+    out-of-range indices add nothing. 20,001 rows: every vector path, the
+    ragged last row group, a long run of one index, +-0 rows."""
+    n, n_rows = 20001, 997
+    idx, val = chip_smoke.k1_inputs(kind, n, n_rows, width, seed=width)
+    i = torch.from_numpy(idx).to(cuda)
+    v = torch.from_numpy(val).to(cuda)
+    before = scatter_rows.LAUNCHES
+    out = scatter_rows.scatter_add_rows(i, v, n_rows)
+    torch.cuda.synchronize()
+    assert scatter_rows.LAUNCHES == before + 1
+    errs, tol = chip_smoke.k1_check(torch, out, i, v, n_rows, kind)
+    assert max(errs) <= tol
+    if kind in ("empty_tail", "all_zero", "signed_zeros"):
+        # skipped zero rows leave +0.0, as index_add_ from +0.0 does
+        plain = scatter_rows.scatter_add_rows_reference(
+            i[(i >= 0) & (i < n_rows)], v[(i >= 0) & (i < n_rows)], n_rows)
+        zero = plain == 0
+        assert not bool(torch.signbit(out[zero]).any())
+
+
+@pytest.mark.parametrize("width", [2, 16])
+def test_scatter_kernel_rejects_misaligned_views(cuda, width):
+    """A contiguous view 4 bytes into its storage cannot take the float2 /
+    float4 chunks: the wrapper raises instead of falling back."""
+    buf = torch.zeros(64 * width + 1, device=cuda)
+    val = buf[1:].view(64, width)
+    assert val.is_contiguous()
+    idx = torch.zeros(64, dtype=torch.int32, device=cuda)
+    before = scatter_rows.LAUNCHES
+    with pytest.raises(ValueError, match="aligned"):
+        scatter_rows.scatter_add_rows(idx, val, 3)
+    assert scatter_rows.LAUNCHES == before
+
+
+def test_scatter_kernel_long_run_at_main_path_width(cuda):
+    """2^20 rows at one index (the empty-slot pile-up, with values): one
+    atomic per 8-row group, the sum within the stated bound."""
+    n, n_rows, width = 1 << 20, 4096, 16
+    idx, val = chip_smoke.k1_inputs("one_run", n, n_rows, width, seed=7)
+    i = torch.from_numpy(idx).to(cuda)
+    v = torch.from_numpy(val).to(cuda)
+    out = scatter_rows.scatter_add_rows(i, v, n_rows)
+    torch.cuda.synchronize()
+    errs, tol = chip_smoke.k1_check(torch, out, i, v, n_rows, "long run")
+    assert max(errs) <= tol
+
+
 def test_scatter_wrapper_raises_instead_of_falling_back(cuda):
     idx = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):

@@ -16,14 +16,22 @@ import torch
 
 from deblur_e_nerf_tpu.data import events as jevents
 from deblur_e_nerf_tpu.data import synthetic as jsynthetic
+from deblur_e_nerf_tpu.models import contraction as jcontraction
 from deblur_e_nerf_tpu.models import nerf_model as jnerf
+from deblur_e_nerf_tpu.models import pixel_bandwidth as jpb
+from deblur_e_nerf_tpu.models import renderer as jrenderer
+from deblur_e_nerf_tpu.models import trajectory as jtrajectory
 from deblur_e_nerf_tpu.training import optim as joptim
 from deblur_e_nerf_tpu.training import pipeline as jpipeline
 from deblur_e_nerf_tpu.training import setup as jsetup
 from deblur_e_nerf_tpu.training import step as jstep
 from deblur_e_nerf_tpu.utils.config import load_config as jload_config
 from deblur_e_nerf_tpu_torch import convert
+from deblur_e_nerf_tpu_torch.models import nerf_model as tnerf
 from deblur_e_nerf_tpu_torch.models import occupancy as tocc
+from deblur_e_nerf_tpu_torch.models import pixel_bandwidth as tpb
+from deblur_e_nerf_tpu_torch.models import renderer as trenderer
+from deblur_e_nerf_tpu_torch.models import trajectory as ttrajectory
 from deblur_e_nerf_tpu_torch.training import optim as toptim
 from deblur_e_nerf_tpu_torch.training import setup as tsetup
 from deblur_e_nerf_tpu_torch.training import step as tstep
@@ -242,6 +250,93 @@ def test_filter_on_step_loss_and_grads_match_jax(dataset, filter_on_jax,
         assert float(got[name].grad.abs()) > 0, name
 
 
+def _hand_jax_samples_to_port(monkeypatch, j, dataset):
+    """Make the port's filter-on step render the JAX step's sample set: the
+    port's sample lifetimes, poses, ray directions and march take the JAX
+    package's values (the poses and directions keep the port's gradient
+    through a straight-through difference, which is exact when the two
+    differ by ulps). What stays the port's own: the filter's weights
+    (expm, FOH), the field, the compositing, the loss and every
+    gradient."""
+    jbundle, _ = jsetup.build(j["cfg"], str(dataset),
+                              sample_budget=j["budget"],
+                              batch_capacity=j["capacity"])
+    jconsts = jbundle.consts
+
+    def sample_lifetimes(params, consts, normalized_interval_gen):
+        return torch.tensor(np.asarray(jax.jit(
+            lambda g: jpb.sample_lifetimes(None, jconsts["pixel_bandwidth"],
+                                           g))(
+                normalized_interval_gen.numpy())))
+
+    port_pose = ttrajectory.interpolate_pose
+
+    def interpolate_pose(trajectory, timestamp, timestamp_delta=None):
+        pos, orient = port_pose(trajectory, timestamp, timestamp_delta)
+        pos_j, orient_j = jax.jit(
+            lambda t, dt: jtrajectory.interpolate_pose(
+                jconsts["trajectory"], t, dt))(
+            timestamp.numpy(), timestamp_delta.detach().numpy())
+        return (pos + (torch.tensor(np.asarray(pos_j)) - pos).detach(),
+                orient + (torch.tensor(np.asarray(orient_j))
+                          - orient).detach())
+
+    port_ray = tnerf.pixel_params_to_ray
+
+    def pixel_params_to_ray(intrinsics_inv, pixel, pos, orient):
+        rays_o, rays_d = port_ray(intrinsics_inv, pixel, pos, orient)
+        _, d_j = jax.jit(jnerf.pixel_params_to_ray)(
+            intrinsics_inv.numpy(), pixel.numpy(), pos.detach().numpy(),
+            orient.detach().numpy())
+        return rays_o, rays_d + (torch.tensor(np.asarray(d_j))
+                                 - rays_d).detach()
+
+    def march_rays(binary, rays_o, rays_d, ray_mask, jitter, rc):
+        fields = {f: getattr(rc, f)
+                  for f in jrenderer.RenderConfig.__dataclass_fields__
+                  if hasattr(rc, f)}
+        fields["contraction_type"] = jcontraction.ContractionType[
+            rc.contraction_type.name]
+        jrc = jrenderer.RenderConfig(**fields)
+        assert jrc.stratified
+        # the JAX march draws its jitter from a key: hand it the port's
+        with monkeypatch.context() as m:
+            m.setattr(jax.random, "uniform",
+                      lambda key, shape, dtype=None: jnp.asarray(
+                          jitter.numpy()))
+            samples = jax.jit(lambda b, o, d, mask: jrenderer.march_rays(
+                b, o, d, mask, jax.random.PRNGKey(0), jrc))(
+                binary.numpy(), rays_o.numpy(), rays_d.numpy(),
+                ray_mask.numpy())
+        return trenderer.RaySamples(**{
+            f: None if getattr(samples, f) is None else torch.tensor(
+                np.asarray(getattr(samples, f))).to(
+                    torch.bool if f == "coarse_complete" else
+                    torch.float32 if f in ("t_mid", "dt") else torch.int64)
+            for f in trenderer.RaySamples._fields})
+
+    monkeypatch.setattr(tpb, "sample_lifetimes", sample_lifetimes)
+    monkeypatch.setattr(ttrajectory, "interpolate_pose", interpolate_pose)
+    monkeypatch.setattr(tnerf, "pixel_params_to_ray", pixel_params_to_ray)
+    monkeypatch.setattr(trenderer, "march_rays", march_rays)
+
+
+@pytest.mark.parametrize("it_sample_size", sorted(FILTER_ON_CASES))
+def test_filter_on_step_matches_jax_tightly_on_its_sample_set(
+        dataset, filter_on_jax, monkeypatch, it_sample_size):
+    """The filter-on step at the filter-off test's tolerances (marched
+    samples 1e-6 relative, every gradient, the filter parameters' too,
+    within 2e-4 of its largest entry), once the port renders the JAX
+    step's sample set: the loose tolerances of the test above are then
+    only the ulp-level differences of XLA's and torch's lifetimes
+    (log1p), poses (slerp), ray directions and march arithmetic, which
+    move single samples across a march or cell boundary."""
+    j = filter_on_jax[it_sample_size]
+    _hand_jax_samples_to_port(monkeypatch, j, dataset)
+    _assert_port_step_matches(j, dataset, samples_rtol=1e-6, grad_atol=2e-4,
+                              pb_grad_atol=2e-4)
+
+
 def test_filter_on_overflow_masks_tail_events_and_names_the_divergence(
         dataset):
     """When the step's samples overflow the budget, the JAX package
@@ -377,6 +472,117 @@ def test_optimizer_skips_nonfinite_updates():
     p.grad = torch.ones(3)
     assert not opt.step(loss=torch.tensor(float("inf")))
     assert opt.step(loss=torch.tensor(1.0)) and opt.count == 1
+
+
+def _adam_with_moments():
+    """An optimizer with non-zero moments and a count of 1, and its
+    parameter."""
+    p = torch.nn.Parameter(torch.linspace(-1.0, 1.0, 6))
+    opt = toptim.Optimizer([("default", 0.1, 0.0, [("p", p)])], [1], 0.5)
+    p.grad = torch.linspace(0.5, -0.5, 6)
+    assert bool(opt.step(loss=torch.tensor(1.0)))
+    return opt, p
+
+
+@pytest.mark.parametrize("fault", ["nan_grad", "inf_loss"])
+def test_optimizer_skip_is_decided_on_the_device(fault):
+    """A non-finite gradient or loss leaves the parameters, both Adam
+    moments and the count as they were, decided without a host read: the
+    step returns a device bool and the count is a device tensor."""
+    opt, p = _adam_with_moments()
+    before = [t.detach().clone() for t in (p, *opt.state[p])]
+    p.grad = torch.ones(6)
+    loss = torch.tensor(1.0)
+    if fault == "nan_grad":
+        p.grad[2] = float("nan")
+    else:
+        loss = torch.tensor(float("inf"))
+    applied = opt.step(loss=loss)
+    assert torch.is_tensor(applied) and applied.dtype == torch.bool
+    assert not bool(applied)
+    assert torch.is_tensor(opt.count) and int(opt.count) == 1
+    for want, got in zip(before, (p, *opt.state[p])):
+        assert torch.equal(got.detach(), want)
+    p.grad = torch.ones(6)
+    assert bool(opt.step(loss=torch.tensor(1.0))) and int(opt.count) == 2
+
+
+def test_optimizer_without_skip_applies_nonfinite_update():
+    """skip_nonfinite False (trainer.skip_nonfinite_updates: false): the
+    non-finite update is applied, as in the JAX package."""
+    p = torch.nn.Parameter(torch.ones(3))
+    opt = toptim.Optimizer([("default", 0.1, 0.0, [("p", p)])], [], 1.0,
+                           skip_nonfinite=False)
+    p.grad = torch.tensor([1.0, float("nan"), 0.0])
+    assert bool(opt.step(loss=torch.tensor(1.0)))
+    assert int(opt.count) == 1
+    assert bool(torch.isnan(p.detach()[1]))
+    assert float(p.detach()[0]) == pytest.approx(0.9)
+
+
+def _trainer_with_nan_loss(dataset, tmp_path, monkeypatch, skip):
+    """A filter-off trainer whose step losses are all NaN."""
+    cfg = ConfigDict.from_dict(small_config(dataset).to_dict())
+    cfg.trainer.log_every_n_steps = 1
+    cfg.trainer.skip_nonfinite_updates = skip
+    trainer = Trainer(cfg, str(tmp_path / "log"), batch_capacity=CAPACITY,
+                      sample_budget=BUDGET, device="cpu")
+    port_loss = tstep.compute_loss
+
+    def nan_loss(*args, **kwargs):
+        loss, metrics = port_loss(*args, **kwargs)
+        loss = loss * float("nan")
+        return loss, dict(metrics, loss=loss)
+
+    monkeypatch.setattr(tstep, "compute_loss", nan_loss)
+    return trainer
+
+
+def test_trainer_skips_nonfinite_update_and_reads_it_a_step_behind(
+        dataset, tmp_path, monkeypatch):
+    """trainer.skip_nonfinite_updates (default true): the NaN step's update
+    is skipped on the device (the table and the count stay), its
+    `update_skipped` is a device tensor, and the host reads it one step
+    behind without stopping the run."""
+    trainer = _trainer_with_nan_loss(dataset, tmp_path, monkeypatch, True)
+    table0 = trainer.params.nerf.field.table.detach().clone()
+    metrics = trainer.train_step()
+    assert torch.is_tensor(metrics["update_skipped"])
+    assert bool(metrics["update_skipped"])
+    assert trainer.last_metrics is None  # nothing read yet
+    trainer.train_step()
+    assert trainer.last_metrics["update_skipped"] == 1.0
+    assert trainer._nonfinite_streak == 1
+    assert torch.equal(trainer.params.nerf.field.table.detach(), table0)
+    assert int(trainer.optimizer.count) == 0
+
+
+def test_trainer_without_skip_applies_update_and_stops_at_first_nan_loss(
+        dataset, tmp_path, monkeypatch):
+    """trainer.skip_nonfinite_updates: false, as the JAX package reads it:
+    the non-finite update is applied and the run stops at the first
+    non-finite loss (read one step behind)."""
+    trainer = _trainer_with_nan_loss(dataset, tmp_path, monkeypatch, False)
+    trainer.train_step()
+    assert bool(torch.isnan(trainer.params.nerf.field.table).any())
+    assert int(trainer.optimizer.count) == 1
+    with pytest.raises(FloatingPointError, match="non-finite"):
+        trainer.train_step()
+
+
+def test_trainer_ema_decay_raises_naming_roadmap_item(dataset, tmp_path):
+    """trainer.ema_decay (the JAX package's evaluation EMA of the
+    parameters) is not ported: a positive decay raises instead of being
+    ignored; 0 (the flagship's, by omission) trains."""
+    cfg = ConfigDict.from_dict(small_config(dataset).to_dict())
+    cfg.trainer.ema_decay = 0.999
+    with pytest.raises(NotImplementedError,
+                       match=r"ema_decay.*ROADMAP Queue A 9"):
+        Trainer(cfg, str(tmp_path / "log"), batch_capacity=CAPACITY,
+                sample_budget=BUDGET, device="cpu")
+    cfg.trainer.ema_decay = 0.0
+    Trainer(cfg, str(tmp_path / "log0"), batch_capacity=CAPACITY,
+            sample_budget=BUDGET, device="cpu")
 
 
 def test_trainer_runs_on_cpu_and_logs(dataset, tmp_path):
