@@ -9,13 +9,24 @@ Phases, each printing a start and an end line with elapsed seconds:
   2. build: the CUDA kernels, with nvcc from the sources in this checkout,
      and the atomics the compiler emitted for each scatter-add instance
      (cuobjdump -sass): the main path's widths must use vector reductions;
+     for each gather instance of the main path, its registers and spills
+     (-Xptxas -v) and its SASS load and store forms: its stores must be
+     16-byte vectors; the corner sum's main instances' registers and
+     spills;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main paths' shapes (and the Pallas probes K2/K3's), with times of
-     the kernel, the plain version and one PyTorch library call computing
+     the kernel, the plain version and the PyTorch library calls computing
      the same function; the scatter-add also against the plain model of
      its summation order, on uniform indices and on the training step's
      index structures (the empty-slot tail, ray-ordered runs), and its
-     wrapper's host time per call beside its profiled kernel time;
+     wrapper's host time per call beside its profiled kernel time; the
+     gather bit for bit in both output types (float32 rows, bf16 rows),
+     on uniform indices and ray-ordered runs, the vertex-hash level's in
+     sample-major and corner-major order, beside index_select and
+     advanced indexing (tbl[idx64]), each with its bound by output type;
+     the corner sum bit for bit against the plain model of its order and
+     within the summation-order bound of the plain version, in both row
+     types, beside torch.bmm for float32 rows;
   4. training, two paths of configs/train/synthetic.yaml at full width on
      a synthetic dataset, each with the kernels' launch counts set to 0
      just before it and read just after:
@@ -23,10 +34,12 @@ Phases, each printing a start and an end line with elapsed seconds:
           occupancy update;
        b. the flagship as written (pixel-bandwidth filter on, S = 30, the
           default sample budget K = 15,728,640): 3 steps (with --profile,
-          each profiled, then 3 more past the occupancy warmup), then one
-          steady step (past the warmup) under
-          torch.cuda.set_sync_debug_mode("warn"), whose host syncs are
-          counted by source line (none may come from the optimizer);
+          each profiled, then 3 more past the occupancy warmup, with the
+          per-call device times of each kernel), then one steady step
+          (past the warmup) under torch.cuda.set_sync_debug_mode("warn"),
+          whose host syncs are counted by source line (none may come from
+          the optimizer) and whose kernel launches must be 16 of each
+          (one per hash level);
   5. reference: on small inputs, the card (through the kernels) against
      the plain version on the CPU: the NGP field's outputs and table
      gradient, and one filter-on step's loss and gradients.
@@ -54,6 +67,9 @@ SCATTER_SOURCE = "deblur_e_nerf_tpu_torch/csrc/scatter_rows.cu"
 SCATTER_REPLACES = "deblur_e_nerf_tpu/ops/pallas_scatter.py:46"
 GATHER_SOURCE = "deblur_e_nerf_tpu_torch/csrc/gather_rows.cu"
 GATHER_REPLACES = "scripts/perf_microbench.py:190"
+# no Pallas kernel: the weighted corner sum XLA fuses into the JAX encode
+CORNER_SUM_SOURCE = "deblur_e_nerf_tpu_torch/csrc/corner_sum.cu"
+CORNER_SUM_REPLACES = "deblur_e_nerf_tpu/models/hash_encoding.py:290"
 # the flagship's default sample budget K: train_eff_ray_sample_batch_size
 # (131072) x S (30 with the filter on) x 4 render slices (diff and subdiff
 # start/end)
@@ -219,7 +235,14 @@ def phase_build():
           f"(reused: {info['reused']})", flush=True)
     if info["log"]:
         print(info["log"], flush=True)
-    check_scatter_sass(_cuda_build.sass_atomics(info["path"]))
+    check_scatter_sass(_cuda_build.sass_instructions(info["path"]))
+    ptxas = _cuda_build.ptxas_summary(info["log"])
+    check_gather_build(
+        _cuda_build.sass_instructions(info["path"], ("LDG", "STG"),
+                                      operands=True), ptxas)
+    for fn, summary in sorted(ptxas.items()):
+        if "corner_sum_kernel" in fn and "Li2E" in fn:  # F = 2
+            print(f"corner_sum ({fn}): ptxas [{summary}]", flush=True)
     return info
 
 
@@ -246,6 +269,41 @@ def check_scatter_sass(atomics):
         if not vector or any(op.startswith("ATOM") for op in ops):
             raise AssertionError(f"scatter_add_rows {width}: no vector RED "
                                  f"in the SASS ({sorted(set(ops))})")
+
+
+# the gather instances of the main path, by their mangled names and
+# template arguments <W, bf16 rows, ...>
+GATHER_MAIN_INSTANCES = {
+    "W=2, bf16 rows": "gather_rows_kernel_w2ILb1E",
+    "W=2, float32 rows": "gather_rows_kernel_w2ILb0E",
+    "W=16, bf16 rows": "gather_rows_kernel_wideILi16ELb1E",
+    "W=16, float32 rows": "gather_rows_kernel_wideILi16ELb0E",
+}
+
+
+def check_gather_build(sass, ptxas):
+    """Print each main-path gather instance's registers and spills (from
+    the -Xptxas -v log) and its SASS load and store forms, each with the
+    operands of its first occurrence; fail unless the instance exists and
+    stores 16-byte vectors."""
+    for label, key in GATHER_MAIN_INSTANCES.items():
+        fns = [fn for fn in sass if key in fn]
+        if not fns:
+            raise AssertionError(f"gather_rows {label}: no such instance")
+        for fn in fns:
+            first = {}
+            for ins in sass[fn]:
+                first.setdefault(ins.split()[0], ins)
+            loads = [first[op] for op in sorted(first) if op.startswith("LDG")]
+            stores = sorted(op for op in first if op.startswith("STG"))
+            print(f"gather_rows {label} ({fn}): ptxas "
+                  f"[{ptxas.get(fn, 'not in the log (build reused)')}]; "
+                  f"sass loads "
+                  f"{loads}, stores {[first[op] for op in stores]}",
+                  flush=True)
+            if not any(op.endswith(".128") for op in stores):
+                raise AssertionError(f"gather_rows {label}: no 16-byte "
+                                     f"store in the SASS ({stores})")
 
 
 def k1_inputs(kind, n, n_rows, width, seed=0):
@@ -433,40 +491,147 @@ def k1_call_split(torch, scatter_rows, name, width, n_rows, n, calls=200):
     return row
 
 
-def gather_case(torch, gather_rows, name, width, n_rows, n, round_to, gen):
-    """The gather kernel against its plain version at one shape: bit for
-    bit (a copy, rounded to nearest even); returns the row."""
+def k3_indices(torch, kind, n, n_rows, seed=0, device="cuda"):
+    """K3's (n,) int32 indices on `device`: "uniform" in [0, n_rows), or
+    "ray_runs", K1's runs of equal indices (k1_inputs)."""
+    idx, _ = k1_inputs(kind, n, n_rows, 0, seed)
+    return torch.from_numpy(idx).to(device)
+
+
+def vertex_hash_indices(torch, n_samples, size, corner_major, seed=0,
+                        device="cuda"):
+    """The (8 n_samples,) corner rows that the encode gathers at the
+    flagship's vertex-hash level 6 for samples in ray-ordered runs: K1's
+    runs of equal indices (k1_inputs) over the level's cells, each sample
+    at a uniform position in its cell, through the encode's own index
+    function, sample-major or corner-major."""
+    from deblur_e_nerf_tpu_torch.models import hash_encoding
+
+    res = hash_encoding.level_resolutions(7, 16, 1.4472692012786865)[6]
+    cells, _ = k1_inputs("ray_runs", n_samples, res ** 3, 0, seed)
+    c = torch.from_numpy(cells).to(device).long()
+    del cells
+    xyz = torch.stack([c % res, c // res % res, c // (res * res)], dim=-1)
+    del c
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    u = (xyz + torch.rand(xyz.shape, generator=gen, device=device)) / res
+    del xyz
+    idx, _ = hash_encoding._level_indices_weights(
+        u, res, size, 0, "hash", torch.float32, corner_major=corner_major)
+    return idx.reshape(-1).to(torch.int32)
+
+
+def _bits(torch, t):
+    """t's bits as integers of its width (a bit-for-bit comparison)."""
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def gather_case(torch, gather_rows, name, width, n_rows, idx, kind, gen):
+    """The gather kernel against its plain version at one shape and index
+    structure, in both output types: bit for bit (a copy, rounded to
+    nearest even for bf16 rows); returns the two rows. The library calls
+    (index_select, advanced indexing) gather float32 rows of the same
+    table; each row's library_ms is the faster."""
     from deblur_e_nerf_tpu_torch import perf_microbench
 
-    idx = torch.randint(0, n_rows, (n,), generator=gen, device="cuda",
-                        dtype=torch.int32)
     tbl = torch.randn((n_rows, width), generator=gen, device="cuda")
-    out = gather_rows.gather_rows(tbl, idx, round_to)
-    plain = gather_rows.gather_rows_reference(tbl, idx, round_to)
-    torch.cuda.synchronize()
-    err = float((out - plain).abs().max())
-    exact = bool(torch.equal(out, plain))
-    del out, plain
     idx64 = idx.long()
-    ms = time_ms(lambda: gather_rows.gather_rows(tbl, idx, round_to))
-    plain_ms = time_ms(
-        lambda: gather_rows.gather_rows_reference(tbl, idx, round_to))
-    library_ms = time_ms(lambda: torch.index_select(tbl, 0, idx64))
-    bound_ms, bound_by = bound(perf_microbench.gather_bytes(tbl, idx))
-    rounding = "bf16" if round_to is not None else "none"
+    library = {"index_select": time_ms(
+                   lambda: torch.index_select(tbl, 0, idx64), iters=10),
+               "tbl[idx64]": time_ms(lambda: tbl[idx64], iters=10)}
+    del idx64
+    rows = []
+    for round_to in (torch.bfloat16, None):
+        out_dtype = round_to or torch.float32
+        out = gather_rows.gather_rows(tbl, idx, round_to)
+        plain = gather_rows.gather_rows_reference(tbl, idx, round_to)
+        torch.cuda.synchronize()
+        exact = out.dtype == plain.dtype == out_dtype and bool(
+            torch.equal(_bits(torch, out), _bits(torch, plain)))
+        err = float((out.float() - plain.float()).abs().max())
+        del out, plain
+        ms = time_ms(lambda: gather_rows.gather_rows(tbl, idx, round_to))
+        plain_ms = time_ms(lambda: gather_rows.gather_rows_reference(
+            tbl, idx, round_to), iters=10)
+        bound_ms, bound_by = bound(perf_microbench.gather_bytes(
+            tbl, idx, out_dtype))
+        call = min(library, key=library.get)
+        out_name = str(out_dtype).replace("torch.", "")
+        row = {
+            "shape": name, "index_structure": kind, "width": width,
+            "n_rows": n_rows, "n": idx.numel(), "out_dtype": out_name,
+            "max_abs_err": err, "bit_exact": exact, "tolerance": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library[call],
+            "library_call": call,
+            "index_select_ms": library["index_select"],
+            "advanced_indexing_ms": library["tbl[idx64]"],
+        }
+        print(f"gather_rows {name} ({kind}, {out_name} rows): W={width} "
+              f"n_rows={n_rows} N={idx.numel()} max_abs_err {err:.3e} "
+              f"(bit exact: {exact}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, index_select "
+              f"{library['index_select']:.4f} ms, tbl[idx64] "
+              f"{library['tbl[idx64]']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+        if not exact:
+            raise AssertionError(f"gather_rows {name} ({kind}, {out_name}): "
+                                 f"differs from plain")
+        rows.append(row)
+    return rows
+
+
+def corner_sum_case(torch, corner_sum, name, n, rows_dtype, gen):
+    """The corner-sum kernel at one shape and row type: bit for bit
+    against the plain model of its order, and within the summation order
+    bound of the plain version (any order of 8 terms is within 7 eps
+    sum|x| of the exact sum, and each side is: hence 2x); returns the row.
+    With float32 rows one PyTorch call computes the same function,
+    torch.bmm(w[:, None, :], rows) (library_ms); with bf16 rows none does
+    (bmm and einsum take no mixed dtypes), so library_ms is null there."""
+    rows = torch.randn((n, 8, 2), generator=gen, device="cuda").to(rows_dtype)
+    w = torch.rand((n, 8), generator=gen, device="cuda")
+    out = corner_sum.corner_sum(rows, w)
+    model = corner_sum.corner_sum_sequential(rows, w)
+    plain = corner_sum.corner_sum_reference(rows, w)
+    abs_sum = corner_sum.corner_sum_reference(rows.abs(), w)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(_bits(torch, out), _bits(torch, model)))
+    err = float((out - plain).abs().max())
+    tol = 2 * 7 * torch.finfo(torch.float32).eps * float(abs_sum.max())
+    library_ms = None
+    if rows_dtype == torch.float32:
+        lib_out = torch.bmm(w[:, None, :], rows)[:, 0]
+        lib_err = float((lib_out - plain).abs().max())
+        if not lib_err <= tol:
+            raise AssertionError(f"corner_sum {name}: torch.bmm differs "
+                                 f"from plain by {lib_err:.3e}")
+        del lib_out
+        library_ms = time_ms(lambda: torch.bmm(w[:, None, :], rows), iters=10)
+    del out, model, plain, abs_sum
+    ms = time_ms(lambda: corner_sum.corner_sum(rows, w))
+    plain_ms = time_ms(lambda: corner_sum.corner_sum_reference(rows, w),
+                       iters=10)
+    bound_ms, bound_by = bound(
+        rows.numel() * rows.element_size() + w.numel() * 4 + n * 2 * 4,
+        2 * rows.numel())
+    rows_name = str(rows_dtype).replace("torch.", "")
     row = {
-        "shape": name, "width": width, "n_rows": n_rows, "n": n,
-        "round": rounding, "max_abs_err": err, "bit_exact": exact,
-        "tolerance": 0.0, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "shape": name, "rows_dtype": rows_name, "n": n,
+        "max_abs_err": err, "bit_exact_vs_model": exact, "tolerance": tol,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
     }
-    print(f"gather_rows {name} (round {rounding}): W={width} n_rows="
-          f"{n_rows} N={n} max_abs_err {err:.3e} (bit exact: {exact}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+    library = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"corner_sum {name} ({rows_name} rows): N={n} max_abs_err "
+          f"{err:.3e} vs plain (tolerance {tol:.3e}), bit exact vs the model "
+          f"of its order: {exact}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, torch.bmm {library}, bound {bound_ms:.4f} ms ({bound_by})",
           flush=True)
-    if not exact:
-        raise AssertionError(f"gather_rows {name}: differs from plain")
+    if not (exact and err <= tol):
+        raise AssertionError(f"corner_sum {name} ({rows_name}): differs "
+                             f"from its plain versions")
     return row
 
 
@@ -483,7 +648,8 @@ def probe_case(case):
 
 
 def phase_kernels(torch):
-    from deblur_e_nerf_tpu_torch.ops import gather_rows, scatter_rows
+    from deblur_e_nerf_tpu_torch.ops import (corner_sum, gather_rows,
+                                             scatter_rows)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -524,26 +690,45 @@ def phase_kernels(torch):
         ("cellhash table, N=131072", 16, 65536, n),
         ("pallas_probe", perf_microbench.PROBE_WIDTH,
          perf_microbench.PROBE_TABLE_ROWS, perf_microbench.PROBE_ROWS))]
-    gather_cases = [
-        # the filter-on step's encode (and the occupancy update's):
-        # one gather per level over all K + 1 slots
-        ("main path: cellhash view, levels 7-15", 16, 65536, k1),
-        ("main path: packed dense level 0", 16, 16 ** 3, k1),
-        ("main path: packed dense level 4", 16, 70 ** 3, k1),
-        ("main path: vertex-hash levels 5-6", 2, 524288, 8 * k1),
+    # the filter-on step's encode (and the occupancy update's): one gather
+    # per level over all K + 1 slots, on uniform rows and on ray-ordered
+    # runs; the vertex-hash level's 8 corners per sample in both orders
+    vertex = "main path: vertex-hash levels 5-6"
+    gather_inputs = [
+        (name, width, n_rows, kind,
+         lambda n_rows=n_rows, kind=kind: k3_indices(torch, kind, k1, n_rows))
+        for name, width, n_rows in (
+            ("main path: cellhash view, levels 7-15", 16, 65536),
+            ("main path: packed dense level 0", 16, 16 ** 3),
+            ("main path: packed dense level 4", 16, 70 ** 3))
+        for kind in ("uniform", "ray_runs")]
+    gather_inputs += [
+        (vertex, 2, 524288, "uniform",
+         lambda: k3_indices(torch, "uniform", 8 * k1, 524288)),
+        (vertex, 2, 524288, "ray_runs, sample-major",
+         lambda: vertex_hash_indices(torch, k1, 524288, False)),
+        (vertex, 2, 524288, "ray_runs, corner-major",
+         lambda: vertex_hash_indices(torch, k1, 524288, True)),
     ]
-    gather = [gather_case(torch, gather_rows, *c, round_to, gen)
-              for c in gather_cases
-              for round_to in (torch.bfloat16, None)]
+    gather = []
+    for name, width, n_rows, kind, make_idx in gather_inputs:
+        gather += gather_case(torch, gather_rows, name, width, n_rows,
+                              make_idx(), kind, gen)
+        torch.cuda.empty_cache()
+    # the encode's weighted sum over each level's gathered rows, (N, 8, 2)
+    sums = [corner_sum_case(torch, corner_sum, "main path: every level", k1,
+                            rows_dtype, gen)
+            for rows_dtype in (torch.bfloat16, torch.float32)]
     torch.cuda.empty_cache()
     scatter.append(probe_case("pallas_probe"))
     gather.append(probe_case("pallas_gather_probe"))
     return {"scatter_add_rows": scatter, "gather_rows": gather,
-            "scatter_add_rows_call_split": splits}
+            "corner_sum": sums, "scatter_add_rows_call_split": splits}
 
 
 KERNEL_NAMES = {"scatter_add_rows": "scatter_add_rows_kernel",
-                "gather_rows": "gather_rows_kernel"}
+                "gather_rows": "gather_rows_kernel",
+                "corner_sum": "corner_sum_kernel"}
 
 
 def _device_table(prof, label, n):
@@ -580,6 +765,16 @@ def _kernel_calls(prof, name):
                     if e.device_type == DeviceType.CUDA and key in e.name),
                    key=lambda e: e.time_range.start)
     return [e.time_range.elapsed_us() / 1e3 for e in calls]
+
+
+def _per_call(prof):
+    """The port's kernels' device ms per launch, in launch order (one per
+    hash level in the encode; the warmup occupancy update's gathers
+    follow the step's)."""
+    return "; ".join(
+        f"{name} per call (ms) "
+        f"{[round(t, 4) for t in _kernel_calls(prof, name)]}"
+        for name in KERNEL_NAMES)
 
 
 def profile_steps(torch, trainer, n_steps=3):
@@ -619,12 +814,9 @@ def profile_steps(torch, trainer, n_steps=3):
             kernels = ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items())
             if label == "step":
                 marched = int(out["num_marched_samples"])
-                calls = [round(t, 4)
-                         for t in _kernel_calls(prof, "scatter_add_rows")]
                 print(f"profile step {i}: marched samples {marched}, empty "
                       f"slots {K + 1 - min(marched, K)} of K + 1 = {K + 1}; "
-                      f"{kernels}; scatter_add_rows per call (ms) {calls}",
-                      flush=True)
+                      f"{kernels}; {_per_call(prof)}", flush=True)
             else:
                 print(f"profile {label}: {kernels}", flush=True)
         print(f"profile {label}: wall {wall:.3f} ms per call without the "
@@ -632,18 +824,22 @@ def profile_steps(torch, trainer, n_steps=3):
               f"profiled call's wall", flush=True)
 
 
-def reset_launches():
-    from deblur_e_nerf_tpu_torch.ops import gather_rows, scatter_rows
+def _kernel_modules():
+    from deblur_e_nerf_tpu_torch.ops import (corner_sum, gather_rows,
+                                             scatter_rows)
 
-    scatter_rows.LAUNCHES = 0
-    gather_rows.LAUNCHES = 0
+    return {"scatter_add_rows": scatter_rows, "gather_rows": gather_rows,
+            "corner_sum": corner_sum}
+
+
+def reset_launches():
+    for module in _kernel_modules().values():
+        module.LAUNCHES = 0
 
 
 def read_launches():
-    from deblur_e_nerf_tpu_torch.ops import gather_rows, scatter_rows
-
-    return {"scatter_add_rows": scatter_rows.LAUNCHES,
-            "gather_rows": gather_rows.LAUNCHES}
+    return {name: module.LAUNCHES
+            for name, module in _kernel_modules().items()}
 
 
 def run_steps(torch, trainer, n_steps, label, profile=False):
@@ -696,12 +892,10 @@ def run_steps(torch, trainer, n_steps, label, profile=False):
               f"{int((grad != 0).any(dim=1).sum())}", flush=True)
         if profile:
             _, ours = _device_table(prof, f"{label} step {i}", 1)
-            calls = [round(t, 4)
-                     for t in _kernel_calls(prof, "scatter_add_rows")]
             print(f"profile {label} step {i} (profiled): marched samples "
                   f"{marched}, empty slots {K + 1 - min(marched, K)}; "
                   + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items())
-                  + f"; scatter_add_rows per call (ms) {calls}", flush=True)
+                  + f"; {_per_call(prof)}", flush=True)
 
 
 def count_step_syncs(torch, trainer):
@@ -731,6 +925,7 @@ def count_step_syncs(torch, trainer):
     trainer.global_step = int(trainer.params.nerf.occ_grid_config
                               .warmup_steps) + 1
     torch.cuda.synchronize()
+    reset_launches()
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = record
@@ -740,8 +935,13 @@ def count_step_syncs(torch, trainer):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    launches = read_launches()
     print(f"host syncs in one steady flagship step: {sum(sites.values())} "
-          f"({sites})", flush=True)
+          f"({sites}); kernel launches {launches}", flush=True)
+    n_levels = len(trainer.params.nerf.field.levels)
+    if launches != {name: n_levels for name in launches}:
+        raise AssertionError(f"a steady step launches each kernel once per "
+                             f"hash level ({n_levels}): {launches}")
     if any("training/optim.py" in site for site in sites):
         raise AssertionError(f"the optimizer synchronizes: {sites}")
     if not any("ops/linalg.py" in site for site in sites):
@@ -1010,6 +1210,8 @@ def main():
         kernel_line("gather_rows", GATHER_SOURCE, GATHER_REPLACES,
                     rows["gather_rows"], launches,
                     "main path: cellhash view, levels 7-15"),
+        kernel_line("corner_sum", CORNER_SUM_SOURCE, CORNER_SUM_REPLACES,
+                    rows["corner_sum"], launches, "main path: every level"),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

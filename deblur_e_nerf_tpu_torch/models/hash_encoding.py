@@ -4,9 +4,9 @@ deblur_e_nerf_tpu/models/hash_encoding.py).
 Same level geometry and table layout as the JAX package (`grid_layout`,
 including the 128-row segment alignment), so tables move between the two
 packages unchanged. Per level the forward finds the sample's cell, gathers
-the corner features rounded to `compute_dtype` (bfloat16 on the flagship)
-through `ops/gather_rows.py` (the CUDA kernel on the card) and
-interpolates trilinearly in float32:
+the corner features as `compute_dtype` rows (bfloat16 on the flagship)
+through `ops/gather_rows.py` and interpolates trilinearly in float32
+through `ops/corner_sum.py` (a CUDA kernel each on the card):
 
   - 'dense' levels gather one (8F)-float row per sample from the packed
     cell-corner view of the level's (res+1)^3 vertex table;
@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from ..ops import gather_rows, scatter_rows
+from ..ops import corner_sum, gather_rows, scatter_rows
 from ..utils.device import constant
 
 _HASH_PRIMES = (1, 2654435761, 805459861)
@@ -165,9 +165,11 @@ def _fold_dense_segment_grad(packed_grad, res, F):
 
 def _encode_impl(table, u, levels, compute_dtype=None):
     """(N, 3) positions -> (N, L*F) features. Each level's gather goes
-    through `gather_rows` (the CUDA kernel on the card), which rounds the
-    gathered values to `compute_dtype` itself; weights and sums stay in
-    float32 (in the table's dtype when no rounding is asked for)."""
+    through `gather_rows` (the CUDA kernel on the card), which returns the
+    gathered rows in `compute_dtype` (bfloat16 on the flagship, the values
+    the JAX encode gathers from its cast table); `corner_sum` (the CUDA
+    kernel on the card) sums the weighted corner rows in float32 (in the
+    table's dtype when no rounding is asked for)."""
     uc = torch.clamp(u, 0.0, 1.0)
     T, F = table.shape
     acc = table.dtype if compute_dtype is None else torch.float32
@@ -188,12 +190,16 @@ def _encode_impl(table, u, levels, compute_dtype=None):
             rows = gather_rows.gather_rows(view, h.to(torch.int32),
                                            compute_dtype)
         else:
+            # sample-major (N, 8): measured faster on the card than the
+            # corner-major order the backward uses (gather and corner sum
+            # together; PERF.md)
             idx, w = _level_indices_weights(uc, res, size, offset, mode, acc)
             rows = gather_rows.gather_rows(
                 table[offset:offset + size],
                 (idx - offset).reshape(-1).to(torch.int32), compute_dtype)
-        rows = rows.reshape(-1, 8, F)
-        features.append(torch.sum(rows.to(acc) * w[..., None], dim=-2))
+        # sum_k w_k * row_k in float32, reading the bf16 rows once (the
+        # CUDA kernel on the card)
+        features.append(corner_sum.corner_sum(rows.reshape(-1, 8, F), w))
     return torch.cat(features, dim=-1)
 
 

@@ -3,10 +3,10 @@ library with a C interface, loaded with ctypes.
 
 Each of `csrc/*.cu` compiles in its own nvcc process for sm_90a
 (Hopper), all started together, and one more nvcc call links the objects.
-Nothing includes PyTorch's headers, so the build takes seconds. The library lands
-in `_build/` under the package (listed in .gitignore), named by a hash of
-the sources and flags, so a second run reuses it. The build happens at the
-first kernel call, never at import.
+Nothing includes PyTorch's headers, so the build takes seconds. The
+library lands in `_build/` under the package (listed in .gitignore),
+named by a hash of the sources and flags, so a second run reuses it. The
+build happens at the first kernel call, never at import.
 """
 
 import ctypes
@@ -101,10 +101,12 @@ def _cuobjdump():
     return path
 
 
-def sass_atomics(lib_path=None):
-    """{kernel function (mangled): [its atomic/reduction SASS
-    instructions]} of the built library, from `cuobjdump -sass`: the
-    evidence of which atomics the compiler emitted."""
+def sass_instructions(lib_path=None, prefixes=("RED", "ATOM"),
+                      operands=False):
+    """{kernel function (mangled): [its SASS instructions whose opcode
+    starts with one of `prefixes`, with their operands if `operands`]} of
+    the built library, from `cuobjdump -sass`: the evidence of which
+    atomics, loads and stores the compiler emitted."""
     lib_path = lib_path or build()
     proc = subprocess.run([_cuobjdump(), "-sass", lib_path],
                           capture_output=True, text=True, timeout=120,
@@ -116,12 +118,27 @@ def sass_atomics(lib_path=None):
             current = line[len("Function : "):]
             found[current] = []
         elif current is not None and line.startswith("/*"):
-            tokens = line.split("*/", 1)[-1].split()
+            tokens = line.split("*/", 1)[-1].split(";")[0].split()
             if tokens and tokens[0].startswith("@"):  # a predicate
                 tokens = tokens[1:]
-            if tokens and tokens[0].startswith(("RED", "ATOM")):
-                found[current].append(tokens[0])
+            if tokens and tokens[0].startswith(tuple(prefixes)):
+                found[current].append(" ".join(tokens) if operands
+                                      else tokens[0])
     return found
+
+
+def ptxas_summary(log):
+    """{kernel function (mangled): "Used N registers, ...; S bytes spill
+    stores, L bytes spill loads"} from the `-Xptxas -v` build log."""
+    found, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function '" in line:
+            current = line.split("'")[1]
+            found[current] = []
+        elif current is not None and ("spill" in line
+                                      or "Used " in line):
+            found[current].append(line.split(":", 1)[-1].strip())
+    return {fn: "; ".join(parts) for fn, parts in found.items()}
 
 
 def library():
@@ -138,6 +155,11 @@ def library():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
                        ctypes.c_int32, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.corner_sum_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib

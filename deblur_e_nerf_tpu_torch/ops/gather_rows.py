@@ -1,22 +1,23 @@
-"""Row gather `out[i, :] = table[idx[i], :]`, optionally rounded through
-bfloat16 (counterpart of the Pallas TPU kernel K3,
+"""Row gather `out[i, :] = table[idx[i], :]`, optionally rounded to
+bfloat16 rows (counterpart of the Pallas TPU kernel K3,
 scripts/perf_microbench.py `case_pallas_gather_probe`, and of the gathers
-in deblur_e_nerf_tpu/models/hash_encoding.py `_encode_impl`).
+in deblur_e_nerf_tpu/models/hash_encoding.py `_encode_impl`,
+`jnp.take(table.astype(compute_dtype), idx)`).
 
 On a CUDA tensor `gather_rows` launches the hand-written kernel in
-`csrc/gather_rows.cu` (vectorized row copy; see the note there for what
-bounds it) or raises; it never falls back. On a CPU tensor it runs the
-plain PyTorch version, `gather_rows_reference`. `LAUNCHES` counts kernel
-launches.
+`csrc/gather_rows.cu` (one instance per main-path width and output type;
+see the note there for what bounds it) or raises; it never falls back. On
+a CPU tensor it runs the plain PyTorch version, `gather_rows_reference`.
+`LAUNCHES` counts kernel launches.
 
 The kernel does not check indices on the card (that would need a host
 sync): the caller builds them in [0, T). An index out of range reads
 nothing and yields a zero row on the card; the plain version raises.
 
 The hash-grid encode (models/hash_encoding.py) calls this once per level:
-vertex-hash levels gather (8N,) indices from the level's (size, F) rows,
-cellhash levels (N,) indices from the (size/8, 8F) view, dense levels (N,)
-indices from the packed (res^3, 8F) cell rows.
+vertex-hash levels gather (8N,) sample-major indices from the level's
+(size, F) rows, cellhash levels (N,) indices from the (size/8, 8F) view,
+dense levels (N,) indices from the packed (res^3, 8F) cell rows.
 """
 
 import torch
@@ -25,12 +26,10 @@ LAUNCHES = 0  # kernel launches since the last reset (plain int)
 
 
 def gather_rows_reference(table, idx, round_to=None):
-    """Plain PyTorch version: table.index_select(0, idx), rounded through
-    `round_to` (e.g. torch.bfloat16) and back to table's dtype."""
+    """Plain PyTorch version: table.index_select(0, idx), converted to
+    `round_to` (e.g. torch.bfloat16: round to nearest even) when given."""
     out = table.index_select(0, idx.to(torch.int64))
-    if round_to is not None:
-        out = out.to(round_to).to(table.dtype)
-    return out
+    return out if round_to is None else out.to(round_to)
 
 
 def gather_rows(table, idx, round_to=None):
@@ -41,10 +40,9 @@ def gather_rows(table, idx, round_to=None):
             CPU only).
         idx: (N,) int32 row indices in [0, T), contiguous.
         round_to: None, or a floating dtype to round each gathered value
-            to and back (the kernel takes torch.bfloat16: round to
-            nearest even).
+            to (the kernel takes torch.bfloat16: round to nearest even).
     Returns:
-        (N, W) in table's dtype.
+        (N, W) in `round_to`, or in table's dtype when it is None.
     """
     global LAUNCHES
     if table.dim() != 2 or idx.dim() != 1:
@@ -55,6 +53,8 @@ def gather_rows(table, idx, round_to=None):
         raise TypeError(f"idx must be int32, got {idx.dtype}")
     if idx.device != table.device:
         raise ValueError(f"idx on {idx.device}, table on {table.device}")
+    if round_to is not None and not round_to.is_floating_point:
+        raise TypeError(f"round_to must be a floating dtype, got {round_to}")
     if table.device.type == "cpu":
         if table.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"table must be float32/64, got {table.dtype}")
@@ -74,7 +74,8 @@ def gather_rows(table, idx, round_to=None):
     lib = _cuda_build.library()
     n_rows, width = table.shape
     n = idx.shape[0]
-    out = torch.empty((n, width), dtype=torch.float32, device=table.device)
+    out = torch.empty((n, width), dtype=round_to or torch.float32,
+                      device=table.device)
     if n == 0 or width == 0:
         return out
     with torch.cuda.device(table.device):

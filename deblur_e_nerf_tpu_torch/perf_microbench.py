@@ -61,12 +61,15 @@ def bound(nbytes, nops=0):
                                    else "operations")
 
 
-def gather_bytes(table, idx):
+def gather_bytes(table, idx, out_dtype=torch.float32):
     """Bytes a gather must move: each touched table row and each index
-    read once, each output row written once."""
+    read once, each output row written once in `out_dtype`."""
     n_rows, width = table.shape
     touched = int((torch.bincount(idx.long(), minlength=n_rows) > 0).sum())
-    return touched * width * 4 + idx.numel() * 4 + idx.numel() * width * 4
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    return (touched * width * table.element_size()
+            + idx.numel() * idx.element_size()
+            + idx.numel() * width * out_size)
 
 
 def probe_inputs(device, seed=0):

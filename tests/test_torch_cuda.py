@@ -10,8 +10,8 @@ import pytest
 import torch
 
 import chip_smoke
-from deblur_e_nerf_tpu_torch.models import contraction, fields
-from deblur_e_nerf_tpu_torch.ops import gather_rows, scatter_rows
+from deblur_e_nerf_tpu_torch.models import contraction, fields, hash_encoding
+from deblur_e_nerf_tpu_torch.ops import corner_sum, gather_rows, scatter_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -151,7 +151,12 @@ def test_field_table_grad_on_card_matches_cpu(cuda):
     (524289, 343000, 16),    # packed dense level 4
     (4194312, 524288, 2),    # vertex-hash levels, 8 corners per sample
     (1000, 7, 16),           # tiny, ragged
-    (999, 13, 3),            # odd width: the scalar path
+    (999, 13, 3),            # odd width: the generic path
+    (1001, 100, 2),          # W = 2, N not a multiple of 4 or 8
+    (259, 50, 2),            # W = 2, one warp tile and a 3-row tail
+    (4194311, 524288, 2),    # W = 2, a ragged tail at the real size
+    (1003, 50, 16),          # W = 16, N not a multiple of 4 or 8
+    (1000, 40, 8),           # a width with no instance of its own
 ])
 def test_gather_kernel_matches_plain_bit_for_bit(cuda, n, n_rows, width,
                                                   round_to):
@@ -164,7 +169,10 @@ def test_gather_kernel_matches_plain_bit_for_bit(cuda, n, n_rows, width,
     torch.cuda.synchronize()
     assert gather_rows.LAUNCHES == before + 1
     want = gather_rows.gather_rows_reference(tbl, idx, round_to)
-    assert torch.equal(out.cpu(), want)
+    # bf16 rows out when rounding, float32 rows otherwise
+    assert out.dtype == want.dtype == (round_to or torch.float32)
+    assert torch.equal(chip_smoke._bits(torch, out.cpu()),
+                       chip_smoke._bits(torch, want))
 
 
 def test_gather_kernel_on_a_segment_view(cuda):
@@ -178,6 +186,103 @@ def test_gather_kernel_on_a_segment_view(cuda):
         out = gather_rows.gather_rows(seg, idx, torch.bfloat16)
         assert torch.equal(out, gather_rows.gather_rows_reference(
             seg, idx, torch.bfloat16))
+
+
+@pytest.mark.parametrize("round_to", [None, torch.bfloat16])
+@pytest.mark.parametrize("width", [2, 16])
+def test_gather_kernel_on_an_unaligned_index_view(cuda, width, round_to):
+    """An index vector that starts 4, 8 or 12 bytes past a 16-byte
+    boundary (a contiguous view at an offset): the W = 2 instance reads
+    its indices as scalars instead of int4."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tbl = torch.randn((5000, width), generator=gen, device=cuda)
+    base = torch.randint(0, 5000, (70000,), generator=gen,
+                         dtype=torch.int32, device=cuda)
+    for offset in (1, 2, 3, 4):
+        idx = base[offset:offset + 66000 - offset]
+        assert idx.is_contiguous() and (idx.data_ptr() % 16 != 0) == (
+            offset % 4 != 0)
+        out = gather_rows.gather_rows(tbl, idx, round_to)
+        want = gather_rows.gather_rows_reference(tbl, idx, round_to)
+        assert torch.equal(chip_smoke._bits(torch, out),
+                           chip_smoke._bits(torch, want))
+
+
+@pytest.mark.parametrize("otype,layout", [
+    ("HybridHashGrid", (8, 4, 2.0, 12)),
+    ("HashGrid", (8, 4, 2.0, 12)),
+    ("TiledGrid", (8, 4, 2.0, 12)),
+    ("CellHashGrid", (8, 4, 2.0, 12)),
+    ("DenseGrid", (3, 4, 2.0, 12)),
+])
+def test_encode_on_card_matches_cpu(cuda, otype, layout):
+    """The encode's features (bf16 rows through the kernel, sample-major
+    vertex-hash levels) and table gradient on the card against the plain
+    version on the CPU: the gathered values agree bit for bit, the 8-term
+    float32 sums and the scatter-adds may run in another order."""
+    levels, total = hash_encoding.grid_layout(otype, *layout)
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.uniform(-1, 1, (total, 2)).astype(
+        np.float32))
+    u = torch.from_numpy(rng.uniform(-0.05, 1.05, (20000, 3)).astype(
+        np.float32))
+    cot = torch.from_numpy(rng.normal(size=(20000, 2 * len(levels))).astype(
+        np.float32))
+    outs = {}
+    for device in ("cpu", cuda):
+        t = table.to(device, copy=True).requires_grad_(True)
+        before, sums = gather_rows.LAUNCHES, corner_sum.LAUNCHES
+        feat = hash_encoding.encode(t, u.to(device), levels,
+                                    compute_dtype=torch.bfloat16)
+        (feat * cot.to(device)).sum().backward()
+        if device == cuda:
+            assert gather_rows.LAUNCHES == before + len(levels)
+            assert corner_sum.LAUNCHES == sums + len(levels)
+        outs[str(device)] = (feat.detach().cpu(), t.grad.cpu())
+    # tests/test_torch_hash_encoding.py's tolerances against the JAX encode
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=1e-5,
+                               atol=1e-6)
+    scale = float(outs["cpu"][1].abs().max())
+    torch.testing.assert_close(outs["cuda"][1], outs["cpu"][1], rtol=1e-4,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("rows_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [100003, 37])
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+def test_corner_sum_kernel_matches_its_model_bit_for_bit(cuda, f, n,
+                                                          rows_dtype):
+    """The corner sum against the plain model of its order (products
+    rounded, corners summed in order) bit for bit, on the card, at a
+    ragged N and at one below a block."""
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    rows = torch.randn((n, 8, f), generator=gen, device=cuda).to(rows_dtype)
+    w = torch.rand((n, 8), generator=gen, device=cuda)
+    before = corner_sum.LAUNCHES
+    out = corner_sum.corner_sum(rows, w)
+    torch.cuda.synchronize()
+    assert corner_sum.LAUNCHES == before + 1
+    model = corner_sum.corner_sum_sequential(rows, w)
+    assert out.dtype == torch.float32 and out.shape == (n, f)
+    assert torch.equal(chip_smoke._bits(torch, out),
+                       chip_smoke._bits(torch, model))
+
+
+def test_corner_sum_wrapper_raises_instead_of_falling_back(cuda):
+    rows = torch.zeros((64, 8, 2), device=cuda)
+    w = torch.zeros((64, 8), device=cuda)
+    with pytest.raises(TypeError):
+        corner_sum.corner_sum(rows.half(), w)
+    with pytest.raises(TypeError):
+        corner_sum.corner_sum(rows, w.double())
+    with pytest.raises(ValueError):  # F = 3 has no instance
+        corner_sum.corner_sum(torch.zeros((64, 8, 3), device=cuda), w)
+    with pytest.raises(ValueError):  # not contiguous
+        corner_sum.corner_sum(torch.zeros((64, 8, 4), device=cuda)[..., ::2],
+                              w)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        corner_sum.corner_sum(torch.zeros(64 * 8 * 2 + 1, device=cuda)[1:]
+                              .reshape(64, 8, 2), w)
 
 
 def test_gather_wrapper_raises_instead_of_falling_back(cuda):

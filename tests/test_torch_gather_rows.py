@@ -1,38 +1,58 @@
 """The row gather (ops/gather_rows.py) on the CPU, where it runs its plain
-version: against jnp.take at the Pallas probe K3's shapes, with and
-without bfloat16 rounding, its argument errors, the port's
-microbenchmark checks at the K2/K3 shapes, and the hash-grid encode with
-every level's gather routed through it."""
+version: against jnp.take at the Pallas probe K3's shapes and the
+flagship encode's, float32 rows and bfloat16 rows (the JAX encode's
+gather from its cast table), its argument errors, the port's
+microbenchmark checks at the K2/K3 shapes, and the hash-grid encode of
+all five otypes with every level's gather routed through it, against the
+JAX encode."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from deblur_e_nerf_tpu.models import hash_encoding as jhe
 from deblur_e_nerf_tpu_torch import perf_microbench
 from deblur_e_nerf_tpu_torch.models import hash_encoding
 from deblur_e_nerf_tpu_torch.ops import gather_rows
 
 
-def _k3_inputs(seed=0):
+def _k3_inputs(n_rows=4096, width=16, n=1 << 16, seed=0):
     rng = np.random.default_rng(seed)
-    idx = rng.integers(0, 4096, 1 << 16).astype(np.int32)
-    tbl = rng.normal(size=(4096, 16)).astype(np.float32)
+    idx = rng.integers(0, n_rows, n).astype(np.int32)
+    tbl = rng.normal(size=(n_rows, width)).astype(np.float32)
     return idx, tbl
 
 
+# (table rows, W, N): the Pallas probe's, then the flagship encode's
+# tables (cellhash view, packed dense level 0, vertex-hash level) at a
+# smaller N
+K3_SHAPES = {
+    "probe": (4096, 16, 1 << 16),
+    "cellhash": (65536, 16, 1 << 16),
+    "dense0": (16 ** 3, 16, 1 << 16),
+    "vertex_hash": (524288, 2, 8 << 16),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(K3_SHAPES))
 @pytest.mark.parametrize("round_to", [None, torch.bfloat16])
-def test_plain_gather_matches_jnp_take_at_k3_shapes(round_to):
-    idx, tbl = _k3_inputs()
+def test_plain_gather_matches_jnp_take_at_k3_shapes(round_to, shape):
+    n_rows, width, n = K3_SHAPES[shape]
+    idx, tbl = _k3_inputs(n_rows, width, n)
     got = gather_rows.gather_rows(torch.from_numpy(tbl),
                                   torch.from_numpy(idx), round_to)
     jtbl = jnp.asarray(tbl)
-    if round_to is not None:
-        jtbl = jtbl.astype(jnp.bfloat16).astype(jnp.float32)
+    if round_to is not None:  # the JAX encode's gather from its cast table
+        jtbl = jtbl.astype(jnp.bfloat16)
     want = np.asarray(jnp.take(jtbl, jnp.asarray(idx), axis=0))
-    assert got.dtype == torch.float32 and got.shape == (1 << 16, 16)
+    assert got.dtype == (round_to or torch.float32)
+    assert got.shape == (n, width)
     # a copy (and round to nearest even): bit for bit
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.view(torch.int16 if round_to else
+                                           torch.int32).numpy(),
+                                  want.view(np.int16 if round_to else
+                                            np.int32))
 
 
 def test_gather_argument_errors():
@@ -48,6 +68,8 @@ def test_gather_argument_errors():
         gather_rows.gather_rows(tbl.half(), idx)
     with pytest.raises(IndexError):  # the plain version checks its range
         gather_rows.gather_rows(tbl, torch.tensor([8], dtype=torch.int32))
+    with pytest.raises(TypeError):  # rounding needs a floating dtype
+        gather_rows.gather_rows(tbl, idx, torch.int32)
     launches = gather_rows.LAUNCHES
     gather_rows.gather_rows(tbl, idx)
     assert gather_rows.LAUNCHES == launches  # no kernel on the CPU
@@ -88,12 +110,24 @@ def _old_encode(table, u, levels, compute_dtype):
     return torch.cat(features, dim=-1)
 
 
+# (n_levels, base_resolution, per_level_scale, log2_hashmap_size) per otype
+ENCODE_LAYOUTS = {
+    "HybridHashGrid": (8, 4, 2.0, 12),  # dense, hash and cellhash levels
+    "HashGrid": (8, 4, 2.0, 12),
+    "TiledGrid": (8, 4, 2.0, 12),
+    "CellHashGrid": (8, 4, 2.0, 12),
+    "DenseGrid": (3, 4, 2.0, 12),
+}
+
+
 @pytest.mark.parametrize("otype", ["HybridHashGrid", "HashGrid",
-                                   "TiledGrid"])
+                                   "TiledGrid", "CellHashGrid",
+                                   "DenseGrid"])
 @pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
 def test_encode_unchanged_with_gather_routed(otype, compute_dtype,
                                              monkeypatch):
-    levels, total = hash_encoding.grid_layout(otype, 8, 4, 2.0, 12)
+    levels, total = hash_encoding.grid_layout(otype,
+                                              *ENCODE_LAYOUTS[otype])
     if otype == "HybridHashGrid":  # all three gathers of the flagship
         assert {m for *_, m in levels} == {"dense", "hash", "cellhash"}
     rng = np.random.default_rng(1)
@@ -105,20 +139,61 @@ def test_encode_unchanged_with_gather_routed(otype, compute_dtype,
     real = gather_rows.gather_rows
 
     def counting(tbl, idx, round_to=None):
-        calls.append((tuple(tbl.shape), idx.numel(), round_to))
-        return real(tbl, idx, round_to)
+        out = real(tbl, idx, round_to)
+        calls.append((tuple(tbl.shape), idx.numel(), round_to, out.dtype))
+        return out
 
     monkeypatch.setattr(gather_rows, "gather_rows", counting)
     got = hash_encoding._encode_impl(table, u, levels, compute_dtype)
-    want = _old_encode(table, u, levels, compute_dtype)
-    # the same values, rounded elementwise, summed in the same order
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    want = jhe.encode(jnp.asarray(table.numpy()), jnp.asarray(u.numpy()),
+                      levels, differentiable_positions=False,
+                      compute_dtype=None if compute_dtype is None
+                      else jnp.bfloat16)
+    # the JAX encode gathers the same (rounded) values and sums the 8
+    # float32 products in its own order: the tolerances of
+    # tests/test_torch_hash_encoding.py
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    # the same values, rounded elementwise, summed in the order of the
+    # encode before the gather was routed: bit for bit
+    torch.testing.assert_close(got, _old_encode(table, u, levels,
+                                                compute_dtype),
+                               rtol=0, atol=0)
     assert len(calls) == len(levels)  # one gather per level
-    for (shape, n, round_to), (res, size, _, mode) in zip(calls, levels):
+    for (shape, n, round_to, dtype), (res, size, _, mode) in zip(calls,
+                                                                  levels):
         assert round_to == compute_dtype
+        assert dtype == (compute_dtype or torch.float32)  # bf16 rows out
         if mode == "dense":
             assert shape == (res ** 3, 16) and n == 3000
         elif mode == "cellhash":
             assert shape == (size // 8, 16) and n == 3000
         else:
             assert shape == (size, 2) and n == 8 * 3000
+
+
+def test_vertex_hash_orders_gather_the_same_rows():
+    """chip_smoke's vertex-hash index generator (ray-ordered runs of
+    samples through the encode's index function): the corner-major
+    indices are the sample-major ones transposed, in range, and their
+    gathers hold the same rows in the two orders."""
+    import chip_smoke
+
+    n, size = 5000, 524288
+    sample = chip_smoke.vertex_hash_indices(torch, n, size, False,
+                                            device="cpu")
+    corner = chip_smoke.vertex_hash_indices(torch, n, size, True,
+                                            device="cpu")
+    assert sample.dtype == corner.dtype == torch.int32
+    assert torch.equal(sample.reshape(n, 8).T.reshape(-1), corner)
+    assert int(corner.min()) >= 0 and int(corner.max()) < size
+    # ray-ordered runs: consecutive samples share a cell, so one corner
+    # of 128 consecutive samples asks for far fewer than 128 rows
+    assert len(set(corner[:128].tolist())) < 64
+    tbl = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(size, 2)).astype(np.float32))
+    rows_s = gather_rows.gather_rows(tbl, sample, torch.bfloat16)
+    rows_c = gather_rows.gather_rows(tbl, corner, torch.bfloat16)
+    assert torch.equal(rows_s.reshape(n, 8, 2).transpose(0, 1),
+                       rows_c.reshape(8, n, 2))

@@ -18,9 +18,9 @@ import deblur_e_nerf_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-# the filter path and the gather kernel's modules are among them
+# the filter path and the kernels' modules are among them
 for name in ("ops.linalg", "ops.control", "ops.gather_rows",
-             "models.pixel_bandwidth", "perf_microbench"):
+             "ops.corner_sum", "models.pixel_bandwidth", "perf_microbench"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 loaded = sorted(m for m in sys.modules
