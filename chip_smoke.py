@@ -26,7 +26,8 @@ Phases, each printing a start and an end line with elapsed seconds:
      advanced indexing (tbl[idx64]), each with its bound by output type;
      the corner sum bit for bit against the plain model of its order and
      within the summation-order bound of the plain version, in both row
-     types, beside torch.bmm for float32 rows;
+     types, beside torch.bmm for float32 rows; the gather and the corner
+     sum also at an eval field call's N = 2^20 samples, under no_grad;
   4. training, two paths of configs/train/synthetic.yaml at full width on
      a synthetic dataset, each with the kernels' launch counts set to 0
      just before it and read just after:
@@ -42,7 +43,17 @@ Phases, each printing a start and an end line with elapsed seconds:
           (one per hash level);
   5. reference: on small inputs, the card (through the kernels) against
      the plain version on the CPU: the NGP field's outputs and table
-     gradient, and one filter-on step's loss and gradients.
+     gradient, and one filter-on step's loss and gradients;
+  6. eval, on phase 4's flagship trainer: Trainer.evaluate("val") on the
+     synthetic dataset's views (written by the port's image writer) with
+     seeded stub LPIPS weights (every metric finite), its kernel launches
+     counted; one 346x260 frame (6 chunks of 16,384 rays) through
+     make_render_image_fn, timed (ms per image, rays/s, live marched
+     samples, field calls per ray chunk, peak device memory) and
+     profiled, whose gathers and corner sums must be 16 per field call
+     (one per hash level); and the eval render of a small model on the
+     card against the CPU (equal marched samples per pixel, the image
+     within 1e-5).
 
 Any failed check raises and the script exits non-zero. The line before
 the last is a JSON object describing each kernel; the last line is
@@ -75,6 +86,8 @@ CORNER_SUM_REPLACES = "deblur_e_nerf_tpu/models/hash_encoding.py:290"
 # start/end)
 MAIN_PATH_SAMPLE_BUDGET = 131072 * 30 * 4
 FILTER_OFF_SAMPLE_BUDGET = 131072 * 4
+# one DAVIS346 frame, the size of the reference's real data
+EVAL_FRAME_HEIGHT, EVAL_FRAME_WIDTH = 260, 346
 
 
 def _on_alarm(signum, frame):
@@ -120,6 +133,12 @@ def flagship_config(dataset_directory, filter_on=True):
                            "default": True},
             },
             "refractory_period": {"load_state_dict": False, "freeze": True},
+            "correction": {
+                "per_channel_log_it_scale": False,
+                "black_level_offset": True,
+                "optimizer": {"algo": "lm", "max_steps": 10,
+                              "lm": {"radius": 1000000.0}},
+            },
             "pixel_bandwidth": {
                 "enable": filter_on, "it_sample_size": 30,
                 "f_c_dominant_min": 21,
@@ -175,6 +194,7 @@ def flagship_config(dataset_directory, filter_on=True):
             "normalize": {"log_intensity_diff": True,
                           "log_intensity_tv": True},
         },
+        "metric": {"lpips_net": "alex"},
         "optimizer": {
             "algo": "adam",
             "lr": {"contrast_threshold": {
@@ -188,7 +208,8 @@ def flagship_config(dataset_directory, filter_on=True):
                                            "gamma": 0.33}},
         "logger": {"save_dir": "logs", "name": "chip_smoke"},
         "trainer": {"max_epochs": 40, "log_every_n_steps": 1,
-                    "limit_train_batches": 1000},
+                    "limit_train_batches": 1000,
+                    "check_val_every_n_epoch": 1},
     })
 
 
@@ -203,6 +224,28 @@ def bound(nbytes, nops=0):
     from deblur_e_nerf_tpu_torch import perf_microbench
 
     return perf_microbench.bound(nbytes, nops)
+
+
+def write_lpips_stub(torch, path, net="alex", seed=0):
+    """Seeded stand-in LPIPS weights (no real checkpoint is in the repo) in
+    the lpips package's state-dict layout: the scaling layer's constants,
+    backbone weights N(0, 0.1^2) and non-negative linear heads U(0, 1)."""
+    from deblur_e_nerf_tpu_torch.training import metrics
+
+    gen = torch.Generator().manual_seed(seed)
+    constants = {
+        "scaling_layer.shift": [-0.030, -0.088, -0.188],
+        "scaling_layer.scale": [0.458, 0.448, 0.450]}
+    state = {}
+    for name, value in metrics.lpips_module(net).state_dict().items():
+        if name in constants:
+            state[name] = torch.tensor(constants[name]).view(1, 3, 1, 1)
+        elif name.startswith("lin"):
+            state[name] = torch.rand(value.shape, generator=gen)
+        else:
+            state[name] = 0.1 * torch.randn(value.shape, generator=gen)
+    torch.save(state, path)
+    return path
 
 
 def phase_environment(torch):
@@ -710,15 +753,28 @@ def phase_kernels(torch):
         (vertex, 2, 524288, "ray_runs, corner-major",
          lambda: vertex_hash_indices(torch, k1, 524288, True)),
     ]
+    # the eval render's field calls (no gradient): N = 2^20 samples
+    from deblur_e_nerf_tpu_torch.training.evaluation import (
+        DEFAULT_FIELD_CHUNK as n_eval)
+    gather_inputs += [
+        ("eval field chunk: cellhash view, levels 7-15", 16, 65536, "uniform",
+         lambda: k3_indices(torch, "uniform", n_eval, 65536)),
+        ("eval field chunk: vertex-hash levels 5-6", 2, 524288, "uniform",
+         lambda: k3_indices(torch, "uniform", 8 * n_eval, 524288)),
+    ]
     gather = []
     for name, width, n_rows, kind, make_idx in gather_inputs:
-        gather += gather_case(torch, gather_rows, name, width, n_rows,
-                              make_idx(), kind, gen)
+        with torch.no_grad():
+            gather += gather_case(torch, gather_rows, name, width, n_rows,
+                                  make_idx(), kind, gen)
         torch.cuda.empty_cache()
-    # the encode's weighted sum over each level's gathered rows, (N, 8, 2)
-    sums = [corner_sum_case(torch, corner_sum, "main path: every level", k1,
-                            rows_dtype, gen)
-            for rows_dtype in (torch.bfloat16, torch.float32)]
+    # the encode's weighted sum over each level's gathered rows, (N, 8, 2),
+    # in the training step and in an eval field call
+    with torch.no_grad():
+        sums = [corner_sum_case(torch, corner_sum, name, n, rows_dtype, gen)
+                for name, n in (("main path: every level", k1),
+                                ("eval field chunk: every level", n_eval))
+                for rows_dtype in (torch.bfloat16, torch.float32)]
     torch.cuda.empty_cache()
     scatter.append(probe_case("pallas_probe"))
     gather.append(probe_case("pallas_gather_probe"))
@@ -971,12 +1027,14 @@ def build_trainer(torch, root, tmp, filter_on):
 
 
 def phase_training(torch, tmp, profile=False):
-    """Both paths; returns {path: {kernel: launches}}."""
+    """Both paths; returns ({path: {kernel: launches}}, the flagship
+    trainer, the dataset directory)."""
     from deblur_e_nerf_tpu_torch.data import synthetic
 
     t0 = time.perf_counter()
     root = synthetic.make_dataset(f"{tmp}/dataset", img_height=64,
-                                  img_width=64, num_poses=61)
+                                  img_width=64, num_poses=61,
+                                  write_views=True)
     print(f"synthetic dataset in {time.perf_counter() - t0:.2f} s",
           flush=True)
     launches = {}
@@ -1018,7 +1076,7 @@ def phase_training(torch, tmp, profile=False):
         for name, count in counts.items():
             if count <= 0:
                 raise AssertionError(f"{path}: {name} never launched")
-    return launches
+    return launches, trainer, root
 
 
 def _field_reference(torch):
@@ -1060,6 +1118,20 @@ def _field_reference(torch):
             raise AssertionError(f"{name}: card and CPU disagree ({err})")
 
 
+def small_config(root, filter_on):
+    """The flagship config at the reference checks' small size: 6 hash
+    levels (dense, vertex-hash and cellhash ones), 16-wide MLPs, a 32^3
+    occupancy grid."""
+    config = flagship_config(root, filter_on=filter_on)
+    pe = config.model.nerf.ngp.pos_encoding
+    pe.n_levels, pe.base_resolution, pe.per_level_scale = 6, 4, 2.0
+    pe.log2_hashmap_size = 12
+    config.model.nerf.ngp.mlp_base.n_neurons = 16
+    config.model.nerf.ngp.mlp_head.n_neurons = 16
+    config.model.nerf.occ_grid.resolution = 32
+    return config
+
+
 def _to(value, device):
     if isinstance(value, dict):
         return {k: _to(v, device) for k, v in value.items()}
@@ -1086,13 +1158,7 @@ def filter_on_step_card_vs_cpu(torch, tmp, device="cuda"):
 
     root = synthetic.make_dataset(f"{tmp}/small", img_height=16,
                                   img_width=16, num_poses=21)
-    config = flagship_config(root, filter_on=True)
-    pe = config.model.nerf.ngp.pos_encoding
-    pe.n_levels, pe.base_resolution, pe.per_level_scale = 6, 4, 2.0
-    pe.log2_hashmap_size = 12
-    config.model.nerf.ngp.mlp_base.n_neurons = 16
-    config.model.nerf.ngp.mlp_head.n_neurons = 16
-    config.model.nerf.occ_grid.resolution = 32
+    config = small_config(root, filter_on=True)
     # ~300 samples per ray x 6 events x 4 x 30 rays fit K = 2^19
     capacity, active, budget = 8, 6, 1 << 19
     cpu = torch.device("cpu")
@@ -1160,6 +1226,173 @@ def phase_reference(torch, tmp):
     filter_on_step_card_vs_cpu(torch, tmp)
 
 
+def _pixel_grid(torch, height, width):
+    ys, xs = torch.meshgrid(torch.arange(height), torch.arange(width),
+                            indexing="ij")
+    return torch.stack([xs, ys], dim=-1).to(torch.float32)
+
+
+def eval_render_card_vs_cpu(torch, tmp, device="cuda"):
+    """The eval render of a small model (a wide random table) on the card
+    (`device`) and on the CPU, from the same weights and occupancy grid,
+    for one val view of a 32x24 synthetic dataset: 3 chunks of 256 rays,
+    field calls of 4096 samples. Returns [(name, error, tolerance)];
+    raises on a disagreement: the marched samples of every pixel must be
+    equal and the image within 1e-5."""
+    import numpy as np
+    from deblur_e_nerf_tpu_torch.data import posed_images, synthetic
+    from deblur_e_nerf_tpu_torch.models import nerf_model
+    from deblur_e_nerf_tpu_torch.training import evaluation, setup
+
+    root = synthetic.make_dataset(f"{tmp}/eval_small", img_height=24,
+                                  img_width=32, num_poses=21,
+                                  write_views=True)
+    config = small_config(root, filter_on=False)
+    config.model.nerf.test_chunk_size = 256
+    cpu = torch.device("cpu")
+    _, params_c = setup.build(config, root, sample_budget=4096, device=cpu)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    with torch.no_grad():
+        params_c.nerf.field.table.uniform_(-1.0, 1.0, generator=gen)
+    _, params_g = setup.build(config, root, sample_budget=4096,
+                              device=torch.device(device))
+    params_g.load_state_dict(params_c.state_dict())
+    occ_c = nerf_model.update_occupancy(
+        params_c.nerf, nerf_model.init_occupancy(params_c.nerf, cpu), 0,
+        gen)
+    occ_g = type(occ_c)(*(t.to(device) for t in occ_c))
+    view = posed_images.PosedImageDataset(root, "val").posed_imgs
+    args = (torch.as_tensor(np.linalg.inv(view["intrinsics"]),
+                            dtype=torch.float32),
+            _pixel_grid(torch, 24, 32),
+            torch.as_tensor(view["T_wc_position"][0]),
+            torch.as_tensor(view["T_wc_orientation"][0]))
+    out = {}
+    for name, params, occ in (("cpu", params_c, occ_c),
+                              ("card", params_g, occ_g)):
+        render = evaluation.make_render_image_fn(params.nerf,
+                                                 field_chunk=4096)
+        img = render(occ, *args)
+        out[name] = (img.double().cpu(), render.stats["counts"].cpu(),
+                     render.stats)
+    (img_c, counts_c, stats_c), (img_g, counts_g, stats_g) = \
+        out["cpu"], out["card"]
+    if not (stats_c["live_samples"] > 0
+            and stats_c["field_chunks"] > stats_c["ray_chunks"] == 3
+            and float(img_c.max() - img_c.min()) > 0):
+        raise AssertionError(f"eval reference render is degenerate "
+                             f"({stats_c})")
+    rows = [("marched samples per pixel (pixels differing)",
+             int((counts_g != counts_c).sum()), 0),
+            ("image", float((img_g - img_c).abs().max()), 1e-5)]
+    for name, err, tol in rows:
+        print(f"reference eval render {name}: {err} (tolerance {tol}); "
+              f"live samples {stats_g['live_samples']}, field calls "
+              f"{stats_g['field_chunks']}", flush=True)
+        if not (bool(torch.isfinite(img_g).all()) and err <= tol):
+            raise AssertionError(f"eval render {name}: card and CPU "
+                                 f"disagree ({err} > {tol})")
+    return rows
+
+
+def phase_eval(torch, tmp, trainer, root):
+    """Evaluation on the full-width flagship trainer that phase 4 stepped:
+    Trainer.evaluate("val") with seeded stub LPIPS weights (every metric
+    finite), one 346x260 frame through make_render_image_fn, timed and
+    profiled, with its kernel launches (16 per field call: one gather and
+    one corner sum per hash level), then the card-vs-CPU eval render.
+    Returns {"eval": launches of evaluate("val"), "eval frame": launches
+    of one frame}."""
+    import math
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from deblur_e_nerf_tpu_torch.data import posed_images
+    from deblur_e_nerf_tpu_torch.training import evaluation
+
+    card = torch.cuda.get_device_name(0)
+    n_levels = len(trainer.params.nerf.field.levels)
+    trainer.config.metric.lpips_weights_path = write_lpips_stub(
+        torch, f"{tmp}/lpips_alex.pt")
+    trainer._flush_pending_metrics()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    metric = trainer.evaluate("val")
+    torch.cuda.synchronize()
+    val_launches = read_launches()
+    print(f"eval val: {json.dumps(metric)} in "
+          f"{time.perf_counter() - t0:.3f} s; kernel launches "
+          f"{val_launches}", flush=True)
+    if not all(math.isfinite(metric[k]) for k in ("l1", "psnr", "ssim",
+                                                  "lpips")):
+        raise AssertionError(f"eval val: a metric is not finite: {metric}")
+    if not (val_launches["gather_rows"] == val_launches["corner_sum"] > 0
+            and val_launches["gather_rows"] % n_levels == 0
+            and val_launches["scatter_add_rows"] == 0):
+        raise AssertionError(f"eval val launches: {val_launches}")
+
+    H, W = EVAL_FRAME_HEIGHT, EVAL_FRAME_WIDTH
+    focal = 0.8 * W
+    intrinsics = np.array([[focal, 0, W / 2 - 0.5], [0, focal, H / 2 - 0.5],
+                           [0, 0, 1]])
+    view = posed_images.PosedImageDataset(root, "val").posed_imgs
+    args = (torch.as_tensor(np.linalg.inv(intrinsics), dtype=torch.float32),
+            _pixel_grid(torch, H, W),
+            torch.as_tensor(view["T_wc_position"][0]),
+            torch.as_tensor(view["T_wc_orientation"][0]))
+    render = evaluation.make_render_image_fn(trainer.params.nerf)
+    render(trainer.occ_state, *args)  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        img = render(trainer.occ_state, *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    frame_launches = read_launches()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    stats = render.stats
+    ms = sum(times) / len(times)
+    print(f"eval frame {W}x{H}: {ms:.3f} ms per image (runs "
+          f"{[round(t, 3) for t in times]}), {H * W / ms * 1e3:.1f} rays/s, "
+          f"{stats['ray_chunks']} ray chunks of "
+          f"{trainer.params.nerf.test_chunk_size}, live marched samples "
+          f"{stats['live_samples']} ({stats['live_samples'] / (H * W):.2f} "
+          f"per ray), field calls {stats['field_chunks']} "
+          f"({stats['field_chunks'] / stats['ray_chunks']:.2f} per ray "
+          f"chunk), truncated rays {stats['truncated_rays']}, peak device "
+          f"memory {peak:.3f} GiB above the trainer's "
+          f"{base / 2**30:.3f} GiB; kernel launches {frame_launches} on "
+          f"{card}", flush=True)
+    want = n_levels * stats["field_chunks"]
+    if not (frame_launches["gather_rows"] == frame_launches["corner_sum"]
+            == want > 0 and frame_launches["scatter_add_rows"] == 0):
+        raise AssertionError(f"eval frame launches {frame_launches}, want "
+                             f"{want} of the gather and the corner sum")
+    if img.shape != (H, W) or not bool(torch.isfinite(img).all()) \
+            or stats["truncated_rays"]:
+        raise AssertionError(f"eval frame: shape {tuple(img.shape)}, "
+                             f"finite {bool(torch.isfinite(img).all())}, "
+                             f"truncated {stats['truncated_rays']}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render(trainer.occ_state, *args)
+        torch.cuda.synchronize()
+    busy, ours = _device_table(prof, "eval frame", 1)
+    print(f"profile eval frame: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in ours.items())
+        + f"; device busy {100 * busy / ms:.1f}% of the unprofiled "
+        f"frame's wall", flush=True)
+    eval_render_card_vs_cpu(torch, tmp)
+    return {"eval": val_launches, "eval frame": frame_launches}
+
+
 def kernel_line(name, source, replaces, rows, launches, main_shape):
     main = next(r for r in rows if r["shape"] == main_shape
                 and r.get("index_structure", "uniform") == "uniform")
@@ -1198,9 +1431,13 @@ def main():
         rows = phase_kernels(torch)
     with tempfile.TemporaryDirectory() as tmp:
         with phase("4 training"):
-            launches = phase_training(torch, tmp, profile=args.profile)
+            launches, trainer, root = phase_training(torch, tmp,
+                                                     profile=args.profile)
         with phase("5 reference"):
             phase_reference(torch, tmp)
+        with phase("6 eval"):
+            launches.update(phase_eval(torch, tmp, trainer, root))
+        del trainer
 
     kernels = [
         dict(kernel_line("scatter_add_rows", SCATTER_SOURCE,
@@ -1213,6 +1450,9 @@ def main():
         kernel_line("corner_sum", CORNER_SUM_SOURCE, CORNER_SUM_REPLACES,
                     rows["corner_sum"], launches, "main path: every level"),
     ]
+    for name in ("gather_rows", "corner_sum"):
+        if launches["eval"][name] <= 0 or launches["eval frame"][name] <= 0:
+            raise AssertionError(f"eval: {name} never launched")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

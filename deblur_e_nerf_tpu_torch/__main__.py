@@ -1,9 +1,12 @@
-"""Command line: python -m deblur_e_nerf_tpu_torch train <config.yaml>.
+"""Command line: python -m deblur_e_nerf_tpu_torch {train,val,test} <config.yaml>.
 
-Mirrors the JAX package's scripts/run.py for the training stage: loads the
-YAML config, draws a seed when `seed` is null (recorded in the config
-copy), builds the Trainer and trains. The val and test stages raise until
-evaluation is ported (ROADMAP Queue A 11).
+Mirrors the JAX package's scripts/run.py: loads the YAML config, draws a
+seed when `seed` is null (recorded in the config copy) and builds the
+Trainer. `train` trains and evaluates the val views every
+`trainer.check_val_every_n_epoch` epochs; `val` and `test` evaluate the
+stage's views and write `metrics.yaml` into the log directory. Loading a
+checkpoint (`model.checkpoint_filepath`, `trainer.resume_from_checkpoint`)
+is not ported yet (ROADMAP Queue A 9) and raises.
 """
 
 import argparse
@@ -12,6 +15,7 @@ import random
 import sys
 
 STAGES = ("train", "val", "test")
+METRICS_FILENAME = "metrics.yaml"
 
 
 def main(argv=None):
@@ -22,15 +26,14 @@ def main(argv=None):
     parser.add_argument("--batch-capacity", type=int, default=8192)
     parser.add_argument("--sample-budget", type=int, default=None)
     parser.add_argument("--max-steps", type=int, default=None)
+    parser.add_argument("--max-eval-images", type=int, default=None)
     parser.add_argument("--device", default=None,
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
 
-    from .training.trainer import EVAL_TODO, Trainer
+    from .training.trainer import Trainer
     from .utils.config import load_config, save_config
 
-    if args.stage != "train":
-        raise NotImplementedError(EVAL_TODO)
     config = load_config(args.config)
     if config.get("seed") is None:
         config.seed = random.SystemRandom().randrange(1 << 31)
@@ -42,9 +45,24 @@ def main(argv=None):
                                      os.path.basename(args.config)))
     trainer = Trainer(config, log_dir, batch_capacity=args.batch_capacity,
                       sample_budget=args.sample_budget, device=args.device)
-    elapsed = trainer.train(max_steps=args.max_steps)
-    print(f"training finished in {elapsed:.1f}s "
-          f"({trainer.global_step} steps)", flush=True)
+    if args.stage == "train":
+        every = int(config.trainer.get("check_val_every_n_epoch", 1))
+
+        def on_epoch_end(tr, epoch):
+            if (epoch + 1) % every == 0:
+                metric = tr.evaluate("val", epoch,
+                                     max_images=args.max_eval_images)
+                print(f"epoch {epoch}: val {metric}", flush=True)
+
+        elapsed = trainer.train(max_steps=args.max_steps,
+                                on_epoch_end=on_epoch_end)
+        print(f"training finished in {elapsed:.1f}s "
+              f"({trainer.global_step} steps)", flush=True)
+    else:
+        metric = trainer.evaluate(args.stage, epoch=0,
+                                  max_images=args.max_eval_images)
+        trainer.dump_metrics([metric], METRICS_FILENAME)
+        print(metric, flush=True)
     return 0
 
 

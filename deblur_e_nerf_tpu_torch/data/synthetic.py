@@ -6,8 +6,9 @@ renderer_params.npz for a textured unit sphere seen from an orbiting
 camera. Events come from an ideal event-camera simulation (per-pixel
 log-intensity threshold crossings with interpolated timestamps) or, with
 `simulate_events=False`, are random with plausible statistics. The posed
-image views are written only when `write_views` is set (it needs OpenCV,
-imported then). The full pixel-circuit filter of the JAX generator waits
+image views (float32 TIFFs through `image_io`, without OpenCV, and the
+`views/transforms_{train,val,test}.json` files) are written only when
+`write_views` is set. The full pixel-circuit filter of the JAX generator waits
 for the pixel-bandwidth slice.
 """
 
@@ -15,6 +16,8 @@ import json
 import os
 
 import numpy as np
+
+from . import image_io
 
 
 def orbit_poses(n, radius=3.0, height=0.8, t_end_ns=2_000_000_000,
@@ -105,8 +108,6 @@ def simulate_event_stream(analytic_image_fn, R, pos_w, pose_ts, H, W,
 
 def _write_views(root, analytic_image, R, pos_w, num_poses, num_views, W,
                  focal):
-    import cv2
-
     views_dir = os.path.join(root, "views")
     os.makedirs(views_dir, exist_ok=True)
     n_eval = min(2, num_poses)
@@ -119,8 +120,8 @@ def _write_views(root, analytic_image, R, pos_w, num_poses, num_views, W,
         frames = []
         for i in indices:
             name = f"{stage}_{i:03d}"
-            cv2.imwrite(os.path.join(views_dir, name + ".tiff"),
-                        analytic_image(R[i], pos_w[i]))
+            image_io.imwrite(os.path.join(views_dir, name + ".tiff"),
+                             analytic_image(R[i], pos_w[i]))
             T = np.eye(4)
             # stored pose is OpenGL convention (loader right-multiplies
             # by diag(1,-1,-1))

@@ -1,9 +1,11 @@
 """NeRF model assembly (counterpart of deblur_e_nerf_tpu/models/nerf_model.py):
 resolves `auto` aabb and step size, builds the NGP field and the render
 configuration, owns the learnable softplus background, and exposes
-density, occupancy-update, ray-generation and render entry points.
+density, occupancy-update, ray-generation, render and eval-render entry
+points.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -120,8 +122,9 @@ def build(nerf_config, camera_positions, radiance_dim, render_bkgd,
     )
     if render_bkgd not in (None, "parameter"):
         raise NotImplementedError(
-            "a fixed background is an eval feature, not ported yet "
-            "(ROADMAP Queue A 11)")
+            f"render_bkgd {render_bkgd!r}: the port takes None or "
+            "'parameter', the modes setup.build derives from "
+            "data.alpha_over_white_bg")
     bkgd_mode = render_bkgd
 
     curriculum = None
@@ -223,4 +226,33 @@ def render(model, occ_state, rays_o, rays_d, ray_mask, jitter,
 
     return renderer.render_rays(
         field_fn, occ_state.binary, rays_o, rays_d, ray_mask, jitter, rc,
+        render_bkgd=render_bkgd_value(model))
+
+
+def eval_render_config(model, eval_sample_budget, field_chunk, prepass_div):
+    """The eval render's configuration: no jitter, the worst-case budget
+    (every ray of a `test_chunk_size` chunk at S_max samples, unless
+    `eval_sample_budget` is given, so an eval image never truncates), both
+    coarse budgets reset to their defaults for it (the JAX package keeps
+    the training `superblock_budget` at eval, which can truncate rays
+    there), and `field_chunk` samples per field call."""
+    if prepass_div:
+        raise NotImplementedError(
+            "model.nerf.eval_occlusion_prepass_div: the occlusion prepass "
+            "is not ported yet (ROADMAP Queue B 6)")
+    rc = model.render_config
+    return dataclasses.replace(
+        rc, stratified=False,
+        sample_budget=int(eval_sample_budget or model.test_chunk_size
+                          * rc.max_samples_per_ray),
+        block_budget=None, superblock_budget=None,
+        field_chunk=int(field_chunk))
+
+
+def render_eval(model, occ_state, rays_o, rays_d, ray_mask, render_config):
+    """Render a flat ray bundle for evaluation (no gradients, no jitter, no
+    level mask) under `render_config` (see `eval_render_config`)."""
+    return renderer.render_rays_eval(
+        model.field, occ_state.binary, rays_o, rays_d, ray_mask,
+        render_config, model.radiance_dim,
         render_bkgd=render_bkgd_value(model))

@@ -21,6 +21,11 @@ sample) from a global cumsum minus the ray's segment base. Its value comes
 from a float64 cumsum (the JAX package's double-f32 blocked sums exist
 because the TPU has no fast f64) and its gradient from the float32 path.
 The stratified jitter is an input (`jitter`, (R,) uniforms).
+
+`render_rays_eval` is the evaluation render: the same march and composite
+without gradients, with the field run only on the filled sample slots, in
+`field_chunk` pieces (the JAX package runs it on every slot of the
+worst-case eval buffer, where the empty ones get no weight).
 """
 
 import dataclasses
@@ -49,6 +54,9 @@ class RenderConfig:
     sample_budget: int = 1 << 17             # K
     block_budget: Optional[int] = None       # KB (None = K // 4)
     superblock_budget: Optional[int] = None  # KSB (None = KB // 2; 0 = off)
+    # samples per field call of the eval render (0 = all); the training
+    # render runs the field on the whole buffer (ROADMAP Queue A 12)
+    field_chunk: int = 0
     opacity_eps: float = 1e-10
 
     @property
@@ -365,8 +373,7 @@ def render_rays(field_fn, binary, rays_o, rays_d, ray_mask, jitter, rc,
     R = rays_o.shape[0]
     samples = march_rays(binary, rays_o.detach(), rays_d.detach(),
                          ray_mask, jitter, rc)
-    ray_complete = (samples.offsets + samples.counts <= rc.sample_budget) \
-        & samples.coarse_complete
+    ray_complete = _ray_complete(samples, rc)
 
     safe_idx = samples.ray_idx.clamp(0, R - 1)
     positions = rays_o[safe_idx] + rays_d[safe_idx] * samples.t_mid[:, None]
@@ -391,4 +398,58 @@ def render_rays(field_fn, binary, rays_o, rays_d, ray_mask, jitter, rc,
             samples.num_superblocks.float() / rc.superblock_capacity
             if samples.num_superblocks is not None else zero),
         "prepass_overflow_rate": zero,
+    }
+
+
+def _ray_complete(samples, rc):
+    return (samples.offsets + samples.counts <= rc.sample_budget) \
+        & samples.coarse_complete
+
+
+@torch.no_grad()
+def render_rays_eval(field_fn, binary, rays_o, rays_d, ray_mask, rc,
+                     radiance_dim, render_bkgd=None):
+    """March -> field on the filled slots -> composite, without gradients.
+
+    The march fills the buffer's first min(num_samples, K) slots, so one
+    host read of the demand (with the count of incomplete masked rays in
+    the same copy) bounds the field's work: it runs on those slots only,
+    `rc.field_chunk` at a time (all at once when 0), and the buffer is cut
+    to them plus one empty slot, which composites to the same image as the
+    whole buffer with zero density in its empty slots.
+
+    Returns {"radiance": colors (R, ch), "counts": marched samples per ray
+    (R,)} and the host ints "num_live_samples", "num_field_chunks" and
+    "num_truncated" (masked rays that lost samples to a budget).
+    """
+    R = rays_o.shape[0]
+    samples = march_rays(binary, rays_o, rays_d, ray_mask, None, rc)
+    ray_complete = _ray_complete(samples, rc)
+    demand, n_truncated = torch.stack([
+        samples.num_samples, (~ray_complete & ray_mask).sum()]).tolist()
+    n = min(demand, rc.sample_budget)
+    samples = samples._replace(t_mid=samples.t_mid[:n + 1],
+                               dt=samples.dt[:n + 1],
+                               ray_idx=samples.ray_idx[:n + 1])
+    chunk = rc.field_chunk or max(n, 1)
+    rgbs, sigmas = [], []
+    for start in range(0, n, chunk):
+        stop = min(start + chunk, n)
+        idx = samples.ray_idx[start:stop]
+        positions = rays_o[idx] + rays_d[idx] \
+            * samples.t_mid[start:stop, None]
+        rgb, density = field_fn(positions, rays_d[idx])
+        rgbs.append(rgb)
+        sigmas.append(density[..., 0])
+    rgbs.append(torch.zeros((1, radiance_dim), dtype=torch.float32,
+                            device=rays_o.device))
+    sigmas.append(torch.zeros(1, dtype=torch.float32, device=rays_o.device))
+    colors, _, _, _ = composite(torch.cat(sigmas), torch.cat(rgbs), samples,
+                                R, rc, render_bkgd)
+    return {
+        "radiance": colors,
+        "counts": samples.counts,
+        "num_live_samples": n,
+        "num_field_chunks": len(rgbs) - 1,
+        "num_truncated": n_truncated,
     }

@@ -16,11 +16,18 @@ training only:
     With it false the update is applied and the run stops at the first
     non-finite loss, as in the JAX package;
   - scalars go to `metrics.jsonl` in the log directory, one JSON object
-    per logged step.
+    per logged step (and the eval metrics, as "<stage>/<name>", at the
+    step they were taken);
+  - evaluation (`evaluate`): the posed views of each `eval_target`
+    (`event_view`: the train views, `novel_view`: the stage's), rendered
+    on the trainer's device, corrected and scored as in the JAX package
+    (training/evaluation.py); `train(on_epoch_end=...)` calls a hook at
+    every epoch end, and `dump_metrics` writes `metrics.yaml` without
+    PyYAML.
 
-Evaluation, checkpoints, resume, gradient accumulation and the
-evaluation EMA of the parameters (`trainer.ema_decay`) are still to be
-ported (ROADMAP Queue A 9 and 11).
+Checkpoints, resume, gradient accumulation and the evaluation EMA of the
+parameters (`trainer.ema_decay`) are still to be ported (ROADMAP Queue
+A 9).
 """
 
 import json
@@ -28,16 +35,19 @@ import math
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..data import events as events_data
+from ..data import posed_images as posed_images_data
 from ..models import event_gen, nerf_model, pixel_bandwidth
 from ..utils.device import resolve_device
-from . import optim, pipeline, setup as setup_lib, step as step_lib
+from . import evaluation, optim, pipeline, setup as setup_lib, step as step_lib
 
 NONFINITE_STREAK_LIMIT = 25
-EVAL_TODO = ("evaluation, checkpoints and resume are not ported yet "
-             "(ROADMAP Queue A 9 and 11)")
+CHECKPOINT_TODO = ("checkpoints and resume are not ported yet "
+                   "(ROADMAP Queue A 9)")
+EVAL_TARGETS = ("event_view", "novel_view")
 
 
 class JsonlWriter:
@@ -68,9 +78,11 @@ class Trainer:
         self.device = resolve_device(device)
         os.makedirs(log_dir, exist_ok=True)
         if config.model.get("checkpoint_filepath"):
-            raise NotImplementedError(EVAL_TODO)
+            raise NotImplementedError(
+                f"model.checkpoint_filepath: {CHECKPOINT_TODO}")
         if config.trainer.get("resume_from_checkpoint"):
-            raise NotImplementedError(EVAL_TODO)
+            raise NotImplementedError(
+                f"trainer.resume_from_checkpoint: {CHECKPOINT_TODO}")
         if int(config.trainer.get("accumulate_grad_batches") or 1) != 1:
             raise NotImplementedError(
                 "gradient accumulation is not ported yet (ROADMAP Queue A 9)")
@@ -251,9 +263,10 @@ class Trainer:
             self._consume_metrics(*prev)
         return metrics
 
-    def train(self, max_steps=None):
+    def train(self, max_steps=None, on_epoch_end=None):
         """Train for max_epochs x limit_train_batches steps (or
-        `max_steps`); returns the elapsed seconds."""
+        `max_steps`), calling `on_epoch_end(trainer, epoch)` after each
+        epoch's last step; returns the elapsed seconds."""
         total = self.max_epochs * self.steps_per_epoch
         if max_steps is not None:
             total = min(total, int(max_steps))
@@ -262,11 +275,128 @@ class Trainer:
             self.train_step()
             if self.global_step % self.steps_per_epoch == 0:
                 self._flush_pending_metrics()
+                if on_epoch_end is not None:
+                    on_epoch_end(self, self.global_step
+                                 // self.steps_per_epoch - 1)
         self._flush_pending_metrics()
         return time.time() - t_start
 
-    def evaluate(self, *args, **kwargs):
-        raise NotImplementedError(EVAL_TODO)
+    def build_evaluator(self, stage="val"):
+        """{target: (Evaluator, PosedImageDataset)} for `eval_target`, and
+        the image renderer. `event_view` evaluates the train views,
+        `novel_view` the stage's; with both, each has its own evaluator,
+        artifact directory and metric names."""
+        config = self.config
+        eval_target = list(config.get("eval_target", ["novel_view"]))
+        if not eval_target or not set(eval_target) <= set(EVAL_TARGETS):
+            raise NotImplementedError(
+                f"unsupported eval_target {eval_target!r}; supported "
+                f"subsets of {list(EVAL_TARGETS)}")
+        multi = len(set(eval_target)) > 1
+        targets = {}
+        for target in dict.fromkeys(eval_target):
+            dataset = posed_images_data.PosedImageDataset(
+                config.data.dataset_directory,
+                "train" if target == "event_view" else stage,
+                config.data.get("eval_dataset_perm_seed"),
+                bool(config.data.alpha_over_white_bg))
+            evaluator = evaluation.Evaluator(
+                config.model.correction, self.bundle.static_config.has_bayer,
+                log_dir=(os.path.join(self.log_dir, target) if multi
+                         else self.log_dir),
+                save_pred_intensity_img=bool(config.model.get(
+                    "eval_save_pred_intensity_img", False)),
+                device=self.device)
+            targets[target] = (evaluator, dataset)
+        render_image = evaluation.make_render_image_fn(
+            self.params.nerf, eval_prepass_div=config.model.nerf.get(
+                "eval_occlusion_prepass_div"))
+        return targets, render_image
+
+    def evaluate(self, stage="val", epoch=0, max_images=None):
+        """Evaluate the current parameters on `stage`'s views; returns
+        {name: value} (with several targets, "<target>/<name>")."""
+        self._flush_pending_metrics()
+        targets, render_image = self.build_evaluator(stage)
+        multi = len(targets) > 1
+        merged = {}
+        for target, (evaluator, dataset) in targets.items():
+            tag = f"{stage}/{target}" if multi else stage
+            metric = self._evaluate_dataset(evaluator, dataset, render_image,
+                                            tag, epoch, max_images)
+            for name, value in metric.items():
+                merged[f"{target}/{name}" if multi else name] = value
+        return merged
+
+    def _evaluate_dataset(self, evaluator, dataset, render_image, stage,
+                          epoch, max_images=None):
+        data = dataset.posed_imgs
+        intrinsics_inv = torch.as_tensor(
+            np.linalg.inv(data["intrinsics"]), dtype=torch.float32)
+        H, W = data["img"].shape[-2:]
+        xs, ys = np.meshgrid(np.arange(W), np.arange(H))
+        pixel_pos = torch.as_tensor(np.stack([xs, ys], axis=-1),
+                                    dtype=torch.float32)
+        n = len(data["img"])
+        if max_images is not None:
+            n = min(n, max_images)
+        min_intensity = self.bundle.static_config.min_modeled_intensity
+        outputs = []
+        for i in range(n):
+            img = render_image(
+                self.occ_state, intrinsics_inv, pixel_pos,
+                torch.as_tensor(data["T_wc_position"][i]),
+                torch.as_tensor(data["T_wc_orientation"][i]))
+            out = {
+                "sample_id": data["sample_id"][i],
+                "pred_intensity_img": img.cpu().numpy() + min_intensity,
+                "target_intensity_img": data["img"][i],
+            }
+            for key in ("exposure_time", "gain"):
+                if key in data:
+                    out[key] = data[key][i]
+            outputs.append(out)
+        metric = evaluator.epoch_end(
+            outputs, dataset.min_normalized_pixel_value,
+            dataset.max_normalized_pixel_value, epoch=epoch,
+            lpips_net=str(self.config.metric.lpips_net),
+            lpips_weights_path=self.config.metric.get("lpips_weights_path"))
+        self.writer.write(self.global_step, {
+            f"{stage}/{name}": value for name, value in metric.items()
+            if math.isfinite(value)})
+        return metric
+
+    def dump_metrics(self, metrics_list, filename="metrics.yaml"):
+        """Write a list of flat {name: float} maps as YAML (no PyYAML on
+        the card machine); PyYAML loads it back to the same values."""
+        with open(os.path.join(self.log_dir, filename), "w") as f:
+            f.write(yaml_metrics(metrics_list))
 
     def resume(self, path):
-        raise NotImplementedError(EVAL_TODO)
+        raise NotImplementedError(f"resume: {CHECKPOINT_TODO}")
+
+
+def _yaml_float(value):
+    """A float as a YAML 1.1 float scalar that reads back exactly."""
+    value = float(value)
+    if math.isnan(value):
+        return ".nan"
+    if math.isinf(value):
+        return ".inf" if value > 0 else "-.inf"
+    text = repr(value)
+    mantissa, _, exponent = text.partition("e")
+    if "." not in mantissa:  # YAML 1.1 floats need a dot
+        mantissa += ".0"
+    return mantissa + ("e" + exponent if exponent else "")
+
+
+def yaml_metrics(metrics_list):
+    """The YAML text of a list of flat {name: float} maps, names sorted."""
+    lines = []
+    for metrics in metrics_list:
+        if not metrics:
+            lines.append("- {}")
+        for i, name in enumerate(sorted(metrics)):
+            lines.append(f"{'- ' if i == 0 else '  '}{json.dumps(str(name))}: "
+                         f"{_yaml_float(metrics[name])}")
+    return "\n".join(lines) + "\n" if lines else "[]\n"

@@ -303,3 +303,38 @@ def test_filter_on_step_on_card_matches_cpu(cuda, tmp_path):
     loss and every gradient, within chip_smoke's stated tolerances."""
     rows = chip_smoke.filter_on_step_card_vs_cpu(torch, str(tmp_path))
     assert len(rows) > 10 and all(err <= tol for _, err, tol in rows)
+
+
+def test_eval_render_on_card_matches_cpu(cuda, tmp_path):
+    """The eval render of a small model on the card against the CPU: the
+    same marched samples per pixel, the image within 1e-5."""
+    rows = chip_smoke.eval_render_card_vs_cpu(torch, str(tmp_path))
+    assert all(err <= tol for _, err, tol in rows)
+
+
+@pytest.mark.parametrize("round_to", [None, torch.bfloat16])
+@pytest.mark.parametrize("n,n_rows,width", [
+    (1 << 20, 65536, 16),       # an eval field call's cellhash levels
+    (8 << 20, 524288, 2),       # its vertex-hash levels, 8 corners each
+])
+def test_kernels_at_the_eval_field_chunk_bit_for_bit(cuda, n, n_rows, width,
+                                                     round_to):
+    """K3 and the corner sum as an eval field call runs them (N = 2^20
+    samples, no gradient): bit for bit against their plain versions."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n_rows)
+    table = torch.randn((n_rows, width), generator=gen, device=cuda)
+    idx = chip_smoke.k3_indices(torch, "uniform", n, n_rows)
+    with torch.no_grad():
+        rows = gather_rows.gather_rows(table, idx, round_to)
+        plain = gather_rows.gather_rows_reference(table, idx, round_to)
+        assert torch.equal(chip_smoke._bits(torch, rows),
+                           chip_smoke._bits(torch, plain))
+        # a level's (N, 8, F = 2) corner rows: 8 vertex rows, or one
+        # cellhash row of 8F
+        corners = rows.reshape(-1, 8, 2)
+        w = torch.rand(corners.shape[:2], generator=gen, device=cuda)
+        out = corner_sum.corner_sum(corners, w)
+        model = corner_sum.corner_sum_sequential(corners, w)
+        assert torch.equal(chip_smoke._bits(torch, out),
+                           chip_smoke._bits(torch, model))

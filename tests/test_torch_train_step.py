@@ -603,8 +603,8 @@ def test_trainer_runs_on_cpu_and_logs(dataset, tmp_path):
     # frozen contrast thresholds and refractory period did not move
     assert not trainer.params.refractory_period[
         "refractory_period_logit"].requires_grad
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.evaluate()
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 9"):
+        trainer.resume(str(tmp_path / "log"))
 
 
 def test_trainer_takes_filter_on_steps_on_cpu(dataset, tmp_path):
