@@ -53,7 +53,21 @@ Phases, each printing a start and an end line with elapsed seconds:
      profiled, whose gathers and corner sums must be 16 per field call
      (one per hash level); and the eval render of a small model on the
      card against the CPU (equal marched samples per pixel, the image
-     within 1e-5).
+     within 1e-5);
+  7. the real-data (EDS) path: configs/train/07_ziggy_and_fuzz_hdr.yaml
+     at full width (HashGrid 16 levels, float32 gathers, 256^3 grid,
+     sphere contraction, cone angle 0.004, the trainable filter at S = 30,
+     accumulation 8), cut only as EDS_REDUCED says, on a 64x64 synthetic
+     dataset with a distorted calibration: one epoch of 16 micro-steps
+     through Trainer.train (each micro-step's launches, occupancy update
+     and parameter change checked; a checkpoint at its end), the host
+     syncs of one steady micro-step (none from the optimizer, the EMA or
+     the accumulation), a fresh trainer resuming the checkpoint bit for
+     bit and training epoch 1 (pruning keeps one checkpoint), a third
+     built from configs/test/07_ziggy_and_fuzz_hdr.yaml's values that
+     evaluates the kept checkpoint, one 640x480 frame timed (16 launches
+     of the gather and the corner sum per field call), and a small EDS
+     step on the card against the CPU.
 
 Any failed check raises and the script exits non-zero. The line before
 the last is a JSON object describing each kernel; the last line is
@@ -64,6 +78,8 @@ the kernels' build directory (deblur_e_nerf_tpu_torch/_build).
 
 import argparse
 import json
+import math
+import os
 import re
 import shutil
 import signal
@@ -954,12 +970,13 @@ def run_steps(torch, trainer, n_steps, label, profile=False):
                   + f"; {_per_call(prof)}", flush=True)
 
 
-def count_step_syncs(torch, trainer):
-    """One steady flagship step (past the occupancy warmup, off the
-    occupancy schedule) under torch.cuda.set_sync_debug_mode("warn"):
-    returns {source line: host syncs}, each sync attributed to the
-    innermost line of the port on the stack, and prints it. A sync in
-    the optimizer fails the run."""
+def count_step_syncs(torch, trainer, label="flagship",
+                     forbidden=("training/optim.py",)):
+    """One steady step (past the occupancy warmup, off the occupancy
+    schedule) under torch.cuda.set_sync_debug_mode("warn"): returns
+    {source line: host syncs}, each sync attributed to the innermost line
+    of the port on the stack, and prints it. A sync in one of the
+    `forbidden` files (the optimizer's) fails the run."""
     import traceback
     import warnings
 
@@ -992,14 +1009,14 @@ def count_step_syncs(torch, trainer):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     launches = read_launches()
-    print(f"host syncs in one steady flagship step: {sum(sites.values())} "
+    print(f"host syncs in one steady {label} step: {sum(sites.values())} "
           f"({sites}); kernel launches {launches}", flush=True)
     n_levels = len(trainer.params.nerf.field.levels)
     if launches != {name: n_levels for name in launches}:
         raise AssertionError(f"a steady step launches each kernel once per "
                              f"hash level ({n_levels}): {launches}")
-    if any("training/optim.py" in site for site in sites):
-        raise AssertionError(f"the optimizer synchronizes: {sites}")
+    if any(f in site for site in sites for f in forbidden):
+        raise AssertionError(f"{label}: a sync in {forbidden}: {sites}")
     if not any("ops/linalg.py" in site for site in sites):
         # the expm's squaring count is read on the host every step
         raise AssertionError(f"the sync counter missed ops/linalg.py's "
@@ -1139,6 +1156,17 @@ def _to(value, device):
 
 
 def filter_on_step_card_vs_cpu(torch, tmp, device="cuda"):
+    """One filter-on step (S = 30) of a small flagship model on the card
+    (`device`) and on the CPU (see `step_card_vs_cpu`)."""
+    from deblur_e_nerf_tpu_torch.data import synthetic
+
+    root = synthetic.make_dataset(f"{tmp}/small", img_height=16,
+                                  img_width=16, num_poses=21)
+    return step_card_vs_cpu(torch, small_config(root, filter_on=True),
+                            "filter-on step", device)
+
+
+def step_card_vs_cpu(torch, config, label, device="cuda"):
     """One filter-on step (S = 30) of a small model on the card (`device`)
     and on the CPU, from the same weights, occupancy grid, batch and
     draws.
@@ -1151,16 +1179,16 @@ def filter_on_step_card_vs_cpu(torch, tmp, device="cuda"):
     its largest entry, and the filter-parameter gradients (sums over
     events that cancel) within 1e-2 of the largest of them."""
     from deblur_e_nerf_tpu_torch.data import events as events_data
-    from deblur_e_nerf_tpu_torch.data import synthetic
     from deblur_e_nerf_tpu_torch.models import nerf_model
     from deblur_e_nerf_tpu_torch.training import pipeline, setup
     from deblur_e_nerf_tpu_torch.training import step as step_lib
 
-    root = synthetic.make_dataset(f"{tmp}/small", img_height=16,
-                                  img_width=16, num_poses=21)
-    config = small_config(root, filter_on=True)
-    # ~300 samples per ray x 6 events x 4 x 30 rays fit K = 2^19
-    capacity, active, budget = 8, 6, 1 << 19
+    root = config.data.dataset_directory
+    # ~300 samples per ray x 6 events x 4 x 30 rays fit K = 2^19; the EDS
+    # march takes ~600 a ray: 2 events in K = 2^18 (the training render
+    # runs the field on every slot, which the CPU side pays)
+    capacity, active, budget = ((4, 2, 1 << 18) if config.model.nerf.cone_angle
+                                else (8, 6, 1 << 19))
     cpu = torch.device("cpu")
     bundle_c, params_c = setup.build(config, root, sample_budget=budget,
                                      device=cpu)
@@ -1171,7 +1199,7 @@ def filter_on_step_card_vs_cpu(torch, tmp, device="cuda"):
     gen.manual_seed(5)
     occ_c = nerf_model.update_occupancy(
         params_c.nerf, nerf_model.init_occupancy(params_c.nerf, cpu), 0,
-        gen)
+        gen, bundle_c.consts["trajectory"].T_wc_position)
     occ_g = type(occ_c)(*(t.to(device) for t in occ_c))
     events = events_data.EventDataset(root).events
     batch_np = pipeline.EventBatcher(events, capacity, seed=0).next_batch(
@@ -1197,14 +1225,14 @@ def filter_on_step_card_vs_cpu(torch, tmp, device="cuda"):
 
     def check(name, err, tol):
         rows.append((name, err, tol))
-        print(f"reference filter-on step {name}: max abs err {err:.3e} "
+        print(f"reference {label} {name}: max abs err {err:.3e} "
               f"(tolerance {tol:.3e})", flush=True)
         if not err <= tol:
-            raise AssertionError(f"filter-on step {name}: card and CPU "
+            raise AssertionError(f"{label} {name}: card and CPU "
                                  f"disagree ({err} > {tol})")
 
     if not (loss_c > 0 and float(metrics_c["mean_valid_rate"]) > 0.5):
-        raise AssertionError("filter-on reference step is degenerate")
+        raise AssertionError(f"{label}: the reference step is degenerate")
     spr = [float(m["mean_num_samples_per_ray"])
            for m in (metrics_c, metrics_g)]
     check("samples per ray", abs(spr[1] - spr[0]), 1e-4 * spr[0])
@@ -1214,7 +1242,7 @@ def filter_on_step_card_vs_cpu(torch, tmp, device="cuda"):
     for n, g in grads_c.items():
         err = float((grads_g[n] - g).abs().max())
         if not bool(torch.isfinite(grads_g[n]).all()):
-            raise AssertionError(f"filter-on step grad {n} not finite")
+            raise AssertionError(f"{label} grad {n} not finite")
         tol = (1e-2 * pb_scale if n.startswith("pixel_bandwidth.")
                else 2e-3 * float(g.abs().max()) + 1e-12)
         check(f"grad {n}", err, tol)
@@ -1250,7 +1278,8 @@ def eval_render_card_vs_cpu(torch, tmp, device="cuda"):
     config = small_config(root, filter_on=False)
     config.model.nerf.test_chunk_size = 256
     cpu = torch.device("cpu")
-    _, params_c = setup.build(config, root, sample_budget=4096, device=cpu)
+    bundle_c, params_c = setup.build(config, root, sample_budget=4096,
+                                     device=cpu)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(3)
     with torch.no_grad():
@@ -1260,7 +1289,7 @@ def eval_render_card_vs_cpu(torch, tmp, device="cuda"):
     params_g.load_state_dict(params_c.state_dict())
     occ_c = nerf_model.update_occupancy(
         params_c.nerf, nerf_model.init_occupancy(params_c.nerf, cpu), 0,
-        gen)
+        gen, bundle_c.consts["trajectory"].T_wc_position)
     occ_g = type(occ_c)(*(t.to(device) for t in occ_c))
     view = posed_images.PosedImageDataset(root, "val").posed_imgs
     args = (torch.as_tensor(np.linalg.inv(view["intrinsics"]),
@@ -1304,7 +1333,6 @@ def phase_eval(torch, tmp, trainer, root):
     one corner sum per hash level), then the card-vs-CPU eval render.
     Returns {"eval": launches of evaluate("val"), "eval frame": launches
     of one frame}."""
-    import math
 
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
@@ -1393,6 +1421,474 @@ def phase_eval(torch, tmp, trainer, root):
     return {"eval": val_launches, "eval frame": frame_launches}
 
 
+# phase 7's configs, read with the port's own YAML reader (the card
+# machine has no PyYAML)
+EDS_TRAIN_CONFIG = "configs/train/07_ziggy_and_fuzz_hdr.yaml"
+EDS_TEST_CONFIG = "configs/test/07_ziggy_and_fuzz_hdr.yaml"
+# phase 7's cuts of the train config, printed on its `reduced` line (the
+# dataset directory is the run's own); trainer.ema_decay is added, as 19
+# of the repo's 27 train configs set it, so the phase drives the EMA
+EDS_REDUCED = {
+    "data.dataset_directory": "a 64x64 synthetic ESIM-layout dataset with "
+                              "a plumb_bob distortion",
+    "trainer.limit_train_batches": 16,
+    "trainer.max_epochs": 2,
+    "seed": 0,
+    "trainer.ema_decay": 0.999,
+}
+EDS_DISTORTION = [-0.1, 0.02, 1e-3, -1e-3]
+# the EDS sequences' event camera (640x480)
+EDS_FRAME_HEIGHT, EDS_FRAME_WIDTH = 480, 640
+
+
+def eds_config(dataset_directory, test=False, checkpoint=None):
+    """configs/train/07_ziggy_and_fuzz_hdr.yaml with phase 7's cuts
+    (EDS_REDUCED); with `test`, configs/test/07_ziggy_and_fuzz_hdr.yaml
+    with its dataset directory and seed cut the same way and `checkpoint`
+    as model.checkpoint_filepath."""
+    from deblur_e_nerf_tpu_torch.utils.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = load_config(os.path.join(
+        here, EDS_TEST_CONFIG if test else EDS_TRAIN_CONFIG))
+    changes = ({"seed": 0, "model.checkpoint_filepath": checkpoint} if test
+               else dict(EDS_REDUCED))
+    changes["data.dataset_directory"] = dataset_directory
+    for key, value in changes.items():
+        *parents, leaf = key.split(".")
+        node = config
+        for part in parents:
+            node = node[part]
+        node[leaf] = value
+    return config
+
+
+def make_eds_dataset(root, height, width, num_poses, write_views=True):
+    """A synthetic ESIM-layout dataset whose calibration carries a
+    plumb_bob distortion (the EDS calibrations are distorted), so the
+    events go through the undistortion."""
+    import numpy as np
+
+    from deblur_e_nerf_tpu_torch.data import synthetic
+
+    synthetic.make_dataset(root, img_height=height, img_width=width,
+                           num_poses=num_poses, write_views=write_views)
+    path = f"{root}/camera_calibration.npz"
+    calib = dict(np.load(path))
+    calib["distortion_model"] = np.array("plumb_bob")
+    calib["distortion_params"] = np.array(EDS_DISTORTION)
+    np.savez(path, **calib)
+    return root
+
+
+def eds_small_config(root):
+    """The EDS config at the reference checks' small size: 6 HashGrid
+    levels (dense and vertex-hash ones) of <= 2^12 rows, float32 gathers,
+    16-wide MLPs, a 32^3 grid; sphere, cone 0.004 and the trainable
+    filter as written."""
+    config = eds_config(root)
+    pe = config.model.nerf.ngp.pos_encoding
+    pe.n_levels, pe.base_resolution, pe.per_level_scale = 6, 4, 2.0
+    pe.log2_hashmap_size = 12
+    config.model.nerf.ngp.mlp_base.n_neurons = 16
+    config.model.nerf.ngp.mlp_head.n_neurons = 16
+    config.model.nerf.occ_grid.resolution = 32
+    return config
+
+
+def eds_step_card_vs_cpu(torch, tmp, device="cuda"):
+    """One EDS step (sphere, cone 0.004, HashGrid float32, the trainable
+    filter, S = 30, a distorted calibration) of a small model on the card
+    (`device`) and on the CPU (see `step_card_vs_cpu`)."""
+    root = make_eds_dataset(f"{tmp}/small_eds", 16, 16, 21,
+                            write_views=False)
+    return step_card_vs_cpu(torch, eds_small_config(root), "EDS step",
+                            device)
+
+
+def _state_tensors(trainer):
+    """{name: tensor} of everything a resume restores."""
+    opt = trainer.optimizer
+    out = {f"param {n}": p.detach() for n, p in
+           trainer.params.named_parameters()}
+    for n, p in opt.named_params():
+        out[f"m {n}"], out[f"v {n}"] = opt.state[p]
+        if p in opt.acc:
+            out[f"acc {n}"] = opt.acc[p]
+    if trainer.ema_params is not None:
+        out.update({f"ema {n}": p for n, p in
+                    trainer.ema_params.named_parameters()})
+    out.update(count=opt.count, mini_step=opt.mini_step,
+               occs=trainer.occ_state.occs, binary=trainer.occ_state.binary)
+    return out
+
+
+def _saved_tensors(torch, trainer, path):
+    """The same names as `_state_tensors`, read from the checkpoint file
+    on the card."""
+    saved = torch.load(path, map_location=trainer.device, weights_only=True)
+    out = {}
+    for comp, state in saved["params"].items():
+        out.update({f"param {comp}.{k}": v for k, v in state.items()})
+    for key in ("m", "v", "acc"):
+        out.update({f"{key} {n}": v for n, v in
+                    saved["opt_state"][key].items()})
+    for comp, state in saved.get("ema_params", {}).items():
+        out.update({f"ema {comp}.{k}": v for k, v in state.items()})
+    out.update(count=saved["opt_state"]["count"],
+               mini_step=saved["opt_state"]["mini_step"],
+               occs=saved["occ_state"]["occs"],
+               binary=saved["occ_state"]["binary"])
+    names = set(_state_tensors(trainer))
+    return {k: v for k, v in out.items() if k in names}, saved
+
+
+def train_eds_epoch(torch, trainer, card):
+    """Epoch 0 of the EDS trainer through Trainer.train (16 micro-steps, 2
+    optimizer steps, a checkpoint at its end), each micro-step timed and
+    checked: its kernel launches, whether it ran the occupancy update and
+    whether the parameters changed. Returns the per-micro-step records,
+    the occupancy updates' (global step, ms) and the checkpoint save's
+    seconds."""
+    params = list(trainer.params.parameters())
+    records, occ_calls, saves = [], [], []
+    step_fn, occ_fn, save_fn = (trainer.train_step, trainer.update_occupancy,
+                                trainer.save_checkpoint)
+
+    def timed_occ(step=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = occ_fn(step)
+        torch.cuda.synchronize()
+        occ_calls.append((trainer.global_step,
+                          (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def timed_step():
+        before = [p.detach().clone() for p in params]
+        counts = read_launches()
+        n_occ = len(occ_calls)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = step_fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = read_launches()
+        records.append({
+            "step": trainer.global_step - 1, "ms": ms,
+            "launches": {k: after[k] - counts[k] for k in after},
+            "occupancy": len(occ_calls) > n_occ,
+            "changed": any(not torch.equal(b, p.detach())
+                           for b, p in zip(before, params)),
+            "ema_differs": not torch.equal(
+                trainer.ema_params.nerf.field.table,
+                trainer.params.nerf.field.table),
+            "loss": float(metrics["loss"]),
+            "skipped": bool(metrics["update_skipped"]),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "samples_per_ray": float(metrics["mean_num_samples_per_ray"]),
+            "truncated": float(metrics["ray_truncation_rate"]),
+            "valid": float(metrics["mean_valid_rate"]),
+        })
+        r = records[-1]
+        print(f"EDS micro-step {r['step']}: loss {r['loss']:.6f}, samples/"
+              f"ray {r['samples_per_ray']:.2f}, truncated rays "
+              f"{r['truncated']:.4f}, valid {r['valid']:.3f}, occupancy "
+              f"update {r['occupancy']}, parameters changed {r['changed']}, "
+              f"{ms:.3f} ms, peak {r['peak_gib']:.2f} GiB, launches "
+              f"{r['launches']} on {card}", flush=True)
+        return metrics
+
+    def timed_save(epoch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_fn(epoch)
+        saves.append(time.perf_counter() - t0)
+        return path
+
+    trainer.train_step, trainer.update_occupancy = timed_step, timed_occ
+    trainer.save_checkpoint = timed_save
+    try:
+        trainer.train(max_steps=int(EDS_REDUCED["trainer.limit_train_batches"]))
+    finally:
+        del trainer.train_step, trainer.update_occupancy
+        del trainer.save_checkpoint
+    return records, occ_calls, saves
+
+
+def check_eds_epoch(records, occ_calls, n_levels, accumulate, resolution):
+    """Phase 7's checks of epoch 0's micro-steps."""
+    # the warmup update's field calls, of 2^19 cells each
+    chunks = -(-(resolution ** 3) // (1 << 19))
+    for r in records:
+        occ = r["occupancy"]
+        want = n_levels * (1 + (chunks if occ else 0))
+        got = r["launches"]
+        if not (got["scatter_add_rows"] == n_levels
+                and got["gather_rows"] == got["corner_sum"] == want):
+            raise AssertionError(f"EDS micro-step {r['step']}: launches "
+                                 f"{got}, want K1 {n_levels} and K3 and the "
+                                 f"corner sum {want} each")
+        if occ != (r["step"] % accumulate == 0):
+            raise AssertionError(f"EDS micro-step {r['step']}: occupancy "
+                                 f"update {occ}")
+        if r["changed"] != (r["step"] % accumulate == accumulate - 1):
+            raise AssertionError(f"EDS micro-step {r['step']}: parameters "
+                                 f"changed {r['changed']}")
+        if r["skipped"] or not math.isfinite(r["loss"]):
+            raise AssertionError(f"EDS micro-step {r['step']}: loss "
+                                 f"{r['loss']}, skipped {r['skipped']}")
+        if r["step"] >= accumulate - 1 and not r["ema_differs"]:
+            raise AssertionError(f"EDS micro-step {r['step']}: the EMA "
+                                 f"equals the parameters")
+    if [g for g, _ in occ_calls] != [0, accumulate]:
+        raise AssertionError(f"EDS occupancy updates at {occ_calls}")
+
+
+def check_eds_trainer(torch, trainer):
+    """The EDS trainer is the configured one: HashGrid levels 0-4 dense and
+    5-15 vertex-hash, float32 gathers, accumulation 8, the six filter
+    parameters trainable, the default sample budget."""
+    field = trainer.params.nerf.field
+    pb = dict(trainer.params.pixel_bandwidth.named_parameters())
+    if not ([m for _, _, _, m in field.levels] == ["dense"] * 5 + ["hash"] * 11
+            and trainer.accumulate == 8 and len(pb) == 6
+            and all(p.requires_grad for p in pb.values())
+            and trainer.params.nerf.render_config.sample_budget
+            == MAIN_PATH_SAMPLE_BUDGET
+            and field.compute_dtype in (None, torch.float32)):
+        raise AssertionError("the EDS trainer is not the one configured")
+
+
+def profile_eds_step(torch, trainer):
+    """Device time by kernel of one steady EDS micro-step (off the
+    occupancy schedule, mid-window), with its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.global_step = int(trainer.params.nerf.occ_grid_config
+                              .warmup_steps) + 2
+    trainer.train_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step()
+        torch.cuda.synchronize()
+    busy, ours = _device_table(prof, "EDS micro-step", 1)
+    print(f"profile EDS micro-step: wall {wall:.3f} ms without the "
+          f"profiler, kernels busy {busy:.3f} ms ({100 * busy / wall:.1f}%); "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items())
+          + f"; {_per_call(prof)}", flush=True)
+
+
+def phase_eds(torch, tmp, card, profile=False):
+    """Phase 7: the real-data (EDS) path at full width. Returns
+    {path: launches} for its training, resumed training, evaluation and
+    640x480 frame. With `profile`, one steady micro-step's device time
+    by kernel too."""
+    import numpy as np
+
+    from deblur_e_nerf_tpu_torch.data import posed_images
+    from deblur_e_nerf_tpu_torch.training import evaluation
+    from deblur_e_nerf_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    root = make_eds_dataset(f"{tmp}/eds", 64, 64, 61)
+    print(f"EDS dataset (distortion {EDS_DISTORTION}) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print("reduced: " + json.dumps(EDS_REDUCED), flush=True)
+    config = eds_config(root)
+    log_dir = f"{tmp}/log_eds"
+    launches = {}
+
+    t0 = time.perf_counter()
+    trainer = Trainer(config, log_dir, device="cuda")
+    field = trainer.params.nerf.field
+    n_levels = len(field.levels)
+    accumulate = trainer.accumulate
+    pb = dict(trainer.params.pixel_bandwidth.named_parameters())
+    print(f"EDS trainer built in {time.perf_counter() - t0:.2f} s: levels "
+          f"{[(r, m) for r, _, _, m in field.levels]}, table "
+          f"{tuple(field.table.shape)} {field.table.dtype}, gathers "
+          f"{field.compute_dtype}, contraction "
+          f"{trainer.params.nerf.render_config.contraction_type.value}, cone "
+          f"{trainer.params.nerf.render_config.cone_angle}, step "
+          f"{trainer.params.nerf.render_config.render_step_size:.6f}, grid "
+          f"{trainer.params.nerf.render_config.grid_resolution}^3, sample "
+          f"budget {trainer.params.nerf.render_config.sample_budget}, "
+          f"accumulate {accumulate}, trainable filter parameters "
+          f"{sorted(n for n, p in pb.items() if p.requires_grad)}",
+          flush=True)
+    check_eds_trainer(torch, trainer)
+    torch.cuda.synchronize()
+    reset_launches()
+    t_epoch = time.perf_counter()
+    records, occ_calls, saves = train_eds_epoch(torch, trainer, card)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t_epoch
+    launches["eds train"] = read_launches()
+    check_eds_epoch(records, occ_calls, n_levels, accumulate,
+                    trainer.params.nerf.render_config.grid_resolution)
+    ckpt0 = f"{log_dir}/checkpoints/epoch_0000"
+    size_mib = os.path.getsize(ckpt0) / 2**20
+    steady = sorted(r["ms"] for r in records
+                    if not r["occupancy"] and not r["changed"])
+    window = records[accumulate:2 * accumulate]
+    peak = max(r["peak_gib"] for r in records)
+    print(f"EDS epoch 0: {len(records)} micro-steps, "
+          f"{int(trainer.optimizer.count)} optimizer steps in {epoch_s:.3f} "
+          f"s; launches {launches['eds train']}", flush=True)
+    print(f"EDS first micro-step: {records[0]['ms']:.3f} ms (with the "
+          f"warmup occupancy update)", flush=True)
+    print(f"EDS steady micro-step: {steady[len(steady) // 2]:.3f} ms median "
+          f"(min {steady[0]:.3f}, max {steady[-1]:.3f}, of {len(steady)})",
+          flush=True)
+    print(f"EDS optimizer step ({accumulate} micro-steps, "
+          f"{window[0]['step']}-{window[-1]['step']}, with its occupancy "
+          f"update): {sum(r['ms'] for r in window):.3f} ms", flush=True)
+    res = config.model.nerf.occ_grid.resolution
+    print(f"EDS warmup occupancy updates at {res}^3: "
+          f"{[round(ms, 3) for _, ms in occ_calls]} ms", flush=True)
+    print(f"EDS checkpoint: {size_mib:.2f} MiB, saved in {saves[0]:.3f} s",
+          flush=True)
+    print(f"EDS peak device memory: {peak:.2f} GiB on {card}", flush=True)
+    trainer._flush_pending_metrics()
+    count_step_syncs(torch, trainer, "EDS",
+                     ("training/optim.py", "training/trainer.py",
+                      "training/step.py"))
+    if profile:
+        profile_eds_step(torch, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # a fresh trainer resumes epoch_0000 in the same log directory
+    resumed = Trainer(config, log_dir, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch = resumed.resume(ckpt0)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    want, _ = _saved_tensors(torch, resumed, ckpt0)
+    got = _state_tensors(resumed)
+    differ = [k for k in got if k not in want
+              or got[k].dtype != want[k].dtype
+              or not torch.equal(got[k], want[k])]
+    print(f"EDS resume: epoch {epoch}, global step {resumed.global_step}, "
+          f"restored in {restore_s:.3f} s; {len(got)} tensors, "
+          f"{len(differ)} differing from the checkpoint", flush=True)
+    if differ or epoch != 0 or resumed.global_step != len(records) \
+            or set(want) != set(got):
+        raise AssertionError(f"EDS resume is not bit for bit: {differ[:8]}")
+    if resumed.eval_params() is not resumed.ema_params:
+        raise AssertionError("EDS: evaluation does not read the EMA")
+    torch.cuda.synchronize()
+    reset_launches()
+    resumed.train()
+    torch.cuda.synchronize()
+    launches["eds resume"] = read_launches()
+    loss = resumed.last_metrics["loss"]
+    kept = sorted(f for f in os.listdir(f"{log_dir}/checkpoints")
+                  if f.startswith("epoch_"))
+    print(f"EDS resumed epoch 1: global step {resumed.global_step}, loss "
+          f"{loss:.6f}, checkpoints kept {kept}; launches "
+          f"{launches['eds resume']}", flush=True)
+    if not (math.isfinite(loss) and kept == ["epoch_0001"]
+            and resumed.global_step == 2 * len(records)):
+        raise AssertionError("EDS resumed epoch failed")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # evaluate the kept checkpoint with the test config's flags
+    ckpt1 = f"{log_dir}/checkpoints/epoch_0001"
+    test_config = eds_config(root, test=True, checkpoint=ckpt1)
+    test_config.metric.lpips_weights_path = write_lpips_stub(
+        torch, f"{tmp}/lpips_alex.pt")
+    evaluator = Trainer(test_config, f"{tmp}/log_eds_test", device="cuda")
+    saved = torch.load(ckpt1, map_location=evaluator.device,
+                       weights_only=True)
+    differ = [f"{comp}.{k}" for comp, state in saved["params"].items()
+              for k, v in state.items()
+              if not torch.equal(getattr(evaluator.params, comp)
+                                 .state_dict()[k], v)]
+    differ += [k for k in ("occs", "binary") if not torch.equal(
+        getattr(evaluator.occ_state, k), saved["occ_state"][k])]
+    if differ:
+        raise AssertionError(f"EDS eval: restored state differs: {differ}")
+    del saved
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    metric = evaluator.evaluate("test")
+    torch.cuda.synchronize()
+    launches["eds eval"] = read_launches()
+    print(f"EDS eval test (event_view, from {os.path.basename(ckpt1)}, "
+          f"EMA {'yes' if evaluator.ema_params is not None else 'none'}): "
+          f"{json.dumps(metric)} in {time.perf_counter() - t0:.3f} s; "
+          f"launches {launches['eds eval']}", flush=True)
+    if not all(math.isfinite(metric[k]) for k in ("l1", "psnr", "ssim",
+                                                  "lpips")):
+        raise AssertionError(f"EDS eval: a metric is not finite: {metric}")
+
+    H, W = EDS_FRAME_HEIGHT, EDS_FRAME_WIDTH
+    focal = 0.8 * W
+    intrinsics = np.array([[focal, 0, W / 2 - 0.5], [0, focal, H / 2 - 0.5],
+                           [0, 0, 1]])
+    view = posed_images.PosedImageDataset(root, "val").posed_imgs
+    args = (torch.as_tensor(np.linalg.inv(intrinsics), dtype=torch.float32),
+            _pixel_grid(torch, H, W),
+            torch.as_tensor(view["T_wc_position"][0]),
+            torch.as_tensor(view["T_wc_orientation"][0]))
+    render = evaluation.make_render_image_fn(evaluator.eval_params().nerf)
+    render(evaluator.occ_state, *args)  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        img = render(evaluator.occ_state, *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches["eds frame"] = read_launches()
+    frame_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    stats = render.stats
+    ms = sum(times) / len(times)
+    print(f"EDS eval frame {W}x{H}: {ms:.3f} ms per image (runs "
+          f"{[round(t, 3) for t in times]}), {H * W / ms * 1e3:.1f} rays/s, "
+          f"{stats['ray_chunks']} ray chunks, live marched samples "
+          f"{stats['live_samples']} ({stats['live_samples'] / (H * W):.2f} "
+          f"per ray), field calls {stats['field_chunks']} "
+          f"({stats['field_chunks'] / stats['ray_chunks']:.2f} per ray "
+          f"chunk), truncated rays {stats['truncated_rays']}, peak device "
+          f"memory {frame_peak:.3f} GiB above the evaluator's "
+          f"{base / 2**30:.3f} GiB; launches {launches['eds frame']} on "
+          f"{card}", flush=True)
+    want = n_levels * stats["field_chunks"]
+    frame = launches["eds frame"]
+    if not (frame["gather_rows"] == frame["corner_sum"] == want > 0
+            and frame["scatter_add_rows"] == 0):
+        raise AssertionError(f"EDS frame launches {frame}, want {want}")
+    if img.shape != (H, W) or not bool(torch.isfinite(img).all()) \
+            or stats["truncated_rays"]:
+        raise AssertionError(f"EDS frame: shape {tuple(img.shape)}, "
+                             f"truncated {stats['truncated_rays']}")
+    del evaluator, render
+    torch.cuda.empty_cache()
+    eds_step_card_vs_cpu(torch, tmp)
+    for path, counts in launches.items():
+        for name in ("gather_rows", "corner_sum") + (
+                ("scatter_add_rows",) if "eval" not in path
+                and "frame" not in path else ()):
+            if counts[name] <= 0:
+                raise AssertionError(f"{path}: {name} never launched")
+    return launches
+
+
 def kernel_line(name, source, replaces, rows, launches, main_shape):
     main = next(r for r in rows if r["shape"] == main_shape
                 and r.get("index_structure", "uniform") == "uniform")
@@ -1412,7 +1908,8 @@ def main():
     parser.add_argument("--profile", action="store_true",
                         help="profile the flagship steps, then print the "
                              "device time by kernel over 3 more filter-on "
-                             "steps past the warmup")
+                             "steps past the warmup, and over one steady "
+                             "EDS micro-step")
     args = parser.parse_args()
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(BUDGET_S)
@@ -1438,6 +1935,10 @@ def main():
         with phase("6 eval"):
             launches.update(phase_eval(torch, tmp, trainer, root))
         del trainer
+        torch.cuda.empty_cache()
+        with phase("7 real-data (EDS) path"):
+            launches.update(phase_eds(torch, tmp, card,
+                                      profile=args.profile))
 
     kernels = [
         dict(kernel_line("scatter_add_rows", SCATTER_SOURCE,

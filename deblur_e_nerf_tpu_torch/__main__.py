@@ -3,10 +3,13 @@
 Mirrors the JAX package's scripts/run.py: loads the YAML config, draws a
 seed when `seed` is null (recorded in the config copy) and builds the
 Trainer. `train` trains and evaluates the val views every
-`trainer.check_val_every_n_epoch` epochs; `val` and `test` evaluate the
-stage's views and write `metrics.yaml` into the log directory. Loading a
-checkpoint (`model.checkpoint_filepath`, `trainer.resume_from_checkpoint`)
-is not ported yet (ROADMAP Queue A 9) and raises.
+`trainer.check_val_every_n_epoch` epochs and saves a checkpoint per epoch
+under `<log dir>/checkpoints/`; `val` and `test` evaluate the stage's views
+and write `metrics.yaml` into the log directory.
+`trainer.resume_from_checkpoint` resumes a run from one of its checkpoints
+and trains from the next epoch; `model.checkpoint_filepath` loads the
+components whose `load_state_dict` is set (for example to evaluate a
+trained model with a `configs/test/*.yaml`).
 """
 
 import argparse
@@ -45,6 +48,12 @@ def main(argv=None):
                                      os.path.basename(args.config)))
     trainer = Trainer(config, log_dir, batch_capacity=args.batch_capacity,
                       sample_budget=args.sample_budget, device=args.device)
+    start_epoch = 0
+    resume_path = config.trainer.get("resume_from_checkpoint")
+    if resume_path:
+        start_epoch = trainer.resume(resume_path) + 1
+        print(f"resumed from {resume_path} at epoch {start_epoch}",
+              flush=True)
     if args.stage == "train":
         every = int(config.trainer.get("check_val_every_n_epoch", 1))
 
@@ -55,7 +64,8 @@ def main(argv=None):
                 print(f"epoch {epoch}: val {metric}", flush=True)
 
         elapsed = trainer.train(max_steps=args.max_steps,
-                                on_epoch_end=on_epoch_end)
+                                on_epoch_end=on_epoch_end,
+                                start_epoch=start_epoch)
         print(f"training finished in {elapsed:.1f}s "
               f"({trainer.global_step} steps)", flush=True)
     else:

@@ -8,10 +8,10 @@ The maximum refractory period is the minimum inter-event interval over
 all per-pixel substreams after de-duplicating equal timestamps. A stable
 sort by pixel turns the per-pixel windows into shifted-array operations.
 
-Undistortion is done only for an undistorted calibration (empty or
-all-zero distortion parameters); a distorted calibration raises until the
-undistortion is ported (ROADMAP Queue A 8). The port's cache files are
-named apart from the JAX package's.
+Event positions are undistorted in float64 numpy, following OpenCV's
+`cv2.undistortPoints` (plumb_bob) and `cv2.fisheye.undistortPoints`
+(equidistant) with their default criteria and P = K, which the JAX package
+calls. The port's cache files are named apart from the JAX package's.
 """
 
 import os
@@ -122,17 +122,99 @@ def colorize_events(events, bayer_pattern):
     return events
 
 
+def _undistort_plumb_bob(pts, intrinsics, dist, iterations=5):
+    """cv2.undistortPoints(pts, K, dist, P=K): radial-tangential (4, 5, 8,
+    12 or 14 coefficients; no tilt), OpenCV's fixed-point inverse with its
+    default 5 iterations."""
+    k = np.zeros(14)
+    k[:len(dist)] = dist
+    if np.any(k[12:]):
+        raise NotImplementedError("plumb_bob with tilt coefficients")
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    u, v = pts[:, 0], pts[:, 1]
+    x0 = x = (u - cx) * (1.0 / fx)
+    y0 = y = (v - cy) * (1.0 / fy)
+    done = np.zeros(len(pts), bool)
+    for _ in range(iterations):
+        r2 = x * x + y * y
+        icdist = ((1 + ((k[7] * r2 + k[6]) * r2 + k[5]) * r2)
+                  / (1 + ((k[4] * r2 + k[1]) * r2 + k[0]) * r2))
+        # OpenCV falls back to the distorted point where the model folds
+        bad = ~done & (icdist < 0)
+        x = np.where(bad, x0, x)
+        y = np.where(bad, y0, y)
+        done |= bad
+        dx = (2 * k[2] * x * y + k[3] * (r2 + 2 * x * x) + k[8] * r2
+              + k[9] * r2 * r2)
+        dy = (k[2] * (r2 + 2 * y * y) + 2 * k[3] * x * y + k[10] * r2
+              + k[11] * r2 * r2)
+        x = np.where(done, x, (x0 - dx) * icdist)
+        y = np.where(done, y, (y0 - dy) * icdist)
+    return _project(intrinsics, x, y)
+
+
+def _undistort_equidistant(pts, intrinsics, dist, iterations=10, eps=1e-8):
+    """cv2.fisheye.undistortPoints(pts, K, D, P=K): Newton's method on
+    theta with OpenCV's default criteria (10 iterations or a step below
+    1e-8); a point that does not converge, or whose theta changes sign,
+    becomes (-1e6, -1e6), as in OpenCV."""
+    k = np.zeros(4)
+    k[:len(dist)] = dist
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    pw_x = (pts[:, 0] - cx) / fx
+    pw_y = (pts[:, 1] - cy) / fy
+    theta_d = np.clip(np.sqrt(pw_x * pw_x + pw_y * pw_y), -np.pi / 2,
+                      np.pi / 2)
+    theta = theta_d.copy()
+    converged = theta_d <= 1e-8
+    for _ in range(iterations):
+        t2 = theta * theta
+        t4 = t2 * t2
+        t6 = t4 * t2
+        t8 = t6 * t2
+        k0, k1, k2, k3 = k[0] * t2, k[1] * t4, k[2] * t6, k[3] * t8
+        fix = ((theta * (1 + k0 + k1 + k2 + k3) - theta_d)
+               / (1 + 3 * k0 + 5 * k1 + 7 * k2 + 9 * k3))
+        theta = np.where(converged, theta, theta - fix)
+        converged |= np.abs(fix) < eps
+    with np.errstate(divide="ignore", invalid="ignore"):
+        scale = np.where(theta_d > 1e-8, np.tan(theta) / theta_d, 1.0)
+    flipped = (theta_d < 0) & (theta > 0) | (theta_d > 0) & (theta < 0)
+    ok = converged & ~flipped
+    return np.where(ok[:, None], _project(intrinsics, pw_x * scale,
+                                          pw_y * scale), -1000000.0)
+
+
+def _project(intrinsics, x, y):
+    """(N, 2) points (x, y, 1) through P = K, as OpenCV's final
+    reprojection."""
+    K = intrinsics
+    xx = K[0, 0] * x + K[0, 1] * y + K[0, 2]
+    yy = K[1, 0] * x + K[1, 1] * y + K[1, 2]
+    ww = 1.0 / (K[2, 0] * x + K[2, 1] * y + K[2, 2])
+    return np.stack([xx * ww, yy * ww], axis=-1)
+
+
 def undistort_events(events, distortion_model, distortion_params,
                      intrinsics):
-    """Float64 positions; identity for an undistorted calibration."""
+    """Undistorted float64 positions; identity for an empty distortion."""
     events = dict(events)
     events["position"] = events["position"].astype(np.float64)
-    params = np.asarray(distortion_params, dtype=np.float64)
-    if params.size == 0 or not np.any(params):
+    if distortion_params is None or len(distortion_params) == 0:
         return events
-    raise NotImplementedError(
-        f"undistortion ({distortion_model!r}) is not ported yet (ROADMAP "
-        "Queue A 8); the port reads undistorted calibrations only")
+    pts = events["position"]
+    K = np.asarray(intrinsics, dtype=np.float64)
+    dist = np.asarray(distortion_params, dtype=np.float64).reshape(-1)
+    if str(distortion_model) == "plumb_bob":
+        events["position"] = _undistort_plumb_bob(pts, K, dist)
+    elif str(distortion_model) == "equidistant":
+        events["position"] = _undistort_equidistant(pts, K, dist)
+    else:
+        raise NotImplementedError(
+            f"distortion model {distortion_model!r} not supported")
+    return events
 
 
 class EventDataset:

@@ -25,7 +25,8 @@ class NeRFModel(nn.Module):
 
     def __init__(self, field, render_config, occ_grid_config,
                  render_bkgd_mode, radiance_dim, test_chunk_size,
-                 curriculum=None, table_decay=None, device=None):
+                 curriculum=None, table_decay=None, occlusion_prepass_div=0,
+                 device=None):
         super().__init__()
         self.field = field
         self.render_config = render_config
@@ -37,6 +38,8 @@ class NeRFModel(nn.Module):
         self.curriculum = curriculum
         # (start_table_row, weight) decoupled fine-table decay, or None
         self.table_decay = table_decay
+        # the training render's occlusion prepass (`render` raises with it)
+        self.occlusion_prepass_div = occlusion_prepass_div
         if render_bkgd_mode == "parameter":
             # softplus-parametrized positive background, initialized to 1
             self.render_bkgd_raw = nn.Parameter(torch.full(
@@ -69,9 +72,6 @@ def build(nerf_config, camera_positions, radiance_dim, render_bkgd,
         raise NotImplementedError(
             f"nerf arch {nerf_config.arch!r}: the port has the NGP field "
             "only (ROADMAP Queue A 12: VanillaNeRFField)")
-    if int(nerf_config.get("occlusion_prepass_div", 0)):
-        raise NotImplementedError(
-            "the occlusion prepass is not ported yet (ROADMAP Queue B 6)")
     aabb = resolve_aabb(nerf_config, camera_positions)
     render_step_size = resolve_render_step_size(nerf_config, aabb)
     contraction_type = contraction_lib.ContractionType(
@@ -142,7 +142,8 @@ def build(nerf_config, camera_positions, radiance_dim, render_bkgd,
     return NeRFModel(
         field, render_config, nerf_config.occ_grid, bkgd_mode, radiance_dim,
         int(nerf_config.test_chunk_size), curriculum=curriculum,
-        table_decay=table_decay, device=device,
+        table_decay=table_decay, occlusion_prepass_div=int(
+            nerf_config.get("occlusion_prepass_div") or 0), device=device,
     )
 
 
@@ -182,17 +183,21 @@ def density_fn(model, x, level_mask=None):
     return model.field.density(x, level_mask=level_mask)
 
 
-def update_occupancy(model, occ_state, step, generator, level_mask=None):
+def update_occupancy(model, occ_state, step, generator, camera_positions,
+                     level_mask=None):
     """One occupancy update at optimizer step `step` (full grid during
-    warmup), with draws from `generator`."""
+    warmup), with draws from `generator`; under a cone angle each
+    evaluated cell's step is taken at the distance of one of
+    `camera_positions` (the trajectory's, (C, 3))."""
     rc = model.render_config
     cfg = model.occ_grid_config
     warmup = int(step) < int(cfg.warmup_steps)
-    draws = occupancy.draw_update(generator, rc.grid_resolution, warmup,
-                                  occ_state.occs.device)
+    draws = occupancy.draw_update(
+        generator, rc.grid_resolution, warmup, occ_state.occs.device,
+        num_cameras=camera_positions.shape[0] if rc.cone_angle > 0.0 else 0)
     occ_eval = occupancy.make_occ_eval_fn(
         lambda x: density_fn(model, x, level_mask),
-        rc.render_step_size, rc.cone_angle)
+        rc.render_step_size, rc.cone_angle, rc.near_plane, rc.far_plane)
     return occupancy.update(
         occ_state, occ_eval, warmup, draws,
         resolution=rc.grid_resolution, aabb=rc.aabb,
@@ -201,6 +206,7 @@ def update_occupancy(model, occ_state, step, generator, level_mask=None):
         thre_floor=float(cfg.get("thre_floor", 0.0)),
         max_occupied_fraction=float(cfg.get("max_occupied_fraction", 1.0)),
         thre_rel_max=float(cfg.get("thre_rel_max", 0.0)),
+        camera_positions=camera_positions,
     )
 
 
@@ -219,6 +225,10 @@ def render(model, occ_state, rays_o, rays_d, ray_mask, jitter,
            level_mask=None):
     """Render a flat ray bundle; `jitter` (R,) uniforms for stratified
     sampling."""
+    if model.occlusion_prepass_div:
+        raise NotImplementedError(
+            "model.nerf.occlusion_prepass_div: the occlusion prepass is not "
+            "ported yet (ROADMAP Queue B 6)")
     rc = model.render_config
 
     def field_fn(x, d):

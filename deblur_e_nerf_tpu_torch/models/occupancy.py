@@ -81,42 +81,64 @@ def sample_occupied_cells(binary, draws):
                        draws["fallback_cells"].to(torch.int64))
 
 
-def draw_update(generator, resolution, warmup, device):
-    """Draws for one `update`: cell jitter, and for a sampled update the
-    uniform cells and the occupied-cell draws."""
+def draw_update(generator, resolution, warmup, device, num_cameras=0):
+    """Draws for one `update`: cell jitter, for a sampled update the
+    uniform cells and the occupied-cell draws, and with `num_cameras` (a
+    cone angle) one camera per evaluated cell (`cam_ids`)."""
     num_cells = int(resolution) ** 3
     n = num_cells // 4
     if warmup:
-        return {"jitter": torch.rand((num_cells, 3), device=device,
-                                     generator=generator)}
-    return {
-        "uniform_cells": torch.randint(0, num_cells, (n,), device=device,
-                                       generator=generator),
-        "occupied": draw_occupied_cells(generator, num_cells, n, device),
-        "jitter": torch.rand((2 * n, 3), device=device, generator=generator),
-    }
+        draws = {"jitter": torch.rand((num_cells, 3), device=device,
+                                      generator=generator)}
+    else:
+        draws = {
+            "uniform_cells": torch.randint(0, num_cells, (n,), device=device,
+                                           generator=generator),
+            "occupied": draw_occupied_cells(generator, num_cells, n, device),
+            "jitter": torch.rand((2 * n, 3), device=device,
+                                 generator=generator),
+        }
+    if num_cameras:
+        draws["cam_ids"] = torch.randint(
+            0, int(num_cameras), (draws["jitter"].shape[0],), device=device,
+            generator=generator)
+    return draws
 
 
-def make_occ_eval_fn(density_fn, render_step_size, cone_angle):
-    """density * step occupancy evaluation (uniform steps only)."""
-    if cone_angle > 0.0:
-        raise NotImplementedError(
-            "cone-angle occupancy evaluation is not ported yet "
-            "(ROADMAP Queue A 12: cone-angle marching)")
+def make_occ_eval_fn(density_fn, render_step_size, cone_angle,
+                     near_plane=None, far_plane=None):
+    """density * step occupancy evaluation: occ_eval_fn(x, origins). With
+    a cone angle the step is the march's at each cell's distance from a
+    camera position drawn for it (`origins`, (N, 3)),
+    max(|o - x| * cone, step), zeroed outside (near, far)."""
 
-    def occ_eval_fn(x):
-        return (density_fn(x) * render_step_size)[..., 0]
+    def occ_eval_fn(x, origins=None):
+        if cone_angle > 0.0:
+            t = _norm(origins - x)
+            step = torch.clamp(t * cone_angle, min=render_step_size)
+            if near_plane is not None and far_plane is not None:
+                step = torch.where((t > near_plane) & (t < far_plane), step,
+                                   torch.zeros_like(step))
+        else:
+            step = render_step_size
+        return (density_fn(x) * step)[..., 0]
 
     return occ_eval_fn
+
+
+def _norm(v):
+    return torch.sqrt((v * v).sum(dim=-1, keepdim=True))
 
 
 @torch.no_grad()
 def update(state, occ_eval_fn, warmup, draws, *, resolution, aabb,
            contraction_type, occ_thre, ema_decay, thre_floor=0.0,
-           max_occupied_fraction=1.0, thre_rel_max=0.0, chunk=1 << 19):
+           max_occupied_fraction=1.0, thre_rel_max=0.0,
+           camera_positions=None, chunk=1 << 19):
     """One occupancy-grid update. `warmup` selects the full-grid update
-    (step < warmup_steps); `draws` comes from `draw_update`. The density
-    is evaluated in chunks of `chunk` cells to bound memory."""
+    (step < warmup_steps); `draws` comes from `draw_update` (with
+    `cam_ids`, the evaluated cells' cameras among `camera_positions`). The
+    density is evaluated in chunks of `chunk` cells to bound memory."""
     device = state.occs.device
     num_cells = state.occs.shape[0]
     aabb = constant(aabb, torch.float32, device)
@@ -125,7 +147,12 @@ def update(state, occ_eval_fn, warmup, draws, *, resolution, aabb,
         coords = cell_coords(resolution, device, cells).to(torch.float32)
         u = (coords + draws["jitter"]) / resolution
         x = contraction_lib.contract_inv(u, aabb, contraction_type)
-        return torch.cat([occ_eval_fn(xc) for xc in x.split(chunk)])
+        if "cam_ids" not in draws:
+            return torch.cat([occ_eval_fn(xc) for xc in x.split(chunk)])
+        ids = draws["cam_ids"].to(torch.int64)
+        return torch.cat([
+            occ_eval_fn(xc, camera_positions[ic])
+            for xc, ic in zip(x.split(chunk), ids.split(chunk))])
 
     if warmup:
         occ = eval_cells(torch.arange(num_cells, device=device))

@@ -5,7 +5,8 @@ The march keeps the JAX package's fixed-budget design, so the sample set
 and the per-ray completeness flag mean the same in both packages:
 
   0. superblock pass (32-step superblocks against a 4x max-pooled, twice
-     dilated occupancy mask), when the geometry allows it;
+     dilated occupancy mask), when the geometry allows it (a uniform
+     timeline: never under a cone angle);
   1. block pass (8-step blocks against the one-cell-dilated mask);
   2. exact per-sample pass (occupancy at the sample midpoint and the
      [t_near, t_far) bounds).
@@ -104,9 +105,20 @@ def _ray_t_bounds(rays_o, rays_d, rc):
 
 
 def _timeline_at(k, t_start, rc):
-    """Closed-form step timeline t_k = t_start + k * step (uniform steps;
-    the cone-angle geometric timeline is not ported, see _check_config)."""
-    return t_start + k * rc.render_step_size
+    """Closed-form march timeline t_k (k float32, broadcast against
+    t_start): uniform steps of render_step_size without a cone angle;
+    with one, uniform up to t_cross = step / cone, then geometric,
+    t_{k+1} = t_k * (1 + cone), the closed form of nerfacc's
+    dt = clamp(t * cone, min=step) recurrence."""
+    step = rc.render_step_size
+    if rc.cone_angle <= 0.0:
+        return t_start + k * step
+    cone = rc.cone_angle
+    m = torch.ceil(torch.clamp(step / cone - t_start, min=0.0) / step)
+    t_uniform = t_start + k * step
+    t_geom = (t_start + m * step) * torch.pow(
+        1.0 + cone, torch.clamp(k - m, min=0.0))
+    return torch.where(k <= m, t_uniform, t_geom)
 
 
 def _dilate_binary(binary, resolution):
@@ -156,13 +168,6 @@ def _compact(flags, payload, budget, fill, return_cutoff=False):
     return buf, total
 
 
-def _check_config(rc):
-    if rc.cone_angle > 0.0:
-        raise NotImplementedError(
-            "cone-angle marching is not ported yet "
-            "(ROADMAP Queue A 12: cone-angle marching)")
-
-
 @torch.no_grad()
 def march_rays(binary, rays_o, rays_d, ray_mask, jitter, rc):
     """Occupancy-gated marching with fixed-budget compaction.
@@ -177,7 +182,6 @@ def march_rays(binary, rays_o, rays_d, ray_mask, jitter, rc):
     Returns:
         RaySamples.
     """
-    _check_config(rc)
     device = rays_o.device
     R = rays_o.shape[0]
     K = rc.sample_budget
@@ -197,8 +201,10 @@ def march_rays(binary, rays_o, rays_d, ray_mask, jitter, rc):
                           for i in range(3))
     sb_reach = ((SB_BLOCKS * BLOCK_STEPS / 2 + BLOCK_STEPS / 2)
                 * rc.render_step_size)
+    # the superblock reach assumes the uniform timeline
     use_superblocks = (
-        res % POOL == 0
+        rc.cone_angle <= 0.0
+        and res % POOL == 0
         and n_blocks % SB_BLOCKS == 0
         and n_blocks >= 2 * SB_BLOCKS
         and sb_reach <= 2 * POOL * min_cell_extent

@@ -16,6 +16,14 @@ not finite is skipped whole: parameters, moments and the step count stay
 as they were. The skip is decided on the device (`torch.where` on a
 device bool), so a step reads nothing back to the host; the count and the
 schedule scale are device tensors.
+
+Gradient accumulation (`accumulate` k > 1, the JAX package's
+`optax.MultiSteps` inside `optax.apply_if_finite`): `step` folds each
+micro-step's gradients into a running mean, acc + (g - acc) / (n + 1), and
+runs the Adam chain on that mean at the k-th micro-step and zeroes it. A
+skipped micro-step moves neither the mean nor its count n, so the boundary
+is decided on the device too: the update is computed at every micro-step
+and committed only there. The schedule counts optimizer steps.
 """
 
 import torch
@@ -83,36 +91,52 @@ class Optimizer:
     """Per-group Adam over the trainable parameters of a module."""
 
     def __init__(self, groups, milestones, gamma, table_decay=None,
-                 default_lr=None, skip_nonfinite=True):
+                 default_lr=None, skip_nonfinite=True, accumulate=1):
         """groups: [(label, lr, weight_decay, [(name, param), ...])];
-        table_decay: (start_row, wd) for the 'hash_table' group."""
+        table_decay: (start_row, wd) for the 'hash_table' group;
+        accumulate: micro-steps per update."""
         self.groups = groups
         self.gamma = gamma
         self.table_decay = table_decay
         self.default_lr = default_lr
         self.skip_nonfinite = skip_nonfinite
+        self.accumulate = int(accumulate)
         self.state = {}
+        self.acc = {}
         for _, _, _, named in groups:
             for _, p in named:
                 self.state[p] = (torch.zeros_like(p), torch.zeros_like(p))
+                if self.accumulate > 1:
+                    self.acc[p] = torch.zeros_like(p)
         params = self.params()
         device = params[0].device if params else torch.device("cpu")
         self.milestones = torch.tensor(list(milestones), dtype=torch.int64,
                                        device=device)
         self.count = torch.zeros((), dtype=torch.int64, device=device)
+        # micro-steps folded into the running mean since the last update
+        self.mini_step = torch.zeros((), dtype=torch.int64, device=device)
 
     def params(self):
         return [p for _, _, _, named in self.groups for _, p in named]
+
+    def named_params(self):
+        return [(n, p) for _, _, _, named in self.groups for n, p in named]
 
     def zero_grad(self):
         for p in self.params():
             p.grad = None
 
+    @staticmethod
+    def _commit(where, dst, new):
+        dst.copy_(new if where is None else torch.where(where, new, dst))
+
     @torch.no_grad()
     def step(self, loss=None):
-        """Apply one update. Returns a device bool: True where the update
-        was applied, False where it was skipped (a non-finite loss or
-        gradient with `skip_nonfinite`)."""
+        """One micro-step: check its gradients (and `loss`) with
+        `skip_nonfinite`, fold them into the running mean with
+        accumulation, and commit the Adam update on the device where it is
+        due. Returns a device bool: True where the micro-step was taken,
+        False where it was skipped (a non-finite loss or gradient)."""
         ok = torch.ones((), dtype=torch.bool, device=self.count.device)
         if self.skip_nonfinite:
             checks = [torch.isfinite(p.grad).all() for p in self.params()
@@ -121,11 +145,20 @@ class Optimizer:
                 checks.append(torch.isfinite(loss).all())
             if checks:
                 ok = torch.stack(checks).all()
-
-        def commit(dst, new):
-            dst.copy_(torch.where(ok, new, dst) if self.skip_nonfinite
-                      else new)
-
+        emit = ok
+        if self.accumulate > 1:
+            n1 = self.mini_step + 1
+            taken = ok if self.skip_nonfinite else None
+            for p in self.params():
+                acc = self.acc[p]
+                # a parameter the loss did not reach folds in a zero
+                # gradient
+                g = -acc if p.grad is None else p.grad - acc
+                self._commit(taken, acc, acc + g / n1)
+            emit = ok & (self.mini_step == self.accumulate - 1)
+            self._commit(taken, self.mini_step, n1 % self.accumulate)
+        # without the skip and without accumulation every update lands
+        where = emit if self.skip_nonfinite or self.accumulate > 1 else None
         # sched(t) and the bias corrections in float64 on the device,
         # rounded to float32 once
         n_passed = (self.count >= self.milestones).sum()
@@ -135,9 +168,12 @@ class Optimizer:
         bc2 = (1.0 - B2 ** t).float()
         for label, lr, wd, named in self.groups:
             for _, p in named:
-                if p.grad is None:
+                if self.accumulate > 1:
+                    g = self.acc[p]
+                elif p.grad is None:
                     continue
-                g = p.grad
+                else:
+                    g = p.grad
                 if wd:
                     g = g + wd * p
                 m, v = self.state[p]
@@ -151,18 +187,45 @@ class Optimizer:
                         (self.default_lr * table_wd) * sched
                         * p_new[start_row:])
                 p_new.sub_((lr * sched) * upd)
-                commit(m, m_new)
-                commit(v, v_new)
-                commit(p, p_new)
-        self.count.add_(ok.to(torch.int64))
+                self._commit(where, m, m_new)
+                self._commit(where, v, v_new)
+                self._commit(where, p, p_new)
+        if self.accumulate > 1:
+            # optax.MultiSteps: acc * (1 - emit)
+            for acc in self.acc.values():
+                acc.mul_((~emit).to(acc.dtype))
+        self.count.add_(emit.to(torch.int64))
         return ok
+
+    def state_dict(self):
+        """Moments, running mean and counts, keyed by parameter name."""
+        named = self.named_params()
+        return {
+            "count": self.count, "mini_step": self.mini_step,
+            "m": {n: self.state[p][0] for n, p in named},
+            "v": {n: self.state[p][1] for n, p in named},
+            "acc": {n: self.acc[p] for n, p in named if p in self.acc},
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        """Copy a `state_dict` in place (same names and shapes)."""
+        self.count.copy_(state["count"])
+        self.mini_step.copy_(state["mini_step"])
+        for n, p in self.named_params():
+            self.state[p][0].copy_(state["m"][n])
+            self.state[p][1].copy_(state["v"][n])
+            if p in self.acc:
+                self.acc[p].copy_(state["acc"][n])
 
 
 def build(params, optimizer_config, lr_scheduler_config,
           nerf_mlp_weight_decay, max_refractory_period, steps_per_epoch,
-          model_configs, table_decay=None, skip_nonfinite=True):
+          model_configs, table_decay=None, skip_nonfinite=True,
+          accumulate=1):
     """Build the Optimizer over `params` (an nn.Module) and freeze the
     parameters the config freezes (requires_grad False).
+    `steps_per_epoch` counts optimizer steps (for epoch milestones).
 
     Returns (optimizer, {name: trainable})."""
     if optimizer_config.algo != "adam":
@@ -205,5 +268,5 @@ def build(params, optimizer_config, lr_scheduler_config,
         for label, named in grouped.items()
     ]
     return Optimizer(groups, milestones, gamma, table_decay=table_decay,
-                     default_lr=default_lr,
-                     skip_nonfinite=skip_nonfinite), mask
+                     default_lr=default_lr, skip_nonfinite=skip_nonfinite,
+                     accumulate=accumulate), mask

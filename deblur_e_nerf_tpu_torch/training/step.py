@@ -351,21 +351,24 @@ def compute_loss(params, consts, occ_state, batch, draws, sc, loss_config,
 def make_train_step(params, consts, optimizer, sc, loss_config):
     """Build step_fn(occ_state, batch, draws, level_mask=None) -> metrics.
 
-    One step: loss -> backward -> optimizer update -> refractory-logit
-    projection. The optimizer may skip an update whose loss or gradients
-    are not finite; `metrics["update_skipped"]` is that decision as a
-    device bool, so the step reads nothing back to the host."""
+    One micro-step: loss -> backward -> optimizer step (the gradients go
+    into the running mean with accumulation; the Adam update is committed
+    on the device at an accumulation boundary) -> refractory-logit
+    projection, which runs after every micro-step as after each JAX step.
+    The optimizer may skip a micro-step whose loss or gradients are not
+    finite; `metrics["update_skipped"]` is that decision as a device bool,
+    so the step reads nothing back to the host."""
 
     def step_fn(occ_state, batch, draws, level_mask=None):
         optimizer.zero_grad()
         loss, metrics = compute_loss(params, consts, occ_state, batch,
                                      draws, sc, loss_config, level_mask)
         loss.backward()
-        applied = optimizer.step(loss)
+        taken = optimizer.step(loss)
         event_gen.clamp_refractory_logit(params.refractory_period,
                                          consts["refractory_period"])
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["update_skipped"] = ~applied
+        metrics["update_skipped"] = ~taken
         return metrics
 
     return step_fn

@@ -1,20 +1,38 @@
-"""Training loop (counterpart of deblur_e_nerf_tpu/training/trainer.py),
-training only:
+"""Training loop (counterpart of deblur_e_nerf_tpu/training/trainer.py):
 
-  - occupancy updates: every optimizer step during warmup, then every
-    `occ_grid.n` steps;
-  - the dynamic active-batch-size controller;
+  - gradient accumulation (`trainer.accumulate_grad_batches` k): each
+    `train_step` is one micro-step; the optimizer keeps the running mean
+    of k micro-batch gradients and updates at the k-th (optim.py), and the
+    lr schedule counts optimizer steps;
+  - occupancy updates at accumulation-window starts, on optimizer step
+    `global_step // k`: every optimizer step during warmup, then every
+    `occ_grid.n`-th, with the curriculum level mask at `opt_step * k`;
+  - the dynamic active-batch-size controller, refreshed only where the
+    next window starts, so the micro-batches of one window have equal
+    sizes;
   - metrics consumed one step behind: each step queues one non-blocking
     device-to-host copy of its scalars (and, on a logged step, of the
     physics scalars), and the host waits for step s-1's copy after step s
     is queued, so the loop itself never synchronizes the device;
-  - with `trainer.skip_nonfinite_updates` (default true) an update whose
-    loss or gradients are not finite is skipped on the device, and the run
-    stops after 25 consecutive skipped updates. (The JAX package skips on
-    non-finite gradients but counts non-finite losses, so a finite loss
-    with NaN gradients is skipped without counting; here both count.)
-    With it false the update is applied and the run stops at the first
-    non-finite loss, as in the JAX package;
+  - with `trainer.skip_nonfinite_updates` (default true) a micro-step
+    whose loss or gradients are not finite is dropped on the device, and
+    the run stops after 25 consecutive dropped micro-steps. (The JAX
+    package skips on non-finite gradients but counts non-finite losses,
+    so a finite loss with NaN gradients is skipped without counting; here
+    both count.) With it false the update is applied and the run stops at
+    the first non-finite loss, as in the JAX package;
+  - the evaluation EMA of the parameters (`trainer.ema_decay` d > 0):
+    ema = ema * d + p * (1 - d) after every micro-step, on the device;
+    `evaluate` renders with it;
+  - checkpoints (training/checkpoint.py) under `<log_dir>/checkpoints/`:
+    `epoch_%04d` at the end of every `checkpoint.every_n_epochs`-th and
+    of the last epoch, `config.yaml` once, the monitored score in
+    `monitor_scores.json`, pruned to `save_top_k` with Lightning's
+    semantics; `resume` restores a run, and `model.checkpoint_filepath`
+    loads the components whose `load_state_dict` is set at construction
+    (the occupancy grid with `nerf`);
+  - `trainer.profile_steps: [start, stop]`: a torch.profiler trace of
+    those micro-steps in `<log_dir>/profile`;
   - scalars go to `metrics.jsonl` in the log directory, one JSON object
     per logged step (and the eval metrics, as "<stage>/<name>", at the
     step they were taken);
@@ -24,15 +42,13 @@ training only:
     (training/evaluation.py); `train(on_epoch_end=...)` calls a hook at
     every epoch end, and `dump_metrics` writes `metrics.yaml` without
     PyYAML.
-
-Checkpoints, resume, gradient accumulation and the evaluation EMA of the
-parameters (`trainer.ema_decay`) are still to be ported (ROADMAP Queue
-A 9).
 """
 
+import copy
 import json
 import math
 import os
+import shutil
 import time
 
 import numpy as np
@@ -40,14 +56,18 @@ import torch
 
 from ..data import events as events_data
 from ..data import posed_images as posed_images_data
-from ..models import event_gen, nerf_model, pixel_bandwidth
+from ..models import event_gen, nerf_model, occupancy, pixel_bandwidth
+from ..utils import config as config_lib
 from ..utils.device import resolve_device
-from . import evaluation, optim, pipeline, setup as setup_lib, step as step_lib
+from . import (checkpoint as checkpoint_lib, evaluation, optim, pipeline,
+               setup as setup_lib, step as step_lib)
 
 NONFINITE_STREAK_LIMIT = 25
-CHECKPOINT_TODO = ("checkpoints and resume are not ported yet "
-                   "(ROADMAP Queue A 9)")
 EVAL_TARGETS = ("event_view", "novel_view")
+COMPONENTS = ("contrast_threshold", "refractory_period", "nerf",
+              "pixel_bandwidth")
+CHECKPOINT_DIR = "checkpoints"
+SCORES_FILENAME = "monitor_scores.json"
 
 
 class JsonlWriter:
@@ -77,19 +97,6 @@ class Trainer:
         self.log_dir = log_dir
         self.device = resolve_device(device)
         os.makedirs(log_dir, exist_ok=True)
-        if config.model.get("checkpoint_filepath"):
-            raise NotImplementedError(
-                f"model.checkpoint_filepath: {CHECKPOINT_TODO}")
-        if config.trainer.get("resume_from_checkpoint"):
-            raise NotImplementedError(
-                f"trainer.resume_from_checkpoint: {CHECKPOINT_TODO}")
-        if int(config.trainer.get("accumulate_grad_batches") or 1) != 1:
-            raise NotImplementedError(
-                "gradient accumulation is not ported yet (ROADMAP Queue A 9)")
-        if float(config.trainer.get("ema_decay") or 0.0) > 0.0:
-            raise NotImplementedError(
-                "trainer.ema_decay (the evaluation EMA of the parameters) "
-                "is not ported yet (ROADMAP Queue A 9)")
         self.skip_nonfinite = bool(
             config.trainer.get("skip_nonfinite_updates", True))
         _set_matmul_precision(config.get("float32_matmul_precision"))
@@ -97,27 +104,33 @@ class Trainer:
         root = config.data.dataset_directory
         self.bundle, self.params = setup_lib.build(
             config, root, sample_budget=sample_budget, device=self.device)
+        restored_occ = self._selective_restore()
         self.batch_capacity = batch_capacity
         trainer_cfg = config.trainer
         self.max_epochs = int(trainer_cfg.max_epochs)
         self.steps_per_epoch = int(trainer_cfg.limit_train_batches)
+        self.accumulate = int(trainer_cfg.get("accumulate_grad_batches")
+                              or 1)
         model = self.params.nerf
         self.optimizer, self.trainable_mask = optim.build(
             self.params, config.optimizer, config.lr_scheduler,
             float(config.loss.weight.nerf_mlp_weight_decay),
             float(self.bundle.consts["refractory_period"]
                   ["max_refractory_period"]),
-            steps_per_epoch=self.steps_per_epoch,
-            model_configs={c: config.model[c] for c in
-                           ("contrast_threshold", "refractory_period",
-                            "nerf", "pixel_bandwidth")},
+            steps_per_epoch=self.steps_per_epoch // self.accumulate,
+            model_configs={c: config.model[c] for c in COMPONENTS},
             table_decay=model.table_decay,
             skip_nonfinite=self.skip_nonfinite,
+            accumulate=self.accumulate,
         )
         self.step_fn = step_lib.make_train_step(
             self.params, self.bundle.consts, self.optimizer,
             self.bundle.static_config, self.bundle.loss_config)
         self.occ_state = nerf_model.init_occupancy(model, self.device)
+        if restored_occ is not None:
+            self.occ_state = occupancy.OccupancyGridState(
+                occs=restored_occ["occs"].to(torch.float32),
+                binary=restored_occ["binary"].to(torch.bool))
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(config.get("seed") or 0))
 
@@ -140,24 +153,73 @@ class Trainer:
             capacity=batch_capacity,
             min_batch=int(config.data.get("train_min_eff_batch_size", 1)),
         )
+        # the evaluation EMA, seeded from the parameters after any
+        # selective restore
+        self.ema_decay = float(trainer_cfg.get("ema_decay") or 0.0)
+        self.ema_params = None
+        if self.ema_decay > 0.0:
+            self.ema_params = copy.deepcopy(self.params).requires_grad_(
+                False)
         self.writer = JsonlWriter(os.path.join(log_dir, "metrics.jsonl"))
         self.log_every = int(trainer_cfg.get("log_every_n_steps") or 100)
         self.global_step = 0
         self._pending_metrics = None
         self._nonfinite_streak = 0
         self.last_metrics = None
+        # monitored checkpoints: the last eval's "<stage>/<name>" values,
+        # each kept checkpoint's score, and the best checkpoint's path
+        self._last_eval = {}
+        self._ckpt_scores = {}
+        self.best_checkpoint = None
+        self._profiler = None
+
+    def _selective_restore(self):
+        """Load the components flagged by model.<component>.load_state_dict
+        from model.checkpoint_filepath; returns the checkpoint's occupancy
+        grid when the NeRF was loaded (it rides with the NeRF component),
+        else None."""
+        mc = self.config.model
+        path = mc.get("checkpoint_filepath")
+        flags = {c: bool(mc[c].get("load_state_dict", False))
+                 for c in COMPONENTS if hasattr(self.params, c)}
+        if not (path and any(flags.values())):
+            return None
+        restored = checkpoint_lib.restore(path, self.device)
+        checkpoint_lib.selective_restore_params(
+            self.params, restored["params"], flags)
+        if flags.get("nerf") and "occ_state" in restored:
+            return restored["occ_state"]
+        return None
 
     def update_occupancy(self, step=None):
         """One occupancy update at optimizer step `step` (default: the
-        current step); a step below occ_grid.warmup_steps updates the
-        full grid."""
-        step = self.global_step if step is None else int(step)
+        current one); a step below occ_grid.warmup_steps updates the full
+        grid. The curriculum level mask is the one at micro-step
+        step x accumulate."""
+        step = self.global_step // self.accumulate if step is None \
+            else int(step)
         model = self.params.nerf
         self.occ_state = nerf_model.update_occupancy(
             model, self.occ_state, step, self.generator,
-            level_mask=nerf_model.level_mask_for_step(model, step,
-                                                      self.device))
+            self.bundle.consts["trajectory"].T_wc_position,
+            level_mask=nerf_model.level_mask_for_step(
+                model, step * self.accumulate, self.device))
         return self.occ_state
+
+    @torch.no_grad()
+    def _update_ema(self):
+        d = self.ema_decay
+        ema = list(self.ema_params.parameters())
+        live = [p.detach() for p in self.params.parameters()]
+        scaled = torch._foreach_mul(live, 1.0 - d)
+        torch._foreach_mul_(ema, d)
+        torch._foreach_add_(ema, scaled)
+
+    def eval_params(self):
+        """The parameters evaluation renders with: the EMA when there is
+        one, else the live ones."""
+        return self.ema_params if self.ema_params is not None \
+            else self.params
 
     def _to_device(self, batch):
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
@@ -208,7 +270,12 @@ class Trainer:
         physics = {k: scalars.pop(k) for k in list(scalars)
                    if k.startswith("train/")}
         self.last_metrics = scalars
-        self.batch_controller.update(scalars["mean_num_samples_per_ray"])
+        # step s's metrics are read after step s + 1 is queued, so a
+        # refresh takes effect at step s + 2: refresh only where that
+        # starts an accumulation window
+        if (step + 1) % self.accumulate == 0:
+            self.batch_controller.update(
+                scalars["mean_num_samples_per_ray"])
         if self.skip_nonfinite:
             bad = bool(scalars["update_skipped"])
             limit = NONFINITE_STREAK_LIMIT
@@ -240,12 +307,16 @@ class Trainer:
             self._consume_metrics(*prev)
 
     def train_step(self):
-        """One optimizer step (with its occupancy update, if due)."""
+        """One micro-step (with its occupancy update, if due at this
+        window start)."""
         model = self.params.nerf
         occ_cfg = model.occ_grid_config
         step = self.global_step
-        if step < int(occ_cfg.warmup_steps) or step % int(occ_cfg.n) == 0:
-            self.update_occupancy(step)
+        if step % self.accumulate == 0:
+            opt_step = step // self.accumulate
+            if opt_step < int(occ_cfg.warmup_steps) \
+                    or opt_step % int(occ_cfg.n) == 0:
+                self.update_occupancy(opt_step)
         batch = self._to_device(
             self.batcher.next_batch(self.batch_controller.active))
         draws = step_lib.draw_step(
@@ -255,6 +326,8 @@ class Trainer:
             self.occ_state, batch, draws,
             level_mask=nerf_model.level_mask_for_step(model, step,
                                                       self.device))
+        if self.ema_params is not None:
+            self._update_ema()
         self.global_step += 1
         prev = self._pending_metrics
         self._pending_metrics = self._stage_metrics(self.global_step,
@@ -263,23 +336,207 @@ class Trainer:
             self._consume_metrics(*prev)
         return metrics
 
-    def train(self, max_steps=None, on_epoch_end=None):
-        """Train for max_epochs x limit_train_batches steps (or
-        `max_steps`), calling `on_epoch_end(trainer, epoch)` after each
-        epoch's last step; returns the elapsed seconds."""
+    def _profile(self, window, before_step):
+        """trainer.profile_steps [start, stop]: trace micro-steps start..
+        stop-1 with torch.profiler into <log_dir>/profile; the device is
+        synchronized only at the window's end."""
+        if not window:
+            return
+        start, stop = int(window[0]), int(window[1])
+        if before_step and self.global_step == start \
+                and self._profiler is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.__enter__()
+        elif not before_step and self.global_step == stop \
+                and self._profiler is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            prof, self._profiler = self._profiler, None
+            prof.__exit__(None, None, None)
+            out = os.path.join(self.log_dir, "profile")
+            os.makedirs(out, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(out, f"trace_{start}_{stop}.json"))
+            with open(os.path.join(out, f"ops_{start}_{stop}.txt"),
+                      "w") as f:
+                f.write(prof.key_averages().table(row_limit=50))
+
+    def train(self, max_steps=None, on_epoch_end=None, start_epoch=None):
+        """Train epochs start_epoch..max_epochs-1 (default: from the
+        epoch `global_step` is in) of limit_train_batches micro-steps,
+        stopping once `global_step` reaches `max_steps`. After each whole
+        epoch: `on_epoch_end(trainer, epoch)`, then the checkpoint when
+        due. Returns the elapsed seconds."""
         total = self.max_epochs * self.steps_per_epoch
         if max_steps is not None:
             total = min(total, int(max_steps))
+        first = self.global_step // self.steps_per_epoch \
+            if start_epoch is None else int(start_epoch)
+        window = self.config.trainer.get("profile_steps")
         t_start = time.time()
-        while self.global_step < total:
-            self.train_step()
-            if self.global_step % self.steps_per_epoch == 0:
+        for epoch in range(first, self.max_epochs):
+            for _ in range(self.steps_per_epoch):
+                if self.global_step >= total:
+                    break
+                self._profile(window, before_step=True)
+                self.train_step()
+                self._profile(window, before_step=False)
+            else:
                 self._flush_pending_metrics()
                 if on_epoch_end is not None:
-                    on_epoch_end(self, self.global_step
-                                 // self.steps_per_epoch - 1)
+                    on_epoch_end(self, epoch)
+                self._checkpoint_epoch(epoch)
+                continue
+            break
         self._flush_pending_metrics()
         return time.time() - t_start
+
+    # ---------------------------------------------------------------- ckpt
+    def _checkpoint_dir(self):
+        return os.path.join(self.log_dir, CHECKPOINT_DIR)
+
+    def _checkpoint_epoch(self, epoch):
+        """Save at the end of every every_n_epochs-th epoch and of the
+        last; record the monitored score; prune to save_top_k."""
+        ckpt_cfg = self.config.get("checkpoint") or {}
+        every_n = int(ckpt_cfg.get("every_n_epochs") or 1)
+        if not ((epoch + 1) % every_n == 0 or epoch == self.max_epochs - 1):
+            return
+        path = self.save_checkpoint(epoch)
+        monitor = ckpt_cfg.get("monitor")
+        if monitor:
+            score = self._last_eval.get(str(monitor))
+            if score is not None and math.isfinite(score):
+                self._ckpt_scores[os.path.basename(path)] = float(score)
+                self._persist_ckpt_scores()
+        self._prune_checkpoints(int(ckpt_cfg.get("save_top_k", -1)),
+                                monitor=monitor,
+                                mode=str(ckpt_cfg.get("mode") or "min"))
+
+    def save_checkpoint(self, epoch):
+        """Write `<log_dir>/checkpoints/epoch_%04d` (and, once,
+        config.yaml beside it); returns its path. The payload is
+        training/checkpoint.py's."""
+        self._flush_pending_metrics()
+        ckpt_dir = self._checkpoint_dir()
+        config_path = os.path.join(ckpt_dir, "config.yaml")
+        if not os.path.isfile(config_path):
+            os.makedirs(ckpt_dir, exist_ok=True)
+            config_lib.save_config(self.config, config_path)
+        payload = {
+            "params": checkpoint_lib.component_state(self.params),
+            "opt_state": self.optimizer.state_dict(),
+            "occ_state": {"occs": self.occ_state.occs,
+                          "binary": self.occ_state.binary},
+            "step": self.global_step,
+            "epoch": int(epoch),
+            "global_step": self.global_step,
+        }
+        if self.ema_params is not None:
+            payload["ema_params"] = checkpoint_lib.component_state(
+                self.ema_params)
+        path = os.path.join(ckpt_dir, f"epoch_{int(epoch):04d}")
+        checkpoint_lib.save(path, payload)
+        return path
+
+    def _scores_path(self):
+        return os.path.join(self._checkpoint_dir(), SCORES_FILENAME)
+
+    def _persist_ckpt_scores(self):
+        os.makedirs(self._checkpoint_dir(), exist_ok=True)
+        with open(self._scores_path(), "w") as f:
+            json.dump(self._ckpt_scores, f)
+
+    def _load_ckpt_scores(self):
+        """Rebuild the monitored scores from the sidecar, keeping the
+        checkpoints that still exist, and the best checkpoint."""
+        path = self._scores_path()
+        if not os.path.isfile(path):
+            return
+        try:
+            with open(path) as f:
+                scores = json.load(f)
+        except (ValueError, OSError):
+            return
+        ckpt_dir = self._checkpoint_dir()
+        self._ckpt_scores.update({
+            name: float(score) for name, score in scores.items()
+            if os.path.exists(os.path.join(ckpt_dir, name))})
+        ckpt_cfg = self.config.get("checkpoint") or {}
+        if ckpt_cfg.get("monitor") and self._ckpt_scores:
+            sign = -1.0 if str(ckpt_cfg.get("mode") or "min") == "max" \
+                else 1.0
+            best = min(self._ckpt_scores,
+                       key=lambda d: sign * self._ckpt_scores[d])
+            self.best_checkpoint = os.path.join(ckpt_dir, best)
+
+    def _prune_checkpoints(self, save_top_k, monitor=None, mode="min"):
+        """Keep `save_top_k` epoch checkpoints: the most recent without a
+        `monitor`, the best scored under mode min/max with one; the latest
+        epoch always stays (for resume), and k <= 0 keeps all
+        (Lightning's -1). Updates `best_checkpoint`."""
+        ckpt_dir = self._checkpoint_dir()
+        if not os.path.isdir(ckpt_dir):
+            return
+        epochs = sorted(d for d in os.listdir(ckpt_dir)
+                        if d.startswith("epoch_") and not d.endswith(".tmp"))
+        if not epochs:
+            return
+        if monitor and self._ckpt_scores:
+            sign = -1.0 if str(mode) == "max" else 1.0
+            ranked = sorted((d for d in epochs if d in self._ckpt_scores),
+                            key=lambda d: sign * self._ckpt_scores[d])
+            if ranked:
+                self.best_checkpoint = os.path.join(ckpt_dir, ranked[0])
+            if save_top_k <= 0:
+                return
+            keep = set(ranked[:save_top_k]) | {epochs[-1]}
+            stale = [d for d in epochs if d not in keep]
+        else:
+            if save_top_k <= 0:
+                return
+            stale = epochs[:-save_top_k]
+        for name in stale:
+            target = os.path.join(ckpt_dir, name)
+            if os.path.isdir(target):
+                shutil.rmtree(target, ignore_errors=True)
+            elif os.path.exists(target):
+                os.remove(target)
+            self._ckpt_scores.pop(name, None)
+        if stale:
+            self._persist_ckpt_scores()
+
+    def resume(self, path):
+        """Restore a run from a checkpoint of `save_checkpoint`: the
+        parameters, the optimizer's moments, counts and running mean, the
+        occupancy grid, `global_step`, the EMA (re-seeded from the
+        parameters when the checkpoint has none) and the monitored
+        scores. Returns the checkpoint's epoch; `train()` continues from
+        the next. The generator and the batcher restart from `seed`, as
+        the JAX package restarts its PRNG key."""
+        self._load_ckpt_scores()
+        restored = checkpoint_lib.restore(path, self.device)
+        if restored.get("opt_state") is None:
+            raise ValueError(
+                f"{path} has no optimizer moments (a checkpoint converted "
+                "from the JAX package): load it through "
+                "model.checkpoint_filepath instead of resuming it")
+        for name, child in self.params.named_children():
+            child.load_state_dict(restored["params"][name])
+        self.optimizer.load_state_dict(restored["opt_state"])
+        occ = restored["occ_state"]
+        self.occ_state = occupancy.OccupancyGridState(
+            occs=occ["occs"].to(torch.float32),
+            binary=occ["binary"].to(torch.bool))
+        self.global_step = int(restored["global_step"])
+        if self.ema_params is not None:
+            source = restored.get("ema_params") or restored["params"]
+            for name, child in self.ema_params.named_children():
+                child.load_state_dict(source[name])
+        return int(restored["epoch"])
 
     def build_evaluator(self, stage="val"):
         """{target: (Evaluator, PosedImageDataset)} for `eval_target`, and
@@ -309,13 +566,14 @@ class Trainer:
                 device=self.device)
             targets[target] = (evaluator, dataset)
         render_image = evaluation.make_render_image_fn(
-            self.params.nerf, eval_prepass_div=config.model.nerf.get(
+            self.eval_params().nerf, eval_prepass_div=config.model.nerf.get(
                 "eval_occlusion_prepass_div"))
         return targets, render_image
 
     def evaluate(self, stage="val", epoch=0, max_images=None):
-        """Evaluate the current parameters on `stage`'s views; returns
-        {name: value} (with several targets, "<target>/<name>")."""
+        """Evaluate the current parameters (the EMA, when there is one)
+        on `stage`'s views; returns {name: value} (with several targets,
+        "<target>/<name>")."""
         self._flush_pending_metrics()
         targets, render_image = self.build_evaluator(stage)
         multi = len(targets) > 1
@@ -326,6 +584,8 @@ class Trainer:
                                             tag, epoch, max_images)
             for name, value in metric.items():
                 merged[f"{target}/{name}" if multi else name] = value
+        for name, value in merged.items():
+            self._last_eval[f"{stage}/{name}"] = float(value)
         return merged
 
     def _evaluate_dataset(self, evaluator, dataset, render_image, stage,
@@ -372,31 +632,8 @@ class Trainer:
         with open(os.path.join(self.log_dir, filename), "w") as f:
             f.write(yaml_metrics(metrics_list))
 
-    def resume(self, path):
-        raise NotImplementedError(f"resume: {CHECKPOINT_TODO}")
-
-
-def _yaml_float(value):
-    """A float as a YAML 1.1 float scalar that reads back exactly."""
-    value = float(value)
-    if math.isnan(value):
-        return ".nan"
-    if math.isinf(value):
-        return ".inf" if value > 0 else "-.inf"
-    text = repr(value)
-    mantissa, _, exponent = text.partition("e")
-    if "." not in mantissa:  # YAML 1.1 floats need a dot
-        mantissa += ".0"
-    return mantissa + ("e" + exponent if exponent else "")
-
-
 def yaml_metrics(metrics_list):
     """The YAML text of a list of flat {name: float} maps, names sorted."""
-    lines = []
-    for metrics in metrics_list:
-        if not metrics:
-            lines.append("- {}")
-        for i, name in enumerate(sorted(metrics)):
-            lines.append(f"{'- ' if i == 0 else '  '}{json.dumps(str(name))}: "
-                         f"{_yaml_float(metrics[name])}")
-    return "\n".join(lines) + "\n" if lines else "[]\n"
+    return config_lib.yaml_text([
+        {name: float(metrics[name]) for name in sorted(metrics)}
+        for metrics in metrics_list])

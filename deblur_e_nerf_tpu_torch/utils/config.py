@@ -1,11 +1,21 @@
 """Configuration loading (counterpart of deblur_e_nerf_tpu/utils/config.py).
 
-Same YAML schema and the same attribute-access `ConfigDict`. `yaml` is
-imported only inside `load_config`/`save_config`, so the package imports
-without PyYAML; `ConfigDict.from_dict` builds a config in code.
+Same YAML schema and the same attribute-access `ConfigDict`;
+`ConfigDict.from_dict` builds a config in code. Neither loading nor saving
+needs PyYAML (the GPU machine has none). `load_config` reads with
+`yaml_load`, a reader of the YAML subset the repo's configs are written in:
+block mappings, flow mappings and sequences (also as the whole document),
+plain and quoted scalars resolved as PyYAML resolves them, comments.
+`save_config` writes with `yaml_text`, which emits only that subset (block
+mappings, every list in flow style), so both readers load it back to the
+same values.
 """
 
 import copy
+import json
+import math
+import numbers
+import re
 
 
 class ConfigDict(dict):
@@ -57,16 +67,224 @@ class ConfigDict(dict):
 
 def load_config(path):
     """Load a YAML config file (reference schema) into a ConfigDict."""
-    import yaml
-
     with open(path) as f:
-        return ConfigDict(yaml.safe_load(f))
+        return ConfigDict(yaml_load(f.read()))
+
+
+# PyYAML's (YAML 1.1) implicit scalar types, without the sexagesimal forms
+_YAML_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_YAML_BOOL = {**dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE",
+                               "on", "On", "ON"), True),
+              **dict.fromkeys(("no", "No", "NO", "false", "False", "FALSE",
+                               "off", "Off", "OFF"), False)}
+_YAML_INT = {10: re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$"),
+             2: re.compile(r"^[-+]?0b[0-1_]+$"),
+             8: re.compile(r"^[-+]?0[0-7_]+$"),
+             16: re.compile(r"^[-+]?0x[0-9a-fA-F_]+$")}
+_YAML_FLOAT = re.compile(
+    r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+    r"|\.[0-9_]+(?:[eE][-+][0-9]+)?)$")
+_YAML_SPECIAL = {".inf": math.inf, ".Inf": math.inf, ".INF": math.inf,
+                 "+.inf": math.inf, "+.Inf": math.inf, "+.INF": math.inf,
+                 "-.inf": -math.inf, "-.Inf": -math.inf, "-.INF": -math.inf,
+                 ".nan": math.nan, ".NaN": math.nan, ".NAN": math.nan}
+
+
+def _yaml_plain(text):
+    text = text.strip()
+    if len(text) >= 2 and text[0] == text[-1] == '"':
+        return json.loads(text)
+    if len(text) >= 2 and text[0] == text[-1] == "'":
+        return text[1:-1].replace("''", "'")
+    if _YAML_NULL.match(text):
+        return None
+    if text in _YAML_BOOL:
+        return _YAML_BOOL[text]
+    for base, pattern in _YAML_INT.items():
+        if pattern.match(text):
+            digits = text.replace("_", "")
+            sign = -1 if digits[0] == "-" else 1
+            digits = digits.lstrip("+-")
+            return sign * int(digits[2:] if base in (2, 16) else digits, base)
+    if _YAML_FLOAT.match(text):
+        return float(text.replace("_", ""))
+    if text in _YAML_SPECIAL:
+        return _YAML_SPECIAL[text]
+    return text
+
+
+def _yaml_scalar_end(text, i, stops):
+    """The end of the scalar starting at text[i]: past its closing quote,
+    or at the first character in `stops`."""
+    if text[i] == '"':
+        i += 1
+        while text[i] != '"':
+            i += 2 if text[i] == "\\" else 1
+        return i + 1
+    if text[i] == "'":
+        i = text.index("'", i + 1)
+        while text[i + 1:i + 2] == "'":  # '' is an escaped quote
+            i = text.index("'", i + 2)
+        return i + 1
+    while i < len(text) and text[i] not in stops:
+        i += 1
+    return i
+
+
+def _yaml_flow(text, i):
+    """Parse the flow value starting at text[i]; returns (value, next i)."""
+    while text[i] == " ":
+        i += 1
+    if text[i] in "{[":
+        close = "}" if text[i] == "{" else "]"
+        items = {} if close == "}" else []
+        i += 1
+        while True:
+            while text[i] in " ,":
+                i += 1
+            if text[i] == close:
+                return items, i + 1
+            if close == "]":
+                value, i = _yaml_flow(text, i)
+                items.append(value)
+                continue
+            end = _yaml_scalar_end(text, i, ":,}")
+            key = _yaml_plain(text[i:end])
+            colon = text.index(":", end)
+            items[key], i = _yaml_flow(text, colon + 1)
+    end = _yaml_scalar_end(text, i, ",}]")
+    return _yaml_plain(text[i:end]), end
+
+
+def _yaml_scan(line):
+    """`line` without its comment, and how many brackets it leaves open
+    (quoted text is skipped)."""
+    quote, depth, k = None, 0, 0
+    while k < len(line):
+        ch = line[k]
+        if quote:
+            if ch == "\\" and quote == '"':
+                k += 1
+            elif ch == quote:
+                quote = None
+        elif ch in "\"'" and line[:k].rstrip()[-1:] in ("", ":", "[",
+                                                         "{", ",", "-"):
+            quote = ch  # a quote opens only at the start of a scalar
+        elif ch in "{[":
+            depth += 1
+        elif ch in "}]":
+            depth -= 1
+        elif ch == "#" and (k == 0 or line[k - 1] in " \t"):
+            return line[:k].rstrip(), depth
+        k += 1
+    return line.rstrip(), depth
+
+
+def yaml_load(text):
+    """Load the YAML subset of the repo's configs (see the module
+    docstring) into nested dicts, lists and scalars; anything outside it
+    raises ValueError."""
+    lines = []
+    for raw in text.splitlines():
+        line, depth = _yaml_scan(raw)
+        if not line.strip():
+            continue
+        if lines and lines[-1][1] > 0:  # inside a multi-line flow value
+            indent, open_, body = lines[-1]
+            lines[-1] = (indent, open_ + depth, body + " " + line.strip())
+            continue
+        lines.append((len(line) - len(line.lstrip(" ")), depth,
+                      line.strip()))
+    if lines and lines[0][2][0] in "[{":  # the document is one flow value
+        value, end = _yaml_flow(lines[0][2], 0)
+        if len(lines) > 1 or lines[0][2][end:].strip():
+            raise ValueError(f"trailing text after {lines[0][2]!r}")
+        return value
+    root = {}
+    stack = [(-1, root)]
+    blocks = []  # (parent, key) of each entry with its value on later lines
+    for indent, _, body in lines:
+        if body.startswith("- ") or body == "-":
+            raise ValueError(f"block sequences are not supported: {body!r}")
+        end = _yaml_scalar_end(body, 0, ":")
+        key, sep, rest = body[:end], body[end:end + 1], body[end + 1:]
+        if not sep or (rest and not rest.startswith(" ")):
+            raise ValueError(f"not a mapping entry: {body!r}")
+        while indent <= stack[-1][0]:
+            stack.pop()
+        parent = stack[-1][1]
+        key = _yaml_plain(key)
+        if rest.strip():
+            value, end = _yaml_flow(rest, 0)
+            if rest[end:].strip():
+                raise ValueError(f"trailing text in {body!r}")
+            parent[key] = value
+        else:
+            parent[key] = {}
+            stack.append((indent, parent[key]))
+            blocks.append((parent, key))
+    for parent, key in blocks:
+        if not parent[key]:  # nothing under the key: null, as in YAML
+            parent[key] = None
+    return root
 
 
 def save_config(config, path):
-    import yaml
-
     with open(path, "w") as f:
-        yaml.safe_dump(
-            config.to_dict() if isinstance(config, ConfigDict) else config, f
-        )
+        f.write(yaml_text(
+            config.to_dict() if isinstance(config, ConfigDict) else config))
+
+
+def yaml_float(value):
+    """A float as a YAML 1.1 float scalar that reads back exactly."""
+    value = float(value)
+    if math.isnan(value):
+        return ".nan"
+    if math.isinf(value):
+        return ".inf" if value > 0 else "-.inf"
+    text = repr(value)
+    mantissa, _, exponent = text.partition("e")
+    if "." not in mantissa:  # YAML 1.1 floats need a dot
+        mantissa += ".0"
+    return mantissa + ("e" + exponent if exponent else "")
+
+
+def _yaml_flow_text(value):
+    """`value` in flow style: {"key": ...}, [...], scalars."""
+    if isinstance(value, dict):
+        return "{" + ", ".join(f"{json.dumps(str(k))}: {_yaml_flow_text(v)}"
+                               for k, v in value.items()) + "}"
+    if isinstance(value, (list, tuple)):
+        return "[" + ", ".join(_yaml_flow_text(v) for v in value) + "]"
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, numbers.Integral):
+        return str(int(value))
+    if isinstance(value, numbers.Real):
+        return yaml_float(value)
+    return json.dumps(str(value))
+
+
+def _yaml_block(mapping, indent):
+    lines = []
+    for key, item in mapping.items():
+        head = f"{' ' * indent}{json.dumps(str(key))}:"
+        if isinstance(item, dict) and item:
+            lines += [head] + _yaml_block(item, indent + 2)
+        else:
+            lines.append(f"{head} {_yaml_flow_text(item)}")
+    return lines
+
+
+def yaml_text(value):
+    """YAML of nested dicts, lists and scalars in the subset `yaml_load`
+    reads: non-empty mappings as block mappings, everything else in flow
+    style (a top-level list one item a line); keys and strings
+    double-quoted, floats exact."""
+    if isinstance(value, dict) and value:
+        return "\n".join(_yaml_block(value, 0)) + "\n"
+    if isinstance(value, (list, tuple)) and value:
+        return "[" + ",\n ".join(_yaml_flow_text(v) for v in value) + "]\n"
+    return _yaml_flow_text(value) + "\n"

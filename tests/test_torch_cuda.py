@@ -305,6 +305,14 @@ def test_filter_on_step_on_card_matches_cpu(cuda, tmp_path):
     assert len(rows) > 10 and all(err <= tol for _, err, tol in rows)
 
 
+def test_eds_step_on_card_matches_cpu(cuda, tmp_path):
+    """One small EDS step (sphere, cone 0.004, float32 HashGrid gathers,
+    the trainable filter at S = 30, a distorted calibration) on the card
+    against the CPU, within chip_smoke's stated tolerances."""
+    rows = chip_smoke.eds_step_card_vs_cpu(torch, str(tmp_path))
+    assert len(rows) > 10 and all(err <= tol for _, err, tol in rows)
+
+
 def test_eval_render_on_card_matches_cpu(cuda, tmp_path):
     """The eval render of a small model on the card against the CPU: the
     same marched samples per pixel, the image within 1e-5."""

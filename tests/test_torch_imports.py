@@ -23,7 +23,8 @@ for name in names:
 for name in ("ops.linalg", "ops.control", "ops.gather_rows",
              "ops.corner_sum", "models.pixel_bandwidth", "perf_microbench",
              "data.image_io", "data.posed_images", "models.offset_gamma",
-             "training.metrics", "training.evaluation"):
+             "training.metrics", "training.evaluation",
+             "training.checkpoint"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 loaded = sorted(m for m in sys.modules

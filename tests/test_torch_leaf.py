@@ -108,21 +108,28 @@ def test_sh_encoding_matches_jax(degree):
         rtol=1e-6, atol=1e-6)
 
 
-def test_aabb_contraction_matches_jax_and_others_raise():
+@pytest.mark.parametrize("kind", ["aabb", "sphere", "tanh"])
+def test_aabb_contraction_matches_jax_and_others_raise(kind):
+    """Each contraction and its inverse against the JAX package, on points
+    inside and outside the aabb (rtol 1e-6), and the round trip (1e-5).
+    (Before the sphere and tanh contractions were ported they raised.)"""
     aabb = np.array([-1.5, -1.0, -2.0, 1.5, 2.0, 2.0], np.float32)
     x = np.random.default_rng(3).uniform(-3, 3, (100, 3)).astype(np.float32)
-    ct = tcontraction.ContractionType.AABB
+    x[:3] = [[0.0, 0.5, 0.0], [0.1, 0.4, 0.2], [1.4, 1.9, 1.9]]  # inside
+    ct = tcontraction.ContractionType(kind)
+    jct = jcontraction.ContractionType(kind)
     u = tcontraction.contract(torch.from_numpy(x), torch.from_numpy(aabb),
                               ct)
-    np.testing.assert_allclose(u.numpy(), np.asarray(jcontraction.contract(
-        jnp.asarray(x), jnp.asarray(aabb),
-        jcontraction.ContractionType.AABB)), rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(
-        tcontraction.contract_inv(u, torch.from_numpy(aabb), ct).numpy(), x,
-        rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        tcontraction.contract(torch.from_numpy(x), torch.from_numpy(aabb),
-                              tcontraction.ContractionType.UN_BOUNDED_SPHERE)
+    u_j = np.asarray(jcontraction.contract(jnp.asarray(x),
+                                           jnp.asarray(aabb), jct))
+    np.testing.assert_allclose(u.numpy(), u_j, rtol=1e-6, atol=1e-7)
+    back = tcontraction.contract_inv(u, torch.from_numpy(aabb), ct).numpy()
+    np.testing.assert_allclose(back, np.asarray(jcontraction.contract_inv(
+        jnp.asarray(u.numpy()), jnp.asarray(aabb), jct)), rtol=1e-6,
+        atol=1e-6)
+    np.testing.assert_allclose(back, x, rtol=1e-5, atol=1e-5)
+    if kind != "aabb":
+        assert np.all((u.numpy() > 0) & (u.numpy() < 1))
 
 
 def test_triangular_sampler_matches_jax():
@@ -160,9 +167,32 @@ def test_event_packing_matches_jax():
     col_w = jevents.colorize_events(want, "RGGB")["channel_idx"]
     col_t = tevents.colorize_events(got, "RGGB")["channel_idx"]
     np.testing.assert_array_equal(col_t, col_w)
-    with pytest.raises(NotImplementedError):
-        tevents.undistort_events(got, "plumb_bob", np.array([0.1, 0.0]),
+    with pytest.raises(NotImplementedError, match="not supported"):
+        tevents.undistort_events(got, "rational", np.array([0.1, 0.0]),
                                  np.eye(3))
+
+
+@pytest.mark.parametrize("model,coeffs", [
+    ("plumb_bob", [-0.1, 0.02, 1e-3, -1e-3]),
+    ("plumb_bob", [-0.3, 0.1, 1e-3, -1e-3, 0.05]),
+    ("plumb_bob", [-0.3, 0.1, 1e-3, -1e-3, 0.05, 0.01, 2e-3, 1e-3]),
+    ("equidistant", [0.1, -0.05, 0.01, -2e-3]),
+])
+def test_undistort_events_matches_jax_cv2(model, coeffs):
+    """The numpy undistortion against the JAX package's (cv2
+    undistortPoints / fisheye.undistortPoints, P = K) on every pixel of a
+    64x48 sensor: within 1e-6 px."""
+    H, W = 48, 64
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    pos = np.stack([xs.ravel(), ys.ravel()], -1).astype(np.uint16)
+    K = np.array([[50.0, 0.0, 31.5], [0.0, 52.0, 23.5], [0.0, 0.0, 1.0]])
+    want = jevents.undistort_events({"position": pos}, model,
+                                    np.array(coeffs), K)["position"]
+    got = tevents.undistort_events({"position": pos}, model,
+                                   np.array(coeffs), K)["position"]
+    assert got.dtype == np.float64 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert np.abs(got - pos).max() > 1.0  # a real distortion
 
 
 def test_device_resolution_never_falls_back_quietly():

@@ -3,6 +3,8 @@ JAX package on the same rays, occupancy masks, densities and (injected)
 random draws. The stratified jitter and the occupancy cell samples are the
 JAX package's own draws from its PRNG key, handed to the port."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,14 +22,22 @@ AABB = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)
 RES = 16
 
 
-def make_rcs(**kwargs):
+def make_rcs(contraction="aabb", **kwargs):
     cfg = dict(aabb=AABB, grid_resolution=RES, near_plane=0.0,
                far_plane=None, render_step_size=0.02, cone_angle=0.0,
                early_stop_eps=1e-4, alpha_thre=0.0, stratified=True,
                max_samples_per_ray=256, sample_budget=8192)
     cfg.update(kwargs)
-    return (jr.RenderConfig(contraction_type=JCT.AABB, **cfg),
-            tr.RenderConfig(contraction_type=ContractionType.AABB, **cfg))
+    return (jr.RenderConfig(contraction_type=JCT(contraction), **cfg),
+            tr.RenderConfig(contraction_type=ContractionType(contraction),
+                            **cfg))
+
+
+# the real-data (EDS) configs' march: sphere contraction, cone angle 0.004,
+# near 0.01, far 13; uniform steps to t = 1, geometric beyond
+EDS_MARCH = dict(contraction="sphere", cone_angle=0.004,
+                 render_step_size=0.004, near_plane=0.01, far_plane=13.0,
+                 max_samples_per_ray=1024, sample_budget=1 << 15)
 
 
 def rays(seed, n):
@@ -87,6 +97,7 @@ def _march_both(rc_j, rc_t, o, d, mask, binary, key):
     {"block_budget": 96},                          # block truncation
     {"block_budget": 1024, "superblock_budget": 24},
     {"superblock_budget": 0},                      # dense block pass
+    EDS_MARCH,                                     # no superblock pass
 ])
 def test_march_sample_sets_match_jax(budgets):
     rc_j, rc_t = make_rcs(**budgets)
@@ -109,6 +120,72 @@ def test_march_sample_sets_match_jax(budgets):
     np.testing.assert_allclose(b.dt.numpy(), np.asarray(a.dt), rtol=0,
                                atol=2e-6)
     assert int(a.num_samples) > 0
+
+
+def test_march_cone_angle_case_reaches_the_geometric_timeline():
+    """The EDS case above marches past t_cross = step / cone = 1 into the
+    geometric part of the timeline, out to far distances."""
+    _, rc_t = make_rcs(**EDS_MARCH)
+    o, d, mask = rays(0, 24)
+    b = tr.march_rays(torch.from_numpy(sparse_binary(1)),
+                      torch.from_numpy(o), torch.from_numpy(d),
+                      torch.from_numpy(mask), torch.rand(24), rc_t)
+    live = b.ray_idx < 24
+    assert b.num_superblocks is None
+    assert float(b.t_mid[live].max()) > 6.0
+    assert float(b.dt[live].max()) > 5 * rc_t.render_step_size
+
+
+def test_long_cone_angle_rays_composite_against_float64():
+    """Names a divergence (ROADMAP Queue C 1): on the EDS configs' long
+    cone-angle rays (sphere contraction, far 13, ~600 samples a ray) with
+    dense media, the JAX composite's float32 weight sums drift from a
+    float64 evaluation of the same samples by far more than the port's,
+    which takes each ray's optical depth from a float64 cumsum. Measured
+    here: JAX 5.1e-5, port 1.3e-6 in opacity."""
+    rc_j, rc_t = make_rcs(**EDS_MARCH)
+    o, d, mask = rays(5, 64)
+    binary = np.ones(RES ** 3, bool)
+    a, b = _march_both(rc_j, rc_t, o, d, mask, binary, jax.random.PRNGKey(6))
+    R = len(o)
+    ray_idx = np.asarray(a.ray_idx)
+    assert np.bincount(ray_idx[ray_idx < R]).max() > 500
+    rng = np.random.default_rng(7)
+    sigma = rng.uniform(0, 3, ray_idx.shape).astype(np.float32)
+    rgb = rng.uniform(0, 1, (len(sigma), 1)).astype(np.float32)
+    rc_j = dataclasses.replace(rc_j, early_stop_eps=0.0)
+    rc_t = dataclasses.replace(rc_t, early_stop_eps=0.0)
+    opac_j = np.asarray(jax.jit(
+        lambda s, c: jr.composite(s, c, a, R, rc_j))(sigma, rgb)[1])
+    opac_t = tr.composite(torch.from_numpy(sigma), torch.from_numpy(rgb),
+                          _samples_to_torch(a), R, rc_t)[1].numpy()
+    sdt = np.minimum(sigma.astype(np.float64) * np.asarray(a.dt)
+                     * (ray_idx < R), 25.0)
+    exact = np.zeros(R)
+    for r in range(R):
+        s = sdt[ray_idx == r]
+        exact[r] = np.sum(np.exp(-(np.cumsum(s) - s)) * -np.expm1(-s))
+    err_j = np.abs(opac_j - exact).max()
+    err_t = np.abs(opac_t - exact).max()
+    assert err_t < 1e-5 < err_j, (err_t, err_j)
+
+
+@pytest.mark.parametrize("t_start", [0.01, 0.6, 2.5])
+def test_cone_angle_timeline_matches_jax(t_start):
+    """The closed-form cone-angle timeline against the JAX package's, from
+    starts before and after t_cross = 1 (rtol 1e-6): uniform steps, then
+    t_m (1 + cone)^(k - m)."""
+    rc_j, rc_t = make_rcs(**EDS_MARCH)
+    k = np.arange(1025, dtype=np.float32)
+    t0 = np.full((3, 1), t_start, np.float32) + np.float32([[0], [1e-3],
+                                                            [0.37]])
+    want = np.asarray(jax.jit(jr._timeline_at, static_argnums=2)(
+        jnp.asarray(k), jnp.asarray(t0), rc_j))
+    got = tr._timeline_at(torch.from_numpy(k), torch.from_numpy(t0),
+                          rc_t).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    assert np.all(np.diff(got, axis=-1) >= rc_t.render_step_size * 0.999)
+    assert got[0, -1] > 10.0
 
 
 def _samples_to_torch(s):
@@ -236,25 +313,42 @@ def _jax_update_draws(key, num_cells, warmup):
     }
 
 
-def test_occupancy_warmup_and_sampled_updates_match_jax():
+CAMERAS = np.random.default_rng(7).uniform(-2.5, 2.5, (9, 3)).astype(
+    np.float32)
+
+
+@pytest.mark.parametrize("march", ["aabb", "sphere_cone"])
+def test_occupancy_warmup_and_sampled_updates_match_jax(march):
+    """Warmup and sampled updates against the JAX package's, with its cell
+    draws handed over: on the aabb grid, and under the EDS configs' sphere
+    contraction with the cone-angle step, which draws one camera per
+    evaluated cell (JAX's `cam_ids`, handed over too)."""
+    cone = march == "sphere_cone"
+    contraction = "sphere" if cone else "aabb"
     kw = dict(resolution=RES, aabb=AABB, occ_thre=0.01, ema_decay=0.95)
     num_cells = RES ** 3
+    near, far = (0.01, 3.0) if cone else (None, None)
     j_eval = jocc.make_occ_eval_fn(lambda x: jax_field(x, None)[1], 0.02,
-                                   0.0, None, None)
+                                   0.2 if cone else 0.0, near, far)
     t_eval = tocc.make_occ_eval_fn(lambda x: torch_field(x, None)[1], 0.02,
-                                   0.0)
+                                   0.2 if cone else 0.0, near, far)
     j_update = jax.jit(lambda state, key, step: jocc.update(
-        state, key, j_eval, jnp.zeros((1, 3)), step,
-        contraction_type=JCT.AABB, warmup_steps=2, **kw))
+        state, key, j_eval, jnp.asarray(CAMERAS), step,
+        contraction_type=JCT(contraction), warmup_steps=2, **kw))
     js = jocc.init_state(RES)
     ts = tocc.init_state(RES, "cpu")
     for i, (step, warmup) in enumerate([(0, True), (1, True), (5, False),
                                         (6, False)]):
         key = jax.random.PRNGKey(10 + i)
         js = j_update(js, key, jnp.asarray(step))
-        ts = tocc.update(ts, t_eval, warmup,
-                         _jax_update_draws(key, num_cells, warmup),
-                         contraction_type=ContractionType.AABB, **kw)
+        draws = _jax_update_draws(key, num_cells, warmup)
+        if cone:
+            _, _, k_eval = jax.random.split(key, 3)
+            draws["cam_ids"] = torch.tensor(np.asarray(jax.random.randint(
+                k_eval, (draws["jitter"].shape[0],), 0, len(CAMERAS))))
+        ts = tocc.update(ts, t_eval, warmup, draws,
+                         contraction_type=ContractionType(contraction),
+                         camera_positions=torch.from_numpy(CAMERAS), **kw)
         occs_j = np.asarray(js.occs)
         np.testing.assert_allclose(ts.occs.numpy(), occs_j, rtol=1e-6,
                                    atol=1e-9)
@@ -267,6 +361,32 @@ def test_occupancy_warmup_and_sampled_updates_match_jax():
         # carry the JAX state forward so the draws stay comparable
         ts = tocc.OccupancyGridState(torch.tensor(occs_j),
                                      torch.tensor(np.asarray(js.binary)))
+
+
+def test_cone_angle_occupancy_eval_matches_jax():
+    """make_occ_eval_fn under a cone angle against the JAX package's, with
+    its `cam_ids` handed over: step max(|o - x| cone, step), zeroed
+    outside (near, far); rtol 1e-6."""
+    rng = np.random.default_rng(8)
+    x = rng.uniform(-4, 4, (2000, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(12)
+    # a polynomial density, so that only the step is under test
+    j_eval = jocc.make_occ_eval_fn(
+        lambda p: 0.5 + jnp.sum(p * p, axis=-1, keepdims=True), 0.02, 0.05,
+        0.5, 5.0)
+    want = np.asarray(jax.jit(j_eval)(key, jnp.asarray(x),
+                                      jnp.asarray(CAMERAS)))
+    cam_ids = np.array(jax.random.randint(key, (len(x),), 0, len(CAMERAS)))
+    t_eval = tocc.make_occ_eval_fn(
+        lambda p: 0.5 + torch.sum(p * p, dim=-1, keepdim=True), 0.02, 0.05,
+        0.5, 5.0)
+    got = t_eval(torch.from_numpy(x),
+                 torch.from_numpy(CAMERAS)[torch.from_numpy(cam_ids)])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    dist = np.linalg.norm(CAMERAS[cam_ids] - x, axis=-1)
+    assert np.all(got.numpy()[(dist <= 0.5) | (dist >= 5.0)] == 0)
+    inside = (dist > 0.5) & (dist < 5.0)
+    assert inside.any() and np.any(dist[inside] * 0.05 > 0.02)
 
 
 def test_sample_occupied_cells_matches_jax():

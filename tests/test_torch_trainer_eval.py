@@ -1,9 +1,9 @@
 """The port's trainer with evaluation on the CPU: per-epoch validation at the
 configured cadence through `train(on_epoch_end=...)`, both eval targets
 together, the `train`, `val` and `test` stages of the command line (the
-metrics file read back by PyYAML), and what still raises, each naming its
-ROADMAP item: checkpoints and resume (A9), the evaluation EMA (A9) and
-the eval occlusion prepass (B6)."""
+metrics file read back by PyYAML; `train` resuming a checkpoint, `test`
+evaluating one), and what still raises, naming its ROADMAP item: the eval
+occlusion prepass (B6)."""
 
 import json
 import math
@@ -17,6 +17,7 @@ from deblur_e_nerf_tpu_torch.__main__ import main
 from deblur_e_nerf_tpu_torch.data import synthetic
 from deblur_e_nerf_tpu_torch.training import trainer as trainer_lib
 from deblur_e_nerf_tpu_torch.training.trainer import Trainer
+from deblur_e_nerf_tpu_torch.utils import config as config_lib
 from deblur_e_nerf_tpu_torch.utils.config import load_config, save_config
 
 CAPACITY, BUDGET = 32, 1 << 15
@@ -142,37 +143,86 @@ def test_metrics_yaml_reads_back_exactly():
     values = [{"psnr": 31.25, "ssim": 0.1 + 0.2, "l1": 1e-05,
                "lpips": float("nan"), "a/b": -1e300, "big": 1e16,
                "inf": float("inf"), "neg": -0.0}, {}]
-    loaded = yaml.safe_load(trainer_lib.yaml_metrics(values))
-    assert loaded[1] == {}
-    for name, value in values[0].items():
-        got = loaded[0][name]
-        assert isinstance(got, float), name
-        assert (math.isnan(got) and math.isnan(value)) or got == value, name
+    text = trainer_lib.yaml_metrics(values)
+    for loaded in (yaml.safe_load(text), config_lib.yaml_load(text)):
+        assert loaded[1] == {}
+        for name, value in values[0].items():
+            got = loaded[0][name]
+            assert isinstance(got, float), name
+            assert (math.isnan(got) and math.isnan(value)) \
+                or got == value, name
     assert yaml.safe_load(trainer_lib.yaml_metrics([])) == []
+    assert config_lib.yaml_load(trainer_lib.yaml_metrics([])) == []
 
 
 def test_what_is_not_ported_raises_naming_its_roadmap_item(dataset,
                                                            tmp_path):
-    for section, key, value, match in (
-            ("model", "checkpoint_filepath", "x.ckpt",
-             r"checkpoint_filepath.*ROADMAP Queue A 9"),
-            ("trainer", "resume_from_checkpoint", "x.ckpt",
-             r"resume_from_checkpoint.*ROADMAP Queue A 9"),
-            ("trainer", "ema_decay", 0.999, r"ema_decay.*ROADMAP Queue A 9")):
-        cfg = small_config(dataset)
-        cfg[section][key] = value
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer(cfg, str(tmp_path), batch_capacity=CAPACITY,
-                    sample_budget=BUDGET, device="cpu")
-    trainer = Trainer(small_config(dataset), str(tmp_path),
+    """Checkpoints, resume and the evaluation EMA (which raised, naming
+    ROADMAP Queue A 9, until they were ported) build and run; the eval
+    occlusion prepass still raises, naming ROADMAP Queue B 6."""
+    trainer = Trainer(small_config(dataset), str(tmp_path / "a"),
                       batch_capacity=CAPACITY, sample_budget=BUDGET,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 9"):
-        trainer.resume("x.ckpt")
+    ckpt = trainer.save_checkpoint(0)
+    for section, key, value in (
+            ("model", "checkpoint_filepath", ckpt),
+            ("trainer", "resume_from_checkpoint", ckpt),
+            ("trainer", "ema_decay", 0.999)):
+        cfg = small_config(dataset)
+        cfg[section][key] = value
+        built = Trainer(cfg, str(tmp_path / key), batch_capacity=CAPACITY,
+                        sample_budget=BUDGET, device="cpu")
+        assert (built.ema_params is not None) == (key == "ema_decay")
+    assert trainer.resume(ckpt) == 0
     trainer.config.model.nerf.eval_occlusion_prepass_div = 4
     with pytest.raises(NotImplementedError,
                        match=r"eval_occlusion_prepass_div.*ROADMAP Queue B 6"):
         trainer.evaluate("val")
+
+
+def test_cli_train_resumes_and_test_evaluates_a_checkpoint(dataset,
+                                                           tmp_path,
+                                                           capsys):
+    """`train` with trainer.resume_from_checkpoint starts at the epoch
+    after the checkpoint's; `test` with model.checkpoint_filepath (every
+    component's load_state_dict set, as configs/test/*.yaml do) writes
+    metrics.yaml."""
+    cfg = small_config(dataset)
+    cfg.trainer.max_epochs = 1
+    path = tmp_path / "cfg.yaml"
+    save_config(cfg, str(path))
+    args = ["--device", "cpu", "--batch-capacity", str(CAPACITY),
+            "--sample-budget", str(BUDGET), "--max-eval-images", "1"]
+    assert main(["train", str(path), "--log-dir", str(tmp_path / "a")]
+                + args) == 0
+    ckpt = tmp_path / "a" / "checkpoints" / "epoch_0000"
+    assert ckpt.is_file()
+    assert yaml.safe_load((ckpt.parent / "config.yaml").read_text()) \
+        == cfg.to_dict()
+    capsys.readouterr()
+    cfg.trainer.max_epochs = 2
+    cfg.trainer.resume_from_checkpoint = str(ckpt)
+    save_config(cfg, str(path))
+    assert main(["train", str(path), "--log-dir", str(tmp_path / "b")]
+                + args) == 0
+    out = capsys.readouterr().out
+    assert "at epoch 1" in out
+    assert "epoch 1: val {" in out and "epoch 0: val" not in out
+    assert "(4 steps)" in out
+    assert sorted(p.name for p in (tmp_path / "b" / "checkpoints")
+                  .iterdir()) == ["config.yaml", "epoch_0001"]
+
+    test_cfg = small_config(dataset)
+    test_cfg.model.checkpoint_filepath = str(ckpt)
+    for component in ("contrast_threshold", "refractory_period",
+                      "pixel_bandwidth", "nerf"):
+        test_cfg.model[component].load_state_dict = True
+    save_config(test_cfg, str(path))
+    assert main(["test", str(path), "--log-dir", str(tmp_path / "t")]
+                + args) == 0
+    loaded = yaml.safe_load((tmp_path / "t" / "metrics.yaml").read_text())
+    assert set(loaded[0]) == {"l1", "psnr", "ssim", "lpips"}
+    assert loaded[0]["psnr"] > 0
 
 
 def test_chip_smoke_eval_render_harness_runs_on_cpu(tmp_path):
