@@ -67,7 +67,26 @@ Phases, each printing a start and an end line with elapsed seconds:
      built from configs/test/07_ziggy_and_fuzz_hdr.yaml's values that
      evaluates the kept checkpoint, one 640x480 frame timed (16 launches
      of the gather and the corner sum per field call), and a small EDS
-     step on the card against the CPU.
+     step on the card against the CPU;
+  8. the repaired round-5 (r5fix) path:
+     configs/train/quality_sphere_blur32_dense_r5fix.yaml at full width
+     (HashGrid 16 levels, float32 gathers, 64^3 grid, S = 30, K =
+     1,228,800, the occlusion prepass at div 2 for training and eval, the
+     sparsity prior, the EMA), cut only as R5FIX_REDUCED says, with batch
+     capacity 1024, on a dataset the port generates with the config's
+     recipe (the full pixel filter, on the card; fewer poses,
+     R5FIX_DATASET) and packs with its native packer (the numpy packer
+     may not run): one epoch of steps through Trainer.train, each with its
+     launches checked against `r5fix_step_launches`; the host syncs of one
+     steady step (none from training/ or the renderer); the prepass
+     against the full render on one marched sample set with the density
+     raised (outputs on the training path, field gradients with the
+     field's outputs in float64); one step with field_chunk
+     2^18 against one without (loss, gradients; no gather in the
+     backward); evaluate("val") with the eval prepass, one frame at the
+     dataset's size timed and profiled, and a small eval render with the
+     prepass on the card against the CPU; two steps of the vanilla NeRF
+     field (model.nerf.arch mlp) at the config's widths.
 
 Any failed check raises and the script exits non-zero. The line before
 the last is a JSON object describing each kernel; the last line is
@@ -971,12 +990,14 @@ def run_steps(torch, trainer, n_steps, label, profile=False):
 
 
 def count_step_syncs(torch, trainer, label="flagship",
-                     forbidden=("training/optim.py",)):
+                     forbidden=("training/optim.py",), expected=None):
     """One steady step (past the occupancy warmup, off the occupancy
     schedule) under torch.cuda.set_sync_debug_mode("warn"): returns
     {source line: host syncs}, each sync attributed to the innermost line
     of the port on the stack, and prints it. A sync in one of the
-    `forbidden` files (the optimizer's) fails the run."""
+    `forbidden` files (the optimizer's) fails the run, and so do kernel
+    launches other than `expected` (default: each kernel once per hash
+    level)."""
     import traceback
     import warnings
 
@@ -1011,10 +1032,12 @@ def count_step_syncs(torch, trainer, label="flagship",
     launches = read_launches()
     print(f"host syncs in one steady {label} step: {sum(sites.values())} "
           f"({sites}); kernel launches {launches}", flush=True)
-    n_levels = len(trainer.params.nerf.field.levels)
-    if launches != {name: n_levels for name in launches}:
-        raise AssertionError(f"a steady step launches each kernel once per "
-                             f"hash level ({n_levels}): {launches}")
+    if expected is None:
+        n_levels = len(trainer.params.nerf.field.levels)
+        expected = {name: n_levels for name in launches}
+    if launches != expected:
+        raise AssertionError(f"a steady {label} step launches {launches}, "
+                             f"want {expected}")
     if any(f in site for site in sites for f in forbidden):
         raise AssertionError(f"{label}: a sync in {forbidden}: {sites}")
     if not any("ops/linalg.py" in site for site in sites):
@@ -1260,11 +1283,13 @@ def _pixel_grid(torch, height, width):
     return torch.stack([xs, ys], dim=-1).to(torch.float32)
 
 
-def eval_render_card_vs_cpu(torch, tmp, device="cuda"):
+def eval_render_card_vs_cpu(torch, tmp, device="cuda", prepass_div=0):
     """The eval render of a small model (a wide random table) on the card
     (`device`) and on the CPU, from the same weights and occupancy grid,
     for one val view of a 32x24 synthetic dataset: 3 chunks of 256 rays,
-    field calls of 4096 samples. Returns [(name, error, tolerance)];
+    field calls of 4096 samples. With `prepass_div`, through the occlusion
+    prepass, with the density raised (the output bias + 4) so that rays
+    terminate and the prepass culls. Returns [(name, error, tolerance)];
     raises on a disagreement: the marched samples of every pixel must be
     equal and the image within 1e-5."""
     import numpy as np
@@ -1284,6 +1309,8 @@ def eval_render_card_vs_cpu(torch, tmp, device="cuda"):
     gen.manual_seed(3)
     with torch.no_grad():
         params_c.nerf.field.table.uniform_(-1.0, 1.0, generator=gen)
+        if prepass_div:
+            params_c.nerf.field.mlp_base.output.bias[0] += 4.0
     _, params_g = setup.build(config, root, sample_budget=4096,
                               device=torch.device(device))
     params_g.load_state_dict(params_c.state_dict())
@@ -1300,24 +1327,28 @@ def eval_render_card_vs_cpu(torch, tmp, device="cuda"):
     out = {}
     for name, params, occ in (("cpu", params_c, occ_c),
                               ("card", params_g, occ_g)):
-        render = evaluation.make_render_image_fn(params.nerf,
-                                                 field_chunk=4096)
+        render = evaluation.make_render_image_fn(
+            params.nerf, field_chunk=4096, eval_prepass_div=prepass_div)
         img = render(occ, *args)
         out[name] = (img.double().cpu(), render.stats["counts"].cpu(),
                      render.stats)
     (img_c, counts_c, stats_c), (img_g, counts_g, stats_g) = \
         out["cpu"], out["card"]
-    if not (stats_c["live_samples"] > 0
-            and stats_c["field_chunks"] > stats_c["ray_chunks"] == 3
+    culled = stats_c["live_samples"] < stats_c["marched_samples"]
+    if not (stats_c["live_samples"] > 0 and culled == bool(prepass_div)
+            and stats_c["field_chunks"] >= stats_c["ray_chunks"] == 3
             and float(img_c.max() - img_c.min()) > 0):
         raise AssertionError(f"eval reference render is degenerate "
                              f"({stats_c})")
     rows = [("marched samples per pixel (pixels differing)",
              int((counts_g != counts_c).sum()), 0),
             ("image", float((img_g - img_c).abs().max()), 1e-5)]
+    label = f" with the prepass (div {prepass_div})" if prepass_div else ""
     for name, err, tol in rows:
-        print(f"reference eval render {name}: {err} (tolerance {tol}); "
-              f"live samples {stats_g['live_samples']}, field calls "
+        print(f"reference eval render{label} {name}: {err} (tolerance "
+              f"{tol}); marched samples {stats_g['marched_samples']}, live "
+              f"samples {stats_g['live_samples']} (CPU "
+              f"{stats_c['live_samples']}), field calls "
               f"{stats_g['field_chunks']}", flush=True)
         if not (bool(torch.isfinite(img_g).all()) and err <= tol):
             raise AssertionError(f"eval render {name}: card and CPU "
@@ -1441,19 +1472,13 @@ EDS_DISTORTION = [-0.1, 0.02, 1e-3, -1e-3]
 EDS_FRAME_HEIGHT, EDS_FRAME_WIDTH = 480, 640
 
 
-def eds_config(dataset_directory, test=False, checkpoint=None):
-    """configs/train/07_ziggy_and_fuzz_hdr.yaml with phase 7's cuts
-    (EDS_REDUCED); with `test`, configs/test/07_ziggy_and_fuzz_hdr.yaml
-    with its dataset directory and seed cut the same way and `checkpoint`
-    as model.checkpoint_filepath."""
+def load_with_changes(path, changes):
+    """The repo config at `path` (relative to this script), read with the
+    port's YAML reader, with dotted-key `changes` set."""
     from deblur_e_nerf_tpu_torch.utils.config import load_config
 
     here = os.path.dirname(os.path.abspath(__file__))
-    config = load_config(os.path.join(
-        here, EDS_TEST_CONFIG if test else EDS_TRAIN_CONFIG))
-    changes = ({"seed": 0, "model.checkpoint_filepath": checkpoint} if test
-               else dict(EDS_REDUCED))
-    changes["data.dataset_directory"] = dataset_directory
+    config = load_config(os.path.join(here, path))
     for key, value in changes.items():
         *parents, leaf = key.split(".")
         node = config
@@ -1461,6 +1486,18 @@ def eds_config(dataset_directory, test=False, checkpoint=None):
             node = node[part]
         node[leaf] = value
     return config
+
+
+def eds_config(dataset_directory, test=False, checkpoint=None):
+    """configs/train/07_ziggy_and_fuzz_hdr.yaml with phase 7's cuts
+    (EDS_REDUCED); with `test`, configs/test/07_ziggy_and_fuzz_hdr.yaml
+    with its dataset directory and seed cut the same way and `checkpoint`
+    as model.checkpoint_filepath."""
+    changes = ({"seed": 0, "model.checkpoint_filepath": checkpoint} if test
+               else dict(EDS_REDUCED))
+    changes["data.dataset_directory"] = dataset_directory
+    return load_with_changes(EDS_TEST_CONFIG if test else EDS_TRAIN_CONFIG,
+                             changes)
 
 
 def make_eds_dataset(root, height, width, num_poses, write_views=True):
@@ -1889,6 +1926,548 @@ def phase_eds(torch, tmp, card, profile=False):
     return launches
 
 
+# phase 8: configs/train/quality_sphere_blur32_dense_r5fix.yaml, read with
+# the port's own YAML reader
+R5FIX_CONFIG = "configs/train/quality_sphere_blur32_dense_r5fix.yaml"
+# the dataset recipe the config's header names (scripts/quality_run.py
+# --pixel-filter full --bandwidth-scale 32, C = 0.05, 3 orbits): 192x192,
+# 1501 poses and frames; the phase generates fewer poses (R5FIX_DATASET)
+R5FIX_RECIPE = {"img_height": 192, "img_width": 192, "num_poses": 1501}
+R5FIX_DATASET = {"img_height": 192, "img_width": 192, "num_poses": 301}
+# phase 8's cuts of the train config, printed on its `reduced` line with
+# the dataset's
+R5FIX_REDUCED = {
+    "data.dataset_directory": "a synthetic blur dataset of the config's "
+                              "recipe, fewer poses (dataset below)",
+    "trainer.limit_train_batches": 4,
+    "trainer.max_epochs": 1,
+    "seed": 0,
+    "metric.lpips_weights_path": "seeded stub LPIPS weights",
+}
+# the config's own run trained with batch capacity 1024
+# (scripts/round5_experiments.sh), R = 1024 x 30 x 4 = 122,880 rays
+R5FIX_BATCH_CAPACITY = 1024
+R5FIX_FIELD_CHUNK = 1 << 18
+
+
+def r5fix_config(dataset_directory, lpips_weights_path=None):
+    """configs/train/quality_sphere_blur32_dense_r5fix.yaml with phase 8's
+    cuts (R5FIX_REDUCED)."""
+    return load_with_changes(R5FIX_CONFIG, dict(
+        R5FIX_REDUCED, **{"data.dataset_directory": dataset_directory,
+                          "metric.lpips_weights_path": lpips_weights_path}))
+
+
+def make_r5fix_dataset(torch, root):
+    """The config's dataset recipe (the full pixel filter at bandwidth
+    scale 32, C = 0.05, 3 orbits, views written) at R5FIX_DATASET's size,
+    the filter's float32 chain on the card; its events then packed by the
+    native packer (the numpy packer is made to raise). Prints the seconds
+    of each, the event count and the size on disk."""
+    import numpy as np
+
+    from deblur_e_nerf_tpu_torch.data import events as events_data
+    from deblur_e_nerf_tpu_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    synthetic.make_dataset(
+        root, **R5FIX_DATASET, pixel_filter="full", bandwidth_scale=32,
+        contrast_threshold=0.05, orbits=3, write_views=True,
+        filter_device="cuda")
+    gen_s = time.perf_counter() - t0
+    n_raw = len(np.load(f"{root}/raw_events.npz")["timestamp"])
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+    def numpy_packer(*args, **kwargs):
+        raise AssertionError("the numpy event packer ran")
+
+    saved = (events_data.pack_events,
+             events_data.extract_max_refractory_period)
+    events_data.pack_events = numpy_packer
+    events_data.extract_max_refractory_period = numpy_packer
+    try:
+        t0 = time.perf_counter()
+        n_packed = len(events_data.EventDataset(root))
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        max_rp = float(events_data.load_max_refractory_period(root))
+        rp_s = time.perf_counter() - t0
+    finally:
+        (events_data.pack_events,
+         events_data.extract_max_refractory_period) = saved
+    print(f"r5fix dataset {R5FIX_DATASET} (recipe {R5FIX_RECIPE}; full "
+          f"pixel filter on the card): generated in {gen_s:.3f} s, "
+          f"{n_raw} raw events, {size / 2**20:.2f} MiB; native packer: "
+          f"{n_packed} intervals in {pack_s:.3f} s, max refractory period "
+          f"{max_rp:.0f} ns in {rp_s:.3f} s", flush=True)
+    if n_packed <= 0:
+        raise AssertionError("r5fix dataset: no events")
+    return {"generate_s": gen_s, "raw_events": n_raw, "pack_s": pack_s}
+
+
+def r5fix_step_launches(trainer, occupancy_update):
+    """The kernel launches one r5fix step implies: each field call runs
+    one gather and one corner sum per hash level, each field backward one
+    scatter-add per level. A step calls the field in the prepass's density
+    pass (over K + 1 slots), the full field (over the prepass's K / 2 + 1
+    slots) and the sparsity prior, each in field_chunk pieces when set;
+    the backward runs through the last two; a warmup occupancy update adds
+    one density call per 2^19 cells."""
+    model = trainer.params.nerf
+    rc = model.render_config
+    n_levels = len(model.field.levels)
+
+    def calls(n):
+        return -(-n // rc.field_chunk) if rc.field_chunk else 1
+
+    field_calls = calls(rc.prepass_budget + 1)
+    gathers = calls(rc.sample_budget + 1) + field_calls + 1
+    if occupancy_update:
+        gathers += -(-(rc.grid_resolution ** 3) // (1 << 19))
+    return {"scatter_add_rows": n_levels * (field_calls + 1),
+            "gather_rows": n_levels * gathers,
+            "corner_sum": n_levels * gathers}
+
+
+def train_r5fix_epoch(torch, trainer, card):
+    """Epoch 0 through Trainer.train, each step timed and checked: its
+    kernel launches against `r5fix_step_launches`, a finite loss, the
+    prepass's live samples (live demand = prepass_overflow_rate x K / 2)
+    beside the marched ones."""
+    rc = trainer.params.nerf.render_config
+    records = []
+    step_fn = trainer.train_step
+
+    def timed_step():
+        counts = read_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = step_fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = read_launches()
+        marched = int(m["num_marched_samples"])
+        live = round(float(m["prepass_overflow_rate"]) * rc.prepass_budget)
+        r = {"step": trainer.global_step - 1, "ms": ms,
+             "launches": {k: after[k] - counts[k] for k in after},
+             "loss": float(m["loss"]), "marched": marched, "live": live,
+             "overflow": float(m["prepass_overflow_rate"]),
+             "valid": float(m["mean_valid_rate"]),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        records.append(r)
+        print(f"r5fix step {r['step']}: loss {r['loss']:.6f}, {ms:.3f} ms, "
+              f"marched samples {marched}, live after the prepass {live} "
+              f"(ratio {live / max(marched, 1):.4f}), "
+              f"prepass_overflow_rate {r['overflow']:.4f}, valid events "
+              f"{r['valid']:.3f}, peak {r['peak_gib']:.2f} GiB, launches "
+              f"{r['launches']} on {card}", flush=True)
+        want = r5fix_step_launches(trainer, occupancy_update=True)
+        if r["launches"] != want:
+            raise AssertionError(f"r5fix step {r['step']}: launches "
+                                 f"{r['launches']}, want {want}")
+        if not math.isfinite(r["loss"]):
+            raise AssertionError(f"r5fix step {r['step']}: loss "
+                                 f"{r['loss']}")
+        return m
+
+    trainer.train_step = timed_step
+    try:
+        trainer.train(max_steps=int(
+            R5FIX_REDUCED["trainer.limit_train_batches"]))
+    finally:
+        del trainer.train_step
+    return records
+
+
+def _random_rays(torch, trainer, n, seed):
+    """`n` rays from the trajectory's camera positions towards points of
+    the central [-0.5, 0.5]^3, with stratified-march jitter."""
+    device = trainer.device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    cams = trainer.bundle.consts["trajectory"].T_wc_position
+    o = cams[torch.randint(0, cams.shape[0], (n,), generator=gen,
+                           device=device)]
+    target = torch.rand((n, 3), generator=gen, device=device) - 0.5
+    d = torch.nn.functional.normalize(target - o, dim=-1)
+    jitter = torch.rand(n, generator=gen, device=device)
+    w = torch.randn((n, 2), generator=gen, device=device)
+    return o, d, torch.ones(n, dtype=torch.bool, device=device), jitter, w
+
+
+def r5fix_prepass_exactness(torch, trainer, card):
+    """The stepped trainer's field with its density raised (the output
+    bias + 5, so that rays terminate) renders one marched sample set of
+    the step's R rays and K slots twice: with the prepass (div 2) and
+    without.
+
+    Through nerf_model.render (the training path): outputs within rtol
+    1e-5 and atol 1e-6, the live demand below the marched one (the full
+    field runs on fewer samples), both times printed. The field's
+    gradients agree there only up to the float32 gradient path of the
+    optical depth, which the port keeps from the JAX package (a reversed
+    cumsum over the whole buffer leaves each sample's cotangent an error
+    of eps x the running total, and the two buffers sum in other orders),
+    so their difference is printed beside that. Gradient exactness is
+    held with the field's outputs in float64 (the same renderer, prepass
+    and composite code, without that rounding): every field gradient
+    within 2e-4 of its largest entry."""
+    import dataclasses
+
+    from deblur_e_nerf_tpu_torch.models import nerf_model, renderer
+    from deblur_e_nerf_tpu_torch.training import step as step_lib
+
+    model = trainer.params.nerf
+    rc = model.render_config
+    field = model.field
+    sc = trainer.bundle.static_config
+    R = step_lib.n_rendered_rays(sc, trainer.batch_capacity)
+    o, d, mask, jitter, w = _random_rays(torch, trainer, R, seed=7)
+    bias = field.mlp_base.output.bias
+    field_params = dict(field.named_parameters())
+
+    def as_double(fn):
+        return lambda *args: tuple(t.double() for t in fn(*args))
+
+    def render(div, precision):
+        model.render_config = dataclasses.replace(rc, prepass_div=div)
+        if precision == "float32":
+            return nerf_model.render(model, trainer.occ_state, o, d, mask,
+                                     jitter)
+        return renderer.render_rays(
+            renderer.SplitField(field.encode, as_double(field.decode)),
+            trainer.occ_state.binary, o, d, mask, jitter,
+            model.render_config,
+            density_only_fn=lambda x: field.density(x).double())
+
+    results = {}
+    with torch.no_grad():
+        bias[0] += 5.0
+    try:
+        for precision in ("float32", "float64"):
+            for div in (rc.prepass_div, 0):
+                field.zero_grad(set_to_none=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = render(div, precision)
+                loss = ((out["radiance"][:, 0] * w[:, 0]).sum()
+                        + (out["opacity"] * w[:, 1]).sum())
+                loss.backward()
+                torch.cuda.synchronize()
+                results[precision, div] = (
+                    {k: out[k].detach() for k in ("radiance", "opacity",
+                                                    "depth")},
+                    {n: p.grad.detach().clone()
+                     for n, p in field_params.items()},
+                    (time.perf_counter() - t0) * 1e3,
+                    int(out["num_marched_samples"]),
+                    float(out["prepass_overflow_rate"]))
+    finally:
+        model.render_config = rc
+        field.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            bias[0] -= 5.0
+    out_p, grad_p, ms_p, marched, overflow = results["float32",
+                                                     rc.prepass_div]
+    out_f, grad_f, ms_f, _, _ = results["float32", 0]
+    live = round(overflow * rc.prepass_budget)
+    print(f"r5fix prepass exactness: {R} rays, marched samples {marched} "
+          f"(K + 1 = {rc.sample_budget + 1}), live after the prepass {live} "
+          f"(prepass_overflow_rate {overflow:.4f}); render + backward "
+          f"{ms_p:.3f} ms with the prepass (field on "
+          f"{rc.prepass_budget + 1} slots), {ms_f:.3f} ms without (field "
+          f"on {rc.sample_budget + 1}) on {card}", flush=True)
+    if not (live < marched and overflow < 1.0):
+        raise AssertionError("r5fix prepass: nothing culled, or the "
+                             "prepass buffer overflowed")
+    for k in out_f:
+        err = float(((out_p[k] - out_f[k]).abs()
+                     - 1e-5 * out_f[k].abs()).max())
+        print(f"r5fix prepass vs full {k}: max(|diff| - 1e-5 |full|) "
+              f"{err:.3e} (tolerance 1e-6)", flush=True)
+        if not (bool(torch.isfinite(out_p[k]).all()) and err <= 1e-6):
+            raise AssertionError(f"r5fix prepass: {k} differs")
+    grad_p64, grad_f64 = (results["float64", rc.prepass_div][1],
+                          results["float64", 0][1])
+    for n, g in grad_f64.items():
+        scale = float(g.abs().max())
+        err = float((grad_p64[n] - g).abs().max())
+
+        def rel(a, b):
+            return float((a[n] - b[n]).abs().max()) / scale
+
+        print(f"r5fix prepass vs full grad {n}: float64 outputs "
+              f"{err / scale:.3e} of the largest entry (tolerance 2e-4); "
+              f"float32 training path {rel(grad_p, grad_f):.3e} (against "
+              f"float64: with the prepass {rel(grad_p, grad_p64):.3e}, "
+              f"without {rel(grad_f, grad_f64):.3e})", flush=True)
+        if not (math.isfinite(scale) and scale > 0 and err <= 2e-4 * scale):
+            raise AssertionError(f"r5fix prepass: grad {n} differs")
+    return ms_p, ms_f
+
+
+def r5fix_chunked_step(torch, trainer, card):
+    """One step's loss and gradients (step_lib.compute_loss, then
+    backward; no update) on the same batch and draws with the training
+    render's field_chunk at R5FIX_FIELD_CHUNK and without. Loss within
+    1e-6 relative, every gradient within 2e-4 of its largest entry; the
+    gather and the corner sum launch in the forward only (each chunk's
+    encode output is kept), with the counts `r5fix_step_launches`
+    implies. Prints each one's peak device memory."""
+    import dataclasses
+
+    from deblur_e_nerf_tpu_torch.models import nerf_model
+    from deblur_e_nerf_tpu_torch.training import step as step_lib
+
+    params = trainer.params
+    model = params.nerf
+    rc = model.render_config
+    sc = trainer.bundle.static_config
+    batch = trainer._to_device(trainer.batcher.next_batch(
+        trainer.batch_controller.active))
+    draws = step_lib.draw_step(sc, trainer.batch_capacity,
+                               trainer.occ_state, trainer.generator,
+                               trainer.device)
+    level_mask = nerf_model.level_mask_for_step(model, trainer.global_step,
+                                                trainer.device)
+    results = {}
+    try:
+        for chunk in (R5FIX_FIELD_CHUNK, 0):
+            model.render_config = dataclasses.replace(rc, field_chunk=chunk)
+            want = r5fix_step_launches(trainer, occupancy_update=False)
+            params.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            loss, _ = step_lib.compute_loss(
+                params, trainer.bundle.consts, trainer.occ_state, batch,
+                draws, sc, trainer.bundle.loss_config, level_mask)
+            forward = read_launches()
+            reset_launches()
+            loss.backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            backward = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            results[chunk] = (float(loss.detach()), {
+                n: p.grad.detach().clone()
+                for n, p in params.named_parameters()
+                if p.grad is not None})
+            print(f"r5fix step, field_chunk {chunk}: loss "
+                  f"{results[chunk][0]:.9f}, {ms:.3f} ms (forward and "
+                  f"backward), "
+                  f"peak device memory {peak:.2f} GiB, launches forward "
+                  f"{forward}, backward {backward} on {card}", flush=True)
+            if not (forward["gather_rows"] == forward["corner_sum"]
+                    == want["gather_rows"]
+                    and forward["scatter_add_rows"] == 0
+                    and backward["gather_rows"] == backward["corner_sum"]
+                    == 0 and backward["scatter_add_rows"]
+                    == want["scatter_add_rows"]):
+                raise AssertionError(f"r5fix field_chunk {chunk}: launches "
+                                     f"{forward}, {backward}, want {want}")
+    finally:
+        model.render_config = rc
+        params.zero_grad(set_to_none=True)
+    (loss_c, grads_c), (loss_f, grads_f) = (results[R5FIX_FIELD_CHUNK],
+                                            results[0])
+    err = abs(loss_c - loss_f) / abs(loss_f)
+    print(f"r5fix chunked vs whole-buffer step: loss relative error "
+          f"{err:.3e} (tolerance 1e-6)", flush=True)
+    if not (math.isfinite(loss_f) and err <= 1e-6
+            and set(grads_c) == set(grads_f)):
+        raise AssertionError("r5fix chunked step: the loss differs")
+    for n, g in grads_f.items():
+        gerr = float((grads_c[n] - g).abs().max())
+        tol = 2e-4 * float(g.abs().max())
+        if not gerr <= tol:
+            raise AssertionError(f"r5fix chunked step: grad {n} differs "
+                                 f"({gerr} > {tol})")
+    print(f"r5fix chunked vs whole-buffer step: {len(grads_f)} gradients "
+          f"within 2e-4 of their largest entry", flush=True)
+
+
+def r5fix_eval(torch, tmp, trainer, root, card):
+    """Trainer.evaluate("val") with the eval prepass (every metric
+    finite), then one frame at the dataset's size through
+    make_render_image_fn, timed and profiled (launches: 16 per density
+    and per field call), then the card's eval render with the prepass
+    against the CPU's. Returns {path: launches}."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from deblur_e_nerf_tpu_torch.data import posed_images
+    from deblur_e_nerf_tpu_torch.training import evaluation
+
+    launches = {}
+    n_levels = len(trainer.params.nerf.field.levels)
+    eval_div = trainer.config.model.nerf.eval_occlusion_prepass_div
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    metric = trainer.evaluate("val")
+    torch.cuda.synchronize()
+    launches["r5fix eval"] = read_launches()
+    print(f"r5fix eval val (eval prepass div {eval_div}, EMA "
+          f"{trainer.ema_params is not None}): {json.dumps(metric)} in "
+          f"{time.perf_counter() - t0:.3f} s; launches "
+          f"{launches['r5fix eval']}", flush=True)
+    if not all(math.isfinite(metric[k]) for k in ("l1", "psnr", "ssim",
+                                                  "lpips")):
+        raise AssertionError(f"r5fix eval: a metric is not finite: "
+                             f"{metric}")
+    view = posed_images.PosedImageDataset(root, "val").posed_imgs
+    H, W = view["img"].shape[-2:]
+    args = (torch.as_tensor(np.linalg.inv(view["intrinsics"]),
+                            dtype=torch.float32),
+            _pixel_grid(torch, H, W),
+            torch.as_tensor(view["T_wc_position"][0]),
+            torch.as_tensor(view["T_wc_orientation"][0]))
+    render = evaluation.make_render_image_fn(
+        trainer.eval_params().nerf, eval_prepass_div=eval_div)
+    render(trainer.occ_state, *args)  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        img = render(trainer.occ_state, *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches["r5fix frame"] = frame = read_launches()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    stats = render.stats
+    ms = sum(times) / len(times)
+    print(f"r5fix eval frame {W}x{H} (prepass div {eval_div}): {ms:.3f} ms "
+          f"per image (runs {[round(t, 3) for t in times]}), "
+          f"{H * W / ms * 1e3:.1f} rays/s, marched samples "
+          f"{stats['marched_samples'] / (H * W):.2f} a ray, live "
+          f"{stats['live_samples'] / (H * W):.2f} a ray, "
+          f"{stats['ray_chunks']} ray chunks, density calls "
+          f"{stats['density_chunks']}, field calls {stats['field_chunks']}, "
+          f"truncated rays {stats['truncated_rays']}, peak device memory "
+          f"{peak:.3f} GiB above the trainer's {base / 2**30:.3f} GiB; "
+          f"launches {frame} on {card}", flush=True)
+    want = n_levels * (stats["density_chunks"] + stats["field_chunks"])
+    if not (frame["gather_rows"] == frame["corner_sum"] == want > 0
+            and frame["scatter_add_rows"] == 0):
+        raise AssertionError(f"r5fix frame launches {frame}, want {want}")
+    if img.shape != (H, W) or not bool(torch.isfinite(img).all()) \
+            or stats["truncated_rays"]:
+        raise AssertionError(f"r5fix frame: shape {tuple(img.shape)}, "
+                             f"truncated {stats['truncated_rays']}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render(trainer.occ_state, *args)
+        torch.cuda.synchronize()
+    busy, ours = _device_table(prof, "r5fix eval frame", 1)
+    print("profile r5fix eval frame: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in ours.items())
+        + f"; device busy {100 * busy / ms:.1f}% of the unprofiled "
+        f"frame's wall", flush=True)
+    eval_render_card_vs_cpu(torch, tmp, prepass_div=eval_div)
+    return launches
+
+
+def r5fix_vanilla_steps(torch, root, tmp, card):
+    """Two steps of the same config with model.nerf.arch mlp at the
+    config's `mlp:` widths (8 x 256, skip 4, condition 1 x 128): finite
+    losses; prints each step's time and peak memory."""
+    from deblur_e_nerf_tpu_torch.training.trainer import Trainer
+
+    config = r5fix_config(root)
+    config.model.nerf.arch = "mlp"
+    trainer = Trainer(config, f"{tmp}/log_r5fix_mlp",
+                      batch_capacity=R5FIX_BATCH_CAPACITY, device="cuda")
+    mlp = config.model.nerf.mlp
+    for i in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = trainer.train_step()
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"r5fix vanilla field ({mlp.net_depth} x {mlp.net_width}, "
+              f"skip {mlp.skip_layer}, condition {mlp.net_depth_condition} "
+              f"x {mlp.net_width_condition}) step {i}: loss {loss:.6f}, "
+              f"{ms:.3f} ms, marched samples "
+              f"{int(m['num_marched_samples'])}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
+              f"{card}", flush=True)
+        if not math.isfinite(loss):
+            raise AssertionError(f"r5fix vanilla step {i}: loss {loss}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_r5fix(torch, tmp, card):
+    """Phase 8: the repaired round-5 pair's path at full width. Returns
+    {path: launches}."""
+    from deblur_e_nerf_tpu_torch.training.trainer import Trainer
+
+    root = f"{tmp}/r5fix"
+    data = make_r5fix_dataset(torch, root)
+    print("reduced: " + json.dumps(dict(
+        R5FIX_REDUCED, batch_capacity=R5FIX_BATCH_CAPACITY,
+        dataset=dict(R5FIX_DATASET, recipe=R5FIX_RECIPE,
+                     raw_events=data["raw_events"]))), flush=True)
+    config = r5fix_config(root, write_lpips_stub(torch,
+                                                 f"{tmp}/lpips_alex.pt"))
+    t0 = time.perf_counter()
+    trainer = Trainer(config, f"{tmp}/log_r5fix",
+                      batch_capacity=R5FIX_BATCH_CAPACITY, device="cuda")
+    model = trainer.params.nerf
+    rc = model.render_config
+    print(f"r5fix trainer built in {time.perf_counter() - t0:.2f} s: levels "
+          f"{[(r, m) for r, _, _, m in model.field.levels]}, gathers "
+          f"{model.field.compute_dtype}, grid {rc.grid_resolution}^3, S "
+          f"{trainer.bundle.static_config.it_sample_size}, sample budget "
+          f"{rc.sample_budget}, prepass div {rc.prepass_div} (buffer "
+          f"{rc.prepass_budget}), block budget {rc.block_budget}, "
+          f"superblock budget {rc.superblock_budget}, EMA "
+          f"{trainer.ema_decay}", flush=True)
+    if not ([m for _, _, _, m in model.field.levels]
+            == ["dense"] * 5 + ["hash"] * 11
+            and rc.sample_budget == 8192 * 30 * 4 * 5 // 4
+            and rc.prepass_budget == rc.sample_budget // 2
+            and rc.superblock_budget == 0 and rc.field_chunk == 0):
+        raise AssertionError("the r5fix trainer is not the one configured")
+    launches = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    records = train_r5fix_epoch(torch, trainer, card)
+    launches["r5fix train"] = read_launches()
+    steady = sorted(r["ms"] for r in records[1:])
+    print(f"r5fix steady step (with its warmup occupancy update): "
+          f"{steady[len(steady) // 2]:.3f} ms median (min {steady[0]:.3f}, "
+          f"max {steady[-1]:.3f}); first step {records[0]['ms']:.3f} ms; "
+          f"peak {max(r['peak_gib'] for r in records):.2f} GiB",
+          flush=True)
+    trainer._flush_pending_metrics()
+    count_step_syncs(torch, trainer, "r5fix",
+                     forbidden=("training/", "models/renderer.py"),
+                     expected=r5fix_step_launches(trainer, False))
+    trainer._flush_pending_metrics()
+    r5fix_prepass_exactness(torch, trainer, card)
+    r5fix_chunked_step(torch, trainer, card)
+    launches.update(r5fix_eval(torch, tmp, trainer, root, card))
+    del trainer
+    torch.cuda.empty_cache()
+    r5fix_vanilla_steps(torch, root, tmp, card)
+    for path, counts in launches.items():
+        for name in ("gather_rows", "corner_sum") + (
+                ("scatter_add_rows",) if path == "r5fix train" else ()):
+            if counts[name] <= 0:
+                raise AssertionError(f"{path}: {name} never launched")
+    return launches
+
+
 def kernel_line(name, source, replaces, rows, launches, main_shape):
     main = next(r for r in rows if r["shape"] == main_shape
                 and r.get("index_structure", "uniform") == "uniform")
@@ -1939,6 +2518,9 @@ def main():
         with phase("7 real-data (EDS) path"):
             launches.update(phase_eds(torch, tmp, card,
                                       profile=args.profile))
+        torch.cuda.empty_cache()
+        with phase("8 r5fix path (prepass, chunked render, vanilla field)"):
+            launches.update(phase_r5fix(torch, tmp, card))
 
     kernels = [
         dict(kernel_line("scatter_add_rows", SCATTER_SOURCE,

@@ -2,7 +2,9 @@
 
 Mirrors the JAX package's scripts/run.py: loads the YAML config, draws a
 seed when `seed` is null (recorded in the config copy) and builds the
-Trainer. `train` trains and evaluates the val views every
+Trainer (`--field-chunk N` runs the training render's field N samples
+at a time, keeping each chunk's encode output for the backward). `train`
+trains and evaluates the val views every
 `trainer.check_val_every_n_epoch` epochs and saves a checkpoint per epoch
 under `<log dir>/checkpoints/`; `val` and `test` evaluate the stage's views
 and write `metrics.yaml` into the log directory.
@@ -28,6 +30,9 @@ def main(argv=None):
     parser.add_argument("--log-dir", default=None)
     parser.add_argument("--batch-capacity", type=int, default=8192)
     parser.add_argument("--sample-budget", type=int, default=None)
+    parser.add_argument("--field-chunk", type=int, default=0,
+                        help="samples per field call of the training "
+                             "render (0 = the whole buffer)")
     parser.add_argument("--max-steps", type=int, default=None)
     parser.add_argument("--max-eval-images", type=int, default=None)
     parser.add_argument("--device", default=None,
@@ -47,7 +52,8 @@ def main(argv=None):
     save_config(config, os.path.join(log_dir,
                                      os.path.basename(args.config)))
     trainer = Trainer(config, log_dir, batch_capacity=args.batch_capacity,
-                      sample_budget=args.sample_budget, device=args.device)
+                      sample_budget=args.sample_budget, device=args.device,
+                      field_chunk=args.field_chunk)
     start_epoch = 0
     resume_path = config.trainer.get("resume_from_checkpoint")
     if resume_path:

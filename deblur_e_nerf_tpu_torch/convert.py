@@ -4,6 +4,8 @@
 dicts of numpy arrays, into a state dict of the port's `TrainParams`
 (training/step.py). Paths keep their names, joined with '.':
   - a flax `Dense` kernel (in, out) becomes a torch weight (out, in);
+  - a weight-normalized `Dense` (a `scale` beside its kernel) becomes a
+    `WeightNormDense`: the kernel its `v` (out, in), the scale its `g`;
   - the hash table is copied row for row (both packages share the
     `grid_layout` table layout);
   - the contrast-threshold and refractory raw parameters and the raw
@@ -33,15 +35,19 @@ def _flatten(tree, prefix=""):
 
 def params_from_jax(numpy_tree):
     """Nested dict of numpy arrays (JAX param tree) -> torch state dict."""
+    flat = dict(_flatten(numpy_tree))
     state = {}
-    for path, value in _flatten(numpy_tree):
+    for path, value in flat.items():
         arr = np.asarray(value)
-        if path.endswith(".kernel"):
-            path = path[: -len(".kernel")] + ".weight"
+        layer, _, leaf = path.rpartition(".")
+        if leaf == "kernel":
+            normed = f"{layer}.scale" in flat
+            path = f"{layer}.{'v' if normed else 'weight'}"
             arr = arr.T
+        elif leaf == "scale" and f"{layer}.kernel" in flat:
+            path = f"{layer}.g"
         state[path] = torch.from_numpy(np.array(arr, copy=True))
     return state
-
 
 
 def _components(numpy_tree):

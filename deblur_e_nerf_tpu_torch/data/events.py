@@ -1,12 +1,15 @@
 """Event stream loading and packed event intervals (counterpart of
-deblur_e_nerf_tpu/data/events.py), numpy only.
+deblur_e_nerf_tpu/data/events.py).
 
 For each event i at pixel p the packed interval is {position=pos_i,
 start_ts=prev_ts(p), end_ts=t_i, num_pos=pol_i, num_neg=1-pol_i}; it is
 valid iff an earlier event at p exists with a strictly smaller timestamp.
 The maximum refractory period is the minimum inter-event interval over
-all per-pixel substreams after de-duplicating equal timestamps. A stable
-sort by pixel turns the per-pixel windows into shifted-array operations.
+all per-pixel substreams after de-duplicating equal timestamps. Datasets
+pack with the native one-pass packer (data/native_evpack.py, C++ built at
+first use) unless the caller asks for numpy (`native=False`), whose stable
+sort by pixel turns the per-pixel windows into shifted-array operations;
+the two agree exactly.
 
 Event positions are undistorted in float64 numpy, following OpenCV's
 `cv2.undistortPoints` (plumb_bob) and `cv2.fisheye.undistortPoints`
@@ -15,8 +18,11 @@ calls. The port's cache files are named apart from the JAX package's.
 """
 
 import os
+import time
 
 import numpy as np
+
+from . import native_evpack
 
 RAW_EVENTS_FILENAME = "raw_events.npz"
 CAMERA_CALIBRATION_FILENAME = "camera_calibration.npz"
@@ -219,11 +225,12 @@ def undistort_events(events, distortion_model, distortion_params,
 
 class EventDataset:
     """Packed event intervals, cached next to the raw stream; an optional
-    permutation seed reshuffles the dataset deterministically."""
+    permutation seed reshuffles the dataset deterministically. `native`
+    packs with the native packer (a failed build raises), else numpy."""
 
-    def __init__(self, root_directory, permutation_seed=None):
+    def __init__(self, root_directory, permutation_seed=None, native=True):
         self.root_directory = root_directory
-        self.events = self._load_or_build(root_directory)
+        self.events = self._load_or_build(root_directory, native)
         if permutation_seed is not None:
             n = len(self.events["position"])
             rng = np.random.Generator(np.random.Philox(permutation_seed))
@@ -231,17 +238,24 @@ class EventDataset:
             self.events = {k: v[indices] for k, v in self.events.items()}
 
     @staticmethod
-    def _load_or_build(root_directory):
+    def _load_or_build(root_directory, native=True):
         cache_path = os.path.join(root_directory, PACKED_EVENTS_FILENAME)
         if os.path.isfile(cache_path):
             with np.load(cache_path) as f:
                 return {k: f[k] for k in f.files}
         calib = load_camera_calibration(root_directory)
         raw = load_raw_events(root_directory)
-        events = pack_events(
+        t0 = time.perf_counter()
+        pack = native_evpack.pack_events if native else pack_events
+        events = pack(
             raw[RAW_EVENT_POSITION_KEY], raw[RAW_EVENT_TIMESTAMP_KEY],
             raw[RAW_EVENT_POLARITY_KEY], int(calib[IMG_HEIGHT_KEY]),
             int(calib[IMG_WIDTH_KEY]))
+        print(f"events: packed {len(events['end_ts'])} intervals of "
+              f"{len(raw[RAW_EVENT_TIMESTAMP_KEY])} raw events with the "
+              f"{'native' if native else 'numpy'} packer in "
+              f"{time.perf_counter() - t0:.3f} s",
+              flush=True)
         events = colorize_events(events, str(calib[BAYER_PATTERN_KEY]))
         events = undistort_events(
             events, calib[DISTORTION_MODEL_KEY],
@@ -253,14 +267,17 @@ class EventDataset:
         return len(self.events["position"])
 
 
-def load_max_refractory_period(root_directory):
-    """Load (or extract and cache) the dataset's max refractory period."""
+def load_max_refractory_period(root_directory, native=True):
+    """Load (or extract, with the native or the numpy packer, and cache)
+    the dataset's max refractory period."""
     cache_path = os.path.join(root_directory, MAX_REFRACTORY_PERIOD_FILENAME)
     if os.path.isfile(cache_path):
         return np.load(cache_path)
     calib = load_camera_calibration(root_directory)
     raw = load_raw_events(root_directory)
-    max_rp = extract_max_refractory_period(
+    extract = (native_evpack.max_refractory_period if native
+               else extract_max_refractory_period)
+    max_rp = extract(
         raw[RAW_EVENT_POSITION_KEY], raw[RAW_EVENT_TIMESTAMP_KEY],
         int(calib[IMG_HEIGHT_KEY]), int(calib[IMG_WIDTH_KEY]))
     np.save(cache_path, max_rp)

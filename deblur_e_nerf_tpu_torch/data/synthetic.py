@@ -8,14 +8,22 @@ log-intensity threshold crossings with interpolated timestamps) or, with
 `simulate_events=False`, are random with plausible statistics. The posed
 image views (float32 TIFFs through `image_io`, without OpenCV, and the
 `views/transforms_{train,val,test}.json` files) are written only when
-`write_views` is set. The full pixel-circuit filter of the JAX generator waits
-for the pixel-bandwidth slice.
+`write_views` is set.
+
+Motion blur: `bandwidth_tau_ns` low-pass filters each pixel's log
+intensity with a first-order IIR; `pixel_filter='full'` runs it through
+the full 4th-order pixel circuit of the deblurring model
+(`filter_log_frames_full`, in torch, float32, on `filter_device`, the CPU
+by default as in the JAX generator). `bandwidth_scale` scales every
+circuit time constant (and inversely every cutoff frequency) in the
+calibration the dataset is written with, which the full filter reads.
 """
 
 import json
 import os
 
 import numpy as np
+import torch
 
 from . import image_io
 
@@ -38,11 +46,59 @@ def orbit_poses(n, radius=3.0, height=0.8, t_end_ns=2_000_000_000,
     return pos, quat, R, ts
 
 
+def filter_log_frames_full(log_frames, frame_ts_ns, calib, device="cpu"):
+    """Filter per-pixel log intensity through the full 4th-order pixel
+    circuit, the generator-side twin of the deblurring model: each frame
+    interval linearizes the photoreceptor at the interval-end intensity
+    (models/pixel_bandwidth.py `linearize_sys`) and propagates the 4-dim
+    state exactly under a linearly interpolated input (ops/control.py
+    `foh_cont2discrete`, state-preserving, efficient form), from the DC
+    steady state of the first frame (v = 0, p = s = d = log I_0). Float32
+    throughout, with explicit multiply-adds (no TF32).
+
+    Args:
+        log_frames: (T, P) float32 per-pixel log intensity.
+        frame_ts_ns: (T,) int64 strictly increasing timestamps.
+        calib: camera_calibration dict with the pixel-circuit constants.
+        device: where the chain runs ("cpu" or "cuda").
+    Returns:
+        (T, P) float32 numpy: the diff-amp output's log intensity.
+    """
+    from ..models import pixel_bandwidth
+    from ..ops import control, linalg
+
+    params, consts = pixel_bandwidth.init_pixel_bandwidth(
+        calib, min_ts=0, f_c_dominant_min=1.0,
+        target_cumprob_max_sample_lifetime=0.5, device=device)
+    dts_s = (np.diff(np.asarray(frame_ts_ns, np.int64)).astype(np.float64)
+             * 1e-9).astype(np.float32)
+    lf = torch.as_tensor(np.asarray(log_frames, np.float32), device=device)
+    out = [lf[0]]
+    with torch.no_grad():
+        x = torch.stack([torch.zeros_like(lf[0]), lf[0], lf[0], lf[0]],
+                        dim=-1)[..., None]  # (P, 4, 1)
+        for t in range(1, len(lf)):
+            u0, u1 = lf[t - 1], lf[t]
+            sysd = control.foh_cont2discrete(
+                pixel_bandwidth.linearize_sys(params, consts,
+                                              torch.exp(u1)),
+                torch.tensor(dts_s[t - 1], device=device),
+                is_state_preserved=True, is_efficient=True)
+            x = (linalg.matmul(sysd.A, x) + sysd.B * u0[:, None, None]
+                 + sysd.B_tilde * u1[:, None, None])
+            out.append(x[:, 3, 0])
+    return torch.stack(out).cpu().numpy()
+
+
 def simulate_event_stream(analytic_image_fn, R, pos_w, pose_ts, H, W,
                           contrast_threshold, log_eps=1e-3,
-                          num_frames=None, bandwidth_tau_ns=None):
-    """Ideal event simulation against the analytic scene; returns
-    (positions (N,2) u16, timestamps (N,) i64 sorted, polarities)."""
+                          num_frames=None, bandwidth_tau_ns=None,
+                          pixel_filter=None, calib=None,
+                          filter_device="cpu"):
+    """Ideal event simulation against the analytic scene, after the
+    optional blur (`bandwidth_tau_ns` first-order, or `pixel_filter=
+    'full'` with the circuit constants in `calib`); returns (positions
+    (N,2) u16, timestamps (N,) i64 sorted, polarities)."""
     num_frames = num_frames or len(pose_ts)
     frame_idx = np.linspace(0, len(pose_ts) - 1, num_frames)
     positions, timestamps, polarities = [], [], []
@@ -59,7 +115,14 @@ def simulate_event_stream(analytic_image_fn, R, pos_w, pose_ts, H, W,
         for i in used
     ]).astype(np.float32)
     frame_ts = np.asarray([pose_ts[i] for i in used], np.int64)
-    if bandwidth_tau_ns is not None:  # first-order low-pass blur
+    if pixel_filter == "full":
+        if calib is None:
+            raise ValueError("pixel_filter='full' needs the calibration")
+        frames = filter_log_frames_full(frames, frame_ts, calib,
+                                        filter_device)
+    elif pixel_filter not in (None, "none", "first_order"):
+        raise ValueError(f"unknown pixel_filter {pixel_filter!r}")
+    elif bandwidth_tau_ns is not None:  # first-order low-pass blur
         filt = frames[0].copy()
         for t in range(1, len(frames)):
             alpha = 1.0 - np.exp(-float(frame_ts[t] - frame_ts[t - 1])
@@ -140,14 +203,13 @@ def make_dataset(root, img_height=64, img_width=64, num_events=200_000,
                  num_poses=61, bayer=False, seed=0, contrast_threshold=0.25,
                  refractory_ns=100, num_views=4, simulate_events=True,
                  num_frames=None, orbits=1, bandwidth_tau_ns=None,
-                 pixel_filter=None, bandwidth_scale=1.0, write_views=False):
+                 pixel_filter=None, bandwidth_scale=1.0, write_views=False,
+                 filter_device="cpu"):
     """Write a synthetic dataset into `root` and return `root`. The same
-    arguments as the JAX generator give the same files (views aside)."""
-    if pixel_filter not in (None, "none", "first_order"):
-        raise NotImplementedError(
-            f"pixel_filter={pixel_filter!r}: the generator's full "
-            "pixel-circuit filter (filter_log_frames_full) is not ported "
-            "yet (ROADMAP Queue A 8)")
+    arguments as the JAX generator give the same files (views aside; the
+    full pixel filter's float32 chain agrees to ~1e-6, so an event at a
+    threshold crossing may flip). `filter_device` runs the full filter
+    ("cpu" or "cuda")."""
     os.makedirs(root, exist_ok=True)
     rng = np.random.default_rng(seed)
     H, W = img_height, img_width
@@ -206,7 +268,8 @@ def make_dataset(root, img_height=64, img_width=64, num_events=200_000,
         positions, timestamps, polarities = simulate_event_stream(
             analytic_image, R, pos_w, pose_ts, H, W, contrast_threshold,
             num_frames=num_frames or num_poses,
-            bandwidth_tau_ns=bandwidth_tau_ns)
+            bandwidth_tau_ns=bandwidth_tau_ns, pixel_filter=pixel_filter,
+            calib=calib, filter_device=filter_device)
     else:
         positions = np.stack([rng.integers(0, W, num_events),
                               rng.integers(0, H, num_events)],

@@ -1,8 +1,8 @@
 """NeRF model assembly (counterpart of deblur_e_nerf_tpu/models/nerf_model.py):
-resolves `auto` aabb and step size, builds the NGP field and the render
-configuration, owns the learnable softplus background, and exposes
-density, occupancy-update, ray-generation, render and eval-render entry
-points.
+resolves `auto` aabb and step size, builds the NGP or vanilla-NeRF field and
+the render configuration (with the occlusion prepass and the field chunk),
+owns the learnable softplus background, and exposes density,
+occupancy-update, ray-generation, render and eval-render entry points.
 """
 
 import dataclasses
@@ -25,8 +25,7 @@ class NeRFModel(nn.Module):
 
     def __init__(self, field, render_config, occ_grid_config,
                  render_bkgd_mode, radiance_dim, test_chunk_size,
-                 curriculum=None, table_decay=None, occlusion_prepass_div=0,
-                 device=None):
+                 curriculum=None, table_decay=None, device=None):
         super().__init__()
         self.field = field
         self.render_config = render_config
@@ -38,8 +37,6 @@ class NeRFModel(nn.Module):
         self.curriculum = curriculum
         # (start_table_row, weight) decoupled fine-table decay, or None
         self.table_decay = table_decay
-        # the training render's occlusion prepass (`render` raises with it)
-        self.occlusion_prepass_div = occlusion_prepass_div
         if render_bkgd_mode == "parameter":
             # softplus-parametrized positive background, initialized to 1
             self.render_bkgd_raw = nn.Parameter(torch.full(
@@ -64,21 +61,11 @@ def resolve_render_step_size(nerf_config, aabb):
     return float(nerf_config.render_step_size)
 
 
-def build(nerf_config, camera_positions, radiance_dim, render_bkgd,
-          sample_budget, stratified=True, generator=None, device=None):
-    """Build the NeRF module from a reference-schema nerf config; weights
-    are drawn from `generator`."""
-    if nerf_config.arch != "ngp":
-        raise NotImplementedError(
-            f"nerf arch {nerf_config.arch!r}: the port has the NGP field "
-            "only (ROADMAP Queue A 12: VanillaNeRFField)")
-    aabb = resolve_aabb(nerf_config, camera_positions)
-    render_step_size = resolve_render_step_size(nerf_config, aabb)
-    contraction_type = contraction_lib.ContractionType(
-        nerf_config.contraction_type)
+def _ngp_field(nerf_config, aabb, contraction_type, radiance_dim,
+               generator, device):
     arch = nerf_config.ngp
     pe = arch.pos_encoding
-    field = fields.NGPField(
+    return fields.NGPField(
         aabb=aabb, contraction_type=contraction_type,
         radiance_dim=radiance_dim,
         pos_otype=pe.otype, n_levels=pe.n_levels,
@@ -102,6 +89,44 @@ def build(nerf_config, camera_positions, radiance_dim, render_bkgd,
         head_weight_norm=arch.mlp_head.weight_norm,
         generator=generator, device=device,
     )
+
+
+def _vanilla_field(nerf_config, aabb, contraction_type, radiance_dim,
+                   generator, device):
+    arch = nerf_config.mlp
+    return fields.VanillaNeRFField(
+        aabb=aabb, contraction_type=contraction_type,
+        radiance_dim=radiance_dim, net_depth=arch.net_depth,
+        net_width=arch.net_width, skip_layer=arch.skip_layer,
+        net_depth_condition=arch.net_depth_condition,
+        net_width_condition=arch.net_width_condition,
+        hidden_activation=arch.hidden_activation,
+        density_activation=arch.density_activation,
+        radiance_activation=arch.radiance_activation,
+        pos_encoder_max_deg=arch.pos_encoder_max_deg,
+        view_encoder_max_deg=arch.view_encoder_max_deg,
+        weight_norm=arch.weight_norm, generator=generator, device=device,
+    )
+
+
+FIELDS = {"ngp": _ngp_field, "mlp": _vanilla_field}
+
+
+def build(nerf_config, camera_positions, radiance_dim, render_bkgd,
+          sample_budget, field_chunk=0, stratified=True, generator=None,
+          device=None):
+    """Build the NeRF module from a reference-schema nerf config; weights
+    are drawn from `generator`. `field_chunk` > 0 runs the training
+    render's field that many samples at a time (renderer.py)."""
+    if nerf_config.arch not in FIELDS:
+        raise ValueError(f"unknown nerf arch {nerf_config.arch!r} (known: "
+                         f"{sorted(FIELDS)})")
+    aabb = resolve_aabb(nerf_config, camera_positions)
+    render_step_size = resolve_render_step_size(nerf_config, aabb)
+    contraction_type = contraction_lib.ContractionType(
+        nerf_config.contraction_type)
+    field = FIELDS[nerf_config.arch](
+        nerf_config, aabb, contraction_type, radiance_dim, generator, device)
     render_config = renderer.RenderConfig(
         aabb=aabb, contraction_type=contraction_type,
         grid_resolution=int(nerf_config.occ_grid.resolution),
@@ -119,6 +144,8 @@ def build(nerf_config, camera_positions, radiance_dim, render_bkgd,
         superblock_budget=(int(nerf_config.superblock_budget)
                            if nerf_config.get("superblock_budget")
                            is not None else None),
+        field_chunk=int(field_chunk),
+        prepass_div=int(nerf_config.get("occlusion_prepass_div") or 0),
     )
     if render_bkgd not in (None, "parameter"):
         raise NotImplementedError(
@@ -129,21 +156,23 @@ def build(nerf_config, camera_positions, radiance_dim, render_bkgd,
 
     curriculum = None
     table_decay = None
-    cur_cfg = pe.get("curriculum")
-    if cur_cfg and bool(cur_cfg.get("enable", True)):
-        curriculum = (int(cur_cfg.get("start_levels", 5)),
-                      int(cur_cfg.get("steps_per_level", 500)),
-                      int(cur_cfg.get("max_levels") or int(pe.n_levels)))
-    decay_w = pe.get("fine_table_decay")
-    if decay_w:
-        start_level = min(int(pe.get("fine_table_decay_start_level", 8)),
-                          len(field.levels) - 1)
-        table_decay = (int(field.levels[start_level][2]), float(decay_w))
+    if nerf_config.arch == "ngp":
+        pe = nerf_config.ngp.pos_encoding
+        cur_cfg = pe.get("curriculum")
+        if cur_cfg and bool(cur_cfg.get("enable", True)):
+            curriculum = (int(cur_cfg.get("start_levels", 5)),
+                          int(cur_cfg.get("steps_per_level", 500)),
+                          int(cur_cfg.get("max_levels") or int(pe.n_levels)))
+        decay_w = pe.get("fine_table_decay")
+        if decay_w:
+            start_level = min(
+                int(pe.get("fine_table_decay_start_level", 8)),
+                len(field.levels) - 1)
+            table_decay = (int(field.levels[start_level][2]), float(decay_w))
     return NeRFModel(
         field, render_config, nerf_config.occ_grid, bkgd_mode, radiance_dim,
         int(nerf_config.test_chunk_size), curriculum=curriculum,
-        table_decay=table_decay, occlusion_prepass_div=int(
-            nerf_config.get("occlusion_prepass_div") or 0), device=device,
+        table_decay=table_decay, device=device,
     )
 
 
@@ -170,7 +199,8 @@ def init_occupancy(model, device):
 
 
 def level_mask_for_step(model, step, device):
-    """(n_levels,) 0/1 curriculum mask for a step count, or None."""
+    """(n_levels,) 0/1 curriculum mask for a step count, or None (no
+    curriculum; always for the vanilla field, which has no levels)."""
     if model.curriculum is None:
         return None
     start_levels, steps_per_level, max_levels = model.curriculum
@@ -180,6 +210,8 @@ def level_mask_for_step(model, step, device):
 
 
 def density_fn(model, x, level_mask=None):
+    """The field's density-only call (the prepass's and the occupancy
+    update's)."""
     return model.field.density(x, level_mask=level_mask)
 
 
@@ -224,19 +256,14 @@ def pixel_params_to_ray(intrinsics_inverse, pixel_position, T_wc_position,
 def render(model, occ_state, rays_o, rays_d, ray_mask, jitter,
            level_mask=None):
     """Render a flat ray bundle; `jitter` (R,) uniforms for stratified
-    sampling."""
-    if model.occlusion_prepass_div:
-        raise NotImplementedError(
-            "model.nerf.occlusion_prepass_div: the occlusion prepass is not "
-            "ported yet (ROADMAP Queue B 6)")
-    rc = model.render_config
-
-    def field_fn(x, d):
-        return model.field(x, d, level_mask=level_mask)
-
+    sampling. The occlusion prepass runs when the config sets it."""
+    field = model.field
+    field_fn = renderer.SplitField(
+        lambda x: field.encode(x, level_mask), field.decode)
     return renderer.render_rays(
-        field_fn, occ_state.binary, rays_o, rays_d, ray_mask, jitter, rc,
-        render_bkgd=render_bkgd_value(model))
+        field_fn, occ_state.binary, rays_o, rays_d, ray_mask, jitter,
+        model.render_config, render_bkgd=render_bkgd_value(model),
+        density_only_fn=lambda x: density_fn(model, x, level_mask))
 
 
 def eval_render_config(model, eval_sample_budget, field_chunk, prepass_div):
@@ -245,18 +272,18 @@ def eval_render_config(model, eval_sample_budget, field_chunk, prepass_div):
     `eval_sample_budget` is given, so an eval image never truncates), both
     coarse budgets reset to their defaults for it (the JAX package keeps
     the training `superblock_budget` at eval, which can truncate rays
-    there), and `field_chunk` samples per field call."""
-    if prepass_div:
-        raise NotImplementedError(
-            "model.nerf.eval_occlusion_prepass_div: the occlusion prepass "
-            "is not ported yet (ROADMAP Queue B 6)")
+    there), `field_chunk` samples per field call, and the occlusion
+    prepass at `prepass_div` (model.nerf.eval_occlusion_prepass_div; None
+    keeps the training divisor, 0 turns it off)."""
     rc = model.render_config
     return dataclasses.replace(
         rc, stratified=False,
         sample_budget=int(eval_sample_budget or model.test_chunk_size
                           * rc.max_samples_per_ray),
         block_budget=None, superblock_budget=None,
-        field_chunk=int(field_chunk))
+        field_chunk=int(field_chunk),
+        prepass_div=(rc.prepass_div if prepass_div is None
+                     else int(prepass_div)))
 
 
 def render_eval(model, occ_state, rays_o, rays_d, ray_mask, render_config):
@@ -265,4 +292,5 @@ def render_eval(model, occ_state, rays_o, rays_d, ray_mask, render_config):
     return renderer.render_rays_eval(
         model.field, occ_state.binary, rays_o, rays_d, ray_mask,
         render_config, model.radiance_dim,
-        render_bkgd=render_bkgd_value(model))
+        render_bkgd=render_bkgd_value(model),
+        density_only_fn=lambda x: density_fn(model, x))

@@ -17,22 +17,39 @@ holds K + 1 slots, slot K being an always-empty trash slot. A ray is
 complete when its whole demand segment fits the sample budget and none of
 its blocks or superblocks was dropped by a coarse buffer.
 
+The occlusion prepass (`rc.prepass_div`, `occlusion_prepass`) runs a
+density-only forward without gradients over the marched buffer, cuts each
+ray's dead suffix (exclusive transmittance at or below `early_stop_eps`,
+the samples composite gives zero weight and zero cotangent) and compacts
+the survivors into a (K / prepass_div + 1)-slot buffer, in place of
+nerfacc's in-loop early stop. Its buffers have fixed sizes, so it reads
+nothing back to the host.
+
 Compositing takes each ray's exclusive optical depth (clamped at 25 per
 sample) from a global cumsum minus the ray's segment base. Its value comes
 from a float64 cumsum (the JAX package's double-f32 blocked sums exist
-because the TPU has no fast f64) and its gradient from the float32 path.
+because the TPU has no fast f64) and its gradient from the float32 path;
+the prepass's live mask reads the same value.
 The stratified jitter is an input (`jitter`, (R,) uniforms).
 
-`render_rays_eval` is the evaluation render: the same march and composite
-without gradients, with the field run only on the filled sample slots, in
-`field_chunk` pieces (the JAX package runs it on every slot of the
-worst-case eval buffer, where the empty ones get no weight).
+With `rc.field_chunk`, the training render runs the field `field_chunk`
+samples at a time: each chunk's encode output is kept for the backward
+(the gather and corner sum never run again) and only the MLPs and the SH
+encoding are recomputed there, under torch.utils.checkpoint (the JAX
+package's `save_only_these_names("hash_encode_out")`).
+
+`render_rays_eval` is the evaluation render: the same march, prepass and
+composite without gradients, with the density pass and the field run only
+on the filled sample slots, in `field_chunk` pieces (the JAX package runs
+them on every slot of the worst-case eval buffer, where the empty ones get
+no weight).
 """
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint
 
 from . import contraction as contraction_lib
 from . import occupancy
@@ -55,9 +72,13 @@ class RenderConfig:
     sample_budget: int = 1 << 17             # K
     block_budget: Optional[int] = None       # KB (None = K // 4)
     superblock_budget: Optional[int] = None  # KSB (None = KB // 2; 0 = off)
-    # samples per field call of the eval render (0 = all); the training
-    # render runs the field on the whole buffer (ROADMAP Queue A 12)
+    # samples per field call (0 = all): the training render checkpoints
+    # each chunk's MLPs and keeps its encode output; the eval render and
+    # the prepass's density pass run chunk by chunk without gradients
     field_chunk: int = 0
+    # occlusion prepass: the post-cull buffer holds sample_budget //
+    # prepass_div samples (0 = off)
+    prepass_div: int = 0
     opacity_eps: float = 1e-10
 
     @property
@@ -67,6 +88,24 @@ class RenderConfig:
     @property
     def superblock_capacity(self):
         return self.superblock_budget or max(self.block_capacity // 2, 1)
+
+    @property
+    def prepass_budget(self):
+        if not self.prepass_div:
+            return None
+        return max(self.sample_budget // self.prepass_div, 1)
+
+
+class SplitField(NamedTuple):
+    """A field as `encode(positions) -> tuple of tensors` and
+    `decode(*encoded, directions) -> (rgb, density)`: the form the chunked
+    training render needs (it keeps `encode`'s output, recomputes
+    `decode`)."""
+    encode: Callable
+    decode: Callable
+
+    def __call__(self, positions, directions):
+        return self.decode(*self.encode(positions), directions)
 
 
 class RaySamples(NamedTuple):
@@ -333,21 +372,27 @@ def _excl_optical_depth(sigma_dt, offsets, safe_ray_idx):
     return cum - sigma_dt - seg_base[safe_ray_idx]
 
 
+def _optical_depth(sigma_dt, samples, safe_ray_idx):
+    """Exclusive optical depth: the value from a float64 cumsum, the
+    gradient through the float32 path (the global f32 cumsum's ulp at
+    1e5-1e7 would swamp one sample's depth). Composite and the prepass's
+    live mask both read it, so they agree at the early-stop boundary."""
+    optical32 = _excl_optical_depth(sigma_dt, samples.offsets, safe_ray_idx)
+    precise = _excl_optical_depth(sigma_dt.detach().double(),
+                                  samples.offsets, safe_ray_idx).float()
+    return optical32 + (precise - optical32).detach()
+
+
 def composite(sigma, rgb, samples, n_rays, rc, render_bkgd=None):
-    """Differentiable compositing over flat ray-contiguous samples.
+    """Differentiable compositing over flat ray-contiguous samples (K is
+    the buffer's own: the prepass's buffer is K / prepass_div + 1 slots).
 
     Returns colors (R, ch), opacities (R,), depths (R,) and
     num_rendering_samples () — samples contributing before early stop.
     """
     slot_valid, sigma_dt, alpha = _sigma_dt_alpha(sigma, samples, n_rays, rc)
     safe_ray_idx = samples.ray_idx.clamp(0, n_rays - 1)
-    optical32 = _excl_optical_depth(sigma_dt, samples.offsets, safe_ray_idx)
-    # value from a float64 cumsum, gradient through the float32 path: the
-    # global f32 cumsum's ulp at 1e5-1e7 would swamp one sample's depth
-    precise = _excl_optical_depth(sigma_dt.detach().double(),
-                                  samples.offsets, safe_ray_idx).float()
-    optical = optical32 + (precise - optical32).detach()
-    trans_excl = torch.exp(-optical)
+    trans_excl = torch.exp(-_optical_depth(sigma_dt, samples, safe_ray_idx))
     live = trans_excl > rc.early_stop_eps
     weights = trans_excl * alpha * live * slot_valid
 
@@ -368,29 +413,134 @@ def composite(sigma, rgb, samples, n_rays, rc, render_bkgd=None):
     return colors, opacities, depths, num_rendering_samples
 
 
+def _chunks(n, chunk):
+    chunk = chunk or max(n, 1)
+    return [slice(start, min(start + chunk, n))
+            for start in range(0, n, chunk)]
+
+
+def _positions(samples, rays_o, rays_d, n_rays):
+    safe_idx = samples.ray_idx.clamp(0, n_rays - 1)
+    return (rays_o[safe_idx] + rays_d[safe_idx] * samples.t_mid[:, None],
+            rays_d[safe_idx])
+
+
+def _segment_counts(ray_idx, flags, n_rays):
+    """Per-ray counts of `flags` over a buffer whose `ray_idx` never
+    decreases (empty slots, == n_rays, at the end): a difference of the
+    flags' cumsum at the segment bounds, with no read to the host."""
+    csum = torch.cumsum(flags.to(torch.int64), dim=0)
+    csum = torch.cat([csum.new_zeros(1), csum])
+    bounds = torch.searchsorted(
+        ray_idx, torch.arange(n_rays + 1, device=ray_idx.device))
+    return csum[bounds[1:]] - csum[bounds[:-1]]
+
+
+@torch.no_grad()
+def occlusion_prepass(density_only_fn, samples, rays_o, rays_d, n_rays, rc,
+                      budget=None):
+    """Early-termination compaction (see RenderConfig.prepass_div).
+
+    A density-only forward over every slot of `samples` (in
+    `rc.field_chunk` pieces) -> the exclusive transmittance composite
+    computes -> each ray's dead suffix cut -> the survivors compacted in
+    ray order into a (budget + 1,) buffer (`budget` defaults to
+    rc.prepass_budget). `trans > eps` is a per-ray prefix (transmittance
+    never rises along a ray), so the cut removes only samples whose
+    weights, and whose cotangents to every earlier sample, are zero.
+
+    Returns (compacted RaySamples, live demand () int64 — may exceed the
+    budget, which then drops ray tails — and live samples per ray (R,)).
+    The compacted samples keep the march's num_samples, num_blocks,
+    num_superblocks and coarse_complete: the batch controller must see the
+    marched demand.
+    """
+    budget = rc.prepass_budget if budget is None else budget
+    positions, _ = _positions(samples, rays_o, rays_d, n_rays)
+    sigma = torch.cat([density_only_fn(positions[sl])[..., 0]
+                       for sl in _chunks(positions.shape[0],
+                                         rc.field_chunk)])
+    slot_valid, sigma_dt, _ = _sigma_dt_alpha(sigma, samples, n_rays, rc)
+    optical = _optical_depth(sigma_dt, samples,
+                             samples.ray_idx.clamp(0, n_rays - 1))
+    live = (torch.exp(-optical) > rc.early_stop_eps) & slot_valid
+    csum = torch.cumsum(live.to(torch.int64), dim=0)
+    written = live & (csum <= budget)
+    # overflow and dead lanes land in a discarded extra slot budget + 1
+    write_idx = torch.where(written, csum - 1,
+                            torch.full_like(csum, budget + 1))
+
+    def put(payload, fill):
+        buf = torch.full((budget + 2,), fill, dtype=payload.dtype,
+                         device=payload.device)
+        buf[write_idx] = payload
+        return buf[:budget + 1]
+
+    counts = _segment_counts(samples.ray_idx, written, n_rays)
+    live_counts = _segment_counts(samples.ray_idx, live, n_rays)
+    compacted = samples._replace(
+        t_mid=put(samples.t_mid, 0.0), dt=put(samples.dt, 0.0),
+        ray_idx=put(samples.ray_idx, n_rays), counts=counts,
+        offsets=torch.cumsum(counts, dim=0) - counts)
+    return compacted, csum[-1], live_counts
+
+
+def _run_field(field_fn, positions, directions, chunk):
+    """The field on the whole buffer, or `chunk` samples at a time with
+    each chunk's `encode` output kept and its `decode` recomputed in the
+    backward (`field_fn` a SplitField)."""
+    n = positions.shape[0]
+    if not chunk or chunk >= n:
+        return field_fn(positions, directions)
+    rgbs, densities = [], []
+    for sl in _chunks(n, chunk):
+        encoded = field_fn.encode(positions[sl])
+        # decode draws no random numbers: no RNG state to stash
+        rgb, density = checkpoint.checkpoint(
+            field_fn.decode, *encoded, directions[sl], use_reentrant=False,
+            preserve_rng_state=False)
+        rgbs.append(rgb)
+        densities.append(density)
+    return torch.cat(rgbs), torch.cat(densities)
+
+
 def render_rays(field_fn, binary, rays_o, rays_d, ray_mask, jitter, rc,
-                render_bkgd=None):
-    """March -> field on the compacted samples -> composite.
+                render_bkgd=None, density_only_fn=None):
+    """March -> [occlusion prepass] -> field on the compacted samples ->
+    composite.
 
     `field_fn(positions (N,3), directions (N,3)) -> (rgb (N,ch), density
-    (N,1))`. Returns the JAX package's output dict; `ray_complete` is False
-    for rays that lost samples to the sample, block or superblock budget.
+    (N,1))`, a SplitField when `rc.field_chunk` is set;
+    `density_only_fn(positions) -> density (N,1)` runs the prepass when
+    `rc.prepass_div` is set and `rc.early_stop_eps > 0`. Returns the JAX
+    package's output dict; `ray_complete` is False for rays that lost
+    samples to the sample, block or superblock budget or the prepass
+    buffer.
     """
     R = rays_o.shape[0]
     samples = march_rays(binary, rays_o.detach(), rays_d.detach(),
                          ray_mask, jitter, rc)
     ray_complete = _ray_complete(samples, rc)
+    zero = torch.zeros((), dtype=torch.float32, device=rays_o.device)
+    prepass_overflow_rate = zero
+    if rc.prepass_div and density_only_fn is not None \
+            and rc.early_stop_eps > 0:
+        samples, demand, live_counts = occlusion_prepass(
+            density_only_fn, samples, rays_o.detach(), rays_d.detach(), R,
+            rc)
+        ray_complete = ray_complete & (samples.counts == live_counts)
+        # live demand over capacity: > 1 means visible samples were dropped
+        prepass_overflow_rate = demand.float() / rc.prepass_budget
 
-    safe_idx = samples.ray_idx.clamp(0, R - 1)
-    positions = rays_o[safe_idx] + rays_d[safe_idx] * samples.t_mid[:, None]
-    rgb, density = field_fn(positions, rays_d[safe_idx])
+    positions, directions = _positions(samples, rays_o, rays_d, R)
+    rgb, density = _run_field(field_fn, positions, directions,
+                              rc.field_chunk)
     colors, opacities, depths, num_rendering_samples = composite(
         density[..., 0], rgb, samples, R, rc, render_bkgd)
     # coarse-stage demand over capacity (> 1: whole ray segments were
     # dropped before the sample stage). The superblock rate divides by the
     # configured superblock capacity; the JAX package divides by KB // 2
     # whatever `superblock_budget` says.
-    zero = torch.zeros((), dtype=torch.float32, device=rays_o.device)
     return {
         "radiance": colors,
         "opacity": opacities,
@@ -403,7 +553,7 @@ def render_rays(field_fn, binary, rays_o, rays_d, ray_mask, jitter, rc,
         "superblock_overflow_rate": (
             samples.num_superblocks.float() / rc.superblock_capacity
             if samples.num_superblocks is not None else zero),
-        "prepass_overflow_rate": zero,
+        "prepass_overflow_rate": prepass_overflow_rate,
     }
 
 
@@ -412,41 +562,64 @@ def _ray_complete(samples, rc):
         & samples.coarse_complete
 
 
+def _cut(samples, n):
+    """The buffer's first n slots plus one empty slot (the march and the
+    prepass fill a prefix)."""
+    return samples._replace(t_mid=samples.t_mid[:n + 1],
+                            dt=samples.dt[:n + 1],
+                            ray_idx=samples.ray_idx[:n + 1])
+
+
 @torch.no_grad()
 def render_rays_eval(field_fn, binary, rays_o, rays_d, ray_mask, rc,
-                     radiance_dim, render_bkgd=None):
-    """March -> field on the filled slots -> composite, without gradients.
+                     radiance_dim, render_bkgd=None, density_only_fn=None):
+    """March -> [prepass] -> field on the filled slots -> composite,
+    without gradients.
 
     The march fills the buffer's first min(num_samples, K) slots, so one
-    host read of the demand (with the count of incomplete masked rays in
-    the same copy) bounds the field's work: it runs on those slots only,
-    `rc.field_chunk` at a time (all at once when 0), and the buffer is cut
-    to them plus one empty slot, which composites to the same image as the
-    whole buffer with zero density in its empty slots.
+    host read of the demand bounds the field's work: it runs on those
+    slots only, `rc.field_chunk` at a time (all at once when 0), and the
+    buffer is cut to them plus one empty slot, which composites to the same
+    image as the whole buffer with zero density in its empty slots. With
+    `rc.prepass_div` (and `density_only_fn`, and `early_stop_eps > 0`), a
+    density pass over those slots culls each ray's dead suffix and the
+    full field runs on the survivors only (at most rc.prepass_budget;
+    live demand beyond it truncates rays), after a second host read.
 
     Returns {"radiance": colors (R, ch), "counts": marched samples per ray
-    (R,)} and the host ints "num_live_samples", "num_field_chunks" and
-    "num_truncated" (masked rays that lost samples to a budget).
+    (R,)} and the host ints "num_marched_samples" (filled march slots),
+    "num_live_samples" (the samples the full field ran on),
+    "num_density_chunks" and "num_field_chunks" (calls of the density pass
+    and of the field) and "num_truncated" (masked rays that lost samples
+    to a budget or to the prepass buffer).
     """
     R = rays_o.shape[0]
     samples = march_rays(binary, rays_o, rays_d, ray_mask, None, rc)
+    marched_counts = samples.counts
     ray_complete = _ray_complete(samples, rc)
-    demand, n_truncated = torch.stack([
-        samples.num_samples, (~ray_complete & ray_mask).sum()]).tolist()
-    n = min(demand, rc.sample_budget)
-    samples = samples._replace(t_mid=samples.t_mid[:n + 1],
-                               dt=samples.dt[:n + 1],
-                               ray_idx=samples.ray_idx[:n + 1])
-    chunk = rc.field_chunk or max(n, 1)
+    demand = int(samples.num_samples)
+    n_marched = min(demand, rc.sample_budget)
+    samples = _cut(samples, n_marched)
+    n_live, n_density = n_marched, 0
+    if rc.prepass_div and density_only_fn is not None \
+            and rc.early_stop_eps > 0:
+        # the cut buffer holds at most n_marched live samples, so a budget
+        # above it truncates nothing the prepass budget would keep
+        samples, live_demand, live_counts = occlusion_prepass(
+            density_only_fn, samples, rays_o, rays_d, R, rc,
+            budget=min(rc.prepass_budget, n_marched))
+        ray_complete = ray_complete & (samples.counts == live_counts)
+        n_live = min(int(live_demand), rc.prepass_budget)
+        samples = _cut(samples, n_live)
+        n_density = len(_chunks(n_marched + 1, rc.field_chunk))
+    n_truncated = int((~ray_complete & ray_mask).sum())
+    positions, directions = _positions(samples, rays_o, rays_d, R)
     rgbs, sigmas = [], []
-    for start in range(0, n, chunk):
-        stop = min(start + chunk, n)
-        idx = samples.ray_idx[start:stop]
-        positions = rays_o[idx] + rays_d[idx] \
-            * samples.t_mid[start:stop, None]
-        rgb, density = field_fn(positions, rays_d[idx])
+    for sl in _chunks(n_live, rc.field_chunk):
+        rgb, density = field_fn(positions[sl], directions[sl])
         rgbs.append(rgb)
         sigmas.append(density[..., 0])
+    n_field = len(rgbs)
     rgbs.append(torch.zeros((1, radiance_dim), dtype=torch.float32,
                             device=rays_o.device))
     sigmas.append(torch.zeros(1, dtype=torch.float32, device=rays_o.device))
@@ -454,8 +627,10 @@ def render_rays_eval(field_fn, binary, rays_o, rays_d, ray_mask, rc,
                                 R, rc, render_bkgd)
     return {
         "radiance": colors,
-        "counts": samples.counts,
-        "num_live_samples": n,
-        "num_field_chunks": len(rgbs) - 1,
+        "counts": marched_counts,
+        "num_marched_samples": n_marched,
+        "num_live_samples": n_live,
+        "num_density_chunks": n_density,
+        "num_field_chunks": n_field,
         "num_truncated": n_truncated,
     }

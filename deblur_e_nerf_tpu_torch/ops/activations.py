@@ -44,23 +44,43 @@ def softplus_inverse(y, beta=1.0, threshold=20.0):
     )
 
 
+def shifted_softplus(x, shift=1.0, beta=1.0, threshold=20.0):
+    """mip-NeRF density activation."""
+    return softplus(x - shift, beta, threshold)
+
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "softplus": lambda x: softplus(x, beta=1.0),
+    "softplus100": lambda x: softplus(x, beta=100.0),
+    "shifted_trunc_exp": shifted_trunc_exp,
+    "shifted_softplus": shifted_softplus,
+    "identity": lambda x: x,
+}
+
+
 def _lookup(kind, table, name):
     if name not in table:
-        raise NotImplementedError(
-            f"{kind} activation {name!r} is not ported (the configs use "
-            f"{sorted(table)})")
+        raise ValueError(f"unknown {kind} activation {name!r} (known: "
+                         f"{sorted(table)})")
     return table[name]
 
 
 def hidden_activation(name):
     """'softplus' hidden layers use beta=100 (reference registry)."""
-    return _lookup("hidden", {"softplus": lambda x: softplus(x, beta=100.0)},
-                   name)
+    return _lookup("hidden", {"softplus": ACTIVATIONS["softplus100"],
+                              "relu": ACTIVATIONS["relu"]}, name)
 
 
 def density_activation(name):
-    return _lookup("density", {"shifted_trunc_exp": shifted_trunc_exp}, name)
+    return _lookup("density", {
+        "shifted_trunc_exp": shifted_trunc_exp,
+        "softplus": ACTIVATIONS["softplus"],
+        "shifted_softplus": shifted_softplus,
+    }, name)
 
 
 def radiance_activation(name):
-    return _lookup("radiance", {"softplus": softplus}, name)
+    return _lookup("radiance", {"softplus": ACTIVATIONS["softplus"],
+                                "sigmoid": ACTIVATIONS["sigmoid"]}, name)

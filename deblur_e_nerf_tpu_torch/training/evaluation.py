@@ -6,7 +6,11 @@ The image render runs on the model's device, chunk by chunk, through the
 port's eval render (models/renderer.py `render_rays_eval`): each chunk of
 `test_chunk_size` rays marches into a worst-case buffer and runs the field
 only on its filled slots, `field_chunk` samples per call, so every field
-call runs the hash encode's kernels once per level. Everything downstream
+call runs the hash encode's kernels once per level. With the occlusion
+prepass (`eval_prepass_div`, the config's
+model.nerf.eval_occlusion_prepass_div, else the training divisor), a
+density pass over the filled slots culls each ray's dead suffix first and
+the field runs on the survivors only. Everything downstream
 (the float64 least-squares affine correction, the GN/LM black-level
 refinement, L1/PSNR/SSIM, the correction-error and prediction files) runs
 on the host in numpy, as in the JAX package; LPIPS runs on the device the
@@ -46,9 +50,10 @@ def make_render_image_fn(model, eval_sample_budget=None,
     (H, W, 2), T_wc_position (3,), T_wc_orientation (3, 3)) -> intensity
     image ([C,] H, W) float32 on the model's device, without
     min_modeled_intensity (the caller adds it). `render_image.stats` holds
-    the totals of the last call (ray chunks, live marched samples, field
-    calls, truncated rays) and its marched samples per pixel ("counts",
-    (H*W,) on the device).
+    the totals of the last call (ray chunks, marched samples, live samples
+    the field ran on after the prepass, density-pass and field calls,
+    truncated rays) and its marched samples per pixel ("counts", (H*W,) on
+    the device).
     """
     chunk = model.test_chunk_size
     rc = nerf_model.eval_render_config(model, eval_sample_budget,
@@ -72,8 +77,8 @@ def make_render_image_fn(model, eval_sample_budget=None,
             rays_d = torch.cat([rays_d, rays_d.new_ones((pad, 3))])
         mask = torch.arange(n_pad, device=device) < n
         outs, counts = [], []
-        stats = {"ray_chunks": 0, "live_samples": 0, "field_chunks": 0,
-                 "truncated_rays": 0}
+        stats = {"ray_chunks": 0, "marched_samples": 0, "live_samples": 0,
+                 "density_chunks": 0, "field_chunks": 0, "truncated_rays": 0}
         for i in range(0, n_pad, chunk):
             out = nerf_model.render_eval(
                 model, occ_state, rays_o[i:i + chunk], rays_d[i:i + chunk],
@@ -81,12 +86,19 @@ def make_render_image_fn(model, eval_sample_budget=None,
             outs.append(out["radiance"])
             counts.append(out["counts"])
             stats["ray_chunks"] += 1
+            stats["marched_samples"] += out["num_marched_samples"]
             stats["live_samples"] += out["num_live_samples"]
+            stats["density_chunks"] += out["num_density_chunks"]
             stats["field_chunks"] += out["num_field_chunks"]
             stats["truncated_rays"] += out["num_truncated"]
         stats["counts"] = torch.cat(counts)[:n]  # marched samples per ray
         render_image.stats = stats
-        if stats["truncated_rays"]:
+        if stats["truncated_rays"] and rc.prepass_div:
+            print(f"WARNING: eval prepass truncated "
+                  f"{stats['truncated_rays']} rays (live demand exceeded "
+                  f"sample_budget/{rc.prepass_div}); raise the budget or "
+                  "lower eval_occlusion_prepass_div", flush=True)
+        elif stats["truncated_rays"]:
             print(f"WARNING: eval render truncated {stats['truncated_rays']} "
                   f"rays (demand exceeded the eval sample budget "
                   f"{rc.sample_budget} or a coarse budget); raise the "

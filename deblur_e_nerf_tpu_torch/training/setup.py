@@ -20,13 +20,16 @@ class ModelBundle(NamedTuple):
     camera_calibration: Dict
 
 
-def build(config, dataset_directory=None, sample_budget=None, device=None):
+def build(config, dataset_directory=None, sample_budget=None, device=None,
+          field_chunk=0):
     """Build (ModelBundle, TrainParams) on `device` (a torch.device).
 
     sample_budget defaults to train_eff_ray_sample_batch_size x S (the
     filter's it_sample_size, 1 with the filter off) x the number of render
     slices (2 per enabled loss term) x data.train_sample_budget_margin.
     Weights are drawn from a generator seeded with config.seed.
+    `field_chunk` > 0 runs the training render's field that many samples
+    at a time (models/renderer.py).
     """
     mc = config.model
     pb_enabled = bool(mc.pixel_bandwidth.enable)
@@ -52,7 +55,8 @@ def build(config, dataset_directory=None, sample_budget=None, device=None):
     render_bkgd = "parameter" if config.data.alpha_over_white_bg else None
     model = nerf_model.build(
         mc.nerf, camera_poses["T_wc_position"], radiance_dim, render_bkgd,
-        sample_budget, generator=generator, device=device)
+        sample_budget, field_chunk=field_chunk, generator=generator,
+        device=device)
 
     ct_params, ct_consts = event_gen.init_contrast_threshold(
         calib, bool(mc.contrast_threshold.parameterize_mean_ct),

@@ -92,7 +92,7 @@ def _set_matmul_precision(precision):
 
 class Trainer:
     def __init__(self, config, log_dir, batch_capacity=8192,
-                 sample_budget=None, device=None):
+                 sample_budget=None, device=None, field_chunk=0):
         self.config = config
         self.log_dir = log_dir
         self.device = resolve_device(device)
@@ -103,7 +103,8 @@ class Trainer:
 
         root = config.data.dataset_directory
         self.bundle, self.params = setup_lib.build(
-            config, root, sample_budget=sample_budget, device=self.device)
+            config, root, sample_budget=sample_budget, device=self.device,
+            field_chunk=field_chunk)
         restored_occ = self._selective_restore()
         self.batch_capacity = batch_capacity
         trainer_cfg = config.trainer

@@ -125,13 +125,16 @@ TEST_CONFIGS = sorted(glob.glob("configs/test/*.yaml"))
 
 def cut(cfg, root):
     """A repo config at coverage size: 2^10 rows a level, a 16^3 grid,
-    eval chunks of 64 rays, a tiny dataset; every other setting as
-    written."""
+    eval chunks of 64 rays, a tiny dataset, and a block budget set in the
+    config (4,194,304 on the r5fix pair, sized for its full batch) cut to
+    2^12 like the sample budget; every other setting as written."""
     cfg.seed = 0
     cfg.data.dataset_directory = str(root)
     cfg.model.nerf.ngp.pos_encoding.log2_hashmap_size = 10
     cfg.model.nerf.occ_grid.resolution = 16
     cfg.model.nerf.test_chunk_size = 64
+    if cfg.model.nerf.get("block_budget"):
+        cfg.model.nerf.block_budget = 1 << 12
     cfg.metric.lpips_weights_path = None
     return cfg
 
@@ -150,12 +153,13 @@ def test_the_repo_has_27_train_and_4_test_configs():
 def test_every_config_builds_a_port_trainer(tiny_views_dataset, tmp_path,
                                             path):
     """Each train and test config of the repo builds a port Trainer at cut
-    widths; a test config loads a tiny port checkpoint of its own model
-    through model.checkpoint_filepath. The 2 configs that set
-    model.nerf.eval_occlusion_prepass_div raise at evaluate, naming ROADMAP
-    Queue B 6 (the occlusion prepass); as they also set
-    model.nerf.occlusion_prepass_div, their first train step raises the
-    same way."""
+    widths and takes a train step with a finite loss; a test config loads
+    a tiny port checkpoint of its own model through
+    model.checkpoint_filepath. The 2 configs that set
+    model.nerf.occlusion_prepass_div (the r5fix pair) step with the
+    prepass on (a non-zero live demand in prepass_overflow_rate) and, as
+    they also set model.nerf.eval_occlusion_prepass_div, evaluate with it
+    (a finite PSNR)."""
     cfg = cut(load_config(path), tiny_views_dataset)
     ckpt = cfg.model.get("checkpoint_filepath")
     if ckpt:
@@ -166,15 +170,17 @@ def test_every_config_builds_a_port_trainer(tiny_views_dataset, tmp_path,
     trainer = _build(cfg, tmp_path / "log")
     if ckpt:
         assert any(cfg.model[c].get("load_state_dict") for c in COMPONENTS)
-    if cfg.model.nerf.get("eval_occlusion_prepass_div"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue B 6"):
-            trainer.evaluate("val", max_images=1)
-    if cfg.model.nerf.get("occlusion_prepass_div"):
-        with pytest.raises(NotImplementedError,
-                           match="occlusion_prepass_div.*ROADMAP Queue B 6"):
-            trainer.train_step()
-    if ckpt or "07_ziggy" in path:
+    metrics = trainer.train_step()
+    assert np.isfinite(float(metrics["loss"])), path
+    prepass_div = cfg.model.nerf.get("occlusion_prepass_div")
+    assert trainer.params.nerf.render_config.prepass_div \
+        == int(prepass_div or 0)
+    assert (float(metrics["prepass_overflow_rate"]) > 0) == bool(prepass_div)
+    eval_div = cfg.model.nerf.get("eval_occlusion_prepass_div")
+    if eval_div:
+        _, render_image = trainer.build_evaluator("val")
+        assert render_image.render_config.prepass_div == int(eval_div)
+    if ckpt or eval_div or "07_ziggy" in path:
         metric = trainer.evaluate("val", max_images=1)
         assert np.isfinite(metric["psnr"])
 

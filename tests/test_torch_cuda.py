@@ -346,3 +346,113 @@ def test_kernels_at_the_eval_field_chunk_bit_for_bit(cuda, n, n_rows, width,
         model = corner_sum.corner_sum_sequential(corners, w)
         assert torch.equal(chip_smoke._bits(torch, out),
                            chip_smoke._bits(torch, model))
+
+
+def test_eval_render_with_prepass_on_card_matches_cpu(cuda, tmp_path):
+    rows = chip_smoke.eval_render_card_vs_cpu(torch, str(tmp_path),
+                                              prepass_div=2)
+    assert all(err <= tol for _, err, tol in rows)
+
+
+def _card_and_cpu(make, cuda):
+    gen = torch.Generator().manual_seed(4)
+    field = make(gen)
+    card = make(torch.Generator().manual_seed(4)).to(cuda)
+    card.load_state_dict(field.state_dict())
+    return field, card
+
+
+def _ngp(gen):
+    field = fields.NGPField(
+        aabb=(-1.0, -1.0, -1.0, 1.0, 1.0, 1.0),
+        contraction_type=contraction.ContractionType.AABB, radiance_dim=3,
+        pos_otype="HybridHashGrid", n_levels=6, base_resolution=4,
+        per_level_scale=2.0, log2_hashmap_size=10, base_n_neurons=16,
+        head_n_neurons=16, generator=gen)
+    with torch.no_grad():
+        field.table.uniform_(-1.0, 1.0, generator=gen)
+        field.mlp_base.output.bias[0] += 3.0  # rays terminate
+    return field
+
+
+@pytest.mark.parametrize("field_chunk", [0, 1000])
+def test_prepass_render_on_card_matches_cpu(cuda, field_chunk):
+    """render_rays with the occlusion prepass (div 2), chunked or not, on
+    the card (through the kernels) against the CPU: the same marched
+    samples and live demand, outputs within 1e-5, every field gradient
+    within 2e-3 of its largest entry (the card-vs-CPU step tolerance)."""
+    from deblur_e_nerf_tpu_torch.models import renderer
+
+    cpu_field, card_field = _card_and_cpu(_ngp, cuda)
+    rc = renderer.RenderConfig(
+        aabb=(-1.0, -1.0, -1.0, 1.0, 1.0, 1.0),
+        contraction_type=contraction.ContractionType.AABB,
+        grid_resolution=16, near_plane=0.0, far_plane=None,
+        render_step_size=0.02, stratified=True, max_samples_per_ray=256,
+        sample_budget=8192, prepass_div=2, field_chunk=field_chunk)
+    rng = np.random.default_rng(3)
+    o = rng.uniform(-3, -2, (48, 3)).astype(np.float32)
+    d = rng.uniform(-0.5, 0.5, (48, 3)) - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    binary = rng.uniform(size=16 ** 3) < 0.5
+    jitter = rng.uniform(size=48).astype(np.float32)
+    w = rng.normal(size=(48, 4)).astype(np.float32)
+    out = {}
+    for name, field, device in (("cpu", cpu_field, torch.device("cpu")),
+                                ("card", card_field, cuda)):
+        args = [torch.from_numpy(a).to(device)
+                for a in (binary, o, d, np.ones(48, bool), jitter, w)]
+        res = renderer.render_rays(
+            renderer.SplitField(field.encode, field.decode), *args[:5], rc,
+            density_only_fn=field.density)
+        wt = args[5]
+        ((res["radiance"] * wt[:, :3]).sum()
+         + (res["opacity"] * wt[:, 3]).sum()).backward()
+        out[name] = ({k: v.detach().cpu() for k, v in res.items()},
+                     {n: p.grad.detach().double().cpu()
+                      for n, p in field.named_parameters()})
+    (res_c, grads_c), (res_g, grads_g) = out["cpu"], out["card"]
+    assert torch.equal(res_g["counts"], res_c["counts"])
+    assert int(res_g["num_marched_samples"]) \
+        == int(res_c["num_marched_samples"])
+    assert float(res_g["prepass_overflow_rate"]) \
+        == float(res_c["prepass_overflow_rate"])
+    assert int(res_c["num_rendering_samples"]) \
+        < int(res_c["num_marched_samples"])  # the prepass culled
+    for k in ("radiance", "opacity", "depth"):
+        assert float((res_g[k] - res_c[k]).abs().max()) <= 1e-5, k
+    for n, g in grads_c.items():
+        assert float((grads_g[n] - g).abs().max()) \
+            <= 2e-3 * float(g.abs().max()) + 1e-12, n
+
+
+def test_vanilla_field_on_card_matches_cpu(cuda):
+    """VanillaNeRFField (weight norm, skip layers) on the card against the
+    CPU: outputs and gradients within 1e-4 of their largest entry (float32
+    matmuls; the card's may not take TF32: the config's precision)."""
+    def make(gen):
+        return fields.VanillaNeRFField(
+            aabb=(-1.5, -1.5, -1.5, 1.5, 1.5, 1.5),
+            contraction_type=contraction.ContractionType.AABB,
+            radiance_dim=3, net_depth=8, net_width=64, skip_layer=4,
+            net_width_condition=32, weight_norm=True, generator=gen)
+
+    cpu_field, card_field = _card_and_cpu(make, cuda)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.rand((4096, 3), generator=gen) * 3.2 - 1.6
+    d = torch.nn.functional.normalize(torch.randn((4096, 3), generator=gen),
+                                      dim=-1)
+    outs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, field, device in (("cpu", cpu_field, torch.device("cpu")),
+                                    ("card", card_field, cuda)):
+            rgb, sigma = field(x.to(device), d.to(device))
+            (rgb.sum() + sigma.sum()).backward()
+            outs[name] = [t.detach().double().cpu() for t in (rgb, sigma)] \
+                + [p.grad.detach().double().cpu() for p in field.parameters()]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(outs["cpu"], outs["card"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max())

@@ -270,3 +270,90 @@ def test_eval_resets_superblock_budget_and_warns_on_truncation(
     assert small.stats["truncated_rays"] > 0
     out = capsys.readouterr().out
     assert f"truncated {small.stats['truncated_rays']} rays" in out
+
+
+def test_eval_render_with_prepass_matches_jax(dataset, capsys):
+    """JAX make_render_image_fn(eval_prepass_div=2) against the port's, on
+    the textured field with its density raised (the output bias + 4) so
+    that rays terminate and the prepass culls: the same per-ray marched
+    counts, fewer live samples than marched, every pixel within 1e-5.
+    Then a prepass buffer too small for the live demand (div 16 of a
+    4096-sample eval budget, the field as initialized): both packages
+    truncate the same number of rays and warn in the same words."""
+    cfg = small_config(dataset, "float32")
+    jbundle, jparams = jsetup.build(cfg, str(dataset), sample_budget=4096)
+    jparams = _textured(jparams)
+    bias = np.array(jparams["nerf"]["field"]["mlp_base"]["output"]["bias"])
+    bias[0] += 4.0
+    jparams["nerf"]["field"]["mlp_base"]["output"]["bias"] = bias
+    jmodel = jbundle.model
+    nerf_j = jax.tree_util.tree_map(jnp.asarray, jparams["nerf"])
+    occ = _jax_occupancy(jmodel, nerf_j,
+                         jbundle.consts["trajectory"].T_wc_position)
+    _, tparams = tsetup.build(ConfigDict.from_dict(cfg.to_dict()),
+                              str(dataset), sample_budget=4096,
+                              device=torch.device("cpu"))
+    tparams.load_state_dict(convert.params_from_jax(jparams), strict=True)
+    tocc_state = _port_occupancy(occ)
+    pos, R, Kinv, pix = _view(1)
+    jargs = (jnp.asarray(Kinv), jnp.asarray(pix), jnp.asarray(pos),
+             jnp.asarray(R))
+    targs = (torch.from_numpy(Kinv), torch.from_numpy(pix),
+             torch.from_numpy(pos), torch.from_numpy(R))
+
+    jrender = jevaluation.make_render_image_fn(jmodel, eval_prepass_div=2)
+    trender = tevaluation.make_render_image_fn(
+        tparams.nerf, field_chunk=FIELD_CHUNK, eval_prepass_div=2)
+    assert trender.render_config.prepass_budget == CHUNK * 1024 // 2
+    img_j = np.asarray(jrender(nerf_j, occ, *jargs))
+    img_t = trender(tocc_state, *targs).numpy()
+    stats = trender.stats
+    assert stats["truncated_rays"] == 0
+    assert 0 < stats["live_samples"] < stats["marched_samples"]
+    assert stats["density_chunks"] >= stats["ray_chunks"] == 4
+
+    rays_o, rays_d = jnerf.pixel_params_to_ray(
+        jnp.asarray(Kinv), jnp.asarray(pix.reshape(-1, 2)),
+        jnp.broadcast_to(jnp.asarray(pos), (H * W, 3)),
+        jnp.broadcast_to(jnp.asarray(R), (H * W, 3, 3)))
+    n_pad = -(-H * W // CHUNK) * CHUNK
+    pad = n_pad - H * W
+    rays_o = jnp.concatenate([rays_o, jnp.zeros((pad, 3))])
+    rays_d = jnp.concatenate([rays_d, jnp.ones((pad, 3))])
+    mask = jnp.arange(n_pad) < H * W
+    jrc = dataclasses.replace(
+        jmodel.render_config, stratified=False,
+        sample_budget=CHUNK * jmodel.render_config.max_samples_per_ray,
+        block_budget=None, field_chunk=1 << 20)
+    counts_j = np.concatenate([np.asarray(jax.jit(
+        jrenderer.march_rays, static_argnums=5)(
+        occ.binary, rays_o[i:i + CHUNK], rays_d[i:i + CHUNK],
+        mask[i:i + CHUNK], jax.random.PRNGKey(0), jrc).counts)
+        for i in range(0, n_pad, CHUNK)])[:H * W]
+    np.testing.assert_array_equal(stats["counts"].numpy(), counts_j)
+    assert int(counts_j.sum()) == stats["marched_samples"]
+    assert np.ptp(img_j) > 0.02
+    np.testing.assert_allclose(img_t, img_j, rtol=0, atol=1e-5)
+    assert "WARNING" not in capsys.readouterr().out
+
+    # a prepass buffer of 256 live samples a chunk: truncation, reported
+    jbundle, jparams = jsetup.build(cfg, str(dataset), sample_budget=4096)
+    nerf_j = jax.tree_util.tree_map(jnp.asarray, jparams["nerf"])
+    tparams.load_state_dict(convert.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams)), strict=True)
+    jsmall = jevaluation.make_render_image_fn(
+        jmodel, eval_sample_budget=4096, eval_prepass_div=16)
+    tsmall = tevaluation.make_render_image_fn(
+        tparams.nerf, eval_sample_budget=4096, eval_prepass_div=16)
+    img_j = np.asarray(jsmall(nerf_j, occ, *jargs))
+    out_j = capsys.readouterr().out
+    img_t = tsmall(tocc_state, *targs).numpy()
+    out_t = capsys.readouterr().out
+    n = tsmall.stats["truncated_rays"]
+    assert n > 0
+    warning = (f"WARNING: eval prepass truncated {n} rays (live demand "
+               f"exceeded sample_budget/16); raise the budget or lower "
+               "eval_occlusion_prepass_div")
+    assert warning in out_j and warning in out_t
+    # the rays both keep whole render alike
+    np.testing.assert_allclose(img_t, img_j, rtol=0, atol=1e-5)

@@ -1,7 +1,8 @@
-"""NGPField: the port, loaded with the JAX package's initial parameters
-through `convert.params_from_jax`, against the JAX field — outputs and
-every parameter gradient, with bf16 gathers, the in-aabb selector and the
-level-mask curriculum."""
+"""NGPField and VanillaNeRFField: the port, loaded with the JAX package's
+initial parameters through `convert.params_from_jax`, against the JAX
+field — outputs and every parameter gradient, with bf16 gathers, the
+in-aabb selector, the level-mask curriculum and weight-normalized MLPs;
+and `nerf_model.build` for `arch: mlp`."""
 
 import jax
 import jax.numpy as jnp
@@ -22,8 +23,9 @@ KW = dict(aabb=(-1.5, -1.5, -1.5, 1.5, 1.5, 1.5), radiance_dim=1,
           head_n_neurons=16)
 
 
-def _fields():
-    jf = jfields.NGPField(contraction_type=JCT.AABB, **KW)
+def _fields(weight_norm=False):
+    kw = dict(KW, base_weight_norm=weight_norm, head_weight_norm=weight_norm)
+    jf = jfields.NGPField(contraction_type=JCT.AABB, **kw)
     x0 = jnp.zeros((4, 3), jnp.float32)
     params = jax.jit(jf.init)(jax.random.PRNGKey(0), x0, x0)["params"]
     # a wider table than the 1e-4 init so the encode matters
@@ -31,7 +33,7 @@ def _fields():
     params = jax.tree_util.tree_map(np.asarray, params)
     params["table"] = rng.normal(scale=0.5, size=params["table"].shape
                                  ).astype(np.float32)
-    tf = tfields.NGPField(contraction_type=ContractionType.AABB, **KW)
+    tf = tfields.NGPField(contraction_type=ContractionType.AABB, **kw)
     tf.load_state_dict(convert.params_from_jax(params), strict=True)
     return jf, params, tf
 
@@ -45,8 +47,12 @@ def _inputs(n=2000, seed=1):
 
 
 @pytest.mark.parametrize("level_mask", [None, [1, 1, 1, 1, 0, 0]])
-def test_ngp_field_outputs_and_grads_match_jax(level_mask):
-    jf, params, tf = _fields()
+def test_ngp_field_outputs_and_grads_match_jax(level_mask,
+                                               weight_norm=False):
+    jf, params, tf = _fields(weight_norm)
+    if weight_norm:  # the JAX Dense's `scale` becomes the port's `g`
+        assert "scale" in params["mlp_base"]["hidden_0"]
+        assert isinstance(tf.mlp_base.hidden_0, tfields.WeightNormDense)
     x, d = _inputs()
     rng = np.random.default_rng(2)
     w_rgb = rng.normal(size=(len(x), 1)).astype(np.float32)
@@ -89,6 +95,12 @@ def test_ngp_field_outputs_and_grads_match_jax(level_mask):
         assert torch.count_nonzero(tf.table.grad[masked_rows:]) == 0
 
 
+def test_weight_norm_ngp_field_outputs_and_grads_match_jax():
+    """The NGP field with weight-normalized MLPs (mlp_base and mlp_head
+    `weight_norm: true`), as the test above."""
+    test_ngp_field_outputs_and_grads_match_jax(None, weight_norm=True)
+
+
 def test_init_params_redraws_from_the_generator():
     from deblur_e_nerf_tpu_torch.models import nerf_model
     _, _, tf = _fields()
@@ -104,3 +116,116 @@ def test_init_params_redraws_from_the_generator():
         assert float(tf.mlp_base.hidden_0.weight.abs().max()) <= bound
         assert float(nerf_model.render_bkgd_value(model)) == pytest.approx(
             1.0)
+
+
+VANILLA_KW = dict(aabb=(-1.5, -1.5, -1.5, 1.5, 1.5, 1.5), radiance_dim=3,
+                  net_depth=5, net_width=32, skip_layer=2,
+                  net_depth_condition=1, net_width_condition=16,
+                  pos_encoder_max_deg=6, view_encoder_max_deg=3)
+
+
+@pytest.mark.parametrize("weight_norm,activations", [
+    (False, ("softplus", "shifted_trunc_exp", "softplus")),
+    (True, ("relu", "shifted_softplus", "sigmoid"))])
+def test_vanilla_field_outputs_and_grads_match_jax(weight_norm,
+                                                   activations):
+    """VanillaNeRFField (sinusoidal encodings with identity passthrough,
+    the [-pi, pi] input scaling, skip connections after every skip_layer-th
+    hidden layer, the bottleneck and rgb MLPs), with and without weight
+    norm, against the JAX field: outputs within rtol 1e-5 and atol 1e-6,
+    every gradient within rtol 1e-4 and 1e-5 of its largest entry (the NGP
+    field test's tolerances), and `density` equal to the forward's."""
+    hidden, density, radiance = activations
+    kw = dict(VANILLA_KW, weight_norm=weight_norm, hidden_activation=hidden,
+              density_activation=density, radiance_activation=radiance)
+    jf = jfields.VanillaNeRFField(contraction_type=JCT.AABB, **kw)
+    x, d = _inputs()
+    params = jax.tree_util.tree_map(np.asarray, jax.jit(jf.init)(
+        jax.random.PRNGKey(1), jnp.zeros((4, 3)), jnp.zeros((4, 3)))[
+            "params"])
+    tf = tfields.VanillaNeRFField(contraction_type=ContractionType.AABB,
+                                  **kw)
+    tf.load_state_dict(convert.params_from_jax(params), strict=True)
+    # skip concat after hidden layers 2 and 4: 32 + 39 inputs
+    assert tf.base.hidden_3.in_features == 32 + 39
+    assert tf.base.out_features == 32 + 39
+    rng = np.random.default_rng(3)
+    w_rgb = rng.normal(size=(len(x), 3)).astype(np.float32)
+    w_sigma = rng.normal(size=(len(x), 1)).astype(np.float32)
+
+    def loss(p):
+        rgb, sigma = jf.apply({"params": p}, jnp.asarray(x), jnp.asarray(d))
+        return jnp.sum(rgb * w_rgb) + jnp.sum(sigma * w_sigma), (rgb, sigma)
+
+    (_, (rgb_j, sigma_j)), grads_j = jax.jit(jax.value_and_grad(
+        loss, has_aux=True))(jax.tree_util.tree_map(jnp.asarray, params))
+    rgb_t, sigma_t = tf(torch.from_numpy(x), torch.from_numpy(d))
+    ((rgb_t * torch.from_numpy(w_rgb)).sum()
+     + (sigma_t * torch.from_numpy(w_sigma)).sum()).backward()
+    np.testing.assert_allclose(rgb_t.detach().numpy(), np.asarray(rgb_j),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(sigma_t.detach().numpy(),
+                               np.asarray(sigma_j), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(
+        tf.density(torch.from_numpy(x)).detach().numpy(),
+        sigma_t.detach().numpy())
+    want = convert.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, grads_j))
+    got = dict(tf.named_parameters())
+    assert set(want) == set(got)
+    for name, g in want.items():
+        scale = float(g.abs().max())
+        np.testing.assert_allclose(
+            got[name].grad.numpy(), g.numpy(), rtol=1e-4,
+            atol=1e-5 * max(scale, 1e-12), err_msg=name)
+    with pytest.raises(ValueError, match="no grid levels"):
+        tf.density(torch.from_numpy(x), level_mask=torch.ones(1))
+
+
+def test_weight_norm_dense_initializes_as_the_jax_dense():
+    """`g` starts at the rows' norms (w = v), with the 1e-12 floor: a zero
+    row gives a zero weight row, not NaN."""
+    layer = tfields.WeightNormDense(5, 3, torch.Generator().manual_seed(0))
+    x = torch.randn(4, 5)
+    plain = torch.nn.functional.linear(x, layer.v, layer.bias)
+    torch.testing.assert_close(layer(x), plain, rtol=1e-6, atol=1e-6)
+    with torch.no_grad():
+        layer.v[1].zero_()
+    assert torch.isfinite(layer(x)).all()
+    assert torch.equal(layer(x)[:, 1], layer.bias[1].expand(4))
+
+
+def test_nerf_model_builds_the_vanilla_field():
+    """`arch: mlp` builds VanillaNeRFField at the config's `mlp:` widths,
+    with no curriculum or table decay (it has no levels), and renders."""
+    from deblur_e_nerf_tpu_torch.models import nerf_model
+    from deblur_e_nerf_tpu_torch.utils.config import load_config
+
+    cfg = load_config("configs/train/quality_sphere_blur32_dense_r5fix.yaml")
+    nerf = cfg.model.nerf
+    nerf.arch = "mlp"
+    cams = np.array([[3.0, 0.0, 0.8], [0.0, 3.0, 0.8]], np.float32)
+    model = nerf_model.build(nerf, cams, 1, "parameter", 4096,
+                             generator=torch.Generator().manual_seed(0))
+    field = model.field
+    assert isinstance(field, tfields.VanillaNeRFField)
+    assert field.base.net_depth == nerf.mlp.net_depth == 8
+    assert field.base.hidden_0.out_features == 256
+    assert field.base.hidden_5.in_features == 256 + 63  # skip after 4
+    assert field.rgb_layer.hidden_0.out_features == 128
+    assert model.curriculum is None and model.table_decay is None
+    assert nerf_model.level_mask_for_step(model, 10_000, "cpu") is None
+    assert model.render_config.prepass_div == 2
+    occ = nerf_model.init_occupancy(model, "cpu")
+    occ = occ._replace(binary=torch.ones_like(occ.binary))
+    gen = torch.Generator().manual_seed(1)
+    o = torch.tensor([[3.0, 0.1, 0.2]]).expand(8, 3)
+    d = torch.nn.functional.normalize(torch.randn(8, 3, generator=gen)
+                                      - o, dim=-1)
+    out = nerf_model.render(model, occ, o, d, torch.ones(8, dtype=bool),
+                            torch.rand(8, generator=gen))
+    assert torch.isfinite(out["radiance"]).all()
+    assert float(out["opacity"].detach().max()) > 0
+    with pytest.raises(ValueError, match="unknown nerf arch"):
+        nerf.arch = "tcnn"
+        nerf_model.build(nerf, cams, 1, None, 4096)

@@ -97,7 +97,37 @@ def test_activations_match_jax_with_trunc_exp_clamp():
         rtol=1e-6)
 
 
-@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+@pytest.mark.parametrize("kind,name", [
+    (kind, name) for kind, names in (
+        ("hidden", ("softplus", "relu")),
+        ("density", ("shifted_trunc_exp", "softplus", "shifted_softplus")),
+        ("radiance", ("softplus", "sigmoid")),
+        ("registry", ("relu", "sigmoid", "softplus", "softplus100",
+                      "shifted_trunc_exp", "shifted_softplus", "identity")))
+    for name in names])
+def test_every_jax_activation_matches_jax(kind, name):
+    """Each name of the JAX package's hidden, density and radiance
+    registries and of its ACTIVATIONS table: values and gradients within
+    1e-6 relative, over [-30, 30]."""
+    x = np.linspace(-30, 30, 601).astype(np.float32)
+    if kind == "registry":
+        fj, ft = jact.ACTIVATIONS[name], tact.ACTIVATIONS[name]
+    else:
+        fj = getattr(jact, f"{kind}_activation")(name)
+        ft = getattr(tact, f"{kind}_activation")(name)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    yt = ft(xt)
+    yt.sum().backward()
+    yj, gj = jax.value_and_grad(lambda v: jnp.sum(fj(v)))(jnp.asarray(x))
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(fj(
+        jnp.asarray(x))), rtol=1e-6, atol=1e-30)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gj), rtol=1e-6,
+                               atol=1e-30)
+    with pytest.raises(ValueError, match="unknown"):
+        tact.density_activation("gelu")
+
+
+@pytest.mark.parametrize("degree", range(1, 9))
 def test_sh_encoding_matches_jax(degree):
     rng = np.random.default_rng(2)
     d = rng.normal(size=(300, 3))

@@ -107,10 +107,13 @@ def _jax_draws(key, n, sc, occ_binary, sparsity_cfg=None):
     return draws
 
 
-def _jax_step(cfg, dataset, capacity, active, budget):
-    """The JAX step's loss, metrics and gradients, with its inputs."""
+def _jax_step(cfg, dataset, capacity, active, budget, params_fn=None):
+    """The JAX step's loss, metrics and gradients, with its inputs
+    (`params_fn` edits the initial parameters first)."""
     bundle, params = jsetup.build(cfg, str(dataset), sample_budget=budget,
                                   batch_capacity=capacity)
+    if params_fn is not None:
+        params = params_fn(params)
     model, sc = bundle.model, bundle.static_config
     occ = jax.jit(lambda p: jnerf.update_occupancy(
         model, p, jnerf.init_occupancy(model), jax.random.PRNGKey(1),

@@ -2,8 +2,8 @@
 configured cadence through `train(on_epoch_end=...)`, both eval targets
 together, the `train`, `val` and `test` stages of the command line (the
 metrics file read back by PyYAML; `train` resuming a checkpoint, `test`
-evaluating one), and what still raises, naming its ROADMAP item: the eval
-occlusion prepass (B6)."""
+evaluating one), and what raised until it was ported (checkpoints,
+resume, the EMA, the eval occlusion prepass) running."""
 
 import json
 import math
@@ -158,8 +158,10 @@ def test_metrics_yaml_reads_back_exactly():
 def test_what_is_not_ported_raises_naming_its_roadmap_item(dataset,
                                                            tmp_path):
     """Checkpoints, resume and the evaluation EMA (which raised, naming
-    ROADMAP Queue A 9, until they were ported) build and run; the eval
-    occlusion prepass still raises, naming ROADMAP Queue B 6."""
+    ROADMAP Queue A 9, until they were ported) build and run, and so does
+    the eval occlusion prepass (which raised, naming ROADMAP Queue B 6):
+    evaluate("val") with eval_occlusion_prepass_div 4 renders through it
+    and returns finite metrics."""
     trainer = Trainer(small_config(dataset), str(tmp_path / "a"),
                       batch_capacity=CAPACITY, sample_budget=BUDGET,
                       device="cpu")
@@ -175,9 +177,11 @@ def test_what_is_not_ported_raises_naming_its_roadmap_item(dataset,
         assert (built.ema_params is not None) == (key == "ema_decay")
     assert trainer.resume(ckpt) == 0
     trainer.config.model.nerf.eval_occlusion_prepass_div = 4
-    with pytest.raises(NotImplementedError,
-                       match=r"eval_occlusion_prepass_div.*ROADMAP Queue B 6"):
-        trainer.evaluate("val")
+    _, render_image = trainer.build_evaluator("val")
+    assert render_image.render_config.prepass_div == 4
+    metric = trainer.evaluate("val")
+    assert set(metric) == {"l1", "psnr", "ssim", "lpips"}
+    assert all(math.isfinite(metric[k]) for k in ("l1", "psnr", "ssim"))
 
 
 def test_cli_train_resumes_and_test_evaluates_a_checkpoint(dataset,
