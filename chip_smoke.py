@@ -77,16 +77,26 @@ Phases, each printing a start and an end line with elapsed seconds:
      recipe (the full pixel filter, on the card; fewer poses,
      R5FIX_DATASET) and packs with its native packer (the numpy packer
      may not run): one epoch of steps through Trainer.train, each with its
-     launches checked against `r5fix_step_launches`; the host syncs of one
-     steady step (none from training/ or the renderer); the prepass
-     against the full render on one marched sample set with the density
-     raised (outputs on the training path, field gradients with the
-     field's outputs in float64); one step with field_chunk
-     2^18 against one without (loss, gradients; no gather in the
-     backward); evaluate("val") with the eval prepass, one frame at the
-     dataset's size timed and profiled, and a small eval render with the
-     prepass on the card against the CPU; two steps of the vanilla NeRF
-     field (model.nerf.arch mlp) at the config's widths.
+     launches checked against `r5fix_step_launches` for the path it took
+     (the trainer runs the occlusion prepass only once the live demand
+     fits its buffer: a step that ran it may not overflow it); the host
+     syncs of one steady step (none from training/ or the renderer); the
+     prepass against the full render on one marched sample set with the
+     density raised (outputs on the training path; field gradients of
+     both, each within 1e-3 of its largest entry of the float64 render's
+     and of each other); one step with field_chunk 2^18 against one
+     without (loss, gradients; no gather in the backward);
+     evaluate("val") with the eval prepass, one frame at the dataset's
+     size timed and profiled, and a small eval render with the prepass on
+     the card against the CPU; the density raised until the trainer turns
+     the prepass on; two steps of the vanilla NeRF field
+     (model.nerf.arch mlp) at the config's widths;
+  9. the quality harness (python -m deblur_e_nerf_tpu_torch.quality_run)
+     on the r5fix config at full width, on phase 8's dataset, cut as
+     QUALITY_REDUCED says: epoch 0, then a fresh invocation resuming its
+     checkpoint for epoch 1 and the final rows; each step's launches
+     checked for its path and its prepass overflow, the CSV's two rows,
+     the flat-field PSNR and every row of metrics.yaml.
 
 Any failed check raises and the script exits non-zero. The line before
 the last is a JSON object describing each kernel; the last line is
@@ -1948,6 +1958,14 @@ R5FIX_REDUCED = {
 # (scripts/round5_experiments.sh), R = 1024 x 30 x 4 = 122,880 rays
 R5FIX_BATCH_CAPACITY = 1024
 R5FIX_FIELD_CHUNK = 1 << 18
+# phase 9's cuts of the quality harness's run of the r5fix config, printed
+# on its `reduced` line; every other argument is the config recipe's
+QUALITY_REDUCED = {
+    "data_root": "phase 8's dataset (its poses cut as R5FIX_DATASET says)",
+    "max_epochs": 2,
+    "steps_per_epoch": 20,
+    "max_eval_images": 1,
+}
 
 
 def r5fix_config(dataset_directory, lpips_weights_path=None):
@@ -2006,14 +2024,16 @@ def make_r5fix_dataset(torch, root):
     return {"generate_s": gen_s, "raw_events": n_raw, "pack_s": pack_s}
 
 
-def r5fix_step_launches(trainer, occupancy_update):
+def r5fix_step_launches(trainer, occupancy_update, prepass=True):
     """The kernel launches one r5fix step implies: each field call runs
     one gather and one corner sum per hash level, each field backward one
-    scatter-add per level. A step calls the field in the prepass's density
-    pass (over K + 1 slots), the full field (over the prepass's K / 2 + 1
-    slots) and the sparsity prior, each in field_chunk pieces when set;
-    the backward runs through the last two; a warmup occupancy update adds
-    one density call per 2^19 cells."""
+    scatter-add per level. A step with the prepass calls the field in the
+    prepass's density pass (over K + 1 slots), the full field (over the
+    prepass's K / 2 + 1 slots) and the sparsity prior; one without it
+    (`prepass` False) the full field over K + 1 slots and the prior; each
+    in field_chunk pieces when set; the backward runs through the full
+    field and the prior; a warmup occupancy update adds one density call
+    per 2^19 cells."""
     model = trainer.params.nerf
     rc = model.render_config
     n_levels = len(model.field.levels)
@@ -2021,8 +2041,12 @@ def r5fix_step_launches(trainer, occupancy_update):
     def calls(n):
         return -(-n // rc.field_chunk) if rc.field_chunk else 1
 
-    field_calls = calls(rc.prepass_budget + 1)
-    gathers = calls(rc.sample_budget + 1) + field_calls + 1
+    if prepass:
+        field_calls = calls(rc.prepass_budget + 1)
+        gathers = calls(rc.sample_budget + 1) + field_calls + 1
+    else:
+        field_calls = calls(rc.sample_budget + 1)
+        gathers = field_calls + 1
     if occupancy_update:
         gathers += -(-(rc.grid_resolution ** 3) // (1 << 19))
     return {"scatter_add_rows": n_levels * (field_calls + 1),
@@ -2030,54 +2054,101 @@ def r5fix_step_launches(trainer, occupancy_update):
             "corner_sum": n_levels * gathers}
 
 
-def train_r5fix_epoch(torch, trainer, card):
-    """Epoch 0 through Trainer.train, each step timed and checked: its
-    kernel launches against `r5fix_step_launches`, a finite loss, the
-    prepass's live samples (live demand = prepass_overflow_rate x K / 2)
-    beside the marched ones."""
+def timed_r5fix_step(torch, trainer, card, step_fn, records,
+                     label="r5fix"):
+    """One trainer step (`step_fn`), timed and checked: its kernel launches
+    against `r5fix_step_launches` for the path it took (`prepass_ran`), a
+    finite loss, and no overflow of the prepass buffer on a step that ran
+    the prepass; prints its live samples (live demand =
+    prepass_overflow_rate x K / 2) beside the marched ones. Appends a
+    record to `records`; returns the step's metrics."""
     rc = trainer.params.nerf.render_config
+    occ_cfg = trainer.params.nerf.occ_grid_config
+    step = trainer.global_step
+    occupancy_update = step % trainer.accumulate == 0 and (
+        step // trainer.accumulate < int(occ_cfg.warmup_steps)
+        or (step // trainer.accumulate) % int(occ_cfg.n) == 0)
+    counts = read_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = step_fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = read_launches()
+    marched = int(m["num_marched_samples"])
+    live = round(float(m["prepass_overflow_rate"]) * rc.prepass_budget)
+    r = {"step": step, "ms": ms,
+         "launches": {k: after[k] - counts[k] for k in after},
+         "loss": float(m["loss"]), "marched": marched, "live": live,
+         "overflow": float(m["prepass_overflow_rate"]),
+         "prepass": bool(float(m["prepass_ran"])),
+         "valid": float(m["mean_valid_rate"]),
+         "truncated": float(m["ray_truncation_rate"]),
+         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    records.append(r)
+    print(f"{label} step {r['step']}: loss {r['loss']:.6f}, {ms:.3f} ms, "
+          f"prepass {'on' if r['prepass'] else 'off'}, marched samples "
+          f"{marched}, live {live} (ratio {live / max(marched, 1):.4f}), "
+          f"prepass_overflow_rate {r['overflow']:.4f}, truncated rays "
+          f"{r['truncated']:.4f}, valid events {r['valid']:.3f}, peak "
+          f"{r['peak_gib']:.2f} GiB, launches {r['launches']} on {card}",
+          flush=True)
+    want = r5fix_step_launches(trainer, occupancy_update, r["prepass"])
+    if r["launches"] != want:
+        raise AssertionError(f"{label} step {r['step']}: launches "
+                             f"{r['launches']}, want {want}")
+    if not math.isfinite(r["loss"]):
+        raise AssertionError(f"{label} step {r['step']}: loss {r['loss']}")
+    if r["prepass"] and r["overflow"] > 1.0:
+        raise AssertionError(f"{label} step {r['step']}: the prepass "
+                             f"dropped live samples (prepass_overflow_rate "
+                             f"{r['overflow']})")
+    return m
+
+
+def train_r5fix_epoch(torch, trainer, card):
+    """Epoch 0 through Trainer.train, each step checked by
+    `timed_r5fix_step`."""
     records = []
     step_fn = trainer.train_step
-
-    def timed_step():
-        counts = read_launches()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        m = step_fn()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        after = read_launches()
-        marched = int(m["num_marched_samples"])
-        live = round(float(m["prepass_overflow_rate"]) * rc.prepass_budget)
-        r = {"step": trainer.global_step - 1, "ms": ms,
-             "launches": {k: after[k] - counts[k] for k in after},
-             "loss": float(m["loss"]), "marched": marched, "live": live,
-             "overflow": float(m["prepass_overflow_rate"]),
-             "valid": float(m["mean_valid_rate"]),
-             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        records.append(r)
-        print(f"r5fix step {r['step']}: loss {r['loss']:.6f}, {ms:.3f} ms, "
-              f"marched samples {marched}, live after the prepass {live} "
-              f"(ratio {live / max(marched, 1):.4f}), "
-              f"prepass_overflow_rate {r['overflow']:.4f}, valid events "
-              f"{r['valid']:.3f}, peak {r['peak_gib']:.2f} GiB, launches "
-              f"{r['launches']} on {card}", flush=True)
-        want = r5fix_step_launches(trainer, occupancy_update=True)
-        if r["launches"] != want:
-            raise AssertionError(f"r5fix step {r['step']}: launches "
-                                 f"{r['launches']}, want {want}")
-        if not math.isfinite(r["loss"]):
-            raise AssertionError(f"r5fix step {r['step']}: loss "
-                                 f"{r['loss']}")
-        return m
-
-    trainer.train_step = timed_step
+    trainer.train_step = lambda: timed_r5fix_step(torch, trainer, card,
+                                                  step_fn, records)
     try:
         trainer.train(max_steps=int(
             R5FIX_REDUCED["trainer.limit_train_batches"]))
     finally:
         del trainer.train_step
+    return records
+
+
+def r5fix_prepass_switch(torch, trainer, card):
+    """The density raised (the output bias + 10, so that rays terminate
+    early) until the trainer's reads of the live demand turn the prepass
+    on: steps through Trainer.train_step, each checked by
+    `timed_r5fix_step`, until one runs the prepass (within
+    PREPASS_WINDOW + 3 steps); the bias is restored after. Returns the
+    steps' records."""
+    from deblur_e_nerf_tpu_torch.training.trainer import PREPASS_WINDOW
+
+    max_steps = PREPASS_WINDOW + 3
+    bias = trainer.params.nerf.field.mlp_base.output.bias
+    records = []
+    with torch.no_grad():
+        bias[0] += 10.0
+    try:
+        for _ in range(max_steps):
+            timed_r5fix_step(torch, trainer, card, trainer.train_step,
+                             records, label="r5fix dense")
+            if records[-1]["prepass"]:
+                break
+    finally:
+        trainer._flush_pending_metrics()
+        with torch.no_grad():
+            bias[0] -= 10.0
+    if not records[-1]["prepass"]:
+        raise AssertionError("r5fix: the trainer never turned the prepass "
+                             f"on: {records}")
     return records
 
 
@@ -2105,15 +2176,13 @@ def r5fix_prepass_exactness(torch, trainer, card):
 
     Through nerf_model.render (the training path): outputs within rtol
     1e-5 and atol 1e-6, the live demand below the marched one (the full
-    field runs on fewer samples), both times printed. The field's
-    gradients agree there only up to the float32 gradient path of the
-    optical depth, which the port keeps from the JAX package (a reversed
-    cumsum over the whole buffer leaves each sample's cotangent an error
-    of eps x the running total, and the two buffers sum in other orders),
-    so their difference is printed beside that. Gradient exactness is
-    held with the field's outputs in float64 (the same renderer, prepass
+    field runs on fewer samples), both times printed. Gradient exactness
+    is held with the field's outputs in float64 (the same renderer, prepass
     and composite code, without that rounding): every field gradient
-    within 2e-4 of its largest entry."""
+    within 2e-4 of its largest entry. The training path's float32
+    gradients (the optical depth's backward in float64, ROADMAP Queue C
+    7), with the prepass and without, are each within 1e-3 of their
+    largest entry of the float64 render's, and of each other."""
     import dataclasses
 
     from deblur_e_nerf_tpu_torch.models import nerf_model, renderer
@@ -2140,6 +2209,7 @@ def r5fix_prepass_exactness(torch, trainer, card):
             renderer.SplitField(field.encode, as_double(field.decode)),
             trainer.occ_state.binary, o, d, mask, jitter,
             model.render_config,
+            render_bkgd=nerf_model.render_bkgd_value(model),
             density_only_fn=lambda x: field.density(x).double())
 
     results = {}
@@ -2191,6 +2261,7 @@ def r5fix_prepass_exactness(torch, trainer, card):
             raise AssertionError(f"r5fix prepass: {k} differs")
     grad_p64, grad_f64 = (results["float64", rc.prepass_div][1],
                           results["float64", 0][1])
+    worst = {}
     for n, g in grad_f64.items():
         scale = float(g.abs().max())
         err = float((grad_p64[n] - g).abs().max())
@@ -2198,14 +2269,22 @@ def r5fix_prepass_exactness(torch, trainer, card):
         def rel(a, b):
             return float((a[n] - b[n]).abs().max()) / scale
 
+        f32 = {"prepass vs full": rel(grad_p, grad_f),
+               "prepass vs float64": rel(grad_p, grad_p64),
+               "full vs float64": rel(grad_f, grad_f64)}
+        worst[n] = max(f32.values())
         print(f"r5fix prepass vs full grad {n}: float64 outputs "
               f"{err / scale:.3e} of the largest entry (tolerance 2e-4); "
-              f"float32 training path {rel(grad_p, grad_f):.3e} (against "
-              f"float64: with the prepass {rel(grad_p, grad_p64):.3e}, "
-              f"without {rel(grad_f, grad_f64):.3e})", flush=True)
+              f"float32 training path {f32['prepass vs full']:.3e} "
+              f"(against float64: with the prepass "
+              f"{f32['prepass vs float64']:.3e}, without "
+              f"{f32['full vs float64']:.3e}; tolerance 1e-3)", flush=True)
         if not (math.isfinite(scale) and scale > 0 and err <= 2e-4 * scale):
             raise AssertionError(f"r5fix prepass: grad {n} differs")
-    return ms_p, ms_f
+        if not all(e <= 1e-3 for e in f32.values()):
+            raise AssertionError(f"r5fix prepass: the float32 training "
+                                 f"path's grad {n} is off: {f32}")
+    return ms_p, ms_f, worst
 
 
 def r5fix_chunked_step(torch, trainer, card):
@@ -2447,16 +2526,23 @@ def phase_r5fix(torch, tmp, card):
     print(f"r5fix steady step (with its warmup occupancy update): "
           f"{steady[len(steady) // 2]:.3f} ms median (min {steady[0]:.3f}, "
           f"max {steady[-1]:.3f}); first step {records[0]['ms']:.3f} ms; "
-          f"peak {max(r['peak_gib'] for r in records):.2f} GiB",
-          flush=True)
+          f"peak {max(r['peak_gib'] for r in records):.2f} GiB; prepass "
+          f"on {sum(r['prepass'] for r in records)} of {len(records)} "
+          f"steps", flush=True)
     trainer._flush_pending_metrics()
     count_step_syncs(torch, trainer, "r5fix",
                      forbidden=("training/", "models/renderer.py"),
-                     expected=r5fix_step_launches(trainer, False))
+                     expected=r5fix_step_launches(trainer, False,
+                                                  trainer.prepass_on))
     trainer._flush_pending_metrics()
     r5fix_prepass_exactness(torch, trainer, card)
     r5fix_chunked_step(torch, trainer, card)
     launches.update(r5fix_eval(torch, tmp, trainer, root, card))
+    # last, as its steps train a dense field
+    switch = r5fix_prepass_switch(torch, trainer, card)
+    print(f"r5fix prepass switch: on at the {len(switch)}th step with the "
+          f"density raised, {switch[-1]['ms']:.3f} ms with it against "
+          f"{switch[0]['ms']:.3f} ms without", flush=True)
     del trainer
     torch.cuda.empty_cache()
     r5fix_vanilla_steps(torch, root, tmp, card)
@@ -2465,6 +2551,112 @@ def phase_r5fix(torch, tmp, card):
                 ("scatter_add_rows",) if path == "r5fix train" else ()):
             if counts[name] <= 0:
                 raise AssertionError(f"{path}: {name} never launched")
+    return launches
+
+
+def quality_argv(root, log, max_epochs, device="cuda"):
+    """The quality harness's arguments for phase 9: the r5fix config and
+    its dataset recipe (scripts/quality_run.py's flags the config's header
+    names) with batch capacity 1024, `max_epochs` epochs, cut as
+    QUALITY_REDUCED says."""
+    return ["--config", R5FIX_CONFIG, "--data-root", root, "--log-dir", log,
+            "--img-size", str(R5FIX_RECIPE["img_height"]),
+            "--contrast-threshold", "0.05", "--orbits", "3",
+            "--pixel-filter", "full", "--bandwidth-scale", "32",
+            "--batch-capacity", str(R5FIX_BATCH_CAPACITY),
+            "--max-epochs", str(max_epochs),
+            "--steps-per-epoch", str(QUALITY_REDUCED["steps_per_epoch"]),
+            "--max-eval-images", str(QUALITY_REDUCED["max_eval_images"]),
+            "--device", device]
+
+
+def check_quality_outputs(log, rows, steps_per_epoch, n_epochs):
+    """psnr_vs_steps.csv: the JAX harness's columns and one row for each of
+    `n_epochs` (steps increasing, finite PSNR and SSIM, one flat-field
+    PSNR);
+    metrics.yaml (read without PyYAML): `rows`, in the JAX harness's
+    order and keys. Returns the CSV rows."""
+    import csv
+
+    from deblur_e_nerf_tpu_torch.utils import config as config_lib
+
+    with open(os.path.join(log, "psnr_vs_steps.csv")) as f:
+        table = list(csv.reader(f))
+    epochs = [[float(x) for x in r] for r in table[1:]]
+    if not (table[0] == ["step", "psnr", "ssim", "flat_psnr"]
+            and [int(r[0]) for r in epochs]
+            == [steps_per_epoch * (i + 1) for i in range(len(epochs))]
+            and len(epochs) == n_epochs
+            and all(math.isfinite(x) for r in epochs for x in r)
+            and len({r[3] for r in epochs}) == 1):
+        raise AssertionError(f"quality: psnr_vs_steps.csv is {table}")
+    with open(os.path.join(log, "metrics.yaml")) as f:
+        written = config_lib.yaml_load(f.read())
+    metrics = {"l1", "lpips", "psnr", "ssim"}
+    stages = [r.get("stage") for r in written]
+    if not (len(written) == len(rows)
+            and [set(r) for r in written] == [set(r) for r in rows]
+            and stages[:4] == ["val", "test", None, None]
+            and set(written[0]) == set(written[1]) == metrics | {"stage"}
+            and written[2] == {"flat_field_psnr": epochs[0][3]}
+            and set(written[3]) == {"pixel_bandwidth_learned",
+                                    "pixel_bandwidth_init"}
+            and stages[4:] in ([], ["val_best", "test_best"])
+            and all(math.isfinite(written[i][k]) for i in (0, 1)
+                    for k in ("l1", "psnr", "ssim"))):
+        raise AssertionError(f"quality: metrics.yaml is {written}")
+    return epochs
+
+
+def phase_quality(torch, tmp, card, device="cuda"):
+    """Phase 9: the quality harness on the r5fix config at full width, on
+    phase 8's dataset: an invocation of one epoch less than
+    QUALITY_REDUCED's (and its final rows), then a fresh one resuming its
+    last checkpoint for the last epoch and the final rows. Every step through
+    `timed_r5fix_step` (launches for the path taken, no overflow of a
+    prepass that ran). Returns {path: launches}."""
+    from deblur_e_nerf_tpu_torch import quality_run
+    from deblur_e_nerf_tpu_torch.training.trainer import Trainer
+
+    root, log = f"{tmp}/r5fix", f"{tmp}/log_quality"
+    steps = QUALITY_REDUCED["steps_per_epoch"]
+    print("reduced: " + json.dumps(dict(
+        QUALITY_REDUCED, batch_capacity=R5FIX_BATCH_CAPACITY)), flush=True)
+    n_epochs = QUALITY_REDUCED["max_epochs"]
+    records = []
+    train_step = Trainer.train_step
+    Trainer.train_step = lambda self: timed_r5fix_step(
+        torch, self, card, lambda: train_step(self), records,
+        label="quality")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        quality_run.main(quality_argv(root, log, n_epochs - 1, device))
+        t1 = time.perf_counter()
+        rows = quality_run.main(quality_argv(root, log, n_epochs, device) + [
+            "--resume", f"{log}/checkpoints/epoch_{n_epochs - 2:04d}"])
+    finally:
+        Trainer.train_step = train_step
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"quality": read_launches()}
+    epochs = check_quality_outputs(log, rows, steps, n_epochs)
+    if [r["step"] for r in records] != list(range(n_epochs * steps)):
+        raise AssertionError(f"quality: steps {[r['step'] for r in records]}")
+    steady = sorted(r["ms"] for r in records[1:steps] + records[steps + 1:])
+    print(f"quality harness: epoch 0 invocation {t1 - t0:.2f} s, resumed "
+          f"invocation (epoch 1 and the final rows) {t2 - t1:.2f} s; steady "
+          f"step {steady[len(steady) // 2]:.3f} ms median (min "
+          f"{steady[0]:.3f}, max {steady[-1]:.3f}); prepass on "
+          f"{sum(r['prepass'] for r in records)} of {len(records)} steps, "
+          f"max overflow {max(r['overflow'] for r in records):.4f}; PSNR "
+          f"{[round(r[1], 4) for r in epochs]} against the flat field's "
+          f"{epochs[0][3]:.4f}; launches {launches['quality']} on {card}",
+          flush=True)
+    for name, count in launches["quality"].items():
+        if count <= 0:
+            raise AssertionError(f"quality: {name} never launched")
     return launches
 
 
@@ -2521,6 +2713,9 @@ def main():
         torch.cuda.empty_cache()
         with phase("8 r5fix path (prepass, chunked render, vanilla field)"):
             launches.update(phase_r5fix(torch, tmp, card))
+        torch.cuda.empty_cache()
+        with phase("9 quality harness (r5fix config, resumed)"):
+            launches.update(phase_quality(torch, tmp, card))
 
     kernels = [
         dict(kernel_line("scatter_add_rows", SCATTER_SOURCE,

@@ -254,16 +254,18 @@ def pixel_params_to_ray(intrinsics_inverse, pixel_position, T_wc_position,
 
 
 def render(model, occ_state, rays_o, rays_d, ray_mask, jitter,
-           level_mask=None):
+           level_mask=None, prepass=True):
     """Render a flat ray bundle; `jitter` (R,) uniforms for stratified
-    sampling. The occlusion prepass runs when the config sets it."""
+    sampling. The occlusion prepass runs when the config sets it, unless
+    `prepass` is False (the field then runs on the marched buffer)."""
     field = model.field
     field_fn = renderer.SplitField(
         lambda x: field.encode(x, level_mask), field.decode)
     return renderer.render_rays(
         field_fn, occ_state.binary, rays_o, rays_d, ray_mask, jitter,
         model.render_config, render_bkgd=render_bkgd_value(model),
-        density_only_fn=lambda x: density_fn(model, x, level_mask))
+        density_only_fn=((lambda x: density_fn(model, x, level_mask))
+                         if prepass else None))
 
 
 def eval_render_config(model, eval_sample_budget, field_chunk, prepass_div):

@@ -362,25 +362,70 @@ def _sigma_dt_alpha(sigma, samples, n_rays, rc):
     return slot_valid, sigma_dt, alpha
 
 
-def _excl_optical_depth(sigma_dt, offsets, safe_ray_idx):
-    """Per-ray exclusive prefix sums of a ray-contiguous buffer."""
-    K = sigma_dt.shape[0] - 1
-    cum = torch.cumsum(sigma_dt, dim=0)
-    seg_base = torch.where(offsets > 0, cum[(offsets - 1).clamp(0, K)],
-                           torch.zeros((), dtype=cum.dtype,
-                                       device=cum.device))
-    return cum - sigma_dt - seg_base[safe_ray_idx]
+class _ExclusiveOpticalDepth(torch.autograd.Function):
+    """Per-ray exclusive prefix sums of a ray-contiguous buffer (each ray's
+    samples at offsets .. offsets + counts - 1, empty slots after the last
+    ray), in float64 both ways, rounded to the input's type.
+
+    Forward: a float64 cumsum less each ray's segment base. Backward: the
+    cotangent of sample j is the sum of the cotangents after it in its
+    ray, C[e] - C[j + 1] with C the exclusive float64 cumsum of the
+    cotangent and e the ray's segment end: gathers only, so it is
+    deterministic whatever the thread count (the transpose of a gather is
+    an accumulating index write, whose CPU and CUDA versions add in the
+    order threads finish), and a sample's cotangent carries no error of
+    the buffer's running total (a float32 cumsum's transpose would).
+    Empty slots get a zero cotangent."""
+
+    @staticmethod
+    def forward(ctx, sigma_dt, offsets, counts, safe_ray_idx):
+        x = sigma_dt.detach().double()
+        n = x.shape[0]
+        cum = torch.cumsum(x, dim=0)
+        seg_base = torch.where(
+            offsets > 0, cum[(offsets - 1).clamp(0, n - 1)],
+            torch.zeros((), dtype=cum.dtype, device=cum.device))
+        ctx.save_for_backward((offsets + counts).clamp(max=n)[safe_ray_idx])
+        return (cum - x - seg_base[safe_ray_idx]).to(sigma_dt.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ends,) = ctx.saved_tensors
+        g = grad.double()
+        csum = torch.cat([g.new_zeros(1), torch.cumsum(g, dim=0)])
+        pos = torch.arange(g.shape[0], device=g.device)
+        out = torch.where(ends > pos, csum[ends] - csum[1:], 0.0)
+        return out.to(grad.dtype), None, None, None
 
 
 def _optical_depth(sigma_dt, samples, safe_ray_idx):
-    """Exclusive optical depth: the value from a float64 cumsum, the
-    gradient through the float32 path (the global f32 cumsum's ulp at
-    1e5-1e7 would swamp one sample's depth). Composite and the prepass's
-    live mask both read it, so they agree at the early-stop boundary."""
-    optical32 = _excl_optical_depth(sigma_dt, samples.offsets, safe_ray_idx)
-    precise = _excl_optical_depth(sigma_dt.detach().double(),
-                                  samples.offsets, safe_ray_idx).float()
-    return optical32 + (precise - optical32).detach()
+    """Exclusive optical depth (`_ExclusiveOpticalDepth`). Composite and
+    the prepass's live mask both read it, so they agree at the early-stop
+    boundary."""
+    return _ExclusiveOpticalDepth.apply(sigma_dt, samples.offsets,
+                                        samples.counts, safe_ray_idx)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """Per-ray sums of a buffer whose ray ids never decrease, with no
+    atomics: the forward takes differences of a float64 cumsum at the
+    segment bounds (rounded to the input's type), the backward gives each
+    slot its ray's cotangent (a gather; zero for slots of id n_rays). An
+    `index_add` adds on the card in the order threads finish, so its
+    sums, and the step's loss, differed run to run."""
+
+    @staticmethod
+    def forward(ctx, values, bounds, seg_ids):
+        csum = torch.cumsum(values.detach().double(), dim=0)
+        csum = torch.cat([csum.new_zeros((1, *csum.shape[1:])), csum])
+        ctx.save_for_backward(seg_ids)
+        return (csum[bounds[1:]] - csum[bounds[:-1]]).to(values.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (seg_ids,) = ctx.saved_tensors
+        padded = torch.cat([grad, grad.new_zeros((1, *grad.shape[1:]))])
+        return padded[seg_ids], None, None
 
 
 def composite(sigma, rgb, samples, n_rays, rc, render_bkgd=None):
@@ -398,11 +443,11 @@ def composite(sigma, rgb, samples, n_rays, rc, render_bkgd=None):
 
     seg_ids = torch.where(slot_valid, samples.ray_idx,
                           torch.full_like(samples.ray_idx, n_rays))
+    bounds = torch.searchsorted(
+        seg_ids, torch.arange(n_rays + 1, device=seg_ids.device))
 
     def segment_sum(values):
-        out = torch.zeros((n_rays + 1, *values.shape[1:]),
-                          dtype=values.dtype, device=values.device)
-        return out.index_add(0, seg_ids, values)[:n_rays]
+        return _SegmentSum.apply(values, bounds, seg_ids)
 
     colors = segment_sum(weights[:, None] * rgb)
     opacities = segment_sum(weights)
@@ -515,7 +560,11 @@ def render_rays(field_fn, binary, rays_o, rays_d, ray_mask, jitter, rc,
     `rc.prepass_div` is set and `rc.early_stop_eps > 0`. Returns the JAX
     package's output dict; `ray_complete` is False for rays that lost
     samples to the sample, block or superblock budget or the prepass
-    buffer.
+    buffer. With the prepass configured, `prepass_overflow_rate` is the
+    live demand over the prepass buffer whether or not it ran
+    (`prepass_ran`): without a `density_only_fn` the field runs on the
+    marched buffer and the demand is composite's live count, the same
+    mask the prepass reads.
     """
     R = rays_o.shape[0]
     samples = march_rays(binary, rays_o.detach(), rays_d.detach(),
@@ -523,8 +572,9 @@ def render_rays(field_fn, binary, rays_o, rays_d, ray_mask, jitter, rc,
     ray_complete = _ray_complete(samples, rc)
     zero = torch.zeros((), dtype=torch.float32, device=rays_o.device)
     prepass_overflow_rate = zero
-    if rc.prepass_div and density_only_fn is not None \
-            and rc.early_stop_eps > 0:
+    configured = bool(rc.prepass_div and rc.early_stop_eps > 0)
+    ran = configured and density_only_fn is not None
+    if ran:
         samples, demand, live_counts = occlusion_prepass(
             density_only_fn, samples, rays_o.detach(), rays_d.detach(), R,
             rc)
@@ -537,6 +587,9 @@ def render_rays(field_fn, binary, rays_o, rays_d, ray_mask, jitter, rc,
                               rc.field_chunk)
     colors, opacities, depths, num_rendering_samples = composite(
         density[..., 0], rgb, samples, R, rc, render_bkgd)
+    if configured and not ran:
+        prepass_overflow_rate = (num_rendering_samples.float()
+                                 / rc.prepass_budget)
     # coarse-stage demand over capacity (> 1: whole ray segments were
     # dropped before the sample stage). The superblock rate divides by the
     # configured superblock capacity; the JAX package divides by KB // 2
@@ -554,6 +607,7 @@ def render_rays(field_fn, binary, rays_o, rays_d, ray_mask, jitter, rc,
             samples.num_superblocks.float() / rc.superblock_capacity
             if samples.num_superblocks is not None else zero),
         "prepass_overflow_rate": prepass_overflow_rate,
+        "prepass_ran": torch.full((), float(ran), device=rays_o.device),
     }
 
 

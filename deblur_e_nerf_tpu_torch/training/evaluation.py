@@ -21,7 +21,7 @@ Differences from the JAX package:
     `superblock_budget` both (the JAX package keeps `superblock_budget`),
     and any masked ray that a budget truncates is reported, with or
     without an occlusion prepass (the JAX package reports it only with
-    one); the prepass itself raises (ROADMAP Queue B 6);
+    one);
   - no TensorBoard image logs: the port's log is scalar JSONL.
 """
 

@@ -145,7 +145,7 @@ def draw_step(sc, n, occ_state, generator, device):
 
 def render_train_pixels(params, consts, occ_state, sc, ts, ts_delta,
                         pixel_position, channel_idx, valid, jitter,
-                        level_mask=None):
+                        level_mask=None, prepass=True):
     """Render the pixels at split timestamps `ts`/`ts_delta` of shape
     ([S,] R*N); per-pixel inputs are (R*N, ...) and broadcast over S.
     Returns (intensity, stats, is_valid, complete), each shaped like
@@ -183,7 +183,7 @@ def render_train_pixels(params, consts, occ_state, sc, ts, ts_delta,
     out = nerf_model.render(model, occ_state, flat(rays_o).reshape(-1, 3),
                             flat(rays_d).reshape(-1, 3),
                             flat(mask).reshape(-1), jitter=jitter,
-                            level_mask=level_mask)
+                            level_mask=level_mask, prepass=prepass)
     opacity = unflat(out["opacity"])
     intensity = unflat(out["radiance"]) + sc.min_modeled_intensity
     if sc.has_bayer:
@@ -210,6 +210,7 @@ def render_train_pixels(params, consts, occ_state, sc, ts, ts_delta,
         "block_overflow_rate": out["block_overflow_rate"],
         "superblock_overflow_rate": out["superblock_overflow_rate"],
         "prepass_overflow_rate": out["prepass_overflow_rate"],
+        "prepass_ran": out["prepass_ran"],
         "num_rays": valid.sum() * (batch_shape[0] if len(batch_shape) == 2
                                    else 1),
     }
@@ -239,8 +240,9 @@ def _sparsity_prior(params, occ_state, draws, level_mask):
 
 
 def compute_loss(params, consts, occ_state, batch, draws, sc, loss_config,
-                 level_mask=None):
-    """Forward pass: (scalar loss, metrics dict of tensors)."""
+                 level_mask=None, prepass=True):
+    """Forward pass: (scalar loss, metrics dict of tensors). `prepass`
+    False renders without the configured occlusion prepass."""
     valid = batch["valid"]
     n = valid.shape[0]
     ct_params = params.contrast_threshold
@@ -280,7 +282,7 @@ def compute_loss(params, consts, occ_state, batch, draws, sc, loss_config,
         return render_train_pixels(
             params, consts, occ_state, sc, sample_ts, sample_ts_delta,
             pixel_all, channel_all, valid_all, draws.get("jitter"),
-            level_mask)
+            level_mask, prepass)
 
     if sc.pixel_bandwidth_enabled:
         interval_gen_all = draws["normalized"]["interval_gen"].repeat(1, R)
@@ -334,6 +336,7 @@ def compute_loss(params, consts, occ_state, batch, draws, sc, loss_config,
         "block_overflow_rate": stats["block_overflow_rate"],
         "superblock_overflow_rate": stats["superblock_overflow_rate"],
         "prepass_overflow_rate": stats["prepass_overflow_rate"],
+        "prepass_ran": stats["prepass_ran"],
         "mean_ray_occ_rate": stats["mean_ray_occ_rate"],
         "ray_truncation_rate": stats["ray_truncation_rate"],
         "mean_valid_rate": loss_lib.masked_mean(
@@ -349,7 +352,8 @@ def compute_loss(params, consts, occ_state, batch, draws, sc, loss_config,
 
 
 def make_train_step(params, consts, optimizer, sc, loss_config):
-    """Build step_fn(occ_state, batch, draws, level_mask=None) -> metrics.
+    """Build step_fn(occ_state, batch, draws, level_mask=None,
+    prepass=True) -> metrics.
 
     One micro-step: loss -> backward -> optimizer step (the gradients go
     into the running mean with accumulation; the Adam update is committed
@@ -359,10 +363,11 @@ def make_train_step(params, consts, optimizer, sc, loss_config):
     finite; `metrics["update_skipped"]` is that decision as a device bool,
     so the step reads nothing back to the host."""
 
-    def step_fn(occ_state, batch, draws, level_mask=None):
+    def step_fn(occ_state, batch, draws, level_mask=None, prepass=True):
         optimizer.zero_grad()
         loss, metrics = compute_loss(params, consts, occ_state, batch,
-                                     draws, sc, loss_config, level_mask)
+                                     draws, sc, loss_config, level_mask,
+                                     prepass)
         loss.backward()
         taken = optimizer.step(loss)
         event_gen.clamp_refractory_logit(params.refractory_period,

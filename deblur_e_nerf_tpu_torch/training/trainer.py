@@ -36,6 +36,16 @@
   - scalars go to `metrics.jsonl` in the log directory, one JSON object
     per logged step (and the eval metrics, as "<stage>/<name>", at the
     step they were taken);
+  - the occlusion prepass (model.nerf.occlusion_prepass_div) runs on a
+    step only once the live demand of each of the last PREPASS_WINDOW
+    read steps fits its K / div buffer with the sample budget's margin
+    (data.train_sample_budget_margin m: prepass_overflow_rate x m <= 1),
+    and stops at the first read step that does not fit; a fresh or
+    resumed trainer starts without it. A step without it runs the field
+    on the marched buffer and drops no live sample; the JAX package
+    always runs it, and a fresh field's demand overflows the buffer
+    (ROADMAP Queue C 9). The scalar `prepass_ran` logs the path a step
+    took;
   - evaluation (`evaluate`): the posed views of each `eval_target`
     (`event_view`: the train views, `novel_view`: the stage's), rendered
     on the trainer's device, corrected and scored as in the JAX package
@@ -63,6 +73,12 @@ from . import (checkpoint as checkpoint_lib, evaluation, optim, pipeline,
                setup as setup_lib, step as step_lib)
 
 NONFINITE_STREAK_LIMIT = 25
+# consecutive read steps whose live demand must fit the prepass buffer
+# before the prepass runs: early in training the occupancy grid and the
+# batch controller swing a step's demand by far more than the margin (on
+# the r5fix config at full width, an H100 run marched 139k samples on one
+# step and 9.27M two steps later)
+PREPASS_WINDOW = 16
 EVAL_TARGETS = ("event_view", "novel_view")
 COMPONENTS = ("contrast_threshold", "refractory_period", "nerf",
               "pixel_bandwidth")
@@ -93,6 +109,12 @@ def _set_matmul_precision(precision):
 class Trainer:
     def __init__(self, config, log_dir, batch_capacity=8192,
                  sample_budget=None, device=None, field_chunk=0):
+        for key in ("mesh_devices", "num_nodes"):
+            if int(config.trainer.get(key) or 1) > 1:
+                raise NotImplementedError(
+                    f"trainer.{key} {config.trainer.get(key)}: data "
+                    "parallelism is not ported yet (ROADMAP Queue A 12b); "
+                    "the port trains on one device")
         self.config = config
         self.log_dir = log_dir
         self.device = resolve_device(device)
@@ -165,6 +187,10 @@ class Trainer:
         self.log_every = int(trainer_cfg.get("log_every_n_steps") or 100)
         self.global_step = 0
         self._pending_metrics = None
+        self.prepass_margin = float(
+            config.data.get("train_sample_budget_margin", 1.0))
+        self.prepass_on = False
+        self._prepass_fits = 0
         self._nonfinite_streak = 0
         self.last_metrics = None
         # monitored checkpoints: the last eval's "<stage>/<name>" values,
@@ -277,6 +303,11 @@ class Trainer:
         if (step + 1) % self.accumulate == 0:
             self.batch_controller.update(
                 scalars["mean_num_samples_per_ray"])
+        if self.params.nerf.render_config.prepass_div:
+            fits = scalars["prepass_overflow_rate"] * self.prepass_margin \
+                <= 1.0
+            self._prepass_fits = self._prepass_fits + 1 if fits else 0
+            self.prepass_on = self._prepass_fits >= PREPASS_WINDOW
         if self.skip_nonfinite:
             bad = bool(scalars["update_skipped"])
             limit = NONFINITE_STREAK_LIMIT
@@ -326,7 +357,8 @@ class Trainer:
         metrics = self.step_fn(
             self.occ_state, batch, draws,
             level_mask=nerf_model.level_mask_for_step(model, step,
-                                                      self.device))
+                                                      self.device),
+            prepass=self.prepass_on)
         if self.ema_params is not None:
             self._update_ema()
         self.global_step += 1
@@ -533,6 +565,8 @@ class Trainer:
             occs=occ["occs"].to(torch.float32),
             binary=occ["binary"].to(torch.bool))
         self.global_step = int(restored["global_step"])
+        self.prepass_on = False
+        self._prepass_fits = 0
         if self.ema_params is not None:
             source = restored.get("ema_params") or restored["params"]
             for name, child in self.ema_params.named_children():
@@ -628,13 +662,20 @@ class Trainer:
         return metric
 
     def dump_metrics(self, metrics_list, filename="metrics.yaml"):
-        """Write a list of flat {name: float} maps as YAML (no PyYAML on
-        the card machine); PyYAML loads it back to the same values."""
+        """Write a list of {name: value} maps as YAML (no PyYAML on the
+        card machine); PyYAML loads it back to the same values."""
         with open(os.path.join(self.log_dir, filename), "w") as f:
             f.write(yaml_metrics(metrics_list))
 
+
+def _metric_value(value):
+    if isinstance(value, dict):
+        return {name: _metric_value(value[name]) for name in sorted(value)}
+    return value if isinstance(value, str) else float(value)
+
+
 def yaml_metrics(metrics_list):
-    """The YAML text of a list of flat {name: float} maps, names sorted."""
-    return config_lib.yaml_text([
-        {name: float(metrics[name]) for name in sorted(metrics)}
-        for metrics in metrics_list])
+    """The YAML text of a list of {name: value} maps (a value a number,
+    written as a float, a string, or such a map), names sorted as
+    PyYAML's safe_dump sorts them."""
+    return config_lib.yaml_text([_metric_value(m) for m in metrics_list])

@@ -156,10 +156,12 @@ def test_every_config_builds_a_port_trainer(tiny_views_dataset, tmp_path,
     widths and takes a train step with a finite loss; a test config loads
     a tiny port checkpoint of its own model through
     model.checkpoint_filepath. The 2 configs that set
-    model.nerf.occlusion_prepass_div (the r5fix pair) step with the
-    prepass on (a non-zero live demand in prepass_overflow_rate) and, as
-    they also set model.nerf.eval_occlusion_prepass_div, evaluate with it
-    (a finite PSNR)."""
+    model.nerf.occlusion_prepass_div (the r5fix pair) configure the
+    prepass and report the step's live demand against its buffer (a
+    non-zero prepass_overflow_rate; a fresh trainer's first step runs
+    without the prepass, ROADMAP Queue C 9) and, as they also set
+    model.nerf.eval_occlusion_prepass_div, evaluate with it (a finite
+    PSNR)."""
     cfg = cut(load_config(path), tiny_views_dataset)
     ckpt = cfg.model.get("checkpoint_filepath")
     if ckpt:
@@ -176,6 +178,7 @@ def test_every_config_builds_a_port_trainer(tiny_views_dataset, tmp_path,
     assert trainer.params.nerf.render_config.prepass_div \
         == int(prepass_div or 0)
     assert (float(metrics["prepass_overflow_rate"]) > 0) == bool(prepass_div)
+    assert float(metrics["prepass_ran"]) == 0.0
     eval_div = cfg.model.nerf.get("eval_occlusion_prepass_div")
     if eval_div:
         _, render_image = trainer.build_evaluator("val")
@@ -183,6 +186,21 @@ def test_every_config_builds_a_port_trainer(tiny_views_dataset, tmp_path,
     if ckpt or eval_div or "07_ziggy" in path:
         metric = trainer.evaluate("val", max_images=1)
         assert np.isfinite(metric["psnr"])
+
+
+@pytest.mark.parametrize("key", ["mesh_devices", "num_nodes"])
+def test_data_parallel_keys_raise_naming_their_roadmap_item(
+        tiny_views_dataset, tmp_path, key):
+    """ROADMAP Queue C 10: the port trains on one device, so a config
+    asking for a data-parallel mesh (trainer.mesh_devices 2) or two nodes
+    (trainer.num_nodes 2) makes the Trainer raise, naming ROADMAP A12b;
+    1, as every config of the repo sets, builds."""
+    cfg = cut(load_config("configs/train/synthetic.yaml"), tiny_views_dataset)
+    setattr(cfg.trainer, key, 2)
+    with pytest.raises(NotImplementedError, match=f"trainer.{key} 2.*12b"):
+        _build(cfg, tmp_path / "two")
+    setattr(cfg.trainer, key, 1)
+    assert _build(cfg, tmp_path / "one").params is not None
 
 
 @pytest.mark.parametrize("path", TRAIN_CONFIGS + TEST_CONFIGS,

@@ -18,13 +18,13 @@ import deblur_e_nerf_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-# the filter path, the kernels' and the evaluation stack's modules are
-# among them
+# the filter path, the kernels' and the evaluation stack's modules and
+# the quality harness are among them
 for name in ("ops.linalg", "ops.control", "ops.gather_rows",
              "ops.corner_sum", "models.pixel_bandwidth", "perf_microbench",
              "data.image_io", "data.posed_images", "models.offset_gamma",
              "training.metrics", "training.evaluation",
-             "training.checkpoint"):
+             "training.checkpoint", "quality_run"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 loaded = sorted(m for m in sys.modules

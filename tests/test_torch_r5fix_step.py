@@ -16,6 +16,8 @@ from deblur_e_nerf_tpu_torch import convert
 from deblur_e_nerf_tpu_torch.models import occupancy as tocc
 from deblur_e_nerf_tpu_torch.training import setup as tsetup
 from deblur_e_nerf_tpu_torch.training import step as tstep
+from deblur_e_nerf_tpu_torch.training import trainer as trainer_lib
+from deblur_e_nerf_tpu_torch.training.trainer import Trainer
 from deblur_e_nerf_tpu_torch.utils.config import ConfigDict
 from test_torch_train_step import (ACTIVE, FILTER_ON_CASES,
                                    _assert_port_step_matches,
@@ -182,7 +184,59 @@ def test_chip_smoke_r5fix_config_is_the_yaml_with_its_listed_cuts():
         "scatter_add_rows": 32, "gather_rows": 64, "corner_sum": 64}
     assert chip_smoke.r5fix_step_launches(trainer, False) == {
         "scatter_add_rows": 32, "gather_rows": 48, "corner_sum": 48}
+    # a step the trainer runs without the prepass: the field over K + 1
+    assert chip_smoke.r5fix_step_launches(trainer, True, False) == {
+        "scatter_add_rows": 32, "gather_rows": 48, "corner_sum": 48}
+    assert chip_smoke.r5fix_step_launches(trainer, False, False) == {
+        "scatter_add_rows": 32, "gather_rows": 32, "corner_sum": 32}
     model.render_config.field_chunk = 1 << 18
     assert chip_smoke.r5fix_step_launches(trainer, False) == {
         "scatter_add_rows": 16 * (3 + 1), "gather_rows": 16 * (5 + 3 + 1),
         "corner_sum": 16 * (5 + 3 + 1)}
+    assert chip_smoke.r5fix_step_launches(trainer, False, False) == {
+        "scatter_add_rows": 16 * (5 + 1), "gather_rows": 16 * (5 + 1),
+        "corner_sum": 16 * (5 + 1)}
+
+
+def test_trainer_runs_the_prepass_only_once_the_live_demand_fits(
+        dataset, tmp_path):
+    """ROADMAP Queue C 9 (the JAX package always runs the prepass into its
+    fixed K / 2 buffer, and drops the tail rays while a fresh field culls
+    nothing): the port's Trainer starts without the prepass, reads each
+    step's live demand one step behind, and runs the prepass once the
+    demand x train_sample_budget_margin (1.25) of each of the last
+    PREPASS_WINDOW (16) read steps fits the buffer. At K = 2^15 the fresh
+    field's demand overflows the buffer on steps 0-1 (prepass_overflow_rate
+    > 1), which run without the prepass and drop no ray; with the density
+    raised from step 2 (the output bias + 10) the demand of steps 2-17
+    fits, and step 19 (their reads one step behind) runs the prepass
+    within its buffer. A read that does not fit turns it off again, and a
+    resumed trainer starts without it."""
+    assert trainer_lib.PREPASS_WINDOW == 16
+    cfg = ConfigDict.from_dict(r5fix_small_config(dataset, 4).to_dict())
+    cfg.model.nerf.block_budget = 1 << 15  # no coarse truncation
+    trainer = Trainer(cfg, str(tmp_path), batch_capacity=32,
+                      sample_budget=1 << 15, device="cpu")
+    assert trainer.prepass_margin == 1.25 and not trainer.prepass_on
+    ran, rates = [], []
+    for step in range(20):
+        if step == 2:
+            with torch.no_grad():
+                trainer.params.nerf.field.mlp_base.output.bias[0] += 10.0
+        m = trainer.train_step()
+        ran.append(float(m["prepass_ran"]))
+        rates.append(float(m["prepass_overflow_rate"]))
+        if step < 2:
+            assert rates[-1] > 1.0 and float(m["ray_truncation_rate"]) == 0
+    assert ran == [0.0] * 19 + [1.0], (ran, rates)
+    assert all(r * trainer.prepass_margin <= 1.0 for r in rates[2:])
+    trainer._flush_pending_metrics()
+    assert trainer.prepass_on
+    trainer._consume_metrics(20, ["prepass_overflow_rate", "loss",
+                                  "update_skipped",
+                                  "mean_num_samples_per_ray"],
+                             torch.tensor([1.0, 0.5, 0.0, 10.0]), None)
+    assert not trainer.prepass_on  # 1.0 x 1.25 does not fit
+    path = trainer.save_checkpoint(0)
+    trainer._prepass_fits, trainer.prepass_on = 99, True
+    assert trainer.resume(path) == 0 and not trainer.prepass_on

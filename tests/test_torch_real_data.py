@@ -20,6 +20,7 @@ from deblur_e_nerf_tpu_torch.training import step as tstep
 from deblur_e_nerf_tpu_torch.training.trainer import Trainer
 from deblur_e_nerf_tpu_torch.utils.config import ConfigDict
 from test_torch_train_step import (_assert_port_step_matches,
+                                   _composite_float64,
                                    _hand_jax_samples_to_port, _jax_step)
 
 EDS_TRAIN = "configs/train/07_ziggy_and_fuzz_hdr.yaml"
@@ -124,34 +125,6 @@ def test_eds_step_matches_jax_on_its_sample_set(dataset, eds_jax,
     for name in ("tau_mil_it_eff_prod", "A_amp_inv", "A_loop_inv", "tau_out",
                  "tau_sf", "tau_diff"):
         assert float(got[f"pixel_bandwidth.{name}_raw"].grad.abs()) > 0, name
-
-
-def _composite_float64(sigma, rgb, samples, n_rays, rc, render_bkgd=None):
-    """The composite in float64, ray by ray over the march's ray ids (the
-    samples of a ray in march order): the reference the port's composite
-    is held to on the EDS config's long rays."""
-    sigma, rgb = sigma.double(), rgb.double()
-    dt, t_mid = samples.dt.double(), samples.t_mid.double()
-    colors, opacities, depths, n_live = [], [], [], 0
-    for r in range(n_rays):
-        idx = torch.nonzero(samples.ray_idx == r)[:, 0]
-        sdt = torch.clamp(sigma[idx] * dt[idx], max=25.0)
-        alpha = 1.0 - torch.exp(-sdt)
-        if rc.alpha_thre > 0:
-            keep = alpha >= rc.alpha_thre
-            sdt, alpha = sdt * keep, alpha * keep
-        trans = torch.exp(-(torch.cumsum(sdt, 0) - sdt))
-        live = trans > rc.early_stop_eps
-        weights = trans * alpha * live
-        colors.append((weights[:, None] * rgb[idx]).sum(0))
-        opacities.append(weights.sum())
-        depths.append((weights * t_mid[idx]).sum())
-        n_live += int(live.sum())
-    colors, opacities = torch.stack(colors), torch.stack(opacities)
-    if render_bkgd is not None:
-        colors = colors + render_bkgd * (1.0 - opacities[:, None])
-    return (colors.float(), opacities.float(), torch.stack(depths).float(),
-            torch.tensor(n_live))
 
 
 @pytest.mark.parametrize("it_sample_size,active", [(4, 8), (30, 2)])

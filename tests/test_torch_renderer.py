@@ -136,6 +136,101 @@ def test_march_cone_angle_case_reaches_the_geometric_timeline():
     assert float(b.dt[live].max()) > 5 * rc_t.render_step_size
 
 
+def _long_ray_samples(n_rays, lo, hi, tail, seed):
+    """A ray-contiguous buffer of `n_rays` rays of lo..hi-1 samples each
+    (dt ~ U[0.005, 0.02]), then `tail` empty slots."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(lo, hi, n_rays)
+    n = int(counts.sum())
+    dt = np.concatenate([rng.uniform(0.005, 0.02, n), np.zeros(tail)])
+    return tr.RaySamples(
+        t_mid=torch.tensor(rng.uniform(1.0, 5.0, n + tail),
+                           dtype=torch.float32),
+        dt=torch.tensor(dt, dtype=torch.float32),
+        ray_idx=torch.tensor(np.concatenate([
+            np.repeat(np.arange(n_rays), counts), np.full(tail, n_rays)])),
+        counts=torch.tensor(counts),
+        offsets=torch.tensor(np.cumsum(counts) - counts),
+        num_samples=torch.tensor(n), num_blocks=torch.tensor(0),
+        num_superblocks=None,
+        coarse_complete=torch.ones(n_rays, dtype=torch.bool))
+
+
+def _composite_grads(samples, n_rays, sigma, rgb, w, rc):
+    sig = torch.tensor(sigma, requires_grad=True)
+    col = torch.tensor(rgb, requires_grad=True)
+    c, op, dep, n = tr.composite(sig, col, samples, n_rays, rc)
+    wt = torch.from_numpy(w)
+    ((c * wt[:, :3]).sum() + (op * wt[:, 3]).sum()
+     + (dep * wt[:, 4]).sum()).backward()
+    return (c.detach(), op.detach(), dep.detach(), n), sig.grad, col.grad
+
+
+def test_optical_depth_gradient_is_identical_across_thread_counts():
+    """ROADMAP Queue C 8: composite's backward on a buffer of 2^17 slots
+    (~82k samples of 400 rays, then empty slots), where a gather's
+    accumulating index backward takes torch's parallel CPU path, gives
+    bit-identical gradients at 1 and 4 intra-op threads (tolerance 0),
+    and again at 4."""
+    R, K1 = 400, 1 << 17
+    samples = _long_ray_samples(R, 150, 260, 0, seed=11)
+    n = int(samples.num_samples)
+    samples = _long_ray_samples(R, 150, 260, K1 - n, seed=11)
+    assert samples.dt.shape[0] == K1 and n > 1 << 16
+    rng = np.random.default_rng(12)
+    sigma = rng.uniform(0, 3, K1).astype(np.float32)
+    rgb = rng.uniform(0, 1, (K1, 3)).astype(np.float32)
+    w = rng.normal(size=(R, 5)).astype(np.float32)
+    _, rc = make_rcs()
+    threads = torch.get_num_threads()
+    results = []
+    try:
+        for t in (1, 4, 4):
+            torch.set_num_threads(t)
+            results.append(_composite_grads(samples, R, sigma, rgb, w, rc))
+    finally:
+        torch.set_num_threads(threads)
+    (out1, gs1, gc1) = results[0]
+    assert float(gs1.abs().max()) > 0
+    for out, gs, gc in results[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out[:3], out1[:3]))
+        assert torch.equal(gs, gs1) and torch.equal(gc, gc1)
+
+
+def test_composite_on_long_dense_rays_matches_a_float64_composite():
+    """ROADMAP Queue C 7: on rays of 500-700 samples of a dense field (the
+    optical depth reaches the early stop on some, up to ~9), composite's
+    value and gradient against the same composite evaluated wholly in
+    float64, ray by ray (`_composite_float64`, the EDS step's oracle).
+    Tolerances: colors, opacities and depths (up to 5) within 1e-5 (the
+    float32 weights over ~600 samples; 9.5e-7 measured); the density
+    and color gradients within 1e-5 of their largest entry (4e-7 and 7e-7
+    measured)."""
+    from test_torch_train_step import _composite_float64
+
+    R = 180
+    samples = _long_ray_samples(R, 500, 700, 5, seed=21)
+    K1 = samples.dt.shape[0]
+    rng = np.random.default_rng(22)
+    sigma = rng.uniform(0, 2.5, K1).astype(np.float32)
+    rgb = rng.uniform(0, 1, (K1, 3)).astype(np.float32)
+    w = rng.normal(size=(R, 5)).astype(np.float32)
+    _, rc = make_rcs()
+    got, gs, gc = _composite_grads(samples, R, sigma, rgb, w, rc)
+    sig64 = torch.tensor(sigma, dtype=torch.float64, requires_grad=True)
+    col64 = torch.tensor(rgb, dtype=torch.float64, requires_grad=True)
+    c, op, dep, n = _composite_float64(sig64, col64, samples, R, rc)
+    wt = torch.from_numpy(w).double()
+    ((c.double() * wt[:, :3]).sum() + (op.double() * wt[:, 3]).sum()
+     + (dep.double() * wt[:, 4]).sum()).backward()
+    assert int(got[3]) == int(n) < int(samples.num_samples)
+    for a, b in zip(got[:3], (c, op, dep)):
+        assert float((a.double() - b.detach().double()).abs().max()) <= 1e-5
+    for a, b in ((gs, sig64.grad), (gc, col64.grad)):
+        scale = float(b.abs().max())
+        assert float((a.double() - b).abs().max()) <= 1e-5 * scale
+
+
 def test_long_cone_angle_rays_composite_against_float64():
     """Names a divergence (ROADMAP Queue C 1): on the EDS configs' long
     cone-angle rays (sphere contraction, far 13, ~600 samples a ray) with
@@ -244,15 +339,21 @@ def test_composite_and_its_gradient_match_jax(alpha_thre):
     st = _samples_to_torch(s)
     _, sdt, _ = tr._sigma_dt_alpha(sig_t.detach(), st, R, rc_t)
     safe = st.ray_idx.clamp(0, R - 1)
-    exact = tr._excl_optical_depth(sdt.double(), st.offsets, safe)
-    port = tr._excl_optical_depth(sdt.double(), st.offsets, safe).float()
-    ulp = np.spacing(np.abs(exact.numpy()).astype(np.float32))
-    assert (np.abs(port.double().numpy() - exact.numpy()) <= ulp).all()
+    port = tr._optical_depth(sdt, st, safe)
+    exact = np.zeros(sdt.shape[0])
+    sdt64 = sdt.double().numpy()
+    for start, count in zip(st.offsets.tolist(), st.counts.tolist()):
+        seg = sdt64[start:start + count]
+        exact[start:start + count] = np.cumsum(seg) - seg
+    valid = (st.ray_idx < R).numpy()
+    ulp = np.spacing(np.abs(exact).astype(np.float32))
+    assert port.dtype == torch.float32
+    assert (np.abs(port.double().numpy() - exact) <= ulp)[valid].all()
     assert int(n) == int(out_j[3])
-    # the gradient runs through the float32 global cumsum in both
-    # packages (by design); its transpose sums the cotangents of the whole
-    # buffer in another order, so an element's error scales with eps x
-    # the buffer's running total: 3e-4 of the largest gradient here
+    # the JAX gradient runs through a float32 global cumsum, whose
+    # transpose leaves an element an error of eps x the buffer's running
+    # total (3e-4 of the largest gradient here); the port's runs in
+    # float64 (ROADMAP Queue C 7)
     for got, want in ((sig_t.grad, gs_j), (col_t.grad, gc_j)):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
@@ -489,6 +590,50 @@ def test_prepass_render_matches_jax(case):
     assert int(pt.num_samples) == int(a.num_samples)
 
 
+def test_prepass_overflow_on_a_fresh_field_names_the_divergence():
+    """ROADMAP Queue C 9, a divergence from the JAX package (Queue C 1): on
+    one marched set at div 2 with a field that culls nothing (a fresh
+    field's case; the thin field of PREPASS_CASES), the live demand
+    overflows the K / 2 buffer, and the JAX package's fixed buffer drops
+    the tail rays (ray_complete False). The port's trainer renders such a
+    step without the prepass (no density function): every ray complete,
+    the outputs within rtol 1e-5 and atol 1e-6 of the JAX render without
+    the prepass, and the same live demand in prepass_overflow_rate."""
+    rc_j, rc_t = make_rcs(early_stop_eps=1e-6, sample_budget=4096,
+                          prepass_div=2)
+    o, d, mask = rays(11, 32)
+    binary = np.ones(RES ** 3, bool)
+    key = jax.random.PRNGKey(0)
+    jf, tf = _scaled_fields(1e-2)
+
+    def jax_render(rc, density):
+        return jax.jit(lambda b, o, d, m: jr.render_rays(
+            jf, b, o, d, m, key, rc, density_only_fn=density))(
+            jnp.asarray(binary), jnp.asarray(o), jnp.asarray(d),
+            jnp.asarray(mask))
+
+    out_j = jax_render(rc_j, lambda x: jf(x, None)[1])
+    full_j = jax_render(dataclasses.replace(rc_j, prepass_div=0), None)
+    jitter = torch.tensor(np.asarray(jax.random.uniform(key, (len(o),),
+                                                        jnp.float32)))
+    out_t = tr.render_rays(tf, torch.from_numpy(binary), torch.from_numpy(o),
+                           torch.from_numpy(d), torch.from_numpy(mask),
+                           jitter, rc_t, density_only_fn=None)
+    marched = int(out_t["num_marched_samples"])
+    assert rc_t.prepass_budget < marched <= rc_t.sample_budget
+    assert int(out_j["num_marched_samples"]) == marched
+    assert float(out_j["prepass_overflow_rate"]) > 1.0
+    assert not np.asarray(out_j["ray_complete"])[mask].all()
+    assert float(out_t["prepass_ran"]) == 0.0
+    assert out_t["ray_complete"].numpy()[mask].all()
+    assert float(out_t["prepass_overflow_rate"]) \
+        == float(out_j["prepass_overflow_rate"])
+    for k in ("radiance", "opacity", "depth"):
+        np.testing.assert_allclose(out_t[k].detach().numpy(),
+                                   np.asarray(full_j[k]), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+
+
 def test_occlusion_prepass_matches_full_render():
     """The port's prepass against its own full render, the JAX package's
     exactness case (its rays, no jitter): on the soft gaussian (div 2) and
@@ -496,11 +641,12 @@ def test_occlusion_prepass_matches_full_render():
     within rtol 1e-5 and atol 1e-6; the gradient of a field scale within
     1e-5 relative on the JAX case (the gaussian at div 2, the loss the sum
     of the radiance). With the field's outputs in float64 (the same
-    renderer code without the float32 gradient path of the optical depth,
-    a reversed cumsum over the whole buffer, which sums in another order
-    once the culled samples are gone), the scale's gradient within 1e-9
-    relative on both fields. Without a density function the prepass does
-    not run."""
+    renderer code, whose float32 sums, in another order once the culled
+    samples are gone, then run in float64), the scale's gradient within
+    1e-9 relative on both fields. Without a density function the prepass
+    does not run (`prepass_ran` 0): the radiance is the un-prepassed
+    render's, and `prepass_overflow_rate` reports the live demand over the
+    prepass buffer (ROADMAP Queue C 9)."""
     rng = np.random.default_rng(11)
     o = rng.uniform(-3, -2, (16, 3)).astype(np.float32)
     d = rng.uniform(-0.5, 0.5, (16, 3)) - o
@@ -544,7 +690,10 @@ def test_occlusion_prepass_matches_full_render():
     out_n, _ = run(2, 1.0, with_density=False)
     np.testing.assert_array_equal(out_n["radiance"].detach().numpy(),
                                   run(0, 1.0)[0]["radiance"].detach().numpy())
-    assert float(out_n["prepass_overflow_rate"]) == 0.0
+    assert float(out_n["prepass_ran"]) == 0.0
+    assert float(out_p["prepass_ran"]) == 1.0
+    assert float(out_n["prepass_overflow_rate"]) == int(
+        out_n["num_rendering_samples"]) / (4096 // 2)
 
 
 def _small_ngp_field():
