@@ -96,7 +96,26 @@ Phases, each printing a start and an end line with elapsed seconds:
      QUALITY_REDUCED says: epoch 0, then a fresh invocation resuming its
      checkpoint for epoch 1 and the final rows; each step's launches
      checked for its path and its prepass overflow, the CSV's two rows,
-     the flat-field PSNR and every row of metrics.yaml.
+     the flat-field PSNR and every row of metrics.yaml;
+ 10. data parallelism: the flagship at full width on phase 4's dataset
+     (sample budget 1.5 K, so that no step truncates a ray) through
+     `python -m deblur_e_nerf_tpu_torch train ... --mesh 2 --dist-backend
+     gloo` (both ranks on this card; NCCL takes one card per rank): 3
+     steps with the trainer's replica check (each rank's digest of its
+     parameters, optimizer moments and occupancy grid, equal across
+     ranks at every step), rank 0 evaluating 1 view and checkpointing
+     every step; each rank's loss, active size, prepass_ran, launches,
+     step time, peak memory and gradient all-reduce bytes and time
+     printed (a step hook, MeshStepProbe); the ray generation of the
+     step's shapes bit-equal over the ranks' shares; a single-process
+     trainer over the same global batches takes each step from the
+     mesh's own checkpoint of the step before: the active sizes, each
+     rank's launches, the loss, every gradient and every parameter; a
+     second invocation resuming the last checkpoint under the mesh for
+     one step, against a single process resuming the same file (the
+     digest bit for bit, then the same checks); `--mesh 2` without
+     --dist-backend must raise on one card (NCCL), and runs one rank per
+     card where there are 2.
 
 Any failed check raises and the script exits non-zero. The line before
 the last is a JSON object describing each kernel; the last line is
@@ -2659,6 +2678,580 @@ def phase_quality(torch, tmp, card, device="cuda"):
             raise AssertionError(f"quality: {name} never launched")
     return launches
 
+# phase 10: the flagship data parallel over MESH_WORLD ranks, through the
+# command line, against a single-process trainer over the same global
+# batches
+MESH_WORLD = 2
+MESH_STEPS = 3
+MESH_BUDGET_S = 480  # the phase's own limit, inside BUDGET_S
+# The phase's sample budget: the flagship's K x MESH_BUDGET_HEADROOM. The
+# mesh equals the single process only where no buffer overflows: a rank
+# whose K / W share overflows truncates its own tail events, the single
+# process the global tail (ROADMAP C1; tests/test_torch_parallel.py shows
+# it on the CPU). The batch controller sizes a step to fill K with the
+# last step's demand, so at the flagship's K its steps 1 and 2 truncated
+# 4-7% of their rays on an H100; with 1.5 K none may truncate, and a step
+# that does fails the phase.
+MESH_BUDGET_HEADROOM = 1.5
+# The mesh against the single process, step by step: before step k the
+# single process loads the mesh's checkpoint of step k - 1 (its replica
+# digest must equal the ranks' bit for bit) and keeps its own batcher,
+# generator and batch controller, which run in lockstep with the ranks';
+# so every step starts from equal states on the same global batch and
+# draws, and each is held to the same tolerances:
+# - the loss: MESH_LOSS_RTOL relative;
+# - the gradients, read from Adam's first moments (g = (m - b1 m_prev) /
+#   (1 - b1) with m_prev equal): MESH_GRAD_ATOL of each tensor's largest
+#   entry;
+# - the parameters after the step: the JAX package's sharded-vs-single
+#   rtol MESH_PARAM_RTOL / atol MESH_PARAM_ATOL, except at entries where
+#   Adam itself moves two gradients within MESH_GRAD_ATOL further apart
+#   (its eps makes lr g / (|g| + eps) ~ lr sign(g) near g = 0: the
+#   caveat on Adam's first step). Those entries are counted and printed
+#   with the largest gradient among them, and each must differ by exactly
+#   what Adam makes of the two steps' moments (computed here in float64),
+#   within the same rtol / atol.
+MESH_LOSS_RTOL = 1e-5
+MESH_GRAD_ATOL = 1e-4
+MESH_PARAM_RTOL, MESH_PARAM_ATOL = 1e-4, 1e-6
+
+
+def run_cli(argv, label, deadline):
+    """python -m deblur_e_nerf_tpu_torch <argv> from this checkout, in its
+    own process group, which is killed at `deadline` (time.monotonic())
+    or if this script stops; returns (returncode, stdout, stderr)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deblur_e_nerf_tpu_torch", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(
+            timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{label}: still running at the phase's "
+                             "limit") from None
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    return proc.returncode, out, err
+
+
+def mesh_config(config, steps, evaluate, lpips_weights_path=None):
+    """`config` trained for `steps` epochs of one step each, checkpointed
+    after every step (all kept), evaluated after the last if `evaluate`,
+    with the trainer's replica check."""
+    from deblur_e_nerf_tpu_torch.utils.config import ConfigDict
+
+    config = ConfigDict.from_dict(config.to_dict())
+    config.trainer.max_epochs = steps
+    config.trainer.limit_train_batches = 1
+    config.trainer.check_val_every_n_epoch = steps if evaluate else 10**9
+    config.trainer.replica_check = True
+    config.checkpoint = {"monitor": None, "mode": "min", "save_top_k": -1,
+                         "every_n_epochs": 1}
+    config.metric.lpips_weights_path = lpips_weights_path
+    return config
+
+
+def _rank_lines(log, world, label, n_lines):
+    """Each rank's replica-check lines; their digests must agree line by
+    line."""
+    lines = []
+    for rank in range(world):
+        with open(f"{log}/rank_{rank}.jsonl") as f:
+            lines.append([json.loads(line) for line in f])
+    if any(len(rank_lines) != n_lines for rank_lines in lines):
+        raise AssertionError(f"{label}: {[len(r) for r in lines]} replica "
+                             f"lines, want {n_lines} on each rank")
+    for i in range(n_lines):
+        digests = {rank_lines[i]["digest"] for rank_lines in lines}
+        if len(digests) != 1:
+            raise AssertionError(f"{label}: the replicas' digests differ "
+                                 f"at line {i}: {digests}")
+    return lines
+
+
+class MeshStepProbe:
+    """The step hook each rank of phase 10 runs (`--step-hook
+    chip_smoke:MeshStepProbe`): per micro-step, the kernels' launches,
+    the step's time and peak device memory between device
+    synchronizations, the marched samples, sample overflow and truncated
+    rays, and the gradient all-reduce's bytes and time (its call wrapped
+    between synchronizations), one JSON line per step in
+    <log dir>/probe_<rank>.jsonl."""
+
+    def __init__(self, trainer):
+        import torch
+
+        self.torch = torch
+        self.device = trainer.device
+        rank = 0 if trainer.mesh is None else trainer.mesh.rank
+        self.path = os.path.join(trainer.log_dir, f"probe_{rank}.jsonl")
+        self.allreduce = (None, None)
+        collectives = trainer.collectives
+        if collectives is not None:
+            all_reduce_grads = collectives.all_reduce_grads
+
+            def timed(params):
+                params = list(params)
+                self._sync()
+                t0 = time.perf_counter()
+                all_reduce_grads(params)
+                self._sync()
+                self.allreduce = (
+                    sum(p.grad.numel() * p.grad.element_size()
+                        for p in params if p.grad is not None),
+                    (time.perf_counter() - t0) * 1e3)
+
+            collectives.all_reduce_grads = timed
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            self.torch.cuda.synchronize(self.device)
+
+    def before(self, trainer):
+        self._sync()
+        if self.device.type == "cuda":
+            self.torch.cuda.reset_peak_memory_stats(self.device)
+        self.launches = read_launches()
+        self.t0 = time.perf_counter()
+
+    def after(self, trainer, metrics):
+        self._sync()
+        ms = (time.perf_counter() - self.t0) * 1e3
+        peak = (self.torch.cuda.max_memory_allocated(self.device) / 2**30
+                if self.device.type == "cuda" else None)
+        launches = {k: v - self.launches[k]
+                    for k, v in read_launches().items()}
+        with open(self.path, "a") as f:
+            f.write(json.dumps({
+                "step": trainer.global_step - 1, "launches": launches,
+                "step_ms": ms, "peak_memory_gib": peak,
+                "num_marched_samples": int(metrics["num_marched_samples"]),
+                "sample_overflow_rate": float(
+                    metrics["sample_overflow_rate"]),
+                "ray_truncation_rate": float(
+                    metrics["ray_truncation_rate"]),
+                "allreduce_bytes": self.allreduce[0],
+                "allreduce_ms": self.allreduce[1]}) + "\n")
+
+
+def _probe_lines(log, world, label, n_lines):
+    """Each rank's MeshStepProbe lines."""
+    lines = []
+    for rank in range(world):
+        with open(f"{log}/probe_{rank}.jsonl") as f:
+            lines.append([json.loads(line) for line in f])
+    if any(len(rank_lines) != n_lines for rank_lines in lines):
+        raise AssertionError(f"{label}: {[len(r) for r in lines]} probe "
+                             f"lines, want {n_lines} on each rank")
+    return lines
+
+
+def ray_split_mismatches(torch, consts, events, S, R, world, seed=0):
+    """Ray generation (`trajectory.interpolate_pose`, then
+    `nerf_model.pixel_params_to_ray`) at a step's shapes, (S, R x events)
+    timestamps over the trajectory's timeline, for the whole batch and
+    for each of `world` ranks' shares of its events (as
+    `parallel.data_parallel.shard_draws` splits them): how many rays'
+    positions, orientations and directions are not bit-equal between the
+    two. A data-parallel rank computes its share alone, so every count
+    must be 0."""
+    from deblur_e_nerf_tpu_torch.models import nerf_model
+    from deblur_e_nerf_tpu_torch.models import trajectory as trajectory_lib
+
+    trajectory = consts["trajectory"]
+    device = trajectory.T_wc_timestamp.device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    line = trajectory.T_wc_timestamp
+    first, last = int(line[0]), int(line[-1])
+    shape = (S, R, events)
+    ts = first + (torch.rand(shape, generator=gen, device=device,
+                             dtype=torch.float64)
+                  * (last - first)).to(torch.int64)
+    ts_delta = torch.rand(shape, generator=gen, device=device) - 0.5
+    pixel = torch.rand((R, events, 2), generator=gen, device=device) * 256
+
+    def rays(rows):
+        t = ts[:, :, rows].reshape(S, -1)
+        pos, orient = trajectory_lib.interpolate_pose(
+            trajectory, t, ts_delta[:, :, rows].reshape(S, -1))
+        p = pixel[:, rows].reshape(-1, 2).expand(S, -1, 2)
+        _, direction = nerf_model.pixel_params_to_ray(
+            consts["train_intrinsics_inv"], p, pos, orient)
+        return [x.reshape(S, R, -1, *x.shape[2:])
+                for x in (pos, orient, direction)]
+
+    whole = rays(slice(None))
+    share = events // world
+    counts = {"position": 0, "orientation": 0, "direction": 0}
+    for r in range(world):
+        rows = slice(r * share, (r + 1) * share)
+        for name, got, want in zip(counts, rays(rows), whole):
+            differ = got != want[:, :, rows]
+            counts[name] += int(differ.reshape(S, R, share, -1)
+                                .any(-1).sum())
+    return counts
+
+
+def _load_replica(torch, trainer, path):
+    """Load a checkpoint's replicated state (parameters, optimizer,
+    occupancy grid, EMA) into `trainer`, keeping its batcher, generator
+    and batch controller where they are."""
+    from deblur_e_nerf_tpu_torch.models import occupancy
+    from deblur_e_nerf_tpu_torch.training import checkpoint as ckpt_lib
+
+    restored = ckpt_lib.restore(path, trainer.device)
+    for name, child in trainer.params.named_children():
+        child.load_state_dict(restored["params"][name])
+    trainer.optimizer.load_state_dict(restored["opt_state"])
+    occ = restored["occ_state"]
+    trainer.occ_state = occupancy.OccupancyGridState(
+        occs=occ["occs"].to(torch.float32),
+        binary=occ["binary"].to(torch.bool))
+    if trainer.ema_params is not None:
+        source = restored.get("ema_params") or restored["params"]
+        for name, child in trainer.ema_params.named_children():
+            child.load_state_dict(source[name])
+
+
+def _host_state(trainer):
+    """The optimizer's moments and count, the parameters and each trained
+    parameter's lr x schedule, on the host."""
+    opt = trainer.optimizer.state_dict()
+    o = trainer.optimizer
+    sched = o.gamma ** int((o.count >= o.milestones).sum())
+    return {
+        "m": {n: t.detach().cpu().clone() for n, t in opt["m"].items()},
+        "v": {n: t.detach().cpu().clone() for n, t in opt["v"].items()},
+        "count": int(o.count),
+        "params": {name: {k: v.detach().cpu().clone()
+                          for k, v in child.state_dict().items()}
+                   for name, child in trainer.params.named_children()},
+        "lr": {n: lr * sched for _, lr, _, named in o.groups
+               for n, _ in named},
+    }
+
+
+def _step_against_single(torch, label, step, mesh_ckpt, before, after):
+    """Step `step` of the mesh (its checkpoint `mesh_ckpt`) against the
+    single process's step from the same state (`before`, `after`: its
+    `_host_state` around the step): the gradients and the parameters, at
+    the tolerances stated above MESH_LOSS_RTOL."""
+    from deblur_e_nerf_tpu_torch.training import checkpoint as ckpt_lib
+    from deblur_e_nerf_tpu_torch.training.optim import B1, B2, EPS
+
+    mesh = ckpt_lib.restore(mesh_ckpt, "cpu")
+    m_mesh, v_mesh = mesh["opt_state"]["m"], mesh["opt_state"]["v"]
+    t = before["count"] + 1
+    bc1, bc2 = 1.0 - B1 ** t, 1.0 - B2 ** t
+    worst, worst_name, off, total, off_grad = 0.0, None, 0, 0, 0.0
+
+    def update(m, v):
+        return (m / bc1) / (torch.sqrt(v / bc2) + EPS)
+
+    for name, m_prev in before["m"].items():
+        m_prev = m_prev.double()
+        grad = (after["m"][name].double() - B1 * m_prev) / (1.0 - B1)
+        grad_mesh = (m_mesh[name].double() - B1 * m_prev) / (1.0 - B1)
+        scale = float(grad.abs().max())
+        err = float((grad_mesh - grad).abs().max())
+        if not err <= MESH_GRAD_ATOL * scale:
+            raise AssertionError(
+                f"{label} step {step}: gradient {name} off by {err:.3e} of "
+                f"its largest entry {scale:.3e} (tolerance "
+                f"{MESH_GRAD_ATOL:.0e} of it)")
+        if scale and err / scale >= worst:
+            worst, worst_name = err / scale, name
+        component, key = name.split(".", 1)
+        got = mesh["params"][component][key].double()
+        want = after["params"][component][key].double()
+        limit = MESH_PARAM_ATOL + MESH_PARAM_RTOL * want.abs()
+        far = (got - want).abs() > limit
+        total += want.numel()
+        if not bool(far.any()):
+            continue
+        # what Adam makes of the two steps' moments at those entries
+        moved = -before["lr"][name] * (
+            update(m_mesh[name].double()[far], v_mesh[name].double()[far])
+            - update(after["m"][name].double()[far],
+                     after["v"][name].double()[far]))
+        residual = ((got - want)[far] - moved).abs()
+        if bool((residual > limit[far]).any()):
+            raise AssertionError(
+                f"{label} step {step}: parameter {name} off by "
+                f"{float((got - want)[far].abs().max()):.3e} where Adam "
+                f"accounts for {float(moved.abs().max()):.3e} of it")
+        off += int(far.sum())
+        off_grad = max(off_grad, float(grad[far].abs().max()))
+    print(f"{label} step {step}: gradients within {worst:.3e} of each "
+          f"tensor's largest entry (worst {worst_name}; tolerance "
+          f"{MESH_GRAD_ATOL:.0e}); parameters: {off} of {total} trained "
+          f"entries off rtol {MESH_PARAM_RTOL:.0e} / atol "
+          f"{MESH_PARAM_ATOL:.0e}, each by what Adam makes of its "
+          f"gradients, the largest of them {off_grad:.3e}", flush=True)
+    return worst
+
+
+def _single_step(torch, trainer, device):
+    """One step of the single-process trainer, read at once (each step
+    of the mesh's run is an epoch, whose end reads its metrics)."""
+    _sync(torch, device)
+    reset_launches()
+    t0 = time.perf_counter()
+    m = trainer.train_step()
+    loss = float(m["loss"])
+    _sync(torch, device)
+    ms = (time.perf_counter() - t0) * 1e3
+    trainer._flush_pending_metrics()
+    return {"loss": loss, "batch_size": int(m["batch_size"]),
+            "launches": read_launches(), "ms": ms,
+            "marched": int(m["num_marched_samples"]),
+            "overflow": float(m["sample_overflow_rate"]),
+            "truncated": float(m["ray_truncation_rate"])}
+
+
+def _check_step(label, step, ranks, probes, single):
+    """A mesh step's records (each rank's replica line and probe line)
+    against the single process's: active sizes, launches, no truncated
+    ray, the loss."""
+    for rank, (line, probe) in enumerate(zip(ranks, probes)):
+        if line["batch_size"] != single["batch_size"]:
+            raise AssertionError(f"{label} rank {rank} step {step}: active "
+                                 f"{line['batch_size']}, the single "
+                                 f"process's {single['batch_size']}")
+        if probe["launches"] != single["launches"]:
+            raise AssertionError(
+                f"{label} rank {rank} step {step}: launches "
+                f"{probe['launches']}, the single process's "
+                f"{single['launches']}")
+        if probe["ray_truncation_rate"] or single["truncated"]:
+            raise AssertionError(
+                f"{label} step {step}: rays truncated (mesh "
+                f"{probe['ray_truncation_rate']}, single process "
+                f"{single['truncated']}): each rank drops its own tail "
+                "events, the single process the global tail (ROADMAP C1), "
+                "so the steps cannot be compared; raise the sample budget")
+    loss = ranks[0]["loss"]
+    err = abs(loss - single["loss"]) / abs(single["loss"])
+    print(f"{label} step {step}: loss {loss:.8f}, single process "
+          f"{single['loss']:.8f} (relative difference {err:.3e}, "
+          f"tolerance {MESH_LOSS_RTOL:.0e})", flush=True)
+    if not err <= MESH_LOSS_RTOL:
+        raise AssertionError(f"{label} step {step}: the losses disagree")
+
+
+def mesh_vs_single(torch, tmp, config, label, world=MESH_WORLD,
+                   backend="gloo", steps=MESH_STEPS, capacity=8192,
+                   sample_budget=None, evaluate=True, resume=True,
+                   lpips_weights_path=None, deadline=None, device="cuda"):
+    """`steps` steps of `config` (no gradient accumulation) through
+    `python -m deblur_e_nerf_tpu_torch train --mesh world --dist-backend
+    backend --step-hook chip_smoke:MeshStepProbe` (rank 0 evaluates 1
+    view at the end if `evaluate`, and checkpoints every step), checked
+    against a single-process trainer on the same device over the same
+    global batches (`interleave=world`): the replicas' digests at every
+    step, and each step from the mesh's own state before it (see the
+    tolerances above MESH_LOSS_RTOL): active sizes, launches, loss,
+    gradients and parameters. The ray generation of the step's shapes
+    must be bit-equal over the ranks' shares (`ray_split_mismatches`).
+    With `resume`, a second invocation resumes the last checkpoint under
+    the mesh for one step, and a single process resuming the same file
+    must have the ranks' digest bit for bit and take the same step.
+    `device` "cpu" runs the same on the CPU (gloo). Returns {"rank r":
+    launches over the first invocation}."""
+    from deblur_e_nerf_tpu_torch.parallel import data_parallel
+    from deblur_e_nerf_tpu_torch.training import step as step_lib
+    from deblur_e_nerf_tpu_torch.training.trainer import Trainer
+    from deblur_e_nerf_tpu_torch.utils.config import save_config
+
+    if int(config.trainer.get("accumulate_grad_batches") or 1) != 1:
+        raise ValueError("mesh_vs_single reads each step's gradient from "
+                         "Adam's moments: no gradient accumulation")
+    deadline = deadline or time.monotonic() + MESH_BUDGET_S
+    cfg = mesh_config(config, steps, evaluate, lpips_weights_path)
+    path, log = f"{tmp}/{label}.yaml", f"{tmp}/log_{label}_mesh"
+    save_config(cfg, path)
+    argv = ["train", path, "--mesh", str(world), "--dist-backend", backend,
+            "--batch-capacity", str(capacity), "--max-eval-images", "1",
+            "--dist-timeout", "300", "--device", device,
+            "--step-hook", "chip_smoke:MeshStepProbe"]
+    if sample_budget:
+        argv += ["--sample-budget", str(sample_budget)]
+    t0 = time.perf_counter()
+    rc, out, err = run_cli(argv + ["--log-dir", log], label, deadline)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{label}: the mesh run failed ({rc}):\n"
+                             f"{out[-2000:]}\n{err[-4000:]}")
+    print(f"{label}: {world} ranks over {backend}, {steps} steps"
+          f"{', evaluation and' if evaluate else ','} checkpoints in "
+          f"{wall:.2f} s of command; rank 0 printed: "
+          + " | ".join(line for line in out.splitlines()
+                       if line.startswith(("epoch", "training"))),
+          flush=True)
+    if evaluate and "epoch" not in out:
+        raise AssertionError(f"{label}: rank 0 did not evaluate")
+    ranks = _rank_lines(log, world, label, steps + 1)
+    probes = _probe_lines(log, world, label, steps)
+    route = " through the host, not NCCL" if backend == "gloo" else ""
+    for rank in range(world):
+        for line, probe in zip(ranks[rank][1:], probes[rank]):
+            peak = probe["peak_memory_gib"] or 0.0
+            print(f"{label} rank {rank} step {line['step']}: loss "
+                  f"{line['loss']:.8f}, active {line['batch_size']} "
+                  f"(this rank {line['local_batch_size']}), prepass_ran "
+                  f"{line['prepass_ran']}, marched samples "
+                  f"{probe['num_marched_samples']}, sample overflow "
+                  f"{probe['sample_overflow_rate']:.4f}, truncated rays "
+                  f"{probe['ray_truncation_rate']:.4f}, launches "
+                  f"{probe['launches']}, digest {line['digest']}, step "
+                  f"{probe['step_ms']:.1f} ms, peak device memory "
+                  f"{peak:.2f} GiB, gradient all-reduce "
+                  f"{probe['allreduce_bytes']} bytes in "
+                  f"{probe['allreduce_ms']:.1f} ms ({backend}{route})",
+                  flush=True)
+
+    single_cfg = mesh_config(config, steps, evaluate=False)
+    single_cfg.trainer.replica_check = False
+    trainer = Trainer(single_cfg, f"{tmp}/log_{label}_single",
+                      batch_capacity=capacity, sample_budget=sample_budget,
+                      device=device, interleave=world)
+    sc = trainer.bundle.static_config
+    mismatches = ray_split_mismatches(
+        torch, trainer.bundle.consts, capacity,
+        sc.it_sample_size if sc.pixel_bandwidth_enabled else 1,
+        step_lib.n_render_slices(sc), world)
+    print(f"{label}: ray generation at the step's shapes, the ranks' "
+          f"shares against the whole batch: {mismatches} rays not "
+          "bit-equal", flush=True)
+    if any(mismatches.values()):
+        raise AssertionError(f"{label}: ray generation depends on the "
+                             f"batch it is computed in: {mismatches}")
+    ckpt = f"{log}/checkpoints/epoch_{{:04d}}"
+    for step in range(steps):
+        if step:
+            _load_replica(torch, trainer, ckpt.format(step - 1))
+            digest = int(data_parallel.digest(trainer.replica_tensors()))
+            if digest != ranks[0][step]["digest"]:
+                raise AssertionError(
+                    f"{label}: the single process loading the mesh's "
+                    f"checkpoint of step {step - 1} has digest {digest}, "
+                    f"the ranks' {ranks[0][step]['digest']}")
+        before = _host_state(trainer)
+        single = _single_step(torch, trainer, device)
+        print(f"{label} single process step {step}: loss "
+              f"{single['loss']:.8f}, active {single['batch_size']}, "
+              f"marched samples {single['marched']}, sample overflow "
+              f"{single['overflow']:.4f}, truncated rays "
+              f"{single['truncated']:.4f}, launches {single['launches']}, "
+              f"step {single['ms']:.1f} ms", flush=True)
+        _check_step(label, step, [r[step + 1] for r in ranks],
+                    [p[step] for p in probes], single)
+        _step_against_single(torch, label, step, ckpt.format(step), before,
+                             _host_state(trainer))
+    del trainer
+    _empty_cache(torch, device)
+    launches = {f"rank {r}": {k: sum(line["launches"][k]
+                                     for line in rank_probes)
+                              for k in rank_probes[0]["launches"]}
+                for r, rank_probes in enumerate(probes)}
+    if not resume:
+        return launches
+
+    cfg.trainer.resume_from_checkpoint = ckpt.format(steps - 1)
+    cfg.trainer.max_epochs = steps + 1
+    save_config(cfg, path)
+    rc, out, err = run_cli(argv + ["--log-dir", f"{log}_resumed"],
+                           f"{label} resumed", deadline)
+    if rc != 0:
+        raise AssertionError(f"{label} resumed: failed ({rc}):\n"
+                             f"{err[-4000:]}")
+    resumed = _rank_lines(f"{log}_resumed", world, f"{label} resumed", 2)
+    resumed_probes = _probe_lines(f"{log}_resumed", world,
+                                  f"{label} resumed", 1)
+    trainer = Trainer(single_cfg, f"{tmp}/log_{label}_single_resumed",
+                      batch_capacity=capacity, sample_budget=sample_budget,
+                      device=device, interleave=world)
+    trainer.resume(ckpt.format(steps - 1))
+    digest = int(data_parallel.digest(trainer.replica_tensors()))
+    print(f"{label} resumed under the mesh: digest {resumed[0][0]['digest']}"
+          f", a single process resuming the file {digest}", flush=True)
+    if digest != resumed[0][0]["digest"]:
+        raise AssertionError(f"{label}: the resumed replicas differ")
+    before = _host_state(trainer)
+    single = _single_step(torch, trainer, device)
+    _check_step(f"{label} resumed", steps, [r[1] for r in resumed],
+                [p[0] for p in resumed_probes], single)
+    _step_against_single(
+        torch, f"{label} resumed", steps,
+        f"{log}_resumed/checkpoints/epoch_{steps:04d}", before,
+        _host_state(trainer))
+    del trainer
+    _empty_cache(torch, device)
+    return launches
+
+
+def _sync(torch, device):
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def _empty_cache(torch, device):
+    if device != "cpu":
+        torch.cuda.empty_cache()
+
+
+def flagship_sample_budget(config):
+    """The flagship's K, as training/setup.py sizes it by default."""
+    slices = (2 * (float(config.loss.weight.log_intensity_diff) > 0)
+              + 2 * (float(config.loss.weight.log_intensity_tv) > 0))
+    S = int(config.model.pixel_bandwidth.get("it_sample_size", 1)) \
+        if config.model.pixel_bandwidth.enable else 1
+    return int(int(config.data.train_eff_ray_sample_batch_size) * S
+               * max(slices, 1)
+               * float(config.data.get("train_sample_budget_margin", 1.0)))
+
+
+def phase_data_parallel(torch, tmp, root, card):
+    """Phase 10: the flagship (configs/train/synthetic.yaml at full width,
+    on phase 4's dataset) over MESH_WORLD ranks through the command line
+    (see `mesh_vs_single`), over gloo with both ranks on this card; the
+    NCCL mesh without a second card must raise; NCCL one rank per card
+    where there are 2 cards. Returns {"data parallel rank r": launches}."""
+    deadline = time.monotonic() + MESH_BUDGET_S
+    config = flagship_config(root)
+    lpips = write_lpips_stub(torch, f"{tmp}/lpips_alex.pt")
+    budget = int(flagship_sample_budget(config) * MESH_BUDGET_HEADROOM)
+    torch.cuda.synchronize()
+    launches = mesh_vs_single(torch, tmp, config, "mesh", deadline=deadline,
+                              sample_budget=budget, lpips_weights_path=lpips)
+    count = torch.cuda.device_count()
+    if count < MESH_WORLD:
+        rc, _, err = run_cli(["train", f"{tmp}/mesh.yaml", "--mesh",
+                              str(MESH_WORLD), "--log-dir",
+                              f"{tmp}/log_nccl", "--device", "cuda"],
+                             "nccl", deadline)
+        if rc == 0 or "NCCL takes one card per rank" not in err:
+            raise AssertionError(f"--mesh {MESH_WORLD} over NCCL on "
+                                 f"{count} card(s) did not raise ({rc}): "
+                                 f"{err[-2000:]}")
+        print(f"--mesh {MESH_WORLD} without --dist-backend on {count} "
+              f"card: raised as it must ({err.strip().splitlines()[-1]})",
+              flush=True)
+        print(f"NCCL mesh {MESH_WORLD} not run: this machine has {count} "
+              f"card ({card}); NCCL takes one card per rank", flush=True)
+    else:
+        launches.update({f"nccl {k}": v for k, v in mesh_vs_single(
+            torch, tmp, config, "mesh_nccl", backend="nccl",
+            sample_budget=budget, deadline=deadline,
+            lpips_weights_path=lpips,
+            resume=False).items()})
+    return {f"data parallel {k}": v for k, v in launches.items()}
+
 
 def kernel_line(name, source, replaces, rows, launches, main_shape):
     main = next(r for r in rows if r["shape"] == main_shape
@@ -2716,6 +3309,9 @@ def main():
         torch.cuda.empty_cache()
         with phase("9 quality harness (r5fix config, resumed)"):
             launches.update(phase_quality(torch, tmp, card))
+        torch.cuda.empty_cache()
+        with phase("10 data parallel (flagship, 2 ranks over gloo)"):
+            launches.update(phase_data_parallel(torch, tmp, root, card))
 
     kernels = [
         dict(kernel_line("scatter_add_rows", SCATTER_SOURCE,
@@ -2731,6 +3327,10 @@ def main():
     for name in ("gather_rows", "corner_sum"):
         if launches["eval"][name] <= 0 or launches["eval frame"][name] <= 0:
             raise AssertionError(f"eval: {name} never launched")
+    for path in (p for p in launches if p.startswith("data parallel")):
+        for name, count in launches[path].items():
+            if count <= 0:
+                raise AssertionError(f"{path}: {name} never launched")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

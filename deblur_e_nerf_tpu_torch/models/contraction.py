@@ -21,8 +21,12 @@ class ContractionType(enum.Enum):
 
 
 def _norm(v):
-    # sqrt of the plain sum of squares, as jnp.linalg.norm computes it
-    return torch.sqrt((v * v).sum(dim=-1, keepdim=True))
+    # sqrt of the plain sum of squares, as jnp.linalg.norm computes it,
+    # summed left to right in elementwise ops: a reduction kernel may order
+    # the sum by the batch's shape, and a sample's bits must not depend on
+    # the batch it is marched in
+    x, y, z = v.unbind(-1)
+    return torch.sqrt(x * x + y * y + z * z)[..., None]
 
 
 def contract(x, aabb, contraction_type, eps=1e-6):

@@ -244,13 +244,24 @@ def update_occupancy(model, occ_state, step, generator, camera_positions,
 
 def pixel_params_to_ray(intrinsics_inverse, pixel_position, T_wc_position,
                         T_wc_orientation):
-    """Unproject pixels (..., 2) to world-space unit rays."""
-    ones = torch.ones_like(pixel_position[..., :1])
-    homog = torch.cat([pixel_position, ones], dim=-1)[..., None]
-    direction = (T_wc_orientation @ (intrinsics_inverse @ homog))[..., 0]
-    direction = direction / torch.linalg.norm(direction, dim=-1,
-                                              keepdim=True)
-    return T_wc_position, direction
+    """Unproject pixels (..., 2) to world-space unit rays.
+
+    Elementwise products and sums only, in a fixed order: a ray's bits
+    must not depend on how many rays are computed with it. A batched
+    matmul or a reduction over the 3 components may take another CUDA
+    kernel, and another summation order, at another batch size, and a
+    data-parallel rank computes its share of the batch."""
+    x, y = pixel_position.unbind(-1)
+    k = intrinsics_inverse
+    camera = [k[..., i, 0] * x + k[..., i, 1] * y + k[..., i, 2]
+              for i in range(3)]
+    r = T_wc_orientation
+    direction = [r[..., i, 0] * camera[0] + r[..., i, 1] * camera[1]
+                 + r[..., i, 2] * camera[2] for i in range(3)]
+    norm = torch.sqrt(direction[0] * direction[0]
+                      + direction[1] * direction[1]
+                      + direction[2] * direction[2])
+    return T_wc_position, torch.stack([d / norm for d in direction], -1)
 
 
 def render(model, occ_state, rays_o, rays_d, ray_mask, jitter,

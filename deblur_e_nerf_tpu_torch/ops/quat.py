@@ -1,10 +1,22 @@
 """Quaternion operations in XYZW convention (counterpart of
 deblur_e_nerf_tpu/ops/quat.py): Hamilton product, rotation matrices and
 slerp with full-angle rotation vectors in [0, 2*pi] and per-element steps.
-All functions broadcast over leading dims and keep the input dtype.
+All functions broadcast over leading dims and keep the input dtype. Sums
+over the components are written out in a fixed order (`_dot`), so an
+element's bits do not depend on the batch it is computed in.
 """
 
 import torch
+
+
+def _dot(a, b):
+    """Sum of a * b over the last dim, left to right, elementwise ops
+    only (a reduction kernel may order the sum by the batch's shape)."""
+    a, b = a.unbind(-1), b.unbind(-1)
+    total = a[0] * b[0]
+    for x, y in zip(a[1:], b[1:]):
+        total = total + x * y
+    return total
 
 
 def quat_product(p, q):
@@ -40,7 +52,7 @@ def unitquat_to_rotmat(q):
 def rotvec_to_unitquat(rotvec):
     """Rotation vector (..., 3) -> unit quaternion (..., 4), gradient-safe
     at zero rotation (the sqrt input is guarded on both sides)."""
-    sq = torch.sum(rotvec * rotvec, dim=-1, keepdim=True)
+    sq = _dot(rotvec, rotvec)[..., None]
     small = sq <= 1e-6
     safe_sq = torch.where(small, torch.ones_like(sq), sq)
     angle = torch.where(small, torch.zeros_like(sq), torch.sqrt(safe_sq))
@@ -64,7 +76,7 @@ def unitquat_to_full_rotvec(q):
     slerp without shortest-path flipping follows the arc the pair spans."""
     xyz = q[..., :3]
     w = q[..., 3]
-    sq = torch.sum(xyz * xyz, dim=-1)
+    sq = _dot(xyz, xyz)
     small_norm = sq <= 1e-12
     safe_sq = torch.where(small_norm, torch.ones_like(sq), sq)
     norm_xyz = torch.where(
@@ -86,7 +98,7 @@ def unitquat_slerp(q0, q1, steps, shortest_path=False):
     """Spherical linear interpolation with per-element steps (0 -> q0,
     1 -> q1); `shortest_path` flips q1 when <q0, q1> < 0."""
     if shortest_path:
-        dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+        dot = _dot(q0, q1)[..., None]
         q1 = torch.where(dot < 0, -q1, q1)
     rel = quat_product(quat_conjugation(q0), q1)
     rel_rotvec = unitquat_to_full_rotvec(rel)

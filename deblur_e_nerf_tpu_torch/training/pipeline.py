@@ -7,30 +7,42 @@ import numpy as np
 
 class EventBatcher:
     def __init__(self, events, capacity, seed=0, dataset_len=None,
-                 has_bayer=False):
+                 has_bayer=False, interleave=1):
         """events: packed events dict of numpy arrays; capacity: batch
-        capacity N; dataset_len: optional trim of the event dataset."""
+        capacity N; dataset_len: optional trim of the event dataset;
+        interleave: the data-parallel mesh size W. The active rows go
+        round-robin over the W equal shards of the capacity, each shard's
+        a prefix of it, so every rank gets an equal share (N must divide
+        by W)."""
         self.events = events
         self.capacity = int(capacity)
         self.n = int(dataset_len or len(events["position"]))
         self.rng = np.random.Generator(np.random.Philox(seed))
         self.has_bayer = has_bayer
+        self.interleave = max(int(interleave), 1)
+        if self.capacity % self.interleave:
+            raise ValueError(f"batch capacity {self.capacity} does not "
+                             f"divide into {self.interleave} shards")
 
     def next_batch(self, active_size):
         """`active_size` random events (with replacement) in the first rows
-        of a capacity-N batch; numpy arrays."""
+        of a capacity-N batch (of each shard's rows, with `interleave`);
+        numpy arrays."""
         active = int(min(max(active_size, 1), self.capacity))
         idx = self.rng.integers(0, self.n, size=active)
         cap = self.capacity
+        k = np.arange(active)
+        shard = cap // self.interleave
+        rows = (k % self.interleave) * shard + k // self.interleave
 
         def take(key, dtype, fill=0):
             arr = self.events[key][idx]
             out = np.full((cap, *arr.shape[1:]), fill, dtype=dtype)
-            out[:active] = arr
+            out[rows] = arr
             return out
 
         valid = np.zeros(cap, bool)
-        valid[:active] = True
+        valid[rows] = True
         batch = {
             "position": take("position", np.float32),
             "start_ts": take("start_ts", np.int64),

@@ -15,7 +15,7 @@ generator), the stratified-march jitter (one per rendered ray) and the
 sparsity-prior cells. `draw_step` makes them from a torch.Generator; tests
 hand in the JAX package's draws instead.
 
-Batch layout (capacity N, prefix-active):
+Batch layout (capacity N, the active rows marked by `valid`):
   position (N, 2) f32, start_ts (N,) i64, end_ts (N,) i64,
   num_pos (N,) f32, num_neg (N,) f32, [channel_idx (N,) i64], valid (N,) bool
 """
@@ -198,12 +198,10 @@ def render_train_pixels(params, consts, occ_state, sc, ts, ts_delta,
     # buffer-truncated rays leave the loss through `complete`, which the
     # filter all-reduces over S (is_valid is any-reduced)
     complete = unflat(out["ray_complete"])
-    validf = mask.to(torch.float32)
     stats = {
-        "mean_ray_occ_rate": loss_lib.masked_mean(
-            (opacity > 0).to(torch.float32), validf),
-        "ray_truncation_rate": loss_lib.masked_mean(
-            (~complete).to(torch.float32), validf),
+        # the rates' numerators; compute_loss divides by `num_rays`
+        "ray_occ_count": ((opacity > 0) & mask).sum(),
+        "ray_truncated_count": ((~complete) & mask).sum(),
         "num_rendering_samples": out["num_rendering_samples"],
         # pre-budget demand: the batch-size controller must see it
         "num_marched_samples": out["num_marched_samples"],
@@ -240,9 +238,17 @@ def _sparsity_prior(params, occ_state, draws, level_mask):
 
 
 def compute_loss(params, consts, occ_state, batch, draws, sc, loss_config,
-                 level_mask=None, prepass=True):
+                 level_mask=None, prepass=True, shard=None):
     """Forward pass: (scalar loss, metrics dict of tensors). `prepass`
-    False renders without the configured occlusion prepass."""
+    False renders without the configured occlusion prepass.
+
+    `shard`: a data-parallel rank's collectives
+    (parallel/data_parallel.StepCollectives), for a batch and draws that
+    are the rank's share. Every masked mean then divides the rank's sum by
+    the global count (one all-reduce of the counts), and the replicated
+    sparsity prior enters the loss scaled by 1 / world, so the ranks'
+    losses and gradients sum to the global ones; the metrics are the
+    rank's parts, which `shard.reduce_metrics` makes global."""
     valid = batch["valid"]
     n = valid.shape[0]
     ct_params = params.contrast_threshold
@@ -313,35 +319,46 @@ def compute_loss(params, consts, occ_state, batch, draws, sc, loss_config,
         subdiff["is_valid"] = ((valids[i] | valids[i + 1]) & valid
                                & completes[i] & completes[i + 1])
 
+    # the masked means' denominators (global on a data-parallel rank)
+    counts = {"num_rays": stats["num_rays"], "batch_size": valid.sum()}
+    if diff is not None:
+        counts["log_intensity_diff"] = diff["is_valid"].sum()
+    if subdiff is not None:
+        counts["log_intensity_tv"] = subdiff["is_valid"].sum()
+    if shard is not None:
+        counts = dict(zip(counts, shard.sum(torch.stack(
+            list(counts.values())))))
+
     _, _, mean_ct = event_gen.contrast_thresholds(ct_params, ct_consts)
     mean_losses = loss_lib.compute(loss_config, event, diff, subdiff,
-                                   mean_ct)
+                                   mean_ct, counts)
     weights = {"log_intensity_diff": sc.loss_weight_diff,
                "log_intensity_tv": sc.loss_weight_tv}
     total = sum(v * weights[k] for k, v in mean_losses.items())
     if sc.loss_weight_sparsity > 0.0:
         sparsity = _sparsity_prior(params, occ_state, draws["sparsity"],
                                    level_mask)
-        total = total + sc.loss_weight_sparsity * sparsity
+        world = 1 if shard is None else shard.world
+        total = total + sc.loss_weight_sparsity * sparsity / world
         mean_losses = dict(mean_losses, density_sparsity=sparsity)
 
-    num_rays = stats["num_rays"].to(torch.float32)
+    num_rays = torch.clamp(counts["num_rays"], min=1)
     marched = stats["num_marched_samples"].to(torch.float32)
     metrics = {
         "loss": total,
         **{f"loss_{k}": v for k, v in mean_losses.items()},
-        "mean_num_samples_per_ray": marched / torch.clamp(num_rays, min=1),
+        "mean_num_samples_per_ray": marched / num_rays.to(torch.float32),
         "sample_overflow_rate": (
             marched / float(params.nerf.render_config.sample_budget)),
         "block_overflow_rate": stats["block_overflow_rate"],
         "superblock_overflow_rate": stats["superblock_overflow_rate"],
         "prepass_overflow_rate": stats["prepass_overflow_rate"],
         "prepass_ran": stats["prepass_ran"],
-        "mean_ray_occ_rate": stats["mean_ray_occ_rate"],
-        "ray_truncation_rate": stats["ray_truncation_rate"],
+        "mean_ray_occ_rate": stats["ray_occ_count"] / num_rays,
+        "ray_truncation_rate": stats["ray_truncated_count"] / num_rays,
         "mean_valid_rate": loss_lib.masked_mean(
             (diff or subdiff)["is_valid"].to(torch.float32),
-            valid.to(torch.float32)),
+            valid.to(torch.float32), counts["batch_size"]),
         "batch_size": valid.sum(),
         "num_rays": stats["num_rays"],
         "num_marched_samples": stats["num_marched_samples"],
@@ -351,7 +368,8 @@ def compute_loss(params, consts, occ_state, batch, draws, sc, loss_config,
     return total, metrics
 
 
-def make_train_step(params, consts, optimizer, sc, loss_config):
+def make_train_step(params, consts, optimizer, sc, loss_config,
+                    shard=None):
     """Build step_fn(occ_state, batch, draws, level_mask=None,
     prepass=True) -> metrics.
 
@@ -361,18 +379,25 @@ def make_train_step(params, consts, optimizer, sc, loss_config):
     projection, which runs after every micro-step as after each JAX step.
     The optimizer may skip a micro-step whose loss or gradients are not
     finite; `metrics["update_skipped"]` is that decision as a device bool,
-    so the step reads nothing back to the host."""
+    so the step reads nothing back to the host. With `shard` (see
+    compute_loss; parallel/data_parallel.make_sharded_train_step), the
+    gradients are summed over the ranks and the metrics made global before
+    the optimizer step, which then decides on the global loss."""
 
     def step_fn(occ_state, batch, draws, level_mask=None, prepass=True):
         optimizer.zero_grad()
         loss, metrics = compute_loss(params, consts, occ_state, batch,
                                      draws, sc, loss_config, level_mask,
-                                     prepass)
+                                     prepass, shard)
         loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if shard is not None:
+            shard.all_reduce_grads(optimizer.params())
+            metrics = shard.reduce_metrics(metrics)
+            loss = metrics["loss"]
         taken = optimizer.step(loss)
         event_gen.clamp_refractory_logit(params.refractory_period,
                                          consts["refractory_period"])
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["update_skipped"] = ~taken
         return metrics
 

@@ -46,6 +46,24 @@
     always runs it, and a fresh field's demand overflows the buffer
     (ROADMAP Queue C 9). The scalar `prepass_ran` logs the path a step
     took;
+  - data parallelism (`trainer.mesh_devices` W > 1, or `mesh_devices=`;
+    `trainer.num_nodes` nodes): one trainer per rank of a torch.distributed
+    group (parallel/mesh.py; the CLI's `--mesh` starts them). Each rank
+    takes its C / W rows of the global batch of capacity C and its share
+    of the global draws, with a sample budget of K / W
+    (parallel/data_parallel.py); the gradients and metrics are summed
+    over the ranks inside the step, so every host decision (the batch
+    controller, the prepass switch, the non-finite streak) reads the same
+    global scalars on every rank, and the replicas (parameters, optimizer,
+    occupancy grid, EMA, generator) stay bit-identical. Rank 0 alone
+    writes `metrics.jsonl`, evaluates, saves and prunes checkpoints; the
+    others wait at a barrier. With `trainer.replica_check`, every rank
+    checks after each step that its replica's digest equals the others'
+    and logs the step to `rank_<r>.jsonl` (`_check_replicas`);
+  - `step_hook`: an object whose `before(trainer)` and
+    `after(trainer, metrics)` are called around every micro-step (the
+    CLI's `--step-hook` installs one; a measuring harness times steps
+    with it);
   - evaluation (`evaluate`): the posed views of each `eval_target`
     (`event_view`: the train views, `novel_view`: the stage's), rendered
     on the trainer's device, corrected and scored as in the JAX package
@@ -67,6 +85,7 @@ import torch
 from ..data import events as events_data
 from ..data import posed_images as posed_images_data
 from ..models import event_gen, nerf_model, occupancy, pixel_bandwidth
+from ..parallel import data_parallel, mesh as mesh_lib
 from ..utils import config as config_lib
 from ..utils.device import resolve_device
 from . import (checkpoint as checkpoint_lib, evaluation, optim, pipeline,
@@ -106,27 +125,59 @@ def _set_matmul_precision(precision):
         torch.backends.cudnn.allow_tf32 = False
 
 
+def _mesh(config, mesh_devices, batch_capacity, device):
+    """The data-parallel group this trainer joins (None for one device):
+    trainer.mesh_devices (or `mesh_devices`) ranks over trainer.num_nodes
+    nodes, checked against the batch capacity and the visible cards; the
+    ranks' processes must have joined the group already (parallel/mesh.py:
+    the CLI's --mesh, torchrun or `mesh.spawn`)."""
+    world = int(mesh_devices or config.trainer.get("mesh_devices") or 1)
+    nodes = int(config.trainer.get("num_nodes") or 1)
+    if world == 1 and nodes == 1:
+        return None
+    mesh = mesh_lib.current()
+    device_type = torch.device("cuda" if device is None else device).type
+    mesh_lib.check(world, nodes, device_type,
+                   mesh.backend if mesh is not None else None)
+    if batch_capacity % world:
+        raise ValueError(f"batch_capacity {batch_capacity} must divide by "
+                         f"mesh_devices {world}")
+    if mesh is None or mesh.world != world or mesh.num_nodes != nodes:
+        raise RuntimeError(
+            f"mesh_devices {world} over {nodes} node(s) needs a process "
+            f"group of as many ranks (this process has {mesh}): run the "
+            "CLI with --mesh, under torchrun, or through "
+            "parallel.mesh.spawn")
+    if mesh.device.type != device_type:
+        raise ValueError(f"the rank's device {mesh.device} is not a "
+                         f"{device_type} device")
+    return mesh
+
+
 class Trainer:
     def __init__(self, config, log_dir, batch_capacity=8192,
-                 sample_budget=None, device=None, field_chunk=0):
-        for key in ("mesh_devices", "num_nodes"):
-            if int(config.trainer.get(key) or 1) > 1:
-                raise NotImplementedError(
-                    f"trainer.{key} {config.trainer.get(key)}: data "
-                    "parallelism is not ported yet (ROADMAP Queue A 12b); "
-                    "the port trains on one device")
+                 sample_budget=None, device=None, field_chunk=0,
+                 mesh_devices=None, interleave=None):
+        self.mesh = _mesh(config, mesh_devices, batch_capacity, device)
         self.config = config
         self.log_dir = log_dir
-        self.device = resolve_device(device)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         os.makedirs(log_dir, exist_ok=True)
         self.skip_nonfinite = bool(
             config.trainer.get("skip_nonfinite_updates", True))
         _set_matmul_precision(config.get("float32_matmul_precision"))
 
         root = config.data.dataset_directory
+        # rank 0 loads first, writing the dataset's caches for the others
+        self._rank_zero_first(before=True)
         self.bundle, self.params = setup_lib.build(
             config, root, sample_budget=sample_budget, device=self.device,
             field_chunk=field_chunk)
+        if self.mesh is not None:
+            nerf = self.params.nerf
+            nerf.render_config = data_parallel.shard_render_config(
+                nerf.render_config, self.mesh.world)
         restored_occ = self._selective_restore()
         self.batch_capacity = batch_capacity
         trainer_cfg = config.trainer
@@ -146,9 +197,18 @@ class Trainer:
             skip_nonfinite=self.skip_nonfinite,
             accumulate=self.accumulate,
         )
-        self.step_fn = step_lib.make_train_step(
-            self.params, self.bundle.consts, self.optimizer,
-            self.bundle.static_config, self.bundle.loss_config)
+        self.replica_check = bool(trainer_cfg.get("replica_check", False))
+        self.collectives = None
+        if self.mesh is None:
+            self.step_fn = step_lib.make_train_step(
+                self.params, self.bundle.consts, self.optimizer,
+                self.bundle.static_config, self.bundle.loss_config)
+        else:
+            self.step_fn, self.collectives = \
+                data_parallel.make_sharded_train_step(
+                    self.params, self.bundle.consts, self.optimizer,
+                    self.bundle.static_config, self.bundle.loss_config,
+                    self.mesh.world)
         self.occ_state = nerf_model.init_occupancy(model, self.device)
         if restored_occ is not None:
             self.occ_state = occupancy.OccupancyGridState(
@@ -165,10 +225,15 @@ class Trainer:
         else:
             dataset_len = int(ratio) * int(
                 config.data.train_init_eff_batch_size)
+        self._rank_zero_first(before=False)
+        # `interleave` (default: the ranks) places the active rows over
+        # that many shards: a single process given a mesh's rank count
+        # draws that mesh's global batches
         self.batcher = pipeline.EventBatcher(
             events, capacity=batch_capacity,
             seed=int(config.get("seed") or 0), dataset_len=dataset_len,
-            has_bayer=self.bundle.static_config.has_bayer)
+            has_bayer=self.bundle.static_config.has_bayer,
+            interleave=interleave or self.world)
         self.batch_controller = pipeline.BatchSizeController(
             target_ray_samples=int(
                 config.data.train_eff_ray_sample_batch_size),
@@ -199,6 +264,55 @@ class Trainer:
         self._ckpt_scores = {}
         self.best_checkpoint = None
         self._profiler = None
+        self.step_hook = None
+        if self.mesh is not None:
+            data_parallel.replicate(self.replica_tensors())
+
+    @property
+    def world(self):
+        return 1 if self.mesh is None else self.mesh.world
+
+    @property
+    def is_main(self):
+        """True on the rank that logs, evaluates and saves (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self):
+        if self.mesh is not None:
+            torch.distributed.barrier()
+
+    def _rank_zero_first(self, before):
+        """Called with before=True ahead of and before=False after a block
+        that rank 0 must finish first (the others wait at a barrier)."""
+        if self.mesh is not None and (self.mesh.rank == 0) != before:
+            self._barrier()
+
+    def replica_tensors(self):
+        """Every tensor the ranks replicate: the parameters, the
+        optimizer's state, the occupancy grid and the EMA."""
+        opt = self.optimizer.state_dict()
+        tensors = list(self.params.state_dict().values())
+        tensors += [opt["count"], opt["mini_step"]]
+        for name in ("m", "v", "acc"):
+            tensors += list(opt[name].values())
+        tensors += [self.occ_state.occs, self.occ_state.binary]
+        if self.ema_params is not None:
+            tensors += list(self.ema_params.state_dict().values())
+        return tensors
+
+    def _check_replicas(self, record):
+        """trainer.replica_check: fail unless every rank's replica has the
+        same digest (one all-reduce), and append `record` with the digest
+        to <log_dir>/rank_<r>.jsonl."""
+        value = data_parallel.digest(self.replica_tensors())
+        if self.mesh is not None and not data_parallel.replicas_agree(value):
+            raise RuntimeError(f"the replicas diverged at step "
+                               f"{self.global_step}: rank "
+                               f"{self.mesh.rank}'s digest {int(value)}")
+        rank = 0 if self.mesh is None else self.mesh.rank
+        with open(os.path.join(self.log_dir, f"rank_{rank}.jsonl"),
+                  "a") as f:
+            f.write(json.dumps(dict(record, digest=int(value))) + "\n")
 
     def _selective_restore(self):
         """Load the components flagged by model.<component>.load_state_dict
@@ -326,7 +440,7 @@ class Trainer:
                     f"updates (at step {step}); metrics: {scalars}")
         else:
             self._nonfinite_streak = 0
-        if self._logs(step):
+        if self._logs(step) and self.is_main:
             self.writer.write(step, {
                 **{f"train/{k}": v for k, v in scalars.items()
                    if math.isfinite(v)},
@@ -344,16 +458,23 @@ class Trainer:
         model = self.params.nerf
         occ_cfg = model.occ_grid_config
         step = self.global_step
+        if self.step_hook is not None:
+            self.step_hook.before(self)
         if step % self.accumulate == 0:
             opt_step = step // self.accumulate
             if opt_step < int(occ_cfg.warmup_steps) \
                     or opt_step % int(occ_cfg.n) == 0:
                 self.update_occupancy(opt_step)
-        batch = self._to_device(
-            self.batcher.next_batch(self.batch_controller.active))
+        batch = self.batcher.next_batch(self.batch_controller.active)
         draws = step_lib.draw_step(
             self.bundle.static_config, self.batch_capacity, self.occ_state,
             self.generator, self.device)
+        if self.mesh is not None:
+            batch = data_parallel.shard_batch(batch, self.mesh.rank,
+                                              self.world)
+            draws = data_parallel.shard_draws(draws, self.mesh.rank,
+                                              self.world)
+        batch = self._to_device(batch)
         metrics = self.step_fn(
             self.occ_state, batch, draws,
             level_mask=nerf_model.level_mask_for_step(model, step,
@@ -362,6 +483,14 @@ class Trainer:
         if self.ema_params is not None:
             self._update_ema()
         self.global_step += 1
+        if self.step_hook is not None:
+            self.step_hook.after(self, metrics)
+        if self.replica_check:
+            self._check_replicas({
+                "step": step, "loss": float(metrics["loss"]),
+                "batch_size": int(metrics["batch_size"]),
+                "local_batch_size": int(batch["valid"].sum()),
+                "prepass_ran": bool(metrics["prepass_ran"])})
         prev = self._pending_metrics
         self._pending_metrics = self._stage_metrics(self.global_step,
                                                     metrics)
@@ -373,7 +502,7 @@ class Trainer:
         """trainer.profile_steps [start, stop]: trace micro-steps start..
         stop-1 with torch.profiler into <log_dir>/profile; the device is
         synchronized only at the window's end."""
-        if not window:
+        if not window or not self.is_main:
             return
         start, stop = int(window[0]), int(window[1])
         if before_step and self.global_step == start \
@@ -409,6 +538,9 @@ class Trainer:
         first = self.global_step // self.steps_per_epoch \
             if start_epoch is None else int(start_epoch)
         window = self.config.trainer.get("profile_steps")
+        if self.replica_check:
+            self._check_replicas({"step": self.global_step,
+                                  "event": "start"})
         t_start = time.time()
         for epoch in range(first, self.max_epochs):
             for _ in range(self.steps_per_epoch):
@@ -433,28 +565,36 @@ class Trainer:
 
     def _checkpoint_epoch(self, epoch):
         """Save at the end of every every_n_epochs-th epoch and of the
-        last; record the monitored score; prune to save_top_k."""
+        last; record the monitored score; prune to save_top_k (rank 0;
+        the others wait)."""
         ckpt_cfg = self.config.get("checkpoint") or {}
         every_n = int(ckpt_cfg.get("every_n_epochs") or 1)
         if not ((epoch + 1) % every_n == 0 or epoch == self.max_epochs - 1):
             return
         path = self.save_checkpoint(epoch)
-        monitor = ckpt_cfg.get("monitor")
-        if monitor:
-            score = self._last_eval.get(str(monitor))
-            if score is not None and math.isfinite(score):
-                self._ckpt_scores[os.path.basename(path)] = float(score)
-                self._persist_ckpt_scores()
-        self._prune_checkpoints(int(ckpt_cfg.get("save_top_k", -1)),
-                                monitor=monitor,
-                                mode=str(ckpt_cfg.get("mode") or "min"))
+        if self.is_main:
+            monitor = ckpt_cfg.get("monitor")
+            if monitor:
+                score = self._last_eval.get(str(monitor))
+                if score is not None and math.isfinite(score):
+                    self._ckpt_scores[os.path.basename(path)] = float(score)
+                    self._persist_ckpt_scores()
+            self._prune_checkpoints(int(ckpt_cfg.get("save_top_k", -1)),
+                                    monitor=monitor,
+                                    mode=str(ckpt_cfg.get("mode") or "min"))
+        self._barrier()
 
     def save_checkpoint(self, epoch):
         """Write `<log_dir>/checkpoints/epoch_%04d` (and, once,
         config.yaml beside it); returns its path. The payload is
-        training/checkpoint.py's."""
+        training/checkpoint.py's. Under a mesh every rank calls it: rank 0
+        writes, and the others wait at a barrier."""
         self._flush_pending_metrics()
         ckpt_dir = self._checkpoint_dir()
+        path = os.path.join(ckpt_dir, f"epoch_{int(epoch):04d}")
+        if not self.is_main:
+            self._barrier()
+            return path
         config_path = os.path.join(ckpt_dir, "config.yaml")
         if not os.path.isfile(config_path):
             os.makedirs(ckpt_dir, exist_ok=True)
@@ -471,8 +611,8 @@ class Trainer:
         if self.ema_params is not None:
             payload["ema_params"] = checkpoint_lib.component_state(
                 self.ema_params)
-        path = os.path.join(ckpt_dir, f"epoch_{int(epoch):04d}")
         checkpoint_lib.save(path, payload)
+        self._barrier()
         return path
 
     def _scores_path(self):
@@ -549,7 +689,8 @@ class Trainer:
         parameters when the checkpoint has none) and the monitored
         scores. Returns the checkpoint's epoch; `train()` continues from
         the next. The generator and the batcher restart from `seed`, as
-        the JAX package restarts its PRNG key."""
+        the JAX package restarts its PRNG key. Under a mesh every rank
+        reads the file, and rank 0's state is broadcast."""
         self._load_ckpt_scores()
         restored = checkpoint_lib.restore(path, self.device)
         if restored.get("opt_state") is None:
@@ -571,6 +712,8 @@ class Trainer:
             source = restored.get("ema_params") or restored["params"]
             for name, child in self.ema_params.named_children():
                 child.load_state_dict(source[name])
+        if self.mesh is not None:
+            data_parallel.replicate(self.replica_tensors())
         return int(restored["epoch"])
 
     def build_evaluator(self, stage="val"):
@@ -608,8 +751,12 @@ class Trainer:
     def evaluate(self, stage="val", epoch=0, max_images=None):
         """Evaluate the current parameters (the EMA, when there is one)
         on `stage`'s views; returns {name: value} (with several targets,
-        "<target>/<name>")."""
+        "<target>/<name>"). Under a mesh every rank calls it: rank 0
+        evaluates, the others wait at a barrier and get {}."""
         self._flush_pending_metrics()
+        if not self.is_main:
+            self._barrier()
+            return {}
         targets, render_image = self.build_evaluator(stage)
         multi = len(targets) > 1
         merged = {}
@@ -621,6 +768,7 @@ class Trainer:
                 merged[f"{target}/{name}" if multi else name] = value
         for name, value in merged.items():
             self._last_eval[f"{stage}/{name}"] = float(value)
+        self._barrier()
         return merged
 
     def _evaluate_dataset(self, evaluator, dataset, render_image, stage,

@@ -188,19 +188,34 @@ def test_every_config_builds_a_port_trainer(tiny_views_dataset, tmp_path,
         assert np.isfinite(metric["psnr"])
 
 
-@pytest.mark.parametrize("key", ["mesh_devices", "num_nodes"])
-def test_data_parallel_keys_raise_naming_their_roadmap_item(
-        tiny_views_dataset, tmp_path, key):
-    """ROADMAP Queue C 10: the port trains on one device, so a config
-    asking for a data-parallel mesh (trainer.mesh_devices 2) or two nodes
-    (trainer.num_nodes 2) makes the Trainer raise, naming ROADMAP A12b;
-    1, as every config of the repo sets, builds."""
+@pytest.mark.parametrize("mesh_devices, num_nodes, device, error", [
+    (3, 1, "cpu", "batch_capacity 16 must divide by mesh_devices 3"),
+    (4, 3, "cpu", "num_nodes 3 does not divide mesh_devices 4"),
+    (2, 1, "cuda", "mesh_devices 2: no CUDA device is visible"),
+    (1, 1, "cpu", None),
+])
+def test_data_parallel_keys_are_checked(tiny_views_dataset, tmp_path,
+                                        mesh_devices, num_nodes, device,
+                                        error):
+    """trainer.mesh_devices and trainer.num_nodes (data parallelism,
+    parallel/): a capacity that does not divide over the ranks, a
+    num_nodes that does not divide them, and a CUDA mesh without a card
+    raise before anything is built; mesh 1, as every config of the repo
+    sets, builds a single-process trainer as before."""
+    if device == "cuda" and torch.cuda.is_available():
+        pytest.skip("the no-card check needs a machine without CUDA")
     cfg = cut(load_config("configs/train/synthetic.yaml"), tiny_views_dataset)
-    setattr(cfg.trainer, key, 2)
-    with pytest.raises(NotImplementedError, match=f"trainer.{key} 2.*12b"):
-        _build(cfg, tmp_path / "two")
-    setattr(cfg.trainer, key, 1)
-    assert _build(cfg, tmp_path / "one").params is not None
+    cfg.trainer.mesh_devices = mesh_devices
+    cfg.trainer.num_nodes = num_nodes
+    if error is None:
+        trainer = Trainer(cfg, str(tmp_path / "one"), batch_capacity=16,
+                          sample_budget=1 << 12, device=device)
+        assert trainer.mesh is None and trainer.world == 1
+        return
+    with pytest.raises(ValueError, match=error):
+        Trainer(cfg, str(tmp_path / "mesh"), batch_capacity=16,
+                sample_budget=1 << 12, device=device)
+    assert not (tmp_path / "mesh").exists()
 
 
 @pytest.mark.parametrize("path", TRAIN_CONFIGS + TEST_CONFIGS,

@@ -313,6 +313,47 @@ def test_eds_step_on_card_matches_cpu(cuda, tmp_path):
     assert len(rows) > 10 and all(err <= tol for _, err, tol in rows)
 
 
+def test_two_gloo_ranks_on_one_card_match_the_single_process(cuda,
+                                                             tmp_path):
+    """Two ranks over gloo, both on cuda:0 (`--mesh 2 --dist-backend
+    gloo`), take one small filter-on step (S = 30) through the command
+    line with the replica check (equal digests), equal to a single-process
+    step on the card within chip_smoke.py phase 10's tolerances, each rank
+    launching every kernel the single step launches."""
+    from deblur_e_nerf_tpu_torch.data import synthetic
+
+    root = synthetic.make_dataset(str(tmp_path / "small"), img_height=16,
+                                  img_width=16, num_poses=21)
+    launches = chip_smoke.mesh_vs_single(
+        torch, str(tmp_path), chip_smoke.small_config(root, filter_on=True),
+        "small", steps=1, capacity=8, sample_budget=1 << 19,
+        evaluate=False, resume=False)
+    assert set(launches) == {"rank 0", "rank 1"}
+    assert all(count > 0 for rank in launches.values()
+               for count in rank.values())
+
+
+def test_ray_generation_on_card_is_bit_equal_over_batch_shares(cuda,
+                                                               tmp_path):
+    """The flagship step's ray generation on the card ((S, R x events) =
+    (30, 4 x 8192) timestamps): every ray's position, orientation and
+    direction computed over one of 2 or 4 ranks' shares of the events is
+    bit-equal to the whole batch's (a data-parallel rank computes its
+    share alone)."""
+    from deblur_e_nerf_tpu_torch.data import synthetic
+    from deblur_e_nerf_tpu_torch.training import setup
+
+    root = synthetic.make_dataset(str(tmp_path / "small"), img_height=16,
+                                  img_width=16, num_poses=21)
+    bundle, _ = setup.build(chip_smoke.small_config(root, filter_on=True),
+                            root, device=cuda)
+    for world in (2, 4):
+        counts = chip_smoke.ray_split_mismatches(torch, bundle.consts, 8192,
+                                                 30, 4, world)
+        assert counts == {"position": 0, "orientation": 0,
+                          "direction": 0}, (world, counts)
+
+
 def test_eval_render_on_card_matches_cpu(cuda, tmp_path):
     """The eval render of a small model on the card against the CPU: the
     same marched samples per pixel, the image within 1e-5."""
