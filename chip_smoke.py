@@ -11,23 +11,30 @@ Phases, each printing a start and an end line with elapsed seconds:
      (cuobjdump -sass): the main path's widths must use vector reductions;
      for each gather instance of the main path, its registers and spills
      (-Xptxas -v) and its SASS load and store forms: its stores must be
-     16-byte vectors; the corner sum's main instances' registers and
-     spills;
-  3. kernels: each kernel against its plain PyTorch version on the card at
-     the main paths' shapes (and the Pallas probes K2/K3's), with times of
-     the kernel, the plain version and the PyTorch library calls computing
-     the same function; the scatter-add also against the plain model of
-     its summation order, on uniform indices and on the training step's
-     index structures (the empty-slot tail, ray-ordered runs), and its
-     wrapper's host time per call beside its profiled kernel time; the
-     gather bit for bit in both output types (float32 rows, bf16 rows),
-     on uniform indices and ray-ordered runs, the vertex-hash level's in
-     sample-major and corner-major order, beside index_select and
-     advanced indexing (tbl[idx64]), each with its bound by output type;
-     the corner sum bit for bit against the plain model of its order and
-     within the summation-order bound of the plain version, in both row
-     types, beside torch.bmm for float32 rows; the gather and the corner
-     sum also at an eval field call's N = 2^20 samples, under no_grad;
+     16-byte vectors; each fused-encode instance's registers, spills and
+     stack frame, and the backward's atomic forms (vector reductions);
+  3. kernels: each kernel against its plain PyTorch version on the card
+     (the Pallas probes K2/K3's shapes too), with times of the kernel, the
+     plain version and the PyTorch library calls computing the same
+     function: the fused encode (hash_encode_fwd, hash_encode_bwd) at the
+     flagship step's N = K + 1 and an eval field call's N = 2^20, on the
+     flagship layout (HybridHashGrid, bf16 rows) and the EDS/r5fix one
+     (HashGrid, float32 rows), on uniform positions and ray-ordered
+     samples with the step's empty-slot tail: the forward bit for bit
+     against the plain model of its order and within the order bound of
+     the plain version, the backward within (k - 1) eps sum|x| of each
+     row of a float64 plain version, with index_select + bmm (forward)
+     and index_add_ (backward) of one level timed as context; K1 and K3,
+     which the encode launched per level before it was fused, at the
+     shapes of that encode: the scatter-add also against the plain model
+     of its summation order, on uniform indices and on the training
+     step's index structures (the empty-slot tail, ray-ordered runs), and
+     its wrapper's host time per call beside its profiled kernel time;
+     the gather bit for bit in both output types (float32 rows, bf16
+     rows), on uniform indices and ray-ordered runs, the vertex-hash
+     level's in sample-major and corner-major order, beside index_select
+     and advanced indexing (tbl[idx64]), each with its bound by output
+     type;
   4. training, two paths of configs/train/synthetic.yaml at full width on
      a synthetic dataset, each with the kernels' launch counts set to 0
      just before it and read just after:
@@ -39,8 +46,8 @@ Phases, each printing a start and an end line with elapsed seconds:
           per-call device times of each kernel), then one steady step
           (past the warmup) under torch.cuda.set_sync_debug_mode("warn"),
           whose host syncs are counted by source line (none may come from
-          the optimizer) and whose kernel launches must be 16 of each
-          (one per hash level);
+          the optimizer) and whose kernel launches must be one fused
+          encode forward and one backward (no K1, no K3);
   5. reference: on small inputs, the card (through the kernels) against
      the plain version on the CPU: the NGP field's outputs and table
      gradient, and one filter-on step's loss and gradients;
@@ -50,8 +57,8 @@ Phases, each printing a start and an end line with elapsed seconds:
      counted; one 346x260 frame (6 chunks of 16,384 rays) through
      make_render_image_fn, timed (ms per image, rays/s, live marched
      samples, field calls per ray chunk, peak device memory) and
-     profiled, whose gathers and corner sums must be 16 per field call
-     (one per hash level); and the eval render of a small model on the
+     profiled, whose encode forwards must be one per field call; and the
+     eval render of a small model on the
      card against the CPU (equal marched samples per pixel, the image
      within 1e-5);
   7. the real-data (EDS) path: configs/train/07_ziggy_and_fuzz_hdr.yaml
@@ -65,8 +72,8 @@ Phases, each printing a start and an end line with elapsed seconds:
      the accumulation), a fresh trainer resuming the checkpoint bit for
      bit and training epoch 1 (pruning keeps one checkpoint), a third
      built from configs/test/07_ziggy_and_fuzz_hdr.yaml's values that
-     evaluates the kept checkpoint, one 640x480 frame timed (16 launches
-     of the gather and the corner sum per field call), and a small EDS
+     evaluates the kept checkpoint, one 640x480 frame timed (one encode
+     forward per field call), and a small EDS
      step on the card against the CPU;
   8. the repaired round-5 (r5fix) path:
      configs/train/quality_sphere_blur32_dense_r5fix.yaml at full width
@@ -142,9 +149,11 @@ SCATTER_SOURCE = "deblur_e_nerf_tpu_torch/csrc/scatter_rows.cu"
 SCATTER_REPLACES = "deblur_e_nerf_tpu/ops/pallas_scatter.py:46"
 GATHER_SOURCE = "deblur_e_nerf_tpu_torch/csrc/gather_rows.cu"
 GATHER_REPLACES = "scripts/perf_microbench.py:190"
-# no Pallas kernel: the weighted corner sum XLA fuses into the JAX encode
-CORNER_SUM_SOURCE = "deblur_e_nerf_tpu_torch/csrc/corner_sum.cu"
-CORNER_SUM_REPLACES = "deblur_e_nerf_tpu/models/hash_encoding.py:290"
+# no Pallas kernel: the JAX package's custom-VJP encode, which XLA compiles
+# (`_encode_impl` and `_encode_frozen_pos_bwd`)
+HASH_ENCODE_SOURCE = "deblur_e_nerf_tpu_torch/csrc/hash_encode.cu"
+HASH_ENCODE_FWD_REPLACES = "deblur_e_nerf_tpu/models/hash_encoding.py:332"
+HASH_ENCODE_BWD_REPLACES = "deblur_e_nerf_tpu/models/hash_encoding.py:420"
 # the flagship's default sample budget K: train_eff_ray_sample_batch_size
 # (131072) x S (30 with the filter on) x 4 render slices (diff and subdiff
 # start/end)
@@ -347,10 +356,33 @@ def phase_build():
     check_gather_build(
         _cuda_build.sass_instructions(info["path"], ("LDG", "STG"),
                                       operands=True), ptxas)
-    for fn, summary in sorted(ptxas.items()):
-        if "corner_sum_kernel" in fn and "Li2E" in fn:  # F = 2
-            print(f"corner_sum ({fn}): ptxas [{summary}]", flush=True)
+    check_encode_build(_cuda_build.sass_instructions(info["path"]), ptxas)
     return info
+
+
+def check_encode_build(atomics, ptxas):
+    """Print each fused-encode instance's registers, spills and stack
+    frame (-Xptxas -v) and the backward's atomic SASS instructions; fail
+    unless both directions were built and the backward's atomics are
+    vector reductions (a RED naming a 2- or 4-float vector, no returning
+    ATOM)."""
+    for kernel in ("hash_encode_fwd_kernel", "hash_encode_bwd_kernel"):
+        fns = [fn for fn in atomics if kernel in fn]
+        if not fns:
+            raise AssertionError(f"{kernel}: no such instance")
+        for fn in fns:
+            print(f"{kernel} ({fn}): ptxas "
+                  f"[{ptxas.get(fn, 'not in the log (build reused)')}]",
+                  flush=True)
+    ops = [op for fn, o in atomics.items() if "hash_encode_bwd_kernel" in fn
+           for op in o]
+    vector = sorted({op for op in ops if op.startswith("RED")
+                     and re.search(r"(x2|x4|V2|V4|\.64|\.128)", op)})
+    print(f"sass hash_encode_bwd: atomics {sorted(set(ops))}, vector "
+          f"reductions {vector}", flush=True)
+    if not vector or any(op.startswith("ATOM") for op in ops):
+        raise AssertionError(f"hash_encode_bwd: no vector RED in the SASS "
+                             f"({sorted(set(ops))})")
 
 
 # the scatter-add instances of the main path's widths, by their mangled
@@ -607,12 +639,13 @@ def k3_indices(torch, kind, n, n_rows, seed=0, device="cuda"):
 
 def vertex_hash_indices(torch, n_samples, size, corner_major, seed=0,
                         device="cuda"):
-    """The (8 n_samples,) corner rows that the encode gathers at the
-    flagship's vertex-hash level 6 for samples in ray-ordered runs: K1's
-    runs of equal indices (k1_inputs) over the level's cells, each sample
-    at a uniform position in its cell, through the encode's own index
-    function, sample-major or corner-major."""
+    """The (8 n_samples,) corner rows of the flagship's vertex-hash level 6
+    (the rows the per-level gather read before the fused encode) for
+    samples in ray-ordered runs: K1's runs of equal indices (k1_inputs)
+    over the level's cells, each sample at a uniform position in its cell,
+    through the encode's own row function, sample-major or corner-major."""
     from deblur_e_nerf_tpu_torch.models import hash_encoding
+    from deblur_e_nerf_tpu_torch.ops import hash_encode
 
     res = hash_encoding.level_resolutions(7, 16, 1.4472692012786865)[6]
     cells, _ = k1_inputs("ray_runs", n_samples, res ** 3, 0, seed)
@@ -624,8 +657,10 @@ def vertex_hash_indices(torch, n_samples, size, corner_major, seed=0,
     gen.manual_seed(seed)
     u = (xyz + torch.rand(xyz.shape, generator=gen, device=device)) / res
     del xyz
-    idx, _ = hash_encoding._level_indices_weights(
-        u, res, size, 0, "hash", torch.float32, corner_major=corner_major)
+    idx, _ = hash_encode.level_rows_weights(u, res, size, 0, "hash",
+                                            torch.float32)
+    if corner_major:
+        idx = idx.T
     return idx.reshape(-1).to(torch.int32)
 
 
@@ -689,57 +724,198 @@ def gather_case(torch, gather_rows, name, width, n_rows, idx, kind, gen):
     return rows
 
 
-def corner_sum_case(torch, corner_sum, name, n, rows_dtype, gen):
-    """The corner-sum kernel at one shape and row type: bit for bit
-    against the plain model of its order, and within the summation order
-    bound of the plain version (any order of 8 terms is within 7 eps
-    sum|x| of the exact sum, and each side is: hence 2x); returns the row.
-    With float32 rows one PyTorch call computes the same function,
-    torch.bmm(w[:, None, :], rows) (library_ms); with bf16 rows none does
-    (bmm and einsum take no mixed dtypes), so library_ms is null there."""
-    rows = torch.randn((n, 8, 2), generator=gen, device="cuda").to(rows_dtype)
-    w = torch.rand((n, 8), generator=gen, device="cuda")
-    out = corner_sum.corner_sum(rows, w)
-    model = corner_sum.corner_sum_sequential(rows, w)
-    plain = corner_sum.corner_sum_reference(rows, w)
-    abs_sum = corner_sum.corner_sum_reference(rows.abs(), w)
+def encode_layout(torch, config):
+    """(levels, table rows, compute dtype) of a config's grid encode."""
+    from deblur_e_nerf_tpu_torch.models import hash_encoding
+
+    pe = config.model.nerf.ngp.pos_encoding
+    levels, total = hash_encoding.grid_layout(
+        pe.otype, pe.n_levels, pe.base_resolution, pe.per_level_scale,
+        pe.get("log2_hashmap_size", 19),
+        float(pe.get("cellhash_min_load") or 8.0))
+    dtype = pe.get("compute_dtype") or "float32"
+    return levels, total, None if dtype == "float32" else getattr(torch,
+                                                                   dtype)
+
+
+# phase 3's encode cases: (name, config) of the layouts whose step and eval
+# shapes it runs, the flagship's (configs/train/synthetic.yaml) and
+# EDS_TRAIN_CONFIG's (the r5fix config has the same encode)
+ENCODE_CASES = (("flagship (HybridHashGrid, bf16 rows)",
+                 lambda: flagship_config("unused")),
+                ("EDS/r5fix (HashGrid, float32 rows)",
+                 lambda: load_with_changes(EDS_TRAIN_CONFIG, {})))
+RAY_SAMPLES = 128  # samples a ray in the ray-ordered encode inputs
+
+
+def encode_positions(torch, kind, n, gen, device="cuda"):
+    """(n, 3) positions on `device` and the (n,) live slots: "uniform" in
+    [-0.02, 1.02]^3, every slot live; "rays": ray-ordered samples,
+    RAY_SAMPLES a ray at step sqrt(3)/1024 from uniform origins in uniform
+    directions (clipped to the cube by the encode), the last 40% of the
+    slots empty as in a warmup step (zero cotangents, all at the last live
+    sample's position)."""
+    if kind == "uniform":
+        u = torch.rand((n, 3), generator=gen, device=device) * 1.04 - 0.02
+        return u, torch.ones(n, dtype=torch.bool, device=device)
+    if kind != "rays":
+        raise ValueError(f"unknown encode input {kind!r}")
+    n_live = int(round(0.6 * n))
+    n_rays = -(-n_live // RAY_SAMPLES)
+    o = torch.rand((n_rays, 1, 3), generator=gen, device=device)
+    d = torch.nn.functional.normalize(
+        torch.randn((n_rays, 1, 3), generator=gen, device=device), dim=-1)
+    t = torch.arange(RAY_SAMPLES, device=device)[None, :, None] \
+        * (3 ** 0.5 / 1024)
+    u = torch.empty((n, 3), device=device)
+    u[:n_live] = (o + t * d).reshape(-1, 3)[:n_live]
+    u[n_live:] = u[n_live - 1]
+    live = torch.arange(n, device=device) < n_live
+    return u, live
+
+
+def check_encode_backward(torch, grad, g, u, levels):
+    """The encode backward's table gradient `grad` against the float64 sum
+    of the same float32 contributions (w * g in float32, as the kernel
+    forms them): returns (max abs error, whether every row is within
+    (k - 1) eps sum|x| of it, the largest k, the vector atomics the
+    contributions ask for after the zero skip and before combining), k a
+    row's count of non-zero contributions."""
+    from deblur_e_nerf_tpu_torch.ops import hash_encode
+
+    total = grad.shape[0]
+    exact = hash_encode.encode_backward_reference(
+        g, u, levels, total, sum_dtype=torch.float64)
+    abs_sum = hash_encode.encode_backward_reference(
+        g.abs(), u, levels, total, sum_dtype=torch.float64)
+    uc = torch.clamp(u, 0.0, 1.0)
+    k = torch.zeros(total, dtype=torch.int64, device=g.device)
+    atomics = 0
+    for li, level in enumerate(levels):
+        g_level = g[:, 2 * li:2 * li + 2]
+        rows, w = hash_encode.level_rows_weights(uc, *level, torch.float32)
+        nz = (w[..., None] * g_level[:, None] != 0).any(-1)
+        k += torch.bincount(rows[nz], minlength=total)
+        atomics += int((g_level != 0).any(-1).sum()) * (
+            4 if level[3] == "cellhash" else 8)
+        del rows, w, nz
+    err = (grad.double() - exact).abs()
+    eps = torch.finfo(torch.float32).eps
+    within = bool((err <= (k - 1).clamp(min=0)[:, None] * eps
+                   * abs_sum).all())
+    return float(err.max()), within, int(k.max()), atomics
+
+
+def encode_case(torch, name, layout, n, kind, seed=0):
+    """The fused encode's two kernels at one layout, N and input kind,
+    against their plain versions; returns (forward row, backward row).
+
+    Forward: bit for bit against `encode_forward_model` (the plain model
+    of its order), and within 2 x 7 eps sum|w x| of the plain version
+    (any order of the 8 rounded products is within 7 eps of the exact
+    sum, and each side is). Backward: every row within (k - 1) eps sum|x|
+    of the float64 sum of the same float32 contributions, k the row's
+    count of non-zero contributions (any order of k float32 additions).
+    No single PyTorch call computes a multi-level encode (library_ms
+    null); one level's index_select + bmm (forward) and index_add_
+    (backward) are timed as context."""
+    from deblur_e_nerf_tpu_torch.ops import hash_encode
+
+    levels, total, compute_dtype = layout
+    L = len(levels)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    table = torch.rand((total, 2), generator=gen, device="cuda") * 2 - 1
+    u, live = encode_positions(torch, kind, n, gen)
+    g = torch.randn((n, 2 * L), generator=gen, device="cuda") \
+        * live[:, None]
+    eps = torch.finfo(torch.float32).eps
+    rows_name = "bf16" if compute_dtype is not None else "float32"
+    context = {"n": n, "index_structure": kind, "shape": name,
+               "rows": rows_name, "levels": L, "table_rows": total}
+    modes = [m for *_, m in levels]
+    # each input read once (the positions, the table), each output
+    # written once; float32 operations a sample and level: the cell and
+    # weights (25), the 8 x F products and sums (31)
+    io_bytes = n * 3 * 4 + n * 2 * L * 4 + total * 2 * 4
+
+    # forward
+    fwd = lambda: hash_encode.encode_forward(table, u, levels, compute_dtype)
+    out = fwd()
+    model = hash_encode.encode_forward_model(table, u, levels, compute_dtype)
     torch.cuda.synchronize()
     exact = bool(torch.equal(_bits(torch, out), _bits(torch, model)))
-    err = float((out - plain).abs().max())
-    tol = 2 * 7 * torch.finfo(torch.float32).eps * float(abs_sum.max())
-    library_ms = None
-    if rows_dtype == torch.float32:
-        lib_out = torch.bmm(w[:, None, :], rows)[:, 0]
-        lib_err = float((lib_out - plain).abs().max())
-        if not lib_err <= tol:
-            raise AssertionError(f"corner_sum {name}: torch.bmm differs "
-                                 f"from plain by {lib_err:.3e}")
-        del lib_out
-        library_ms = time_ms(lambda: torch.bmm(w[:, None, :], rows), iters=10)
-    del out, model, plain, abs_sum
-    ms = time_ms(lambda: corner_sum.corner_sum(rows, w))
-    plain_ms = time_ms(lambda: corner_sum.corner_sum_reference(rows, w),
-                       iters=10)
-    bound_ms, bound_by = bound(
-        rows.numel() * rows.element_size() + w.numel() * 4 + n * 2 * 4,
-        2 * rows.numel())
-    rows_name = str(rows_dtype).replace("torch.", "")
-    row = {
-        "shape": name, "rows_dtype": rows_name, "n": n,
-        "max_abs_err": err, "bit_exact_vs_model": exact, "tolerance": tol,
+    del model
+    plain = hash_encode.encode_forward_reference(table, u, levels,
+                                                 compute_dtype)
+    err = (out - plain).abs()
+    del plain
+    tol = 2 * 7 * eps * hash_encode.encode_forward_reference(
+        table.abs(), u, levels, compute_dtype)
+    within = bool((err <= tol).all())
+    max_err, max_tol = float(err.max()), float(tol.max())
+    del err, tol, out
+    ms = time_ms(fwd)
+    plain_ms = time_ms(lambda: hash_encode.encode_forward_reference(
+        table, u, levels, compute_dtype), iters=3, warmup=1)
+    ctx_level = modes.index("hash")
+    ctx_idx, ctx_w = hash_encode.level_rows_weights(
+        torch.clamp(u, 0.0, 1.0), *levels[ctx_level], torch.float32)
+    ctx_idx = ctx_idx.reshape(-1)
+    context_ms = time_ms(lambda: torch.bmm(
+        ctx_w[:, None, :], table.index_select(0, ctx_idx).view(n, 8, 2)),
+        iters=10)
+    bound_ms, bound_by = bound(io_bytes, n * L * 56)
+    forward = dict(context, **{
+        "max_abs_err": max_err, "tolerance": max_tol,
+        "bit_exact_vs_model": exact, "within_order_bound": within,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
-    }
-    library = "none" if library_ms is None else f"{library_ms:.4f} ms"
-    print(f"corner_sum {name} ({rows_name} rows): N={n} max_abs_err "
-          f"{err:.3e} vs plain (tolerance {tol:.3e}), bit exact vs the model "
-          f"of its order: {exact}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, torch.bmm {library}, bound {bound_ms:.4f} ms ({bound_by})",
-          flush=True)
-    if not (exact and err <= tol):
-        raise AssertionError(f"corner_sum {name} ({rows_name}): differs "
+        "bound_by": bound_by, "library_ms": None,
+        "one_level_index_select_bmm_ms": context_ms, "atomics": 0})
+    print(f"hash_encode_fwd {name}, {kind}: N={n} L={L} {rows_name} rows; "
+          f"bit exact vs the model of its order: {exact}; max_abs_err "
+          f"{max_err:.3e} vs plain (within the order bound: {within}, "
+          f"largest bound {max_tol:.3e}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, one level's index_select + bmm "
+          f"{context_ms:.4f} ms, library none, bound {bound_ms:.4f} ms "
+          f"({bound_by})", flush=True)
+    if not (exact and within):
+        raise AssertionError(f"hash_encode_fwd {name} ({kind}): differs "
                              f"from its plain versions")
-    return row
+
+    # backward
+    bwd = lambda: hash_encode.encode_backward(g, u, levels, total)
+    max_err, within, max_k, atomics_live = check_encode_backward(
+        torch, bwd(), g, u, levels)
+    ms = time_ms(bwd)
+    plain_ms = time_ms(lambda: hash_encode.encode_backward_reference(
+        g, u, levels, total), iters=3, warmup=1)
+    contrib = (ctx_w[..., None] * g[:, None, 2 * ctx_level:2 * ctx_level + 2]
+               ).reshape(-1, 2)
+    context_ms = time_ms(lambda: torch.zeros(
+        (total, 2), device="cuda").index_add_(0, ctx_idx, contrib), iters=10)
+    del ctx_idx, ctx_w, contrib
+    atomics_max = n * sum(4 if m == "cellhash" else 8 for m in modes)
+    bound_ms, bound_by = bound(io_bytes, n * L * 41)
+    backward = dict(context, **{
+        "max_abs_err": max_err, "within_order_bound": within,
+        "max_row_count": max_k, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "one_level_index_add_ms": context_ms,
+        "atomics_at_most": atomics_max,
+        "atomics_after_zero_skip_before_combining": atomics_live})
+    print(f"hash_encode_bwd {name}, {kind}: N={n} L={L}; max_abs_err "
+          f"{max_err:.3e} vs the float64 plain version (each row within "
+          f"(k - 1) eps sum|x|: {within}, largest k {max_k}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, one level's index_add_ "
+          f"{context_ms:.4f} ms, library none, bound {bound_ms:.4f} ms "
+          f"({bound_by}); vector atomics at most {atomics_max} (shapes), "
+          f"{atomics_live} after the zero skip, before combining",
+          flush=True)
+    if not within:
+        raise AssertionError(f"hash_encode_bwd {name} ({kind}): differs "
+                             f"from the float64 plain version")
+    return forward, backward
 
 
 def probe_case(case):
@@ -755,28 +931,45 @@ def probe_case(case):
 
 
 def phase_kernels(torch):
-    from deblur_e_nerf_tpu_torch.ops import (corner_sum, gather_rows,
-                                             scatter_rows)
+    from deblur_e_nerf_tpu_torch.ops import gather_rows, scatter_rows
+    from deblur_e_nerf_tpu_torch.training.evaluation import (
+        DEFAULT_FIELD_CHUNK as n_eval)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     n = 131072
     k1 = MAIN_PATH_SAMPLE_BUDGET + 1
     k1_off = FILTER_OFF_SAMPLE_BUDGET + 1
+    # the fused encode: the step's field call over all K + 1 slots, and an
+    # eval field call (no gradient on that path; the backward timed there
+    # too)
+    encode = {"hash_encode_fwd": [], "hash_encode_bwd": []}
+    for name, config in ENCODE_CASES:
+        layout = encode_layout(torch, config())
+        for n_enc, kind, label in ((k1, "uniform", "N = K + 1"),
+                                   (k1, "rays", "N = K + 1"),
+                                   (n_eval, "uniform", "eval N = 2^20")):
+            rows = encode_case(torch, f"{label}: {name}", layout, n_enc,
+                               kind)
+            encode["hash_encode_fwd"].append(rows[0])
+            encode["hash_encode_bwd"].append(rows[1])
+            torch.cuda.empty_cache()
+    # K1 and K3 at the per-level encode's shapes (before it was fused)
     scatter_cases = [
-        # the filter-on step's calls: one per level, on all K + 1 slots
-        ("main path: cellhash levels 7-15", 16, 65536, k1),
-        ("main path: dense level 0", 16, 4096, k1),
-        ("main path: vertex-hash levels 5-6", 2, 524288, 8 * k1),
+        # the per-level encode's calls in a filter-on step: one a level, on
+        # all K + 1 slots
+        ("flagship step: cellhash levels 7-15", 16, 65536, k1),
+        ("flagship step: dense level 0", 16, 4096, k1),
+        ("flagship step: vertex-hash levels 5-6", 2, 524288, 8 * k1),
         # the step's index structures: a warmup step's ~6.3M empty slots
         # (zero rows at one index) after the marched samples, and the
         # ray-ordered runs of samples sharing a cell
-        ("main path: cellhash levels 7-15", 16, 65536, k1, "empty_tail"),
-        ("main path: cellhash levels 7-15", 16, 65536, k1, "ray_runs"),
-        ("main path: dense level 0", 16, 4096, k1, "ray_runs"),
+        ("flagship step: cellhash levels 7-15", 16, 65536, k1, "empty_tail"),
+        ("flagship step: cellhash levels 7-15", 16, 65536, k1, "ray_runs"),
+        ("flagship step: dense level 0", 16, 4096, k1, "ray_runs"),
         # the reads alone: every row zero, no atomic issued
-        ("main path: cellhash levels 7-15", 16, 65536, k1, "all_zero"),
-        ("main path: vertex-hash levels 5-6", 2, 524288, 8 * k1,
+        ("flagship step: cellhash levels 7-15", 16, 65536, k1, "all_zero"),
+        ("flagship step: vertex-hash levels 5-6", 2, 524288, 8 * k1,
          "all_zero"),
         # the filter-off step's
         ("filter off: cellhash levels 7-15", 16, 65536, k1_off),
@@ -797,17 +990,18 @@ def phase_kernels(torch):
         ("cellhash table, N=131072", 16, 65536, n),
         ("pallas_probe", perf_microbench.PROBE_WIDTH,
          perf_microbench.PROBE_TABLE_ROWS, perf_microbench.PROBE_ROWS))]
-    # the filter-on step's encode (and the occupancy update's): one gather
-    # per level over all K + 1 slots, on uniform rows and on ray-ordered
-    # runs; the vertex-hash level's 8 corners per sample in both orders
-    vertex = "main path: vertex-hash levels 5-6"
+    # the filter-on step's per-level encode (and the occupancy update's):
+    # one gather per level over all K + 1 slots, on uniform rows and on
+    # ray-ordered runs; the vertex-hash level's 8 corners per sample in
+    # both orders
+    vertex = "flagship step: vertex-hash levels 5-6"
     gather_inputs = [
         (name, width, n_rows, kind,
          lambda n_rows=n_rows, kind=kind: k3_indices(torch, kind, k1, n_rows))
         for name, width, n_rows in (
-            ("main path: cellhash view, levels 7-15", 16, 65536),
-            ("main path: packed dense level 0", 16, 16 ** 3),
-            ("main path: packed dense level 4", 16, 70 ** 3))
+            ("flagship step: cellhash view, levels 7-15", 16, 65536),
+            ("flagship step: packed dense level 0", 16, 16 ** 3),
+            ("flagship step: packed dense level 4", 16, 70 ** 3))
         for kind in ("uniform", "ray_runs")]
     gather_inputs += [
         (vertex, 2, 524288, "uniform",
@@ -818,8 +1012,6 @@ def phase_kernels(torch):
          lambda: vertex_hash_indices(torch, k1, 524288, True)),
     ]
     # the eval render's field calls (no gradient): N = 2^20 samples
-    from deblur_e_nerf_tpu_torch.training.evaluation import (
-        DEFAULT_FIELD_CHUNK as n_eval)
     gather_inputs += [
         ("eval field chunk: cellhash view, levels 7-15", 16, 65536, "uniform",
          lambda: k3_indices(torch, "uniform", n_eval, 65536)),
@@ -832,23 +1024,16 @@ def phase_kernels(torch):
             gather += gather_case(torch, gather_rows, name, width, n_rows,
                                   make_idx(), kind, gen)
         torch.cuda.empty_cache()
-    # the encode's weighted sum over each level's gathered rows, (N, 8, 2),
-    # in the training step and in an eval field call
-    with torch.no_grad():
-        sums = [corner_sum_case(torch, corner_sum, name, n, rows_dtype, gen)
-                for name, n in (("main path: every level", k1),
-                                ("eval field chunk: every level", n_eval))
-                for rows_dtype in (torch.bfloat16, torch.float32)]
-    torch.cuda.empty_cache()
     scatter.append(probe_case("pallas_probe"))
     gather.append(probe_case("pallas_gather_probe"))
-    return {"scatter_add_rows": scatter, "gather_rows": gather,
-            "corner_sum": sums, "scatter_add_rows_call_split": splits}
+    return dict(encode, scatter_add_rows=scatter, gather_rows=gather,
+                scatter_add_rows_call_split=splits)
 
 
 KERNEL_NAMES = {"scatter_add_rows": "scatter_add_rows_kernel",
                 "gather_rows": "gather_rows_kernel",
-                "corner_sum": "corner_sum_kernel"}
+                "hash_encode_fwd": "hash_encode_fwd_kernel",
+                "hash_encode_bwd": "hash_encode_bwd_kernel"}
 
 
 def _device_table(prof, label, n):
@@ -877,7 +1062,7 @@ def _device_table(prof, label, n):
 
 def _kernel_calls(prof, name):
     """Device ms of each launch of the port's kernel `name`, in launch
-    order (for the scatter-add, one per hash level)."""
+    order."""
     from torch.autograd import DeviceType
 
     key = KERNEL_NAMES[name]
@@ -888,9 +1073,8 @@ def _kernel_calls(prof, name):
 
 
 def _per_call(prof):
-    """The port's kernels' device ms per launch, in launch order (one per
-    hash level in the encode; the warmup occupancy update's gathers
-    follow the step's)."""
+    """The port's kernels' device ms per launch, in launch order (the
+    warmup occupancy update's encode forwards follow the step's)."""
     return "; ".join(
         f"{name} per call (ms) "
         f"{[round(t, 4) for t in _kernel_calls(prof, name)]}"
@@ -944,22 +1128,43 @@ def profile_steps(torch, trainer, n_steps=3):
               f"profiled call's wall", flush=True)
 
 
-def _kernel_modules():
-    from deblur_e_nerf_tpu_torch.ops import (corner_sum, gather_rows,
+def _launch_counters():
+    """{kernel: (its wrapper's module, the name of its launch count)}."""
+    from deblur_e_nerf_tpu_torch.ops import (gather_rows, hash_encode,
                                              scatter_rows)
 
-    return {"scatter_add_rows": scatter_rows, "gather_rows": gather_rows,
-            "corner_sum": corner_sum}
+    return {"scatter_add_rows": (scatter_rows, "LAUNCHES"),
+            "gather_rows": (gather_rows, "LAUNCHES"),
+            "hash_encode_fwd": (hash_encode, "FORWARD_LAUNCHES"),
+            "hash_encode_bwd": (hash_encode, "BACKWARD_LAUNCHES")}
 
 
 def reset_launches():
-    for module in _kernel_modules().values():
-        module.LAUNCHES = 0
+    for module, name in _launch_counters().values():
+        setattr(module, name, 0)
 
 
 def read_launches():
-    return {name: module.LAUNCHES
-            for name, module in _kernel_modules().items()}
+    return {kernel: getattr(module, name)
+            for kernel, (module, name) in _launch_counters().items()}
+
+
+def encode_launches(forward, backward):
+    """The launches of a path that calls the field `forward` times and runs
+    `backward` encode backwards: one fused encode kernel each, and neither
+    K1 nor K3 (the per-level encode's kernels, off every path since the
+    encode was fused)."""
+    return {"scatter_add_rows": 0, "gather_rows": 0,
+            "hash_encode_fwd": forward, "hash_encode_bwd": backward}
+
+
+def check_path_launches(path, counts, trains):
+    """A path launches the fused forward, the backward if it `trains` (and
+    not if it does not), and neither K1 nor K3."""
+    if not (counts["hash_encode_fwd"] > 0
+            and (counts["hash_encode_bwd"] > 0) == trains
+            and counts["scatter_add_rows"] == counts["gather_rows"] == 0):
+        raise AssertionError(f"{path}: launches {counts}")
 
 
 def run_steps(torch, trainer, n_steps, label, profile=False):
@@ -1025,8 +1230,8 @@ def count_step_syncs(torch, trainer, label="flagship",
     {source line: host syncs}, each sync attributed to the innermost line
     of the port on the stack, and prints it. A sync in one of the
     `forbidden` files (the optimizer's) fails the run, and so do kernel
-    launches other than `expected` (default: each kernel once per hash
-    level)."""
+    launches other than `expected` (default: one fused encode forward and
+    one backward)."""
     import traceback
     import warnings
 
@@ -1062,8 +1267,7 @@ def count_step_syncs(torch, trainer, label="flagship",
     print(f"host syncs in one steady {label} step: {sum(sites.values())} "
           f"({sites}); kernel launches {launches}", flush=True)
     if expected is None:
-        n_levels = len(trainer.params.nerf.field.levels)
-        expected = {name: n_levels for name in launches}
+        expected = encode_launches(1, 1)
     if launches != expected:
         raise AssertionError(f"a steady {label} step launches {launches}, "
                              f"want {expected}")
@@ -1142,9 +1346,7 @@ def phase_training(torch, tmp, profile=False):
         profile_steps(torch, trainer)
     for path, counts in launches.items():
         print(f"training, {path}: launches {counts}", flush=True)
-        for name, count in counts.items():
-            if count <= 0:
-                raise AssertionError(f"{path}: {name} never launched")
+        check_path_launches(path, counts, trains=True)
     return launches, trainer, root
 
 
@@ -1389,8 +1591,8 @@ def phase_eval(torch, tmp, trainer, root):
     """Evaluation on the full-width flagship trainer that phase 4 stepped:
     Trainer.evaluate("val") with seeded stub LPIPS weights (every metric
     finite), one 346x260 frame through make_render_image_fn, timed and
-    profiled, with its kernel launches (16 per field call: one gather and
-    one corner sum per hash level), then the card-vs-CPU eval render.
+    profiled, with its kernel launches (one fused encode forward per field
+    call), then the card-vs-CPU eval render.
     Returns {"eval": launches of evaluate("val"), "eval frame": launches
     of one frame}."""
 
@@ -1401,7 +1603,6 @@ def phase_eval(torch, tmp, trainer, root):
     from deblur_e_nerf_tpu_torch.training import evaluation
 
     card = torch.cuda.get_device_name(0)
-    n_levels = len(trainer.params.nerf.field.levels)
     trainer.config.metric.lpips_weights_path = write_lpips_stub(
         torch, f"{tmp}/lpips_alex.pt")
     trainer._flush_pending_metrics()
@@ -1417,10 +1618,7 @@ def phase_eval(torch, tmp, trainer, root):
     if not all(math.isfinite(metric[k]) for k in ("l1", "psnr", "ssim",
                                                   "lpips")):
         raise AssertionError(f"eval val: a metric is not finite: {metric}")
-    if not (val_launches["gather_rows"] == val_launches["corner_sum"] > 0
-            and val_launches["gather_rows"] % n_levels == 0
-            and val_launches["scatter_add_rows"] == 0):
-        raise AssertionError(f"eval val launches: {val_launches}")
+    check_path_launches("eval val", val_launches, trains=False)
 
     H, W = EVAL_FRAME_HEIGHT, EVAL_FRAME_WIDTH
     focal = 0.8 * W
@@ -1458,11 +1656,10 @@ def phase_eval(torch, tmp, trainer, root):
           f"memory {peak:.3f} GiB above the trainer's "
           f"{base / 2**30:.3f} GiB; kernel launches {frame_launches} on "
           f"{card}", flush=True)
-    want = n_levels * stats["field_chunks"]
-    if not (frame_launches["gather_rows"] == frame_launches["corner_sum"]
-            == want > 0 and frame_launches["scatter_add_rows"] == 0):
+    want = encode_launches(stats["field_chunks"], 0)
+    if not (frame_launches == want and stats["field_chunks"] > 0):
         raise AssertionError(f"eval frame launches {frame_launches}, want "
-                             f"{want} of the gather and the corner sum")
+                             f"{want}")
     if img.shape != (H, W) or not bool(torch.isfinite(img).all()) \
             or stats["truncated_rays"]:
         raise AssertionError(f"eval frame: shape {tuple(img.shape)}, "
@@ -1683,19 +1880,16 @@ def train_eds_epoch(torch, trainer, card):
     return records, occ_calls, saves
 
 
-def check_eds_epoch(records, occ_calls, n_levels, accumulate, resolution):
+def check_eds_epoch(records, occ_calls, accumulate, resolution):
     """Phase 7's checks of epoch 0's micro-steps."""
     # the warmup update's field calls, of 2^19 cells each
     chunks = -(-(resolution ** 3) // (1 << 19))
     for r in records:
         occ = r["occupancy"]
-        want = n_levels * (1 + (chunks if occ else 0))
-        got = r["launches"]
-        if not (got["scatter_add_rows"] == n_levels
-                and got["gather_rows"] == got["corner_sum"] == want):
+        want = encode_launches(1 + (chunks if occ else 0), 1)
+        if r["launches"] != want:
             raise AssertionError(f"EDS micro-step {r['step']}: launches "
-                                 f"{got}, want K1 {n_levels} and K3 and the "
-                                 f"corner sum {want} each")
+                                 f"{r['launches']}, want {want}")
         if occ != (r["step"] % accumulate == 0):
             raise AssertionError(f"EDS micro-step {r['step']}: occupancy "
                                  f"update {occ}")
@@ -1774,7 +1968,6 @@ def phase_eds(torch, tmp, card, profile=False):
     t0 = time.perf_counter()
     trainer = Trainer(config, log_dir, device="cuda")
     field = trainer.params.nerf.field
-    n_levels = len(field.levels)
     accumulate = trainer.accumulate
     pb = dict(trainer.params.pixel_bandwidth.named_parameters())
     print(f"EDS trainer built in {time.perf_counter() - t0:.2f} s: levels "
@@ -1797,7 +1990,7 @@ def phase_eds(torch, tmp, card, profile=False):
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t_epoch
     launches["eds train"] = read_launches()
-    check_eds_epoch(records, occ_calls, n_levels, accumulate,
+    check_eds_epoch(records, occ_calls, accumulate,
                     trainer.params.nerf.render_config.grid_resolution)
     ckpt0 = f"{log_dir}/checkpoints/epoch_0000"
     size_mib = os.path.getsize(ckpt0) / 2**20
@@ -1934,11 +2127,10 @@ def phase_eds(torch, tmp, card, profile=False):
           f"memory {frame_peak:.3f} GiB above the evaluator's "
           f"{base / 2**30:.3f} GiB; launches {launches['eds frame']} on "
           f"{card}", flush=True)
-    want = n_levels * stats["field_chunks"]
-    frame = launches["eds frame"]
-    if not (frame["gather_rows"] == frame["corner_sum"] == want > 0
-            and frame["scatter_add_rows"] == 0):
-        raise AssertionError(f"EDS frame launches {frame}, want {want}")
+    want = encode_launches(stats["field_chunks"], 0)
+    if not (launches["eds frame"] == want and stats["field_chunks"] > 0):
+        raise AssertionError(f"EDS frame launches {launches['eds frame']}, "
+                             f"want {want}")
     if img.shape != (H, W) or not bool(torch.isfinite(img).all()) \
             or stats["truncated_rays"]:
         raise AssertionError(f"EDS frame: shape {tuple(img.shape)}, "
@@ -1947,11 +2139,8 @@ def phase_eds(torch, tmp, card, profile=False):
     torch.cuda.empty_cache()
     eds_step_card_vs_cpu(torch, tmp)
     for path, counts in launches.items():
-        for name in ("gather_rows", "corner_sum") + (
-                ("scatter_add_rows",) if "eval" not in path
-                and "frame" not in path else ()):
-            if counts[name] <= 0:
-                raise AssertionError(f"{path}: {name} never launched")
+        check_path_launches(path, counts, trains="eval" not in path
+                            and "frame" not in path)
     return launches
 
 
@@ -2045,32 +2234,28 @@ def make_r5fix_dataset(torch, root):
 
 def r5fix_step_launches(trainer, occupancy_update, prepass=True):
     """The kernel launches one r5fix step implies: each field call runs
-    one gather and one corner sum per hash level, each field backward one
-    scatter-add per level. A step with the prepass calls the field in the
+    one fused encode forward, each field backward one fused encode
+    backward. A step with the prepass calls the field in the
     prepass's density pass (over K + 1 slots), the full field (over the
     prepass's K / 2 + 1 slots) and the sparsity prior; one without it
     (`prepass` False) the full field over K + 1 slots and the prior; each
     in field_chunk pieces when set; the backward runs through the full
     field and the prior; a warmup occupancy update adds one density call
     per 2^19 cells."""
-    model = trainer.params.nerf
-    rc = model.render_config
-    n_levels = len(model.field.levels)
+    rc = trainer.params.nerf.render_config
 
     def calls(n):
         return -(-n // rc.field_chunk) if rc.field_chunk else 1
 
     if prepass:
         field_calls = calls(rc.prepass_budget + 1)
-        gathers = calls(rc.sample_budget + 1) + field_calls + 1
+        forwards = calls(rc.sample_budget + 1) + field_calls + 1
     else:
         field_calls = calls(rc.sample_budget + 1)
-        gathers = field_calls + 1
+        forwards = field_calls + 1
     if occupancy_update:
-        gathers += -(-(rc.grid_resolution ** 3) // (1 << 19))
-    return {"scatter_add_rows": n_levels * (field_calls + 1),
-            "gather_rows": n_levels * gathers,
-            "corner_sum": n_levels * gathers}
+        forwards += -(-(rc.grid_resolution ** 3) // (1 << 19))
+    return encode_launches(forwards, field_calls + 1)
 
 
 def timed_r5fix_step(torch, trainer, card, step_fn, records,
@@ -2311,9 +2496,10 @@ def r5fix_chunked_step(torch, trainer, card):
     backward; no update) on the same batch and draws with the training
     render's field_chunk at R5FIX_FIELD_CHUNK and without. Loss within
     1e-6 relative, every gradient within 2e-4 of its largest entry; the
-    gather and the corner sum launch in the forward only (each chunk's
-    encode output is kept), with the counts `r5fix_step_launches`
-    implies. Prints each one's peak device memory."""
+    encode forward launches in the forward only (each chunk's encode
+    output is kept) and the encode backward in the backward only, with
+    the counts `r5fix_step_launches` implies. Prints each one's peak
+    device memory."""
     import dataclasses
 
     from deblur_e_nerf_tpu_torch.models import nerf_model
@@ -2359,12 +2545,9 @@ def r5fix_chunked_step(torch, trainer, card):
                   f"backward), "
                   f"peak device memory {peak:.2f} GiB, launches forward "
                   f"{forward}, backward {backward} on {card}", flush=True)
-            if not (forward["gather_rows"] == forward["corner_sum"]
-                    == want["gather_rows"]
-                    and forward["scatter_add_rows"] == 0
-                    and backward["gather_rows"] == backward["corner_sum"]
-                    == 0 and backward["scatter_add_rows"]
-                    == want["scatter_add_rows"]):
+            if not (forward == encode_launches(want["hash_encode_fwd"], 0)
+                    and backward == encode_launches(
+                        0, want["hash_encode_bwd"])):
                 raise AssertionError(f"r5fix field_chunk {chunk}: launches "
                                      f"{forward}, {backward}, want {want}")
     finally:
@@ -2391,8 +2574,9 @@ def r5fix_chunked_step(torch, trainer, card):
 def r5fix_eval(torch, tmp, trainer, root, card):
     """Trainer.evaluate("val") with the eval prepass (every metric
     finite), then one frame at the dataset's size through
-    make_render_image_fn, timed and profiled (launches: 16 per density
-    and per field call), then the card's eval render with the prepass
+    make_render_image_fn, timed and profiled (launches: one encode
+    forward per density and per field call), then the card's eval render
+    with the prepass
     against the CPU's. Returns {path: launches}."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
@@ -2401,7 +2585,6 @@ def r5fix_eval(torch, tmp, trainer, root, card):
     from deblur_e_nerf_tpu_torch.training import evaluation
 
     launches = {}
-    n_levels = len(trainer.params.nerf.field.levels)
     eval_div = trainer.config.model.nerf.eval_occlusion_prepass_div
     torch.cuda.synchronize()
     reset_launches()
@@ -2451,9 +2634,9 @@ def r5fix_eval(torch, tmp, trainer, root, card):
           f"truncated rays {stats['truncated_rays']}, peak device memory "
           f"{peak:.3f} GiB above the trainer's {base / 2**30:.3f} GiB; "
           f"launches {frame} on {card}", flush=True)
-    want = n_levels * (stats["density_chunks"] + stats["field_chunks"])
-    if not (frame["gather_rows"] == frame["corner_sum"] == want > 0
-            and frame["scatter_add_rows"] == 0):
+    want = encode_launches(stats["density_chunks"] + stats["field_chunks"],
+                           0)
+    if not (frame == want and stats["field_chunks"] > 0):
         raise AssertionError(f"r5fix frame launches {frame}, want {want}")
     if img.shape != (H, W) or not bool(torch.isfinite(img).all()) \
             or stats["truncated_rays"]:
@@ -2566,10 +2749,7 @@ def phase_r5fix(torch, tmp, card):
     torch.cuda.empty_cache()
     r5fix_vanilla_steps(torch, root, tmp, card)
     for path, counts in launches.items():
-        for name in ("gather_rows", "corner_sum") + (
-                ("scatter_add_rows",) if path == "r5fix train" else ()):
-            if counts[name] <= 0:
-                raise AssertionError(f"{path}: {name} never launched")
+        check_path_launches(path, counts, trains=path == "r5fix train")
     return launches
 
 
@@ -2673,9 +2853,7 @@ def phase_quality(torch, tmp, card, device="cuda"):
           f"{[round(r[1], 4) for r in epochs]} against the flat field's "
           f"{epochs[0][3]:.4f}; launches {launches['quality']} on {card}",
           flush=True)
-    for name, count in launches["quality"].items():
-        if count <= 0:
-            raise AssertionError(f"quality: {name} never launched")
+    check_path_launches("quality", launches["quality"], trains=True)
     return launches
 
 # phase 10: the flagship data parallel over MESH_WORLD ranks, through the
@@ -3313,24 +3491,24 @@ def main():
         with phase("10 data parallel (flagship, 2 ranks over gloo)"):
             launches.update(phase_data_parallel(torch, tmp, root, card))
 
+    step_shape = f"N = K + 1: {ENCODE_CASES[0][0]}"
     kernels = [
+        kernel_line("hash_encode_fwd", HASH_ENCODE_SOURCE,
+                    HASH_ENCODE_FWD_REPLACES, rows["hash_encode_fwd"],
+                    launches, step_shape),
+        kernel_line("hash_encode_bwd", HASH_ENCODE_SOURCE,
+                    HASH_ENCODE_BWD_REPLACES, rows["hash_encode_bwd"],
+                    launches, step_shape),
         dict(kernel_line("scatter_add_rows", SCATTER_SOURCE,
                          SCATTER_REPLACES, rows["scatter_add_rows"],
-                         launches, "main path: cellhash levels 7-15"),
+                         launches, "flagship step: cellhash levels 7-15"),
              call_split=rows["scatter_add_rows_call_split"]),
         kernel_line("gather_rows", GATHER_SOURCE, GATHER_REPLACES,
                     rows["gather_rows"], launches,
-                    "main path: cellhash view, levels 7-15"),
-        kernel_line("corner_sum", CORNER_SUM_SOURCE, CORNER_SUM_REPLACES,
-                    rows["corner_sum"], launches, "main path: every level"),
+                    "flagship step: cellhash view, levels 7-15"),
     ]
-    for name in ("gather_rows", "corner_sum"):
-        if launches["eval"][name] <= 0 or launches["eval frame"][name] <= 0:
-            raise AssertionError(f"eval: {name} never launched")
     for path in (p for p in launches if p.startswith("data parallel")):
-        for name, count in launches[path].items():
-            if count <= 0:
-                raise AssertionError(f"{path}: {name} never launched")
+        check_path_launches(path, launches[path], trains=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

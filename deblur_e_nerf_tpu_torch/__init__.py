@@ -6,16 +6,17 @@ package's module names and layout (`ops/`, `models/`, `training/`,
 there. The port imports torch, numpy, scipy and the standard library only:
 never jax, and nothing of `deblur_e_nerf_tpu`.
 
-Slice status: the event-supervised NGP training step of the flagship
-config, with the pixel-bandwidth filter on (S lifetime samples per
-endpoint) or off. Both TPU kernels on that path have hand-written CUDA
-counterparts in `csrc/`, built with nvcc at first use and loaded with
-ctypes (`ops/_cuda_build.py`): the row scatter-add of the hash-grid table
-backward (`ops/scatter_rows.py`, for the Pallas kernel of
-`deblur_e_nerf_tpu/ops/pallas_scatter.py`) and the row gather of every
-hash-grid level's forward (`ops/gather_rows.py`, for the Pallas gather
-probe of `scripts/perf_microbench.py`). `perf_microbench.py` times both
-at the Pallas probes' shapes.
+Slice status: every module of the JAX package has a counterpart here. The
+hand-written CUDA kernels live in `csrc/`, built with nvcc at first use
+and loaded with ctypes (`ops/_cuda_build.py`): the hash-grid encode, one
+fused kernel a direction over all levels (`ops/hash_encode.py`, for the
+JAX package's custom-VJP `_encode_frozen_pos`), on every training and
+eval path; and the counterparts of the Pallas kernels, the row
+scatter-add (`ops/scatter_rows.py`, for
+`deblur_e_nerf_tpu/ops/pallas_scatter.py`) and the row gather
+(`ops/gather_rows.py`, for the Pallas gather probe of
+`scripts/perf_microbench.py`), which `perf_microbench.py` times at the
+Pallas probes' shapes.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with
 no GPU they raise instead of falling back to the CPU

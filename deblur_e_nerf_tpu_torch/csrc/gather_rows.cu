@@ -3,12 +3,10 @@
 //
 // Replaces the Pallas TPU kernel of scripts/perf_microbench.py
 // (`case_pallas_gather_probe`), which gathers VMEM-resident rows with
-// scalar-prefetched indices; on the main path it is the gather at the
-// heart of every hash-encode level (deblur_e_nerf_tpu/models/
-// hash_encoding.py `_encode_impl`, `jnp.take(table.astype(compute_dtype),
-// idx)`): vertex-hash levels gather 8 (F = 2)-float vertex rows per
-// sample; cellhash and packed dense levels one (8F = 16)-float row per
-// sample.
+// scalar-prefetched indices. It was the gather of every hash-encode level
+// (vertex-hash levels 8 (F = 2)-float vertex rows per sample; cellhash
+// and packed dense levels one (8F = 16)-float row per sample) until the
+// encode was fused (hash_encode.cu); no path launches it now.
 //
 // Bound: bytes. The function reads N*4 bytes of indices and each touched
 // table row once, and writes N*W*2 (bf16) or N*W*4 (float32) bytes; it
@@ -76,43 +74,16 @@
 #include <stdint.h>
 
 #include "launch.cuh"
+#include "table_load.cuh"
 
 namespace {
 
 using launch_grid::kThreads;
 using launch_grid::launch;
+using table_load::ld1;
+using table_load::ld2;
+using table_load::ld4;
 constexpr int kNarrowRows = 8;  // rows per thread in the W = 2 instances
-
-__device__ __forceinline__ uint64_t table_policy() {
-  uint64_t policy;
-  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
-      : "=l"(policy));
-  return policy;
-}
-
-__device__ __forceinline__ float ld_table(const float* p, uint64_t policy) {
-  float v;
-  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
-      : "=f"(v) : "l"(p), "l"(policy));
-  return v;
-}
-
-__device__ __forceinline__ float2 ld_table2(const float* p,
-                                            uint64_t policy) {
-  float2 v;
-  asm("ld.global.nc.L2::cache_hint.v2.f32 {%0, %1}, [%2], %3;"
-      : "=f"(v.x), "=f"(v.y) : "l"(p), "l"(policy));
-  return v;
-}
-
-__device__ __forceinline__ float4 ld_table4(const float* p,
-                                            uint64_t policy) {
-  float4 v;
-  asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
-      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-      : "l"(p), "l"(policy));
-  return v;
-}
 
 __device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
   const __nv_bfloat162 h = __float22bfloat162_rn(make_float2(a, b));
@@ -144,7 +115,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int WORDS = BF16 ? 1 : 2;  // 32-bit words per output row
   __shared__ __align__(16) uint32_t stage[kThreads / 32][2 * TILE];
   uint32_t* buf = stage[threadIdx.x / 32];
-  const uint64_t policy = table_policy();
+  const uint64_t policy = table_load::policy();
   const int lane = threadIdx.x & 31;
   const int64_t warps = grid_threads() / 32;
   const int64_t full = n / TILE * TILE;
@@ -167,7 +138,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < G; ++k) {
       v[k] = (uint32_t)r[k] < n_rows
-                 ? ld_table2(table + 2 * (int64_t)r[k], policy)
+                 ? ld2(table + 2 * (int64_t)r[k], policy)
                  : make_float2(0.0f, 0.0f);
     }
 #pragma unroll
@@ -192,7 +163,7 @@ __global__ void __launch_bounds__(kThreads)
   if (i < n) {
     const int32_t r = __ldcs(idx + i);
     const float2 v = (uint32_t)r < n_rows
-                         ? ld_table2(table + 2 * (int64_t)r, policy)
+                         ? ld2(table + 2 * (int64_t)r, policy)
                          : make_float2(0.0f, 0.0f);
     if constexpr (BF16) {
       __stcs(reinterpret_cast<unsigned int*>(out) + i, bf16x2_bits(v.x, v.y));
@@ -216,7 +187,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int STEP = 32 / C;             // rows per warp-wide step
   constexpr int TILE = R * STEP;           // rows per warp per iteration
   static_assert(OUT_BYTES % 16 == 0 && 32 % C == 0, "unsupported width");
-  const uint64_t policy = table_policy();
+  const uint64_t policy = table_load::policy();
   const int lane = threadIdx.x & 31;
   const int c = lane % C;
   const int j = lane / C;
@@ -236,7 +207,7 @@ __global__ void __launch_bounds__(kThreads)
       const float* src = table + (int64_t)r[s] * W + c * IN;
 #pragma unroll
       for (int q = 0; q < IN / 4; ++q) {
-        v[s][q] = ok ? ld_table4(src + 4 * q, policy)
+        v[s][q] = ok ? ld4(src + 4 * q, policy)
                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
     }
@@ -265,13 +236,13 @@ __global__ void __launch_bounds__(kThreads)
                                const int32_t* __restrict__ idx,
                                void* __restrict__ out, int64_t n,
                                int32_t width, uint32_t n_rows) {
-  const uint64_t policy = table_policy();
+  const uint64_t policy = table_load::policy();
   for (int64_t i = global_thread(); i < n; i += grid_threads()) {
     const int32_t r = __ldcs(idx + i);
     const bool ok = (uint32_t)r < n_rows;
     const float* src = table + (int64_t)r * width;
     for (int32_t k = 0; k < width; ++k) {
-      const float v = ok ? ld_table(src + k, policy) : 0.0f;
+      const float v = ok ? ld1(src + k, policy) : 0.0f;
       if constexpr (BF16) {
         reinterpret_cast<__nv_bfloat16*>(out)[i * width + k] =
             __float2bfloat16_rn(v);

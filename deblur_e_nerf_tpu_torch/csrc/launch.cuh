@@ -1,5 +1,5 @@
 // Grid sizing shared by the grid-stride kernels (gather_rows.cu,
-// corner_sum.cu): a launch never asks for more blocks than the card holds
+// hash_encode.cu): a launch never asks for more blocks than the card holds
 // at once, so each resident thread walks the work with a grid-stride loop.
 
 #pragma once

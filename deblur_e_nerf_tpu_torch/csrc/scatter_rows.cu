@@ -5,11 +5,13 @@
 // (`_scatter_add_rows_pallas`, body `_kernel`), which walks the
 // contribution rows serially into a destination table held in VMEM. On
 // Hopper the rows are independent work items that add into the table in
-// device memory with atomics; nothing of the serial walk carries over.
+// device memory with atomics; nothing of the serial walk carries over. It
+// was the per-level hash-grid table backward until that was fused
+// (hash_encode.cu); no path launches it now.
 //
 // Bound: device-memory bytes. The function must read val (N*W*4 bytes) and
 // idx (N*4 bytes) once and write the output (n_rows*W*4 bytes) once; its
-// arithmetic is one add per element. Every table of the training step is
+// arithmetic is one add per element. Every table of the per-level encode was
 // at most 4 MB (65,536 x 16 or 524,288 x 2 floats), so the atomics resolve
 // in the 50 MB L2 and the streamed reads of val and idx set the floor.
 // Four mechanisms keep the kernel near that floor:
@@ -17,11 +19,11 @@
 //  1. 16-byte work per thread, 32-bit index math. A thread owns one VEC-
 //     float chunk of a row (a float4 when W % 4 == 0, a float2 for W = 2)
 //     over kRows = 8 consecutive rows, and loads each row's index once. W is a
-//     template parameter on the main path's widths (16 and 2), so the
+//     template parameter on the per-level encode's widths (16 and 2), so the
 //     chunk arithmetic is shifts; other widths take a generic path with
 //     the width at run time. Offsets are 32-bit when N*W and n_rows*W fit
-//     (every main-path call: at most 252M elements), and the grid is sized
-//     to the work, one thread per (row group, chunk).
+//     (every per-level encode call: at most 252M elements), and the grid
+//     is sized to the work, one thread per (row group, chunk).
 //  2. Hopper's vector atomics. atomicAdd(float4*, float4) and
 //     atomicAdd(float2*, float2) exist for compute capability 9.x on
 //     global memory; with the result unused they compile to one vector
@@ -46,7 +48,7 @@
 // reductions on distinct 32-byte sectors sets its time instead, at about
 // twice the bound for W = 16. Fewer reductions, not fewer bytes, is what
 // would help there: a caller that orders its rows so that equal indices
-// are adjacent (the hash encoding lays its vertex-hash rows out
+// are adjacent (the per-level hash encoding laid its vertex-hash rows out
 // corner-major for this) lets mechanism 4 remove them.
 //
 // The kernel's summation order: per thread, each run's rows summed in

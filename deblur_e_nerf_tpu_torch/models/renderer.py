@@ -34,7 +34,7 @@ The stratified jitter is an input (`jitter`, (R,) uniforms).
 
 With `rc.field_chunk`, the training render runs the field `field_chunk`
 samples at a time: each chunk's encode output is kept for the backward
-(the gather and corner sum never run again) and only the MLPs and the SH
+(the encode forward never runs again) and only the MLPs and the SH
 encoding are recomputed there, under torch.utils.checkpoint (the JAX
 package's `save_only_these_names("hash_encode_out")`).
 

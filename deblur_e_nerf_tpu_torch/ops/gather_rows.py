@@ -14,10 +14,10 @@ The kernel does not check indices on the card (that would need a host
 sync): the caller builds them in [0, T). An index out of range reads
 nothing and yields a zero row on the card; the plain version raises.
 
-The hash-grid encode (models/hash_encoding.py) calls this once per level:
-vertex-hash levels gather (8N,) sample-major indices from the level's
-(size, F) rows, cellhash levels (N,) indices from the (size/8, 8F) view,
-dense levels (N,) indices from the packed (res^3, 8F) cell rows.
+No path of the port calls it since the hash-grid encode was fused
+(ops/hash_encode.py); chip_smoke.py holds it to its plain version at the
+shapes the per-level encode gave it, and perf_microbench.py at the Pallas
+probe's.
 """
 
 import torch

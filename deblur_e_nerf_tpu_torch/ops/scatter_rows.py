@@ -10,9 +10,10 @@ CPU tensor it runs the plain PyTorch version, `scatter_add_rows_reference`.
 `scatter_add_rows_combined` is a plain model of the kernel's summation
 order, for tests. `LAUNCHES` counts kernel launches.
 
-The hash-grid table backward (models/hash_encoding.py) calls this once per
-level: dense levels with (res^3, 8F) packed cell rows, cellhash levels with
-(size/8, 8F) rows, vertex-hash levels with (size, F) rows.
+No path of the port calls it since the hash-grid table backward was fused
+(ops/hash_encode.py); chip_smoke.py holds it to its plain version at the
+shapes the per-level backward gave it, and perf_microbench.py at the
+Pallas probe's.
 """
 
 import torch

@@ -11,7 +11,7 @@ import torch
 
 import chip_smoke
 from deblur_e_nerf_tpu_torch.models import contraction, fields, hash_encoding
-from deblur_e_nerf_tpu_torch.ops import corner_sum, gather_rows, scatter_rows
+from deblur_e_nerf_tpu_torch.ops import gather_rows, hash_encode, scatter_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -216,10 +216,10 @@ def test_gather_kernel_on_an_unaligned_index_view(cuda, width, round_to):
     ("DenseGrid", (3, 4, 2.0, 12)),
 ])
 def test_encode_on_card_matches_cpu(cuda, otype, layout):
-    """The encode's features (bf16 rows through the kernel, sample-major
-    vertex-hash levels) and table gradient on the card against the plain
+    """The encode's features (bf16 rows through the fused forward) and
+    table gradient (the fused backward) on the card against the plain
     version on the CPU: the gathered values agree bit for bit, the 8-term
-    float32 sums and the scatter-adds may run in another order."""
+    float32 sums and the row sums may run in another order."""
     levels, total = hash_encoding.grid_layout(otype, *layout)
     rng = np.random.default_rng(4)
     table = torch.from_numpy(rng.uniform(-1, 1, (total, 2)).astype(
@@ -231,13 +231,17 @@ def test_encode_on_card_matches_cpu(cuda, otype, layout):
     outs = {}
     for device in ("cpu", cuda):
         t = table.to(device, copy=True).requires_grad_(True)
-        before, sums = gather_rows.LAUNCHES, corner_sum.LAUNCHES
+        before = (hash_encode.FORWARD_LAUNCHES,
+                  hash_encode.BACKWARD_LAUNCHES, gather_rows.LAUNCHES,
+                  scatter_rows.LAUNCHES)
         feat = hash_encoding.encode(t, u.to(device), levels,
                                     compute_dtype=torch.bfloat16)
         (feat * cot.to(device)).sum().backward()
-        if device == cuda:
-            assert gather_rows.LAUNCHES == before + len(levels)
-            assert corner_sum.LAUNCHES == sums + len(levels)
+        if device == cuda:  # one launch a direction, over all levels
+            assert (hash_encode.FORWARD_LAUNCHES,
+                    hash_encode.BACKWARD_LAUNCHES, gather_rows.LAUNCHES,
+                    scatter_rows.LAUNCHES) == (before[0] + 1, before[1] + 1,
+                                               before[2], before[3])
         outs[str(device)] = (feat.detach().cpu(), t.grad.cpu())
     # tests/test_torch_hash_encoding.py's tolerances against the JAX encode
     torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=1e-5,
@@ -247,42 +251,99 @@ def test_encode_on_card_matches_cpu(cuda, otype, layout):
                                atol=1e-5 * scale)
 
 
-@pytest.mark.parametrize("rows_dtype", [torch.bfloat16, torch.float32])
+ENCODE_OTYPES = [("HybridHashGrid", (8, 4, 2.0, 12)),
+                 ("HashGrid", (8, 4, 2.0, 12)),
+                 ("TiledGrid", (8, 4, 2.0, 12)),
+                 ("CellHashGrid", (8, 4, 2.0, 12)),
+                 ("DenseGrid", (3, 4, 2.0, 12))]
+
+
+def _encode_inputs(cuda, otype, layout, n, kind="uniform", seed=0):
+    levels, total = hash_encoding.grid_layout(otype, *layout)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    table = torch.rand((total, 2), generator=gen, device=cuda) * 2 - 1
+    u, live = chip_smoke.encode_positions(torch, kind, n, gen, cuda)
+    # the cube's corners and faces, and beyond it: u = 1.0 is a dense
+    # level's clipped last cell (frac = 1.0)
+    u[:16] = torch.round(u[:16])
+    u[16:32, 0] = 1.0
+    u[32:48] = 1.25
+    g = torch.randn((n, 2 * len(levels)), generator=gen, device=cuda) \
+        * live[:, None]
+    return levels, total, table, u, g
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
 @pytest.mark.parametrize("n", [100003, 37])
-@pytest.mark.parametrize("f", [1, 2, 4, 8])
-def test_corner_sum_kernel_matches_its_model_bit_for_bit(cuda, f, n,
-                                                          rows_dtype):
-    """The corner sum against the plain model of its order (products
-    rounded, corners summed in order) bit for bit, on the card, at a
-    ragged N and at one below a block."""
-    gen = torch.Generator(device=cuda).manual_seed(f)
-    rows = torch.randn((n, 8, f), generator=gen, device=cuda).to(rows_dtype)
-    w = torch.rand((n, 8), generator=gen, device=cuda)
-    before = corner_sum.LAUNCHES
-    out = corner_sum.corner_sum(rows, w)
+@pytest.mark.parametrize("otype,layout", ENCODE_OTYPES)
+def test_encode_forward_kernel_matches_its_model_bit_for_bit(
+        cuda, otype, layout, n, compute_dtype):
+    """The fused forward against the plain model of its order (products
+    rounded, corners summed k = 0..7) bit for bit, for every mode, both
+    row types, a ragged N and one below a block."""
+    levels, _, table, u, _ = _encode_inputs(cuda, otype, layout, n)
+    before = hash_encode.FORWARD_LAUNCHES
+    out = hash_encode.encode_forward(table, u, levels, compute_dtype)
     torch.cuda.synchronize()
-    assert corner_sum.LAUNCHES == before + 1
-    model = corner_sum.corner_sum_sequential(rows, w)
-    assert out.dtype == torch.float32 and out.shape == (n, f)
+    assert hash_encode.FORWARD_LAUNCHES == before + 1
+    model = hash_encode.encode_forward_model(table, u, levels, compute_dtype)
+    assert out.dtype == torch.float32 and out.shape == model.shape
     assert torch.equal(chip_smoke._bits(torch, out),
                        chip_smoke._bits(torch, model))
 
 
-def test_corner_sum_wrapper_raises_instead_of_falling_back(cuda):
-    rows = torch.zeros((64, 8, 2), device=cuda)
-    w = torch.zeros((64, 8), device=cuda)
+@pytest.mark.parametrize("kind", ["uniform", "rays"])
+@pytest.mark.parametrize("otype,layout", ENCODE_OTYPES)
+def test_encode_backward_kernel_within_the_order_bound(cuda, otype, layout,
+                                                        kind):
+    """The fused backward against the float64 sum of the same float32
+    contributions: every row within (k - 1) eps sum|x|, k its count of
+    non-zero contributions (chip_smoke's check), on uniform positions and
+    on ray-ordered samples with an empty-slot tail."""
+    levels, total, _, u, g = _encode_inputs(cuda, otype, layout, 200003,
+                                            kind)
+    before = hash_encode.BACKWARD_LAUNCHES
+    grad = hash_encode.encode_backward(g, u, levels, total)
+    torch.cuda.synchronize()
+    assert hash_encode.BACKWARD_LAUNCHES == before + 1
+    assert grad.dtype == torch.float32 and grad.shape == (total, 2)
+    _, within, max_k, _ = chip_smoke.check_encode_backward(torch, grad, g, u,
+                                                           levels)
+    assert within and max_k > 1
+
+
+def test_encode_wrappers_raise_instead_of_falling_back(cuda):
+    levels, total = hash_encoding.grid_layout("HybridHashGrid", 8, 4, 2.0,
+                                              12)
+    table = torch.zeros((total, 2), device=cuda)
+    u = torch.zeros((64, 3), device=cuda)
+    g = torch.zeros((64, 16), device=cuda)
     with pytest.raises(TypeError):
-        corner_sum.corner_sum(rows.half(), w)
+        hash_encode.encode_forward(table.half(), u, levels)
     with pytest.raises(TypeError):
-        corner_sum.corner_sum(rows, w.double())
-    with pytest.raises(ValueError):  # F = 3 has no instance
-        corner_sum.corner_sum(torch.zeros((64, 8, 3), device=cuda), w)
-    with pytest.raises(ValueError):  # not contiguous
-        corner_sum.corner_sum(torch.zeros((64, 8, 4), device=cuda)[..., ::2],
-                              w)
+        hash_encode.encode_forward(table, u.double(), levels)
     with pytest.raises(ValueError):  # not 16-byte aligned
-        corner_sum.corner_sum(torch.zeros(64 * 8 * 2 + 1, device=cuda)[1:]
-                              .reshape(64, 8, 2), w)
+        hash_encode.encode_forward(
+            torch.zeros(2 * total + 2, device=cuda)[2:].view(total, 2), u,
+            levels)
+    with pytest.raises(ValueError):  # not contiguous
+        hash_encode.encode_forward(table, torch.zeros(
+            (64, 6), device=cuda)[:, ::2], levels)
+    with pytest.raises(ValueError):  # F = 4 has no instance
+        hash_encode.encode_forward(torch.zeros((total, 4), device=cuda), u,
+                                   levels)
+    with pytest.raises(ValueError):  # positions on another device
+        hash_encode.encode_forward(table, u.cpu(), levels)
+    with pytest.raises(ValueError):  # more levels than the kernel holds
+        many, rows = hash_encoding.grid_layout("DenseGrid", 33, 1, 1.0, 12)
+        hash_encode.encode_forward(torch.zeros((rows, 2), device=cuda), u,
+                                   many)
+    with pytest.raises(TypeError):
+        hash_encode.encode_backward(g.half(), u, levels, total)
+    with pytest.raises(ValueError):  # not 8-byte aligned
+        hash_encode.encode_backward(
+            torch.zeros(64 * 16 + 1, device=cuda)[1:].view(64, 16), u,
+            levels, total)
 
 
 def test_gather_wrapper_raises_instead_of_falling_back(cuda):
@@ -319,7 +380,8 @@ def test_two_gloo_ranks_on_one_card_match_the_single_process(cuda,
     gloo`), take one small filter-on step (S = 30) through the command
     line with the replica check (equal digests), equal to a single-process
     step on the card within chip_smoke.py phase 10's tolerances, each rank
-    launching every kernel the single step launches."""
+    launching the fused encode's forward and backward (and neither K1 nor
+    K3, which no path launches)."""
     from deblur_e_nerf_tpu_torch.data import synthetic
 
     root = synthetic.make_dataset(str(tmp_path / "small"), img_height=16,
@@ -329,8 +391,8 @@ def test_two_gloo_ranks_on_one_card_match_the_single_process(cuda,
         "small", steps=1, capacity=8, sample_budget=1 << 19,
         evaluate=False, resume=False)
     assert set(launches) == {"rank 0", "rank 1"}
-    assert all(count > 0 for rank in launches.values()
-               for count in rank.values())
+    for rank, counts in launches.items():
+        chip_smoke.check_path_launches(rank, counts, trains=True)
 
 
 def test_ray_generation_on_card_is_bit_equal_over_batch_shares(cuda,
@@ -368,8 +430,9 @@ def test_eval_render_on_card_matches_cpu(cuda, tmp_path):
 ])
 def test_kernels_at_the_eval_field_chunk_bit_for_bit(cuda, n, n_rows, width,
                                                      round_to):
-    """K3 and the corner sum as an eval field call runs them (N = 2^20
-    samples, no gradient): bit for bit against their plain versions."""
+    """K3 at the shapes the per-level encode gave it in an eval field call
+    (N = 2^20 samples, no gradient): bit for bit against its plain
+    version."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(n_rows)
     table = torch.randn((n_rows, width), generator=gen, device=cuda)
@@ -379,14 +442,6 @@ def test_kernels_at_the_eval_field_chunk_bit_for_bit(cuda, n, n_rows, width,
         plain = gather_rows.gather_rows_reference(table, idx, round_to)
         assert torch.equal(chip_smoke._bits(torch, rows),
                            chip_smoke._bits(torch, plain))
-        # a level's (N, 8, F = 2) corner rows: 8 vertex rows, or one
-        # cellhash row of 8F
-        corners = rows.reshape(-1, 8, 2)
-        w = torch.rand(corners.shape[:2], generator=gen, device=cuda)
-        out = corner_sum.corner_sum(corners, w)
-        model = corner_sum.corner_sum_sequential(corners, w)
-        assert torch.equal(chip_smoke._bits(torch, out),
-                           chip_smoke._bits(torch, model))
 
 
 def test_eval_render_with_prepass_on_card_matches_cpu(cuda, tmp_path):

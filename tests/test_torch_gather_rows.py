@@ -3,8 +3,9 @@ version: against jnp.take at the Pallas probe K3's shapes and the
 flagship encode's, float32 rows and bfloat16 rows (the JAX encode's
 gather from its cast table), its argument errors, the port's
 microbenchmark checks at the K2/K3 shapes, and the hash-grid encode of
-all five otypes with every level's gather routed through it, against the
-JAX encode."""
+all five otypes (now one fused encode, ops/hash_encode.py, with no
+per-level gather) against the JAX encode and the per-level gather's
+encode."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +15,7 @@ import torch
 from deblur_e_nerf_tpu.models import hash_encoding as jhe
 from deblur_e_nerf_tpu_torch import perf_microbench
 from deblur_e_nerf_tpu_torch.models import hash_encoding
-from deblur_e_nerf_tpu_torch.ops import gather_rows
+from deblur_e_nerf_tpu_torch.ops import gather_rows, hash_encode
 
 
 def _k3_inputs(n_rows=4096, width=16, n=1 << 16, seed=0):
@@ -83,30 +84,42 @@ def test_microbench_checks_hold_on_cpu(case):
     assert "ms" not in row  # no time from a CPU run
 
 
+def _pack_dense_segment(segment, res):
+    """((res+1)^3, F) vertex segment -> (res^3, 8F) cell-corner rows (the
+    packed view the per-level gather read dense levels from)."""
+    F = segment.shape[-1]
+    g = segment.reshape(res + 1, res + 1, res + 1, F)  # (z, y, x, F)
+    parts = [g[dz:dz + res, dy:dy + res, dx:dx + res]
+             for dx, dy, dz in hash_encode.CORNER_OFFSETS.tolist()]
+    return torch.stack(parts, dim=-2).reshape(res ** 3, 8 * F)
+
+
 def _old_encode(table, u, levels, compute_dtype):
-    """The encode as it gathered before the gather was routed through
-    ops/gather_rows.py: the whole table cast to compute_dtype, then
-    indexed."""
+    """The encode as it gathered before the fused encode: one row gather
+    per level from the table cast to compute_dtype (dense levels from the
+    packed (res^3, 8F) cell-corner view, cellhash levels from the
+    (T/8, 8F) view, vertex-hash levels 8 vertex rows), then the weighted
+    corner sum."""
     uc = torch.clamp(u, 0.0, 1.0)
     T, F = table.shape
     tbl = table.to(compute_dtype or table.dtype)
     acc = table.dtype if compute_dtype is None else torch.float32
     features = []
     for res, size, offset, mode in levels:
+        rows, w = hash_encode.level_rows_weights(uc, res, size, offset, mode,
+                                                 acc)
         if mode == "dense":
-            packed = hash_encoding._pack_dense_segment(
+            packed = _pack_dense_segment(
                 tbl[offset:offset + (res + 1) ** 3], res)
-            flat, w = hash_encoding._dense_cell_index_weights(uc, res, acc)
-            rows = packed[flat].reshape(-1, 8, F)
+            cell = torch.clamp(torch.floor(uc * res), 0, res - 1).long()
+            flat = (cell[:, 2] * res + cell[:, 1]) * res + cell[:, 0]
+            values = packed[flat].reshape(-1, 8, F)
         elif mode == "cellhash":
-            h, w = hash_encoding._cellhash_index_weights(uc, res, size, acc)
-            rows = tbl.reshape(T // 8, 8 * F)[h + offset // 8].reshape(
+            values = tbl.reshape(T // 8, 8 * F)[rows[:, 0] // 8].reshape(
                 -1, 8, F)
         else:
-            idx, w = hash_encoding._level_indices_weights(
-                uc, res, size, offset, mode, acc)
-            rows = tbl[idx]
-        features.append(torch.sum(rows.to(acc) * w[..., None], dim=-2))
+            values = tbl[rows]
+        features.append(torch.sum(values.to(acc) * w[..., None], dim=-2))
     return torch.cat(features, dim=-1)
 
 
@@ -135,15 +148,20 @@ def test_encode_unchanged_with_gather_routed(otype, compute_dtype,
         np.float32))
     u = torch.from_numpy(rng.uniform(-0.05, 1.05, (3000, 3)).astype(
         np.float32))
-    calls = []
-    real = gather_rows.gather_rows
+    gathers, encodes = [], []
+    real_gather, real_encode = gather_rows.gather_rows, \
+        hash_encode.encode_forward
 
-    def counting(tbl, idx, round_to=None):
-        out = real(tbl, idx, round_to)
-        calls.append((tuple(tbl.shape), idx.numel(), round_to, out.dtype))
-        return out
+    def counting_gather(*args, **kwargs):
+        gathers.append(args)
+        return real_gather(*args, **kwargs)
 
-    monkeypatch.setattr(gather_rows, "gather_rows", counting)
+    def counting_encode(*args, **kwargs):
+        encodes.append(args[1].shape)
+        return real_encode(*args, **kwargs)
+
+    monkeypatch.setattr(gather_rows, "gather_rows", counting_gather)
+    monkeypatch.setattr(hash_encode, "encode_forward", counting_encode)
     got = hash_encoding._encode_impl(table, u, levels, compute_dtype)
     want = jhe.encode(jnp.asarray(table.numpy()), jnp.asarray(u.numpy()),
                       levels, differentiable_positions=False,
@@ -155,22 +173,14 @@ def test_encode_unchanged_with_gather_routed(otype, compute_dtype,
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
-    # the same values, rounded elementwise, summed in the order of the
-    # encode before the gather was routed: bit for bit
+    # the same values (dense levels now read from the vertex rows, not a
+    # packed view), rounded elementwise, summed in the order of the
+    # per-level gather's encode: bit for bit
     torch.testing.assert_close(got, _old_encode(table, u, levels,
                                                 compute_dtype),
                                rtol=0, atol=0)
-    assert len(calls) == len(levels)  # one gather per level
-    for (shape, n, round_to, dtype), (res, size, _, mode) in zip(calls,
-                                                                  levels):
-        assert round_to == compute_dtype
-        assert dtype == (compute_dtype or torch.float32)  # bf16 rows out
-        if mode == "dense":
-            assert shape == (res ** 3, 16) and n == 3000
-        elif mode == "cellhash":
-            assert shape == (size // 8, 16) and n == 3000
-        else:
-            assert shape == (size, 2) and n == 8 * 3000
+    # one fused encode over all levels, no per-level gather
+    assert encodes == [(3000, 3)] and gathers == []
 
 
 def test_vertex_hash_orders_gather_the_same_rows():

@@ -1,7 +1,6 @@
 """Hash-grid encoding: the port against the JAX package on the same table
-and positions — layout, hash arithmetic, the dense pack/fold pair, the
-forward features and the table gradient for dense, hash, cellhash and
-HybridHashGrid layouts."""
+and positions — layout, hash arithmetic, the forward features and the
+table gradient for dense, hash, cellhash and HybridHashGrid layouts."""
 
 import jax
 import jax.numpy as jnp
@@ -11,6 +10,7 @@ import torch
 
 from deblur_e_nerf_tpu.models import hash_encoding as jhe
 from deblur_e_nerf_tpu_torch.models import hash_encoding as the
+from deblur_e_nerf_tpu_torch.ops import hash_encode
 
 # (otype, n_levels, base_resolution, per_level_scale, log2_hashmap_size)
 LAYOUTS = {
@@ -54,26 +54,9 @@ def test_hash_arithmetic_matches_uint32_wrapping():
     want = np.asarray(jhe._corner_indices(jnp.asarray(cell), 4095, 1 << 19,
                                           "hash"))
     c = torch.from_numpy(cell).long()
-    got = (the._hash(c[:, 0], c[:, 1], c[:, 2]) % (1 << 19)).numpy()
+    got = (hash_encode._hash(c[:, 0], c[:, 1], c[:, 2])
+           % (1 << 19)).numpy()
     np.testing.assert_array_equal(got, want)
-
-
-def test_dense_pack_and_fold_are_exact_transposes():
-    res, F = 5, 2
-    rng = np.random.default_rng(2)
-    seg = rng.normal(size=((res + 1) ** 3, F))
-    pg = rng.normal(size=(res ** 3, 8 * F))
-    packed = the._pack_dense_segment(torch.from_numpy(seg), res).numpy()
-    np.testing.assert_array_equal(
-        packed, np.asarray(jhe._pack_dense_segment(jnp.asarray(seg), res)))
-    folded = the._fold_dense_segment_grad(torch.from_numpy(pg), res,
-                                          F).numpy()
-    np.testing.assert_array_equal(folded, np.asarray(
-        jhe._fold_dense_segment_grad(jnp.asarray(pg), res, F,
-                                     jnp.float64)))
-    # <pack(x), y> == <x, fold(y)>: fold is pack's exact transpose
-    np.testing.assert_allclose(np.sum(packed * pg), np.sum(seg * folded),
-                               rtol=1e-12)
 
 
 def _jax_encode_and_grad(levels, table, u, cot, compute_dtype):
@@ -111,7 +94,7 @@ def test_forward_and_table_grad_match_jax(name, bf16):
     # rounds the same table values in both packages
     np.testing.assert_allclose(out_t, out_j, rtol=1e-5, atol=1e-6)
     # table grad: the JAX sort path sums each row near-exactly, the port's
-    # scatter-add in f32 in index order: error <= (k-1) eps sum|x| per row
+    # index_add_ in f32 in index order: error <= (k-1) eps sum|x| per row
     scale = float(np.abs(grad_j).max())
     np.testing.assert_allclose(grad_t, grad_j, rtol=1e-4,
                                atol=1e-5 * scale)

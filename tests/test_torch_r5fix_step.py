@@ -180,22 +180,23 @@ def test_chip_smoke_r5fix_config_is_the_yaml_with_its_listed_cuts():
         grid_resolution=64))()
     trainer = type("T", (), {})()
     trainer.params = type("P", (), {"nerf": model})()
-    assert chip_smoke.r5fix_step_launches(trainer, True) == {
-        "scatter_add_rows": 32, "gather_rows": 64, "corner_sum": 64}
-    assert chip_smoke.r5fix_step_launches(trainer, False) == {
-        "scatter_add_rows": 32, "gather_rows": 48, "corner_sum": 48}
+    # one fused encode forward a field call, one backward a field backward
+    # (K1 and K3 launch on no path)
+    launches = chip_smoke.encode_launches
+    assert chip_smoke.r5fix_step_launches(trainer, True) == launches(4, 2)
+    assert chip_smoke.r5fix_step_launches(trainer, False) == launches(3, 2)
     # a step the trainer runs without the prepass: the field over K + 1
-    assert chip_smoke.r5fix_step_launches(trainer, True, False) == {
-        "scatter_add_rows": 32, "gather_rows": 48, "corner_sum": 48}
-    assert chip_smoke.r5fix_step_launches(trainer, False, False) == {
-        "scatter_add_rows": 32, "gather_rows": 32, "corner_sum": 32}
+    assert chip_smoke.r5fix_step_launches(trainer, True, False) \
+        == launches(3, 2)
+    assert chip_smoke.r5fix_step_launches(trainer, False, False) \
+        == launches(2, 2)
     model.render_config.field_chunk = 1 << 18
-    assert chip_smoke.r5fix_step_launches(trainer, False) == {
-        "scatter_add_rows": 16 * (3 + 1), "gather_rows": 16 * (5 + 3 + 1),
-        "corner_sum": 16 * (5 + 3 + 1)}
-    assert chip_smoke.r5fix_step_launches(trainer, False, False) == {
-        "scatter_add_rows": 16 * (5 + 1), "gather_rows": 16 * (5 + 1),
-        "corner_sum": 16 * (5 + 1)}
+    assert chip_smoke.r5fix_step_launches(trainer, False) \
+        == launches(5 + 3 + 1, 3 + 1)
+    assert chip_smoke.r5fix_step_launches(trainer, False, False) \
+        == launches(5 + 1, 5 + 1)
+    assert launches(5, 4) == {"hash_encode_fwd": 5, "hash_encode_bwd": 4,
+                              "scatter_add_rows": 0, "gather_rows": 0}
 
 
 def test_trainer_runs_the_prepass_only_once_the_live_demand_fits(
