@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (deblur_e_nerf_tpu_torch) on one CUDA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--parent DIR]
 
 Phases, each printing a start and an end line with elapsed seconds:
   1. environment: torch/CUDA versions, device, nvidia-smi name and power
@@ -12,19 +12,32 @@ Phases, each printing a start and an end line with elapsed seconds:
      for each gather instance of the main path, its registers and spills
      (-Xptxas -v) and its SASS load and store forms: its stores must be
      16-byte vectors; each fused-encode instance's registers, spills and
-     stack frame, and the backward's atomic forms (vector reductions);
+     stack frame, and the backward's atomic forms (vector and bulk
+     reductions);
   3. kernels: each kernel against its plain PyTorch version on the card
      (the Pallas probes K2/K3's shapes too), with times of the kernel, the
      plain version and the PyTorch library calls computing the same
-     function: the fused encode (hash_encode_fwd, hash_encode_bwd) at the
-     flagship step's N = K + 1 and an eval field call's N = 2^20, on the
-     flagship layout (HybridHashGrid, bf16 rows) and the EDS/r5fix one
-     (HashGrid, float32 rows), on uniform positions and ray-ordered
-     samples with the step's empty-slot tail: the forward bit for bit
-     against the plain model of its order and within the order bound of
-     the plain version, the backward within (k - 1) eps sum|x| of each
-     row of a float64 plain version, with index_select + bmm (forward)
-     and index_add_ (backward) of one level timed as context; K1 and K3,
+     function: first the L2's rate of each reduction form the encode
+     backward could issue (RED.F32x2, RED.F32x4, four F32x4 to a 64-byte
+     row, one 64-byte bulk reduction) into a buffer of the flagship
+     table's 50 MB; the fused encode (hash_encode_fwd, hash_encode_bwd)
+     at the flagship step's N = K + 1 and an eval field call's N = 2^20,
+     on the flagship layout (HybridHashGrid, bf16 rows) and the EDS/r5fix
+     one (HashGrid, float32 rows), on uniform positions and ray-ordered
+     samples with the step's empty-slot tail (and, after phase 7, "3b",
+     on the step's own inputs: the positions and cotangent that phase 4's
+     steady flagship step and phase 7's steady EDS micro-step fed the
+     encode): the forward bit for bit against the plain model of its
+     order and within the order bound of the plain version, one bf16
+     table copy for all its calls on the bf16 layout, the backward within
+     (k - 1) eps sum|x| (+ k FLT_MIN: the card's float32 reductions flush
+     subnormals) of each row of a float64 plain version, with the
+     reductions it issues by level mode (`backward_reductions`), with
+     index_select + bmm (forward) and index_add_ (backward) of one level
+     timed as context; with --parent DIR, the encode kernels of that
+     checkout (the parent commit) on the same inputs, timed in turns
+     (parent, change, change, parent) and held to the same checks; K1 and
+     K3,
      which the encode launched per level before it was fused, at the
      shapes of that encode: the scatter-add also against the plain model
      of its summation order, on uniform indices and on the training
@@ -356,16 +369,17 @@ def phase_build():
     check_gather_build(
         _cuda_build.sass_instructions(info["path"], ("LDG", "STG"),
                                       operands=True), ptxas)
-    check_encode_build(_cuda_build.sass_instructions(info["path"]), ptxas)
+    check_encode_build(_cuda_build.sass_instructions(
+        info["path"], ("RED", "ATOM", "UBLK")), ptxas)
     return info
 
 
 def check_encode_build(atomics, ptxas):
     """Print each fused-encode instance's registers, spills and stack
     frame (-Xptxas -v) and the backward's atomic SASS instructions; fail
-    unless both directions were built and the backward's atomics are
-    vector reductions (a RED naming a 2- or 4-float vector, no returning
-    ATOM)."""
+    unless both directions were built, the backward's atomics are vector
+    reductions (a RED naming a 2- or 4-float vector, no returning ATOM)
+    and it issues bulk reductions (UBLKRED, the cellhash rows')."""
     for kernel in ("hash_encode_fwd_kernel", "hash_encode_bwd_kernel"):
         fns = [fn for fn in atomics if kernel in fn]
         if not fns:
@@ -380,9 +394,13 @@ def check_encode_build(atomics, ptxas):
                      and re.search(r"(x2|x4|V2|V4|\.64|\.128)", op)})
     print(f"sass hash_encode_bwd: atomics {sorted(set(ops))}, vector "
           f"reductions {vector}", flush=True)
-    if not vector or any(op.startswith("ATOM") for op in ops):
-        raise AssertionError(f"hash_encode_bwd: no vector RED in the SASS "
-                             f"({sorted(set(ops))})")
+    for fn, o in atomics.items():
+        if "l2_reduction_kernel" in fn:
+            print(f"sass {fn}: {sorted(set(o))}", flush=True)
+    if not vector or any(op.startswith("ATOM") for op in ops) \
+            or not any(op.startswith("UBLKRED") for op in ops):
+        raise AssertionError(f"hash_encode_bwd: no vector RED or no bulk "
+                             f"reduction in the SASS ({sorted(set(ops))})")
 
 
 # the scatter-add instances of the main path's widths, by their mangled
@@ -778,9 +796,13 @@ def check_encode_backward(torch, grad, g, u, levels):
     """The encode backward's table gradient `grad` against the float64 sum
     of the same float32 contributions (w * g in float32, as the kernel
     forms them): returns (max abs error, whether every row is within
-    (k - 1) eps sum|x| of it, the largest k, the vector atomics the
-    contributions ask for after the zero skip and before combining), k a
-    row's count of non-zero contributions."""
+    (k - 1) eps sum|x| + k FLT_MIN of it, the largest k, the vector
+    atomics the contributions ask for after the zero skip and before
+    combining), k a row's count of non-zero contributions. The first term
+    bounds any order of k float32 additions; the second the card's float32
+    reductions (RED .add.f32), which flush a subnormal addend or sum to
+    zero, losing less than FLT_MIN (2^-126) each: the step's own
+    cotangents reach subnormal products."""
     from deblur_e_nerf_tpu_torch.ops import hash_encode
 
     total = grad.shape[0]
@@ -800,35 +822,92 @@ def check_encode_backward(torch, grad, g, u, levels):
             4 if level[3] == "cellhash" else 8)
         del rows, w, nz
     err = (grad.double() - exact).abs()
-    eps = torch.finfo(torch.float32).eps
-    within = bool((err <= (k - 1).clamp(min=0)[:, None] * eps
-                   * abs_sum).all())
+    f32 = torch.finfo(torch.float32)
+    within = bool((err <= (k - 1).clamp(min=0)[:, None] * f32.eps * abs_sum
+                   + k[:, None] * f32.tiny).all())
     return float(err.max()), within, int(k.max()), atomics
 
 
-def encode_case(torch, name, layout, n, kind, seed=0):
-    """The fused encode's two kernels at one layout, N and input kind,
-    against their plain versions; returns (forward row, backward row).
+def load_parent_encode(torch, parent_dir):
+    """The fused encode of another checkout of the port (the parent
+    commit), to time the change against it in turns on the same inputs:
+    that checkout's package imported under the name `parent_port`, whose
+    `ops.hash_encode` builds its own kernels from its own sources. Returns
+    its (encode_forward, encode_backward)."""
+    import importlib
+    import importlib.util
+
+    package = os.path.join(parent_dir, "deblur_e_nerf_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", os.path.join(package, "__init__.py"),
+        submodule_search_locations=[package])
+    sys.modules["parent_port"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["parent_port"])
+    encode = importlib.import_module("parent_port.ops.hash_encode")
+    t0 = time.perf_counter()
+    encode._library()
+    print(f"parent kernels ({parent_dir}) built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return encode.encode_forward, encode.encode_backward
+
+
+def in_turns(fn, parent_fn, iters=20):
+    """(ms of fn, [its two runs], ms of parent_fn or None, [its runs]):
+    timed parent, change, change, parent (each run a mean over `iters`
+    calls), so that both see the same drift of clocks and power."""
+    if parent_fn is None:
+        ms = time_ms(fn, iters)
+        return ms, [ms], None, []
+    runs = [time_ms(f, iters) for f in (parent_fn, fn, fn, parent_fn)]
+    ours, theirs = runs[1:3], [runs[0], runs[3]]
+    return sum(ours) / 2, ours, sum(theirs) / 2, theirs
+
+
+def encode_inputs(torch, kind, n, n_levels, seed=0):
+    """(u, g) of a synthetic encode case: `encode_positions` and a normal
+    cotangent, zero in the empty slots."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    u, live = encode_positions(torch, kind, n, gen)
+    g = torch.randn((n, 2 * n_levels), generator=gen, device="cuda") \
+        * live[:, None]
+    return u, g
+
+
+def _reductions_text(counts):
+    return ", ".join(f"{m} " + " ".join(f"{k} {v}" for k, v in c.items()
+                                        if v)
+                     for m, c in counts.items())
+
+
+def encode_case(torch, name, layout, u, g, kind, parent=None, seed=0):
+    """The fused encode's two kernels at one layout on the positions u and
+    cotangent g of input `kind`, against their plain versions; returns
+    (forward row, backward row).
 
     Forward: bit for bit against `encode_forward_model` (the plain model
     of its order), and within 2 x 7 eps sum|w x| of the plain version
     (any order of the 8 rounded products is within 7 eps of the exact
-    sum, and each side is). Backward: every row within (k - 1) eps sum|x|
-    of the float64 sum of the same float32 contributions, k the row's
-    count of non-zero contributions (any order of k float32 additions).
-    No single PyTorch call computes a multi-level encode (library_ms
-    null); one level's index_select + bmm (forward) and index_add_
-    (backward) are timed as context."""
+    sum, and each side is); on bf16 layouts one bf16 copy of the table
+    for every call (`hash_encode.BF16_COPIES`), its time beside. Backward:
+    every row within (k - 1) eps sum|x| + k FLT_MIN of the float64 sum of
+    the same float32 contributions, k the row's count of non-zero
+    contributions (any order of k float32 additions, each of which may
+    flush a subnormal to zero); the reductions it issues
+    (`hash_encode.backward_reductions`) by level mode. With `parent`
+    (`load_parent_encode`), the parent's kernels on the same inputs, timed
+    in turns with these, and its forward bit for bit with this one. No
+    single PyTorch call computes a multi-level encode (library_ms null);
+    one level's index_select + bmm (forward) and index_add_ (backward)
+    are timed as context."""
     from deblur_e_nerf_tpu_torch.ops import hash_encode
 
     levels, total, compute_dtype = layout
     L = len(levels)
+    n = u.shape[0]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     table = torch.rand((total, 2), generator=gen, device="cuda") * 2 - 1
-    u, live = encode_positions(torch, kind, n, gen)
-    g = torch.randn((n, 2 * L), generator=gen, device="cuda") \
-        * live[:, None]
     eps = torch.finfo(torch.float32).eps
     rows_name = "bf16" if compute_dtype is not None else "float32"
     context = {"n": n, "index_structure": kind, "shape": name,
@@ -838,14 +917,20 @@ def encode_case(torch, name, layout, n, kind, seed=0):
     # written once; float32 operations a sample and level: the cell and
     # weights (25), the 8 x F products and sums (31)
     io_bytes = n * 3 * 4 + n * 2 * L * 4 + total * 2 * 4
+    parent_fwd, parent_bwd = parent or (None, None)
 
     # forward
     fwd = lambda: hash_encode.encode_forward(table, u, levels, compute_dtype)
+    copies = hash_encode.BF16_COPIES
     out = fwd()
     model = hash_encode.encode_forward_model(table, u, levels, compute_dtype)
     torch.cuda.synchronize()
     exact = bool(torch.equal(_bits(torch, out), _bits(torch, model)))
     del model
+    same_as_parent = None
+    if parent_fwd is not None:
+        same_as_parent = bool(torch.equal(_bits(torch, out), _bits(
+            torch, parent_fwd(table, u, levels, compute_dtype))))
     plain = hash_encode.encode_forward_reference(table, u, levels,
                                                  compute_dtype)
     err = (out - plain).abs()
@@ -855,7 +940,12 @@ def encode_case(torch, name, layout, n, kind, seed=0):
     within = bool((err <= tol).all())
     max_err, max_tol = float(err.max()), float(tol.max())
     del err, tol, out
-    ms = time_ms(fwd)
+    ms, ms_runs, parent_ms, parent_runs = in_turns(
+        fwd, parent_fwd and (lambda: parent_fwd(table, u, levels,
+                                                compute_dtype)))
+    copies = hash_encode.BF16_COPIES - copies
+    copy_ms = (time_ms(lambda: table.to(torch.bfloat16))
+               if compute_dtype is not None else None)
     plain_ms = time_ms(lambda: hash_encode.encode_forward_reference(
         table, u, levels, compute_dtype), iters=3, warmup=1)
     ctx_level = modes.index("hash")
@@ -869,25 +959,37 @@ def encode_case(torch, name, layout, n, kind, seed=0):
     forward = dict(context, **{
         "max_abs_err": max_err, "tolerance": max_tol,
         "bit_exact_vs_model": exact, "within_order_bound": within,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "ms": ms, "ms_runs": ms_runs, "parent_ms": parent_ms,
+        "parent_ms_runs": parent_runs, "bit_exact_vs_parent": same_as_parent,
+        "bf16_copies": copies, "bf16_copy_ms": copy_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
-        "one_level_index_select_bmm_ms": context_ms, "atomics": 0})
+        "one_level_index_select_bmm_ms": context_ms})
     print(f"hash_encode_fwd {name}, {kind}: N={n} L={L} {rows_name} rows; "
-          f"bit exact vs the model of its order: {exact}; max_abs_err "
-          f"{max_err:.3e} vs plain (within the order bound: {within}, "
-          f"largest bound {max_tol:.3e}); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, one level's index_select + bmm "
-          f"{context_ms:.4f} ms, library none, bound {bound_ms:.4f} ms "
-          f"({bound_by})", flush=True)
-    if not (exact and within):
+          f"bit exact vs the model of its order: {exact}, vs the parent: "
+          f"{same_as_parent}; max_abs_err {max_err:.3e} vs plain (within "
+          f"the order bound: {within}, largest bound {max_tol:.3e}); "
+          f"kernel {ms:.4f} ms {[round(t, 4) for t in ms_runs]}, parent "
+          f"{parent_ms} ms {[round(t, 4) for t in parent_runs]}, bf16 "
+          f"copies {copies} ({copy_ms} ms each), plain {plain_ms:.4f} ms, "
+          f"one level's index_select + bmm {context_ms:.4f} ms, library "
+          f"none, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    if not (exact and within and same_as_parent is not False
+            and copies == (compute_dtype is not None)):
         raise AssertionError(f"hash_encode_fwd {name} ({kind}): differs "
-                             f"from its plain versions")
+                             f"from its plain versions or the parent, or "
+                             f"made {copies} bf16 copies")
 
     # backward
     bwd = lambda: hash_encode.encode_backward(g, u, levels, total)
     max_err, within, max_k, atomics_live = check_encode_backward(
         torch, bwd(), g, u, levels)
-    ms = time_ms(bwd)
+    parent_within = None
+    if parent_bwd is not None:
+        parent_within = check_encode_backward(
+            torch, parent_bwd(g, u, levels, total), g, u, levels)[1]
+    ms, ms_runs, parent_ms, parent_runs = in_turns(
+        bwd, parent_bwd and (lambda: parent_bwd(g, u, levels, total)))
     plain_ms = time_ms(lambda: hash_encode.encode_backward_reference(
         g, u, levels, total), iters=3, warmup=1)
     contrib = (ctx_w[..., None] * g[:, None, 2 * ctx_level:2 * ctx_level + 2]
@@ -895,27 +997,93 @@ def encode_case(torch, name, layout, n, kind, seed=0):
     context_ms = time_ms(lambda: torch.zeros(
         (total, 2), device="cuda").index_add_(0, ctx_idx, contrib), iters=10)
     del ctx_idx, ctx_w, contrib
-    atomics_max = n * sum(4 if m == "cellhash" else 8 for m in modes)
+    reductions = hash_encode.backward_reductions(g, u, levels)
+    n_reductions = sum(sum(c.values()) for c in reductions.values())
+    # levels 0-1 alone: the dense levels small enough (about 149 KB of
+    # float32 rows) to keep in one block's shared memory
+    coarse = sum(sum(c.values()) for li in (0, 1)
+                 for c in hash_encode.backward_reductions(
+                     g[:, 2 * li:2 * li + 2], u, levels[li:li + 1]).values())
     bound_ms, bound_by = bound(io_bytes, n * L * 41)
     backward = dict(context, **{
         "max_abs_err": max_err, "within_order_bound": within,
-        "max_row_count": max_k, "ms": ms, "plain_ms": plain_ms,
+        "max_row_count": max_k, "ms": ms, "ms_runs": ms_runs,
+        "parent_ms": parent_ms, "parent_ms_runs": parent_runs,
+        "parent_within_order_bound": parent_within, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "one_level_index_add_ms": context_ms,
-        "atomics_at_most": atomics_max,
+        "reductions": reductions, "reductions_total": n_reductions,
+        "reductions_levels_0_1": coarse,
+        "reductions_per_s": n_reductions / (ms * 1e-3),
         "atomics_after_zero_skip_before_combining": atomics_live})
     print(f"hash_encode_bwd {name}, {kind}: N={n} L={L}; max_abs_err "
           f"{max_err:.3e} vs the float64 plain version (each row within "
-          f"(k - 1) eps sum|x|: {within}, largest k {max_k}); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, one level's index_add_ "
-          f"{context_ms:.4f} ms, library none, bound {bound_ms:.4f} ms "
-          f"({bound_by}); vector atomics at most {atomics_max} (shapes), "
-          f"{atomics_live} after the zero skip, before combining",
-          flush=True)
-    if not within:
+          f"(k - 1) eps sum|x| + k FLT_MIN: {within}, largest k {max_k}; "
+          f"the parent: {parent_within}); kernel {ms:.4f} ms "
+          f"{[round(t, 4) for t in ms_runs]}, parent {parent_ms} ms "
+          f"{[round(t, 4) for t in parent_runs]}, plain {plain_ms:.4f} ms, "
+          f"one level's index_add_ {context_ms:.4f} ms, library none, "
+          f"bound {bound_ms:.4f} ms ({bound_by}); reductions issued "
+          f"{n_reductions} ({_reductions_text(reductions)}; levels 0-1 "
+          f"{coarse}; {n_reductions / (ms * 1e-3):.4g}/s), {atomics_live} "
+          f"vertex-row contributions and cellhash chunks after the zero "
+          f"skip, before combining", flush=True)
+    if not within or parent_within is False:
         raise AssertionError(f"hash_encode_bwd {name} ({kind}): differs "
                              f"from the float64 plain version")
     return forward, backward
+
+
+# the L2 reduction probe: (name, bytes an op, reductions an op) by mode of
+# `l2_reduction_rate` (csrc/hash_encode.cu)
+L2_REDUCTION_MODES = (("RED.F32x2, random 16-byte-aligned address", 8, 1),
+                      ("RED.F32x4, random 16-byte-aligned address", 16, 1),
+                      ("4 x RED.F32x4, random 64-byte row", 64, 4),
+                      ("64-byte bulk reduction (cp.reduce.async.bulk "
+                       ".add.f32), random 64-byte row", 64, 1))
+L2_REDUCTION_OPS = 1 << 25
+
+
+def l2_reduction_rates(torch, n_rows):
+    """The L2's rate of each reduction form of L2_REDUCTION_MODES into a
+    float32 buffer of `n_rows` 64-byte rows (the flagship table's 50 MB),
+    L2_REDUCTION_OPS ops a launch, each adding 1.0 to every float it
+    covers: after one launch into zeros the buffer must sum to the floats
+    the ops covered (no reduction lost). Returns rows of reductions/s and
+    bytes/s."""
+    from deblur_e_nerf_tpu_torch.ops import _cuda_build, hash_encode
+
+    lib = _cuda_build.library()
+    buf = torch.zeros(n_rows * 16, device="cuda")
+    stream = hash_encode._stream(buf.device)
+    rows = []
+    for mode, (name, nbytes, reds) in enumerate(L2_REDUCTION_MODES):
+        def launch(mode=mode):
+            err = lib.l2_reduction_rate(buf.data_ptr(), n_rows,
+                                        L2_REDUCTION_OPS, mode, stream)
+            if err:
+                raise RuntimeError(f"l2_reduction_rate {mode}: CUDA {err}")
+
+        buf.zero_()
+        launch()
+        total = float(buf.double().sum())
+        want = float(L2_REDUCTION_OPS * nbytes // 4)
+        ms = time_ms(launch)
+        row = {"form": name, "ops": L2_REDUCTION_OPS, "bytes_per_op": nbytes,
+               "reductions_per_op": reds, "ms": ms,
+               "ops_per_s": L2_REDUCTION_OPS / (ms * 1e-3),
+               "reductions_per_s": L2_REDUCTION_OPS * reds / (ms * 1e-3),
+               "bytes_per_s": L2_REDUCTION_OPS * nbytes / (ms * 1e-3)}
+        print(f"L2 reductions, {name}: {L2_REDUCTION_OPS} ops in {ms:.4f} ms:"
+              f" {row['ops_per_s']:.4g} ops/s, {row['reductions_per_s']:.4g}"
+              f" reductions/s, {row['bytes_per_s']:.4g} B/s into "
+              f"{n_rows * 64} bytes; buffer sum {total} (want {want})",
+              flush=True)
+        if total != want:
+            raise AssertionError(f"l2_reduction_rate {name}: lost "
+                                 f"reductions ({total} of {want})")
+        rows.append(row)
+    return rows
 
 
 def probe_case(case):
@@ -930,7 +1098,7 @@ def probe_case(case):
     return dict(row, shape=f"{case} probe")
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, parent=None):
     from deblur_e_nerf_tpu_torch.ops import gather_rows, scatter_rows
     from deblur_e_nerf_tpu_torch.training.evaluation import (
         DEFAULT_FIELD_CHUNK as n_eval)
@@ -940,17 +1108,22 @@ def phase_kernels(torch):
     n = 131072
     k1 = MAIN_PATH_SAMPLE_BUDGET + 1
     k1_off = FILTER_OFF_SAMPLE_BUDGET + 1
+    # the L2's reduction rates, into a buffer of the flagship table's size
+    flagship_rows = encode_layout(torch, ENCODE_CASES[0][1]())[1]
+    l2_rates = l2_reduction_rates(torch, flagship_rows * 2 // 16)
     # the fused encode: the step's field call over all K + 1 slots, and an
     # eval field call (no gradient on that path; the backward timed there
-    # too)
+    # too); the step's own inputs follow phase 7 (`phase_step_inputs`)
     encode = {"hash_encode_fwd": [], "hash_encode_bwd": []}
     for name, config in ENCODE_CASES:
         layout = encode_layout(torch, config())
         for n_enc, kind, label in ((k1, "uniform", "N = K + 1"),
                                    (k1, "rays", "N = K + 1"),
                                    (n_eval, "uniform", "eval N = 2^20")):
-            rows = encode_case(torch, f"{label}: {name}", layout, n_enc,
-                               kind)
+            u, g = encode_inputs(torch, kind, n_enc, len(layout[0]))
+            rows = encode_case(torch, f"{label}: {name}", layout, u, g,
+                               kind, parent)
+            del u, g
             encode["hash_encode_fwd"].append(rows[0])
             encode["hash_encode_bwd"].append(rows[1])
             torch.cuda.empty_cache()
@@ -1027,7 +1200,32 @@ def phase_kernels(torch):
     scatter.append(probe_case("pallas_probe"))
     gather.append(probe_case("pallas_gather_probe"))
     return dict(encode, scatter_add_rows=scatter, gather_rows=gather,
-                scatter_add_rows_call_split=splits)
+                scatter_add_rows_call_split=splits,
+                l2_reduction_rates=l2_rates)
+
+
+def phase_step_inputs(torch, rows, captured, parent=None):
+    """Phase 3's encode cases on the step's own inputs: the positions and
+    cotangent that the steady flagship step (phase 4) and the steady EDS
+    micro-step (phase 7) fed the encode backward (`capture_encode_inputs`),
+    at their layouts; the rows join phase 3's."""
+    for (name, config), label in zip(ENCODE_CASES, ("flagship", "EDS")):
+        layout = encode_layout(torch, config())
+        got = captured[label]
+        if tuple(got["levels"]) != tuple(layout[0]) \
+                or got["table_rows"] != layout[1]:
+            raise AssertionError(f"{label}: the step's encode layout "
+                                 f"{got['levels']} is not phase 3's")
+        u, g = got["u"].cuda(), got["g"].cuda()
+        live = int((g != 0).any(-1).sum())
+        print(f"{label} step's encode inputs: N = {u.shape[0]}, "
+              f"{live} samples with a non-zero cotangent", flush=True)
+        fwd, bwd = encode_case(torch, f"N = K + 1: {name}", layout, u, g,
+                               "step", parent)
+        rows["hash_encode_fwd"].append(fwd)
+        rows["hash_encode_bwd"].append(bwd)
+        del u, g
+        torch.cuda.empty_cache()
 
 
 KERNEL_NAMES = {"scatter_add_rows": "scatter_add_rows_kernel",
@@ -1223,15 +1421,40 @@ def run_steps(torch, trainer, n_steps, label, profile=False):
                   + f"; {_per_call(prof)}", flush=True)
 
 
+@contextmanager
+def capture_encode_inputs(store):
+    """Record into `store` the positions and cotangent (clones on the card)
+    of the first encode backward run inside, with its levels and table
+    rows: the inputs the step really feeds the encode kernels. A wrapper
+    around `hash_encode.encode_backward` while the block runs."""
+    from deblur_e_nerf_tpu_torch.ops import hash_encode
+
+    real = hash_encode.encode_backward
+
+    def recording(g, u, levels, table_rows):
+        if not store:
+            store.update(u=u.detach().clone(), g=g.detach().clone(),
+                         levels=tuple(levels), table_rows=int(table_rows))
+        return real(g, u, levels, table_rows)
+
+    hash_encode.encode_backward = recording
+    try:
+        yield store
+    finally:
+        hash_encode.encode_backward = real
+
+
 def count_step_syncs(torch, trainer, label="flagship",
-                     forbidden=("training/optim.py",), expected=None):
+                     forbidden=("training/optim.py",), expected=None,
+                     capture=None):
     """One steady step (past the occupancy warmup, off the occupancy
     schedule) under torch.cuda.set_sync_debug_mode("warn"): returns
     {source line: host syncs}, each sync attributed to the innermost line
     of the port on the stack, and prints it. A sync in one of the
     `forbidden` files (the optimizer's) fails the run, and so do kernel
     launches other than `expected` (default: one fused encode forward and
-    one backward)."""
+    one backward). With a dict `capture`, the step's encode inputs go
+    into it (`capture_encode_inputs`; moved to the host after the step)."""
     import traceback
     import warnings
 
@@ -1259,10 +1482,14 @@ def count_step_syncs(torch, trainer, label="flagship",
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            trainer.train_step()
+            with capture_encode_inputs({} if capture is None else capture):
+                trainer.train_step()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    if capture is not None:
+        for key in ("u", "g"):
+            capture[key] = capture[key].cpu()
     launches = read_launches()
     print(f"host syncs in one steady {label} step: {sum(sites.values())} "
           f"({sites}); kernel launches {launches}", flush=True)
@@ -1299,9 +1526,10 @@ def build_trainer(torch, root, tmp, filter_on):
     return trainer
 
 
-def phase_training(torch, tmp, profile=False):
+def phase_training(torch, tmp, profile=False, capture=None):
     """Both paths; returns ({path: {kernel: launches}}, the flagship
-    trainer, the dataset directory)."""
+    trainer, the dataset directory). The steady flagship step's encode
+    inputs go into the dict `capture`."""
     from deblur_e_nerf_tpu_torch.data import synthetic
 
     t0 = time.perf_counter()
@@ -1340,7 +1568,7 @@ def phase_training(torch, tmp, profile=False):
     run_steps(torch, trainer, 3, "flagship (filter on)", profile=profile)
     launches["filter on"] = read_launches()
     trainer._flush_pending_metrics()
-    count_step_syncs(torch, trainer)
+    count_step_syncs(torch, trainer, capture=capture)
     trainer._flush_pending_metrics()
     if profile:
         profile_steps(torch, trainer)
@@ -1945,11 +2173,12 @@ def profile_eds_step(torch, trainer):
           + f"; {_per_call(prof)}", flush=True)
 
 
-def phase_eds(torch, tmp, card, profile=False):
+def phase_eds(torch, tmp, card, profile=False, capture=None):
     """Phase 7: the real-data (EDS) path at full width. Returns
     {path: launches} for its training, resumed training, evaluation and
     640x480 frame. With `profile`, one steady micro-step's device time
-    by kernel too."""
+    by kernel too. The steady micro-step's encode inputs go into the dict
+    `capture`."""
     import numpy as np
 
     from deblur_e_nerf_tpu_torch.data import posed_images
@@ -2018,7 +2247,7 @@ def phase_eds(torch, tmp, card, profile=False):
     trainer._flush_pending_metrics()
     count_step_syncs(torch, trainer, "EDS",
                      ("training/optim.py", "training/trainer.py",
-                      "training/step.py"))
+                      "training/step.py"), capture=capture)
     if profile:
         profile_eds_step(torch, trainer)
     del trainer
@@ -3431,9 +3660,10 @@ def phase_data_parallel(torch, tmp, root, card):
     return {f"data parallel {k}": v for k, v in launches.items()}
 
 
-def kernel_line(name, source, replaces, rows, launches, main_shape):
+def kernel_line(name, source, replaces, rows, launches, main_shape,
+                main_kind="uniform"):
     main = next(r for r in rows if r["shape"] == main_shape
-                and r.get("index_structure", "uniform") == "uniform")
+                and r.get("index_structure", "uniform") == main_kind)
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches["filter on"][name],
@@ -3452,6 +3682,11 @@ def main():
                              "device time by kernel over 3 more filter-on "
                              "steps past the warmup, and over one steady "
                              "EDS micro-step")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="a checkout of the parent commit: phase 3 "
+                             "also builds its encode kernels and times "
+                             "them in turns with these on the same inputs "
+                             "(see load_parent_encode)")
     args = parser.parse_args()
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(BUDGET_S)
@@ -3467,11 +3702,15 @@ def main():
     with phase("2 build"):
         phase_build()
     with phase("3 kernels vs plain"):
-        rows = phase_kernels(torch)
+        parent = (load_parent_encode(torch, args.parent) if args.parent
+                  else None)
+        rows = phase_kernels(torch, parent)
+    captured = {"flagship": {}, "EDS": {}}
     with tempfile.TemporaryDirectory() as tmp:
         with phase("4 training"):
-            launches, trainer, root = phase_training(torch, tmp,
-                                                     profile=args.profile)
+            launches, trainer, root = phase_training(
+                torch, tmp, profile=args.profile,
+                capture=captured["flagship"])
         with phase("5 reference"):
             phase_reference(torch, tmp)
         with phase("6 eval"):
@@ -3480,7 +3719,12 @@ def main():
         torch.cuda.empty_cache()
         with phase("7 real-data (EDS) path"):
             launches.update(phase_eds(torch, tmp, card,
-                                      profile=args.profile))
+                                      profile=args.profile,
+                                      capture=captured["EDS"]))
+        torch.cuda.empty_cache()
+        with phase("3b kernels vs plain on the step's own inputs"):
+            phase_step_inputs(torch, rows, captured, parent)
+        del captured
         torch.cuda.empty_cache()
         with phase("8 r5fix path (prepass, chunked render, vanilla field)"):
             launches.update(phase_r5fix(torch, tmp, card))
@@ -3495,10 +3739,11 @@ def main():
     kernels = [
         kernel_line("hash_encode_fwd", HASH_ENCODE_SOURCE,
                     HASH_ENCODE_FWD_REPLACES, rows["hash_encode_fwd"],
-                    launches, step_shape),
-        kernel_line("hash_encode_bwd", HASH_ENCODE_SOURCE,
-                    HASH_ENCODE_BWD_REPLACES, rows["hash_encode_bwd"],
-                    launches, step_shape),
+                    launches, step_shape, "step"),
+        dict(kernel_line("hash_encode_bwd", HASH_ENCODE_SOURCE,
+                         HASH_ENCODE_BWD_REPLACES, rows["hash_encode_bwd"],
+                         launches, step_shape, "step"),
+             l2_reduction_rates=rows["l2_reduction_rates"]),
         dict(kernel_line("scatter_add_rows", SCATTER_SOURCE,
                          SCATTER_REPLACES, rows["scatter_add_rows"],
                          launches, "flagship step: cellhash levels 7-15"),

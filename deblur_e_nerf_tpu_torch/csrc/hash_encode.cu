@@ -38,12 +38,11 @@
 // Bound: bytes. Per sample the forward must read its 12 bytes of position
 // and write L F floats (128 bytes at 16 levels); the backward reads the
 // same position and L F floats of cotangent, and writes the (T, F)
-// gradient once. The table (50 MB on the flagship) is read once in that
-// count. The arithmetic (index math, 8 F multiply-adds a level) is far
-// below the card's float32 rate. What the card loses time on instead is
-// the table: 8 random row reads a sample and level (4 16-byte reads of
-// one 64-byte row on cellhash levels), served by L2 and L1, and in the
-// backward the L2's rate of atomic reductions.
+// gradient once. The table is read once in that count. The arithmetic
+// (index math, 8 F multiply-adds a level) is far below the card's float32
+// rate. What the card loses time on instead is the table: 8 random row
+// reads a sample and level, served by L2 and L1, and in the backward the
+// L2's rate of atomic reductions.
 //
 // The design:
 //   - work map: a block of 8 warps takes a tile of 32 consecutive samples
@@ -55,29 +54,54 @@
 //     it by level reads the constant bank instead of a per-thread copy;
 //   - the tile's positions, and in the backward its cotangents, are read
 //     coalesced into shared memory once per tile;
-//   - table reads go through the non-coherent path with the L2 evict_last
-//     policy (table_load.cuh), vertex rows as one 8-byte load, cellhash
-//     rows as four 16-byte loads; all of a lane's loads of a level are
-//     issued before the sum;
-//   - forward: each gathered value is rounded to bf16 (round to nearest
-//     even) when the encode computes in bf16, then k = 0..7 are summed in
-//     order, every product and sum rounded on its own (__fmul_rn,
-//     __fadd_rn: no fused multiply-add), so `encode_forward_model` in
-//     ops/hash_encode.py reproduces the kernel bit for bit. Each lane
-//     stages its level's F floats in shared memory (row stride = 2 mod 32
-//     floats: conflict-free); the block then writes the tile's
-//     32 x L F floats as 16-byte stores, 128 contiguous bytes a sample;
+//   - x-neighbour pairs: corners k and k + 4 (dx = 0, 1; k < 4) often lie
+//     in one aligned 16 bytes of the float32 table (8 of the bf16 one),
+//     a "unit" of rows 2 i and 2 i + 1: on a dense or tiled level when
+//     row_k is even (row_{k+4} = row_k + 1), on a hash level of
+//     power-of-two size whenever x is even (row_{k+4} = row_k ^ 1, the
+//     level offset being 128-row aligned). Both directions test it at run
+//     time, per corner pair, as row_k / 2 == row_{k+4} / 2;
+//   - forward: the table is read in the encode's compute type. With bf16
+//     (the wrapper's cached `table.to(torch.bfloat16)`, rounded to nearest
+//     even as the kernel once rounded each gathered value) a cellhash row
+//     is 32 bytes (one sector, two 16-byte loads) and a vertex row 4
+//     bytes; with float32, 64 and 8. A vertex pair reads its unit with one
+//     load (16 bytes float32, 8 bf16) and row_{k+4} with a second only
+//     where it lies outside. Loads go through the non-coherent path with
+//     the L2 evict_last policy on every table line (table_load.cuh: the
+//     25 MB bf16 table fits half the L2, the 50 MB float32 one all of it,
+//     against the streamed positions and features); all of a lane's loads
+//     of a level are issued before the sum. k = 0..7 are summed in order, every
+//     product and sum rounded on its own (__fmul_rn, __fadd_rn: no fused
+//     multiply-add), so `encode_forward_model` in ops/hash_encode.py
+//     reproduces the kernel bit for bit. Each lane stages its level's F
+//     floats in shared memory (row stride = 2 mod 32 floats:
+//     conflict-free); the block then writes the tile's 32 x L F floats as
+//     16-byte stores, 128 contiguous bytes a sample;
 //   - backward: the entry point zeroes the gradient (cudaMemsetAsync). A
 //     warp whose 32 cotangents of a level are all zero (the step's empty
 //     sample slots) skips the level. Otherwise each lane recomputes its
-//     rows and weights; lanes holding the same row (__match_any_sync) sum
-//     their contributions in registers (a pairwise tree of shuffles) and
-//     the lowest of them issues one vector reduction: atomicAdd(float2*)
-//     for a vertex row, four atomicAdd(float4*) for a cellhash row. A
-//     contribution that sums to zero issues no atomic (out starts at +0.0
-//     and x + (+-0) = x); NaN and infinities always reach the table. The
-//     atomics land in any order: the sums are float32, within
-//     (k - 1) eps sum|x| of the exact ones for a row of k contributions.
+//     rows and weights and forms its 8 F contributions; one
+//     __match_any_sync finds the lanes that share a target, whose
+//     contributions a pairwise tree of shuffles sums into the lowest of
+//     them, which issues the reductions:
+//       cellhash: lanes with the same row; one 64-byte bulk reduction of
+//         the row (cp.reduce.async.bulk .add.f32 from the lane's 64-byte
+//         slot in shared memory; two slots a thread, so that the next
+//         row is written while the last is read). The L2 takes it at
+//         twice the rows/s of four RED.F32x4 (chip_smoke phase 3);
+//       vertex levels: lanes in the same cell (the same 8 rows; one
+//         64-bit key: one match and one tree a level, where keying by
+//         corner takes eight of each); per corner pair, one RED.F32x4
+//         where both rows lie in one unit and both receive a non-zero
+//         sum (RED.F32x2 where one does), otherwise a RED.F32x2 each.
+//     `backward_reductions` in ops/hash_encode.py counts what this issues.
+//     A contribution that sums to zero issues no reduction (out starts at
+//     +0.0 and x + (+-0) = x); NaN and infinities always reach the table.
+//     The reductions land in any order: the sums are float32, within
+//     (k - 1) eps sum|x| of the exact ones for a row of k contributions,
+//     and a RED .add.f32 flushes a subnormal addend or sum to zero (less
+//     than FLT_MIN lost a reduction).
 //
 // The kernels allocate nothing and do not synchronise; they launch on the
 // stream they are given (PyTorch's current one). The entry points return
@@ -100,8 +124,9 @@ constexpr int kMaxLevels = 32;
 constexpr int kTile = 32;             // samples a block tile, one a lane
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStride = kMaxLevels * kF + 2;  // staged floats a sample
+constexpr int kRowFloats = 8 * kF;    // floats of a cellhash row
 constexpr unsigned kFull = 0xffffffffu;
-constexpr uint32_t kNoRow = 0xffffffffu;  // a lane with nothing to add
+constexpr uint64_t kNoKey = ~0ull;  // a lane with nothing to add
 
 enum : int32_t { kDense = 0, kHash = 1, kTiled = 2, kCellHash = 3 };
 
@@ -118,6 +143,7 @@ struct Levels {
 struct Corners {
   uint32_t row[8];  // table rows; a cellhash level's are row[0] + k
   float w[8];
+  uint64_t cell;    // the cell (x, y, z) as 21-bit fields: its rows' key
 };
 
 __device__ __forceinline__ uint32_t spatial_hash(uint32_t x, uint32_t y,
@@ -158,6 +184,7 @@ __device__ __forceinline__ void level_corners(float ux, float uy, float uz,
                                  (k & 2) ? hi[1] : lo[1]),
                        (k & 1) ? hi[2] : lo[2]);
   }
+  c.cell = cell[0] | ((uint64_t)cell[1] << 21) | ((uint64_t)cell[2] << 42);
   const uint32_t offset = lv.offset[l];
   const uint32_t stride = res + 1;
   if (mode == kCellHash) {
@@ -187,14 +214,78 @@ __device__ __forceinline__ void level_corners(float ux, float uy, float uz,
   }
 }
 
-template <bool BF16>
-__device__ __forceinline__ float value(float v) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
+// One row's F = 2 values of the table's element type T, as float32.
+__device__ __forceinline__ float2 bf16_pair(uint32_t bits) {
+  return make_float2(__uint_as_float(bits << 16),
+                     __uint_as_float(bits & 0xffff0000u));
 }
+
+// Reads of the table in its element type T: a cellhash row's 8 corners,
+// a unit's two rows (the aligned pair 2 i, 2 i + 1), one row.
+template <typename T>
+struct Table;
+
+template <>
+struct Table<float> {
+  static __device__ __forceinline__ void cell_row(const float* t,
+                                                  uint32_t row0,
+                                                  uint64_t policy,
+                                                  float2 (&v)[8]) {
+    const float* p = t + (int64_t)row0 * kF;
+    float4 q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) q[j] = table_load::ld4(p + 4 * j, policy);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = make_float2(q[j].x, q[j].y);
+      v[2 * j + 1] = make_float2(q[j].z, q[j].w);
+    }
+  }
+  using Unit = float4;
+  static __device__ __forceinline__ Unit unit(const float* t, uint32_t u,
+                                              uint64_t policy) {
+    return table_load::ld4(t + (int64_t)u * 2 * kF, policy);
+  }
+  static __device__ __forceinline__ float2 pick(const Unit& q, uint32_t r) {
+    return (r & 1) ? make_float2(q.z, q.w) : make_float2(q.x, q.y);
+  }
+  static __device__ __forceinline__ float2 row(const float* t, uint32_t r,
+                                               uint64_t policy) {
+    return table_load::ld2(t + (int64_t)r * kF, policy);
+  }
+};
+
+template <>
+struct Table<__nv_bfloat16> {
+  static __device__ __forceinline__ void cell_row(const __nv_bfloat16* t,
+                                                  uint32_t row0,
+                                                  uint64_t policy,
+                                                  float2 (&v)[8]) {
+    const __nv_bfloat16* p = t + (int64_t)row0 * kF;
+    const uint4 a = table_load::ld_u32x4(p, policy);
+    const uint4 b = table_load::ld_u32x4(p + 8, policy);
+    v[0] = bf16_pair(a.x);
+    v[1] = bf16_pair(a.y);
+    v[2] = bf16_pair(a.z);
+    v[3] = bf16_pair(a.w);
+    v[4] = bf16_pair(b.x);
+    v[5] = bf16_pair(b.y);
+    v[6] = bf16_pair(b.z);
+    v[7] = bf16_pair(b.w);
+  }
+  using Unit = uint2;
+  static __device__ __forceinline__ Unit unit(const __nv_bfloat16* t,
+                                              uint32_t u, uint64_t policy) {
+    return table_load::ld_u32x2(t + (int64_t)u * 2 * kF, policy);
+  }
+  static __device__ __forceinline__ float2 pick(const Unit& q, uint32_t r) {
+    return bf16_pair((r & 1) ? q.y : q.x);
+  }
+  static __device__ __forceinline__ float2 row(const __nv_bfloat16* t,
+                                               uint32_t r, uint64_t policy) {
+    return bf16_pair(table_load::ld_u32(t + (int64_t)r * kF, policy));
+  }
+};
 
 // The tile's positions into shared memory (zeros past n).
 __device__ __forceinline__ void load_positions(const float* __restrict__ u,
@@ -213,9 +304,9 @@ __device__ __forceinline__ int stage_stride(int width) {
   return ((width + 31) & ~31) + 2;
 }
 
-template <bool BF16>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    hash_encode_fwd_kernel(const float* __restrict__ table,
+    hash_encode_fwd_kernel(const T* __restrict__ table,
                            const float* __restrict__ u,
                            float* __restrict__ out, int64_t n,
                            const __grid_constant__ Levels lv) {
@@ -237,47 +328,38 @@ __global__ void __launch_bounds__(kThreads)
     for (int l = warp; l < lv.n; l += kWarps) {
       Corners c;
       level_corners(ux, uy, uz, lv, l, c);
-      float v[8][kF];
+      float2 v[8];
       if (lv.mode[l] == kCellHash) {
-        const float* row = table + (int64_t)c.row[0] * kF;
-        float4 q[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          q[j] = table_load::ld4(row + 4 * j, policy);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          v[2 * j][0] = q[j].x;
-          v[2 * j][1] = q[j].y;
-          v[2 * j + 1][0] = q[j].z;
-          v[2 * j + 1][1] = q[j].w;
-        }
+        Table<T>::cell_row(table, c.row[0], policy, v);
       } else {
-        float2 q[8];
+        typename Table<T>::Unit q[4];
+        float2 b[4] = {};
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          q[k] = table_load::ld2(table + (int64_t)c.row[k] * kF, policy);
+        for (int k = 0; k < 4; ++k) {
+          q[k] = Table<T>::unit(table, c.row[k] >> 1, policy);
         }
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          v[k][0] = q[k].x;
-          v[k][1] = q[k].y;
+        for (int k = 0; k < 4; ++k) {
+          if ((c.row[k] >> 1) != (c.row[k + 4] >> 1)) {
+            b[k] = Table<T>::row(table, c.row[k + 4], policy);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          v[k] = Table<T>::pick(q[k], c.row[k]);
+          v[k + 4] = (c.row[k] >> 1) == (c.row[k + 4] >> 1)
+                         ? Table<T>::pick(q[k], c.row[k + 4])
+                         : b[k];
         }
       }
-      float acc[kF];
-#pragma unroll
-      for (int f = 0; f < kF; ++f) {
-        acc[f] = __fmul_rn(c.w[0], value<BF16>(v[0][f]));
-      }
+      float2 acc = make_float2(__fmul_rn(c.w[0], v[0].x),
+                               __fmul_rn(c.w[0], v[0].y));
 #pragma unroll
       for (int k = 1; k < 8; ++k) {
-#pragma unroll
-        for (int f = 0; f < kF; ++f) {
-          acc[f] = __fadd_rn(acc[f], __fmul_rn(c.w[k], value<BF16>(v[k][f])));
-        }
+        acc.x = __fadd_rn(acc.x, __fmul_rn(c.w[k], v[k].x));
+        acc.y = __fadd_rn(acc.y, __fmul_rn(c.w[k], v[k].y));
       }
-      *reinterpret_cast<float2*>(stage + lane * stride + l * kF) =
-          make_float2(acc[0], acc[1]);
+      *reinterpret_cast<float2*>(stage + lane * stride + l * kF) = acc;
     }
     __syncthreads();
     // the tile's count x width floats are contiguous in `out`
@@ -302,10 +384,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Sums x over the lanes of `peers` (the lanes holding the same row) into
-// the lowest of them, by a pairwise tree: at each round every lane adds
-// the value of its next remaining peer, then the lanes of odd rank drop
-// out. Every lane of the warp must call it.
+// Sums x over the lanes of `peers` (the lanes holding the same target)
+// into the lowest of them, by a pairwise tree: at each round every lane
+// adds the value of its next remaining peer, then the lanes of odd rank
+// drop out. Every lane of the warp must call it.
 template <int K>
 __device__ __forceinline__ void reduce_peers(unsigned peers, float (&x)[K]) {
   const unsigned lane = threadIdx.x & 31;
@@ -329,6 +411,80 @@ __device__ __forceinline__ bool nonzero2(float a, float b) {
   return a != 0.0f || b != 0.0f;  // NaN compares unequal to 0
 }
 
+// The bulk reduction of 64 bytes at `src` (shared memory, written by this
+// thread) into `dst` (global), in this thread's bulk group.
+__device__ __forceinline__ void bulk_reduce_add64(float* dst,
+                                                  const float* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(src);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32"
+      " [%0], [%1], %2;" ::"l"(dst), "r"(s), "r"(64u) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read their
+// source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// 16 floats into this thread's 64-byte slot.
+__device__ __forceinline__ void write_slot(float* slot,
+                                           const float (&p)[kRowFloats]) {
+#pragma unroll
+  for (int j = 0; j < kRowFloats / 4; ++j) {
+    reinterpret_cast<float4*>(slot)[j] =
+        make_float4(p[4 * j], p[4 * j + 1], p[4 * j + 2], p[4 * j + 3]);
+  }
+}
+
+// One unit's combined contribution (rows 2 u and 2 u + 1): F32x4 where
+// both halves are non-zero, F32x2 where one is.
+__device__ __forceinline__ void reduce_unit(float* grad, uint32_t unit,
+                                            const float (&q)[4]) {
+  const bool lo = nonzero2(q[0], q[1]), hi = nonzero2(q[2], q[3]);
+  float* dst = grad + (int64_t)unit * 2 * kF;
+  if (lo && hi) {
+    atomicAdd(reinterpret_cast<float4*>(dst),
+              make_float4(q[0], q[1], q[2], q[3]));
+  } else if (lo) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(q[0], q[1]));
+  } else if (hi) {
+    atomicAdd(reinterpret_cast<float2*>(dst + kF), make_float2(q[2], q[3]));
+  }
+}
+
+// A vertex cell's corner pair k, k + 4 (rows ra, rb; contributions pa,
+// pb): one reduction of their unit where both rows lie in it (ra == rb
+// where a corner was clipped), otherwise one F32x2 each; zero
+// contributions issue nothing.
+__device__ __forceinline__ void reduce_pair(float* grad, uint32_t ra,
+                                            uint32_t rb, float2 pa,
+                                            float2 pb) {
+  if ((ra >> 1) == (rb >> 1)) {
+    const bool a_hi = ra & 1;
+    float q[4] = {a_hi ? 0.0f : pa.x, a_hi ? 0.0f : pa.y,
+                  a_hi ? pa.x : 0.0f, a_hi ? pa.y : 0.0f};
+    if (rb & 1) {
+      q[2] += pb.x;
+      q[3] += pb.y;
+    } else {
+      q[0] += pb.x;
+      q[1] += pb.y;
+    }
+    reduce_unit(grad, ra >> 1, q);
+    return;
+  }
+  if (nonzero2(pa.x, pa.y)) {
+    atomicAdd(reinterpret_cast<float2*>(grad) + ra, pa);
+  }
+  if (nonzero2(pb.x, pb.y)) {
+    atomicAdd(reinterpret_cast<float2*>(grad) + rb, pb);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
     hash_encode_bwd_kernel(const float* __restrict__ g,
                            const float* __restrict__ u,
@@ -336,11 +492,14 @@ __global__ void __launch_bounds__(kThreads)
                            const __grid_constant__ Levels lv) {
   __shared__ float su[3 * kTile];
   __shared__ __align__(16) float stage[kTile * kMaxStride];
+  // each thread's two 64-byte slots for bulk reductions
+  __shared__ __align__(128) float slots[2][kThreads][kRowFloats];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int width = lv.n * kF;
   const int stride = stage_stride(width);
   const int per = width / 2;
+  int next_slot = 0;
   for (int64_t base = (int64_t)blockIdx.x * kTile; base < n;
        base += (int64_t)gridDim.x * kTile) {
     const int count = (int)min((int64_t)kTile, n - base);
@@ -363,44 +522,99 @@ __global__ void __launch_bounds__(kThreads)
       if (!__any_sync(kFull, live)) continue;  // empty slots: nothing to add
       Corners c;
       level_corners(ux, uy, uz, lv, l, c);
-      if (lv.mode[l] == kCellHash) {
-        float p[8 * kF];
+      float p[kRowFloats];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          p[2 * k] = __fmul_rn(c.w[k], gl.x);
-          p[2 * k + 1] = __fmul_rn(c.w[k], gl.y);
-        }
-        const unsigned peers =
-            __match_any_sync(kFull, live ? c.row[0] : kNoRow);
-        reduce_peers(peers, p);
-        if (live && lane == __ffs(peers) - 1) {
-          float4* dst =
-              reinterpret_cast<float4*>(grad + (int64_t)c.row[0] * kF);
+      for (int k = 0; k < 8; ++k) {
+        p[2 * k] = __fmul_rn(c.w[k], gl.x);
+        p[2 * k + 1] = __fmul_rn(c.w[k], gl.y);
+      }
+      // peers: lanes with the same cellhash row, or in the same cell of a
+      // vertex level (the same 8 rows)
+      const bool cellhash = lv.mode[l] == kCellHash;
+      const unsigned peers = __match_any_sync(
+          kFull, !live ? kNoKey : cellhash ? (uint64_t)c.row[0] : c.cell);
+      reduce_peers(peers, p);
+      if (!live || lane != __ffs(peers) - 1) continue;
+      if (cellhash) {
+        bool any = false;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float4 q = make_float4(p[4 * j], p[4 * j + 1], p[4 * j + 2],
-                                         p[4 * j + 3]);
-            if (nonzero2(q.x, q.y) || nonzero2(q.z, q.w)) {
-              atomicAdd(dst + j, q);
-            }
-          }
+        for (int k = 0; k < 8; ++k) any |= nonzero2(p[2 * k], p[2 * k + 1]);
+        if (any) {
+          bulk_wait_read<1>();  // the slot's last reduction has read it
+          float* slot = slots[next_slot][threadIdx.x];
+          write_slot(slot, p);
+          bulk_reduce_add64(grad + (int64_t)c.row[0] * kF, slot);
+          next_slot ^= 1;
         }
       } else {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          float p[kF] = {__fmul_rn(c.w[k], gl.x), __fmul_rn(c.w[k], gl.y)};
-          const unsigned peers =
-              __match_any_sync(kFull, live ? c.row[k] : kNoRow);
-          reduce_peers(peers, p);
-          if (live && lane == __ffs(peers) - 1 && nonzero2(p[0], p[1])) {
-            atomicAdd(reinterpret_cast<float2*>(grad) + c.row[k],
-                      make_float2(p[0], p[1]));
-          }
+        for (int k = 0; k < 4; ++k) {
+          reduce_pair(grad, c.row[k], c.row[k + 4],
+                      make_float2(p[2 * k], p[2 * k + 1]),
+                      make_float2(p[2 * k + 8], p[2 * k + 9]));
         }
       }
     }
     __syncthreads();
   }
+  bulk_wait_read<0>();  // the slots live as long as the block
+}
+
+// The L2's rate of atomic reductions, for chip_smoke.py's phase 3 only:
+// n_ops reductions of 1.0 into random rows of `buf` (n_rows 64-byte rows),
+// each by `mode`:
+//   0: RED.F32x2 at a random 16-byte-aligned address;
+//   1: RED.F32x4 at a random 16-byte-aligned address;
+//   2: four RED.F32x4 covering a random 64-byte row (a cellhash row as
+//      four vector reductions; one op is one row);
+//   3: one 64-byte bulk reduction of a random 64-byte row from shared
+//      memory, written before each issue as the encode backward does.
+__device__ __forceinline__ uint32_t mix32(uint64_t i) {
+  uint32_t h = (uint32_t)(i ^ (i >> 32)) * 0x9E3779B1u;
+  h ^= h >> 15;
+  h *= 0x85EBCA77u;
+  h ^= h >> 13;
+  return h;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+    l2_reduction_kernel(float* __restrict__ buf, uint32_t n_rows,
+                        int64_t n_ops) {
+  __shared__ __align__(128) float slots[2][kThreads][kRowFloats];
+  float p[kRowFloats];
+#pragma unroll
+  for (int j = 0; j < kRowFloats; ++j) p[j] = 1.0f;
+  int next_slot = 0;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n_ops;
+       i += (int64_t)gridDim.x * kThreads) {
+    const uint32_t h = mix32((uint64_t)i);
+    if (MODE == 0 || MODE == 1) {
+      float* dst = buf + (int64_t)(h % (4ull * n_rows)) * 4;
+      if (MODE == 0) {
+        atomicAdd(reinterpret_cast<float2*>(dst), make_float2(1.0f, 1.0f));
+      } else {
+        atomicAdd(reinterpret_cast<float4*>(dst),
+                  make_float4(1.0f, 1.0f, 1.0f, 1.0f));
+      }
+    } else {
+      float* dst = buf + (int64_t)(h % n_rows) * kRowFloats;
+      if (MODE == 2) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          atomicAdd(reinterpret_cast<float4*>(dst) + j,
+                    make_float4(1.0f, 1.0f, 1.0f, 1.0f));
+        }
+      } else {
+        bulk_wait_read<1>();
+        float* slot = slots[next_slot][threadIdx.x];
+        write_slot(slot, p);
+        bulk_reduce_add64(dst, slot);
+        next_slot ^= 1;
+      }
+    }
+  }
+  bulk_wait_read<0>();
 }
 
 bool valid(const Levels* lv) {
@@ -409,24 +623,24 @@ bool valid(const Levels* lv) {
 
 }  // namespace
 
-// table: (T, 2) float32, 16-byte aligned; u: (n, 3) float32; out: (n, 2 L)
-// float32, 16-byte aligned. With bf16, each gathered value is rounded to
-// bfloat16 before the float32 sum.
-extern "C" int hash_encode_fwd_f32(const void* table, const void* u,
-                                   void* out, int64_t n, const void* levels,
-                                   int32_t bf16, void* stream) {
+// table: (T, 2), float32 (table_bf16 = 0) or bfloat16 (1), T even, 16-byte
+// aligned; u: (n, 3) float32; out: (n, 2 L) float32, 16-byte aligned.
+extern "C" int hash_encode_fwd(const void* table, const void* u, void* out,
+                               int64_t n, const void* levels,
+                               int32_t table_bf16, void* stream) {
   const Levels* lv = (const Levels*)levels;
   if (!valid(lv)) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const float* t = (const float*)table;
     const float* p = (const float*)u;
     float* o = (float*)out;
     cudaStream_t s = (cudaStream_t)stream;
     const int64_t threads = (n + kTile - 1) / kTile * kThreads;
-    if (bf16) {
-      launch<&hash_encode_fwd_kernel<true>>(threads, s, t, p, o, n, *lv);
+    if (table_bf16) {
+      launch<&hash_encode_fwd_kernel<__nv_bfloat16>>(
+          threads, s, (const __nv_bfloat16*)table, p, o, n, *lv);
     } else {
-      launch<&hash_encode_fwd_kernel<false>>(threads, s, t, p, o, n, *lv);
+      launch<&hash_encode_fwd_kernel<float>>(threads, s, (const float*)table,
+                                             p, o, n, *lv);
     }
   }
   return (int)cudaGetLastError();
@@ -434,9 +648,9 @@ extern "C" int hash_encode_fwd_f32(const void* table, const void* u,
 
 // g: (n, 2 L) float32, 8-byte aligned; u: (n, 3) float32; grad: (table_rows,
 // 2) float32, 16-byte aligned, zeroed here, then the row sums added.
-extern "C" int hash_encode_bwd_f32(const void* g, const void* u, void* grad,
-                                   int64_t n, int64_t table_rows,
-                                   const void* levels, void* stream) {
+extern "C" int hash_encode_bwd(const void* g, const void* u, void* grad,
+                               int64_t n, int64_t table_rows,
+                               const void* levels, void* stream) {
   const Levels* lv = (const Levels*)levels;
   if (!valid(lv)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -447,6 +661,24 @@ extern "C" int hash_encode_bwd_f32(const void* g, const void* u, void* grad,
     const int64_t threads = (n + kTile - 1) / kTile * kThreads;
     launch<&hash_encode_bwd_kernel>(threads, s, (const float*)g,
                                     (const float*)u, (float*)grad, n, *lv);
+  }
+  return (int)cudaGetLastError();
+}
+
+// buf: n_rows x 16 float32, 128-byte aligned; mode as l2_reduction_kernel.
+extern "C" int l2_reduction_rate(void* buf, int64_t n_rows, int64_t n_ops,
+                                 int32_t mode, void* stream) {
+  if (n_rows < 1 || n_rows > (1ll << 28) || mode < 0 || mode > 3) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  float* b = (float*)buf;
+  const uint32_t r = (uint32_t)n_rows;
+  switch (mode) {
+    case 0: launch<&l2_reduction_kernel<0>>(n_ops, s, b, r, n_ops); break;
+    case 1: launch<&l2_reduction_kernel<1>>(n_ops, s, b, r, n_ops); break;
+    case 2: launch<&l2_reduction_kernel<2>>(n_ops, s, b, r, n_ops); break;
+    default: launch<&l2_reduction_kernel<3>>(n_ops, s, b, r, n_ops); break;
   }
   return (int)cudaGetLastError();
 }

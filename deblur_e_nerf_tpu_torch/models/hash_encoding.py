@@ -11,7 +11,9 @@ packages unchanged. The encode is one call per direction over all levels
     'tiled' levels: the instant-NGP XOR-prime hash or the flat vertex
     index of each corner; 'cellhash' levels: one (8F)-float row hashed
     from the cell), rounds them to `compute_dtype` (bfloat16 on the
-    flagship) and interpolates trilinearly in float32, writing (N, L*F);
+    flagship: on the card the kernel reads a bf16 copy of the table, made
+    once per change of the table) and interpolates trilinearly in
+    float32, writing (N, L*F);
   - the backward (`_EncodeFrozenPos`) adds each w * g into the rows it
     read, in float32, in place of the JAX package's sort + compensated
     cumsum. Positions get a zero cotangent: sample positions are

@@ -156,15 +156,19 @@ def library():
                        ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
                        ctypes.c_int32, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        fn = lib.hash_encode_fwd_f32
+        fn = lib.hash_encode_fwd
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        fn = lib.hash_encode_bwd_f32
+        fn = lib.hash_encode_bwd
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
                        ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.l2_reduction_rate
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int32, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -15,8 +15,17 @@ a CPU tensor each runs its plain PyTorch version
 (`encode_forward_reference`, `encode_backward_reference`).
 `encode_forward_model` is the plain model of the forward kernel's
 summation order (corners in order, no fused multiply-add): the card tests
-hold the kernel to it bit for bit. `FORWARD_LAUNCHES` and
-`BACKWARD_LAUNCHES` count kernel launches.
+hold the kernel to it bit for bit. `backward_reductions` counts the
+reductions the backward kernel issues (its model of combining by row or
+cell, and of pairing). `FORWARD_LAUNCHES` and `BACKWARD_LAUNCHES` count
+kernel launches.
+
+The forward in bf16 (compute_dtype torch.bfloat16) reads a bf16 copy of
+the table on the card, `table.to(torch.bfloat16)`: the values the kernel
+once rounded after each load, bit for bit. `bf16_table` makes it once per
+change of the table (its autograd version counter, which every in-place
+write moves: the optimizer's update, `load_state_dict`) and keeps one
+copy; `BF16_COPIES` counts the copies made.
 
 Per level and sample, `level_rows_weights` gives the 8 table rows of the
 cell's corners and their trilinear weights (the same rows and weights the
@@ -33,6 +42,7 @@ modulus, which reproduces the JAX package's wrapping uint32 arithmetic.
 
 import ctypes
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -41,6 +51,7 @@ from ..utils.device import constant
 
 FORWARD_LAUNCHES = 0   # forward kernel launches since the last reset
 BACKWARD_LAUNCHES = 0  # backward kernel launches since the last reset
+BF16_COPIES = 0        # bf16 table copies made since the last reset
 
 MAX_LEVELS = 32      # the kernels' level parameters hold this many
 KERNEL_FEATURES = 2  # features a level in the kernels (every config's)
@@ -109,9 +120,11 @@ def _corner_values(table, rows, compute_dtype, acc):
 
 
 def _accumulation_dtype(table, compute_dtype):
-    # the table's dtype when no rounding was asked for (exactness tests run
-    # in float64), float32 when gathering in a reduced type
-    return table.dtype if compute_dtype is None else torch.float32
+    # float64 for a float64 table with no rounding asked for (the
+    # exactness tests), float32 otherwise (a bf16 table included)
+    if compute_dtype is None and table.dtype == torch.float64:
+        return torch.float64
+    return torch.float32
 
 
 def encode_forward_reference(table, u, levels, compute_dtype=None):
@@ -158,6 +171,78 @@ def encode_backward_reference(g, u, levels, table_rows, sum_dtype=None):
         grad.index_add_(0, rows.reshape(-1), contrib.reshape(-1, F)
                         .to(grad.dtype))
     return grad
+
+
+def x_pairs(rows):
+    """(N, 4) bool: whether corners k and k + 4 (the x-neighbours) of each
+    sample lie in one aligned pair of rows (2 i, 2 i + 1), which the
+    kernels read with one load and reduce with one F32x4: row_k // 2 ==
+    row_{k+4} // 2, for `rows` (N, 8) of `level_rows_weights`."""
+    return (rows[:, :4] >> 1) == (rows[:, 4:] >> 1)
+
+
+def _groups(key, mask):
+    """Distinct keys among the masked entries."""
+    return torch.unique(key[mask]).numel()
+
+
+def _level_cells(uc, res, mode):
+    """(N,) int64 id of each sample's cell at one level (the cell the
+    kernels key a vertex level's combining on: clipped on dense levels,
+    unclipped on hash and tiled ones)."""
+    cell = torch.floor(uc * res)
+    if mode == "dense":
+        cell = torch.clamp(cell, 0, res - 1)
+    cell = cell.to(torch.int64)
+    return cell[:, 0] | (cell[:, 1] << 21) | (cell[:, 2] << 42)
+
+
+def backward_reductions(g, u, levels):
+    """The reductions the backward kernel issues for cotangent g (N, L*F)
+    at positions u (N, 3), by level mode: {mode: {"x2": RED.F32x2,
+    "x4": RED.F32x4, "bulk64": 64-byte bulk reductions}}.
+
+    The kernel's rules: a warp holds 32 consecutive samples of one level;
+    a sample with an all-zero cotangent adds nothing; the lanes that share
+    a target combine into one lane, which issues where its contribution is
+    not all zero (products w * g in float32, as the kernel forms them; a
+    sum that cancels to exactly zero is counted). On a cellhash level the
+    target is the row: one bulk reduction. On a vertex level it is the
+    cell (its 8 rows); per corner pair k < 4, where `x_pairs` holds one
+    F32x4 if both rows of the unit receive a non-zero contribution and
+    one F32x2 if one does (or if the two corners are one clipped row),
+    otherwise one F32x2 for each row that receives one."""
+    uc = torch.clamp(u, 0.0, 1.0)
+    n = u.shape[0]
+    F = g.shape[-1] // len(levels)
+    warp = torch.arange(n, device=u.device) // 32
+    counts = {}
+    for li, level in enumerate(levels):
+        res, _, _, mode = level
+        gl = g[:, li * F:(li + 1) * F]
+        live = (gl != 0).any(-1)
+        rows, w = level_rows_weights(uc, *level, g.dtype)
+        nz = ((w[..., None] * gl[:, None]) != 0).any(-1) & live[:, None]
+        c = counts.setdefault(mode, {"x2": 0, "x4": 0, "bulk64": 0})
+        if mode == "cellhash":
+            c["bulk64"] += _groups(warp * (1 << 32) + rows[:, 0],
+                                   nz.any(-1))
+            continue
+        # (warp, cell) as one int64: the cells numbered in order
+        cells = torch.unique(_level_cells(uc, res, mode),
+                             return_inverse=True)[1]
+        group = warp * n + cells
+        paired = x_pairs(rows)
+        for k in range(4):
+            a, b, p = nz[:, k], nz[:, k + 4], paired[:, k]
+            one_row = rows[:, k] == rows[:, k + 4]
+            two = p & ~one_row  # two rows of one unit
+            either = _groups(group, (a | b) & two)
+            both = _groups(group, a & two) + _groups(group, b & two) - either
+            c["x4"] += both
+            c["x2"] += (either - both + _groups(group, (a | b) & one_row)
+                        + _groups(group, a & ~p) + _groups(group, b & ~p))
+    return counts
 
 
 class _LevelParams(ctypes.Structure):
@@ -207,6 +292,16 @@ def _check(table_rows, u, levels, width, width_name):
     _check_levels(tuple(levels), int(table_rows))
 
 
+@functools.lru_cache(maxsize=64)
+def _check_card_levels(levels):
+    if len(levels) > MAX_LEVELS:
+        raise ValueError(f"the CUDA kernel takes at most {MAX_LEVELS} "
+                         f"levels, got {len(levels)}")
+    if any(res >= 1 << 21 for res, *_ in levels):  # 21-bit cell keys
+        raise ValueError(f"the CUDA kernel takes resolutions below 2^21, "
+                         f"got {max(res for res, *_ in levels)}")
+
+
 def _check_card(tensors, levels, features, table_rows):
     """The kernels' own limits, on the card."""
     for name, t in tensors.items():
@@ -218,11 +313,12 @@ def _check_card(tensors, levels, features, table_rows):
     if features != KERNEL_FEATURES:
         raise ValueError(f"the CUDA kernel takes {KERNEL_FEATURES} features "
                          f"a level, got {features}")
-    if len(levels) > MAX_LEVELS:
-        raise ValueError(f"the CUDA kernel takes at most {MAX_LEVELS} "
-                         f"levels, got {len(levels)}")
-    if table_rows >= 1 << 31:  # 32-bit rows, one value kept as a sentinel
+    _check_card_levels(levels)
+    if table_rows >= 1 << 31:  # the kernels hold rows in 32 bits
         raise ValueError(f"the CUDA kernel takes tables of fewer than 2^31 "
+                         f"rows, got {table_rows}")
+    if table_rows % 2:  # the kernels read and reduce aligned row pairs
+        raise ValueError(f"the CUDA kernel takes an even number of table "
                          f"rows, got {table_rows}")
 
 
@@ -236,19 +332,40 @@ def _library():
     return _cuda_build.library()
 
 
+_bf16_cache = (None, -1, None)  # (the table, weakly; its version; copy)
+
+
+def bf16_table(table):
+    """`table.to(torch.bfloat16)`, made once per change of `table` and
+    reused until the next: a change is a new tensor or a move of its
+    autograd version counter (every in-place write moves it). No device
+    value is read. One copy is kept."""
+    global _bf16_cache, BF16_COPIES
+    ref, version, copy = _bf16_cache
+    if ref is None or ref() is not table or version != table._version:
+        copy = table.detach().to(torch.bfloat16)
+        _bf16_cache = (weakref.ref(table), table._version, copy)
+        BF16_COPIES += 1
+    return copy
+
+
 def encode_forward(table, u, levels, compute_dtype=None):
     """Features (N, L*F) of positions u (N, 3) (clipped to [0, 1]).
 
     Args:
-        table: (T, F) feature table, float32 (float64 on the CPU only);
-            on the card contiguous, 16-byte aligned, F = 2.
-        u: (N, 3) positions in the table's dtype, contiguous on the card.
+        table: (T, F) feature table, float32 or bfloat16 (float64 on the
+            CPU only); on the card contiguous, 16-byte aligned, F = 2, T
+            even.
+        u: (N, 3) positions, float32 (a float64 table's dtype on the CPU),
+            contiguous on the card.
         levels: the layout of `grid_layout`, at most 32 levels on the card.
         compute_dtype: None, or torch.bfloat16: each gathered table value
-            is rounded to it (nearest even) before the float32 sum.
+            is rounded to it (nearest even) before the float32 sum. On the
+            card the kernel reads `bf16_table(table)` instead; a bf16
+            table is read as it is either way.
     Returns:
-        (N, L*F) in float32 (in the table's dtype when compute_dtype is
-        None).
+        (N, L*F) in float32 (float64 for a float64 table and no
+        compute_dtype).
     """
     global FORWARD_LAUNCHES
     if table.dim() != 2:
@@ -262,25 +379,33 @@ def encode_forward(table, u, levels, compute_dtype=None):
     if u.device != table.device:
         raise ValueError(f"u on {u.device}, table on {table.device}")
     if table.device.type == "cpu":
-        if table.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"table must be float32/64, got {table.dtype}")
+        if table.dtype not in (torch.float32, torch.float64,
+                               torch.bfloat16):
+            raise TypeError(f"table must be float32/64 or bfloat16, got "
+                            f"{table.dtype}")
         return encode_forward_reference(table, u, levels, compute_dtype)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
-    _check_card({"table": table, "u": u}, levels, table.shape[1],
-                table.shape[0])
+    if compute_dtype is not None and table.dtype == torch.float32:
+        table = bf16_table(table)
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA kernel takes a float32 or bfloat16 "
+                        f"table, got {table.dtype}")
+    _check_card({"u": u}, levels, table.shape[1], table.shape[0])
+    if not table.is_contiguous():
+        raise ValueError("table must be contiguous")
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned (a view at an "
                          "offset?)")
     n = u.shape[0]
     out = torch.empty((n, table.shape[1] * len(levels)), dtype=torch.float32,
                       device=table.device)
-    err = _library().hash_encode_fwd_f32(
+    err = _library().hash_encode_fwd(
         table.data_ptr(), u.data_ptr(), out.data_ptr(), n,
         ctypes.addressof(_level_params(levels)),
-        int(compute_dtype is not None), _stream(table.device))
+        int(table.dtype == torch.bfloat16), _stream(table.device))
     if err != 0:
-        raise RuntimeError(f"hash_encode_fwd_f32 launch failed: CUDA {err}")
+        raise RuntimeError(f"hash_encode_fwd launch failed: CUDA {err}")
     FORWARD_LAUNCHES += 1
     return out
 
@@ -319,11 +444,11 @@ def encode_backward(g, u, levels, table_rows):
         raise ValueError("g must be 8-byte aligned (a view at an offset?)")
     grad = torch.empty((int(table_rows), KERNEL_FEATURES),
                        dtype=torch.float32, device=g.device)
-    err = _library().hash_encode_bwd_f32(
+    err = _library().hash_encode_bwd(
         g.data_ptr(), u.data_ptr(), grad.data_ptr(), g.shape[0],
         int(table_rows), ctypes.addressof(_level_params(levels)),
         _stream(g.device))
     if err != 0:
-        raise RuntimeError(f"hash_encode_bwd_f32 launch failed: CUDA {err}")
+        raise RuntimeError(f"hash_encode_bwd launch failed: CUDA {err}")
     BACKWARD_LAUNCHES += 1
     return grad

@@ -111,10 +111,12 @@ def shard_render_config(rc, world):
 
 def replicate(tensors, src=0):
     """Broadcast each tensor from rank `src` in place (bool tensors as
-    bytes)."""
+    bytes), and move each one's version counter, which the broadcast
+    leaves as it was (the encode's bf16 table copy is keyed on it)."""
     for t in tensors:
         dist.broadcast(t.view(torch.uint8) if t.dtype == torch.bool else t,
                        src)
+        torch.autograd.graph.increment_version(t)
 
 
 def _buckets(tensors, bucket_bytes):

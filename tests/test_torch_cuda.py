@@ -258,11 +258,33 @@ ENCODE_OTYPES = [("HybridHashGrid", (8, 4, 2.0, 12)),
                  ("DenseGrid", (3, 4, 2.0, 12))]
 
 
-def _encode_inputs(cuda, otype, layout, n, kind="uniform", seed=0):
-    levels, total = hash_encoding.grid_layout(otype, *layout)
+def _x_runs(levels, n, gen, cuda):
+    """Runs of 32 samples along x at half a cell of the finest vertex
+    level, from uniform starts: lanes of a warp share rows, and about half
+    of the x-neighbour corner pairs lie in one aligned row pair (a hash
+    level's pairs are the even x cells)."""
+    res = max(r for r, _, _, m in levels if m != "cellhash")
+    n_runs = -(-n // 32)
+    start = torch.rand((n_runs, 1, 3), generator=gen, device=cuda)
+    step = torch.arange(32, device=cuda)[None, :, None] * torch.tensor(
+        [0.5 / res, 0.0, 0.0], device=cuda)
+    u = (start + step).reshape(-1, 3)[:n].contiguous()
+    return u, torch.ones(n, dtype=torch.bool, device=cuda)
+
+
+def _encode_inputs(cuda, otype, layout, n, kind="uniform", seed=0,
+                   levels=None):
+    if levels is None:
+        levels, total = hash_encoding.grid_layout(otype, *layout)
+    else:
+        total = max(o + s for _, s, o, _ in levels)
+        total += total % 2
     gen = torch.Generator(device=cuda).manual_seed(seed)
     table = torch.rand((total, 2), generator=gen, device=cuda) * 2 - 1
-    u, live = chip_smoke.encode_positions(torch, kind, n, gen, cuda)
+    if kind == "x_runs":
+        u, live = _x_runs(levels, n, gen, cuda)
+    else:
+        u, live = chip_smoke.encode_positions(torch, kind, n, gen, cuda)
     # the cube's corners and faces, and beyond it: u = 1.0 is a dense
     # level's clipped last cell (frac = 1.0)
     u[:16] = torch.round(u[:16])
@@ -273,15 +295,35 @@ def _encode_inputs(cuda, otype, layout, n, kind="uniform", seed=0):
     return levels, total, table, u, g
 
 
+def _check_half_paired(levels, u):
+    """The x_runs case as built: on every vertex level between a fifth and
+    four fifths of the corner pairs share a row pair."""
+    uc = torch.clamp(u, 0.0, 1.0)
+    for level in levels:
+        if level[3] != "cellhash":
+            rows, _ = hash_encode.level_rows_weights(uc, *level,
+                                                     torch.float32)
+            share = float(hash_encode.x_pairs(rows).float().mean())
+            assert 0.2 < share < 0.8, (level, share)
+
+
+ENCODE_KINDS = [(100003, "uniform"), (37, "uniform"), (100003, "rays"),
+                (100003, "x_runs")]
+
+
 @pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
-@pytest.mark.parametrize("n", [100003, 37])
+@pytest.mark.parametrize("n,kind", ENCODE_KINDS)
 @pytest.mark.parametrize("otype,layout", ENCODE_OTYPES)
 def test_encode_forward_kernel_matches_its_model_bit_for_bit(
-        cuda, otype, layout, n, compute_dtype):
+        cuda, otype, layout, n, kind, compute_dtype):
     """The fused forward against the plain model of its order (products
     rounded, corners summed k = 0..7) bit for bit, for every mode, both
-    row types, a ragged N and one below a block."""
-    levels, _, table, u, _ = _encode_inputs(cuda, otype, layout, n)
+    row types (bf16 through the wrapper's bf16 copy of the table), a
+    ragged N and one below a block, on uniform positions, ray-ordered
+    samples and runs along x with half the x-pairs in one row pair."""
+    levels, _, table, u, _ = _encode_inputs(cuda, otype, layout, n, kind)
+    if kind == "x_runs":
+        _check_half_paired(levels, u)
     before = hash_encode.FORWARD_LAUNCHES
     out = hash_encode.encode_forward(table, u, levels, compute_dtype)
     torch.cuda.synchronize()
@@ -292,16 +334,20 @@ def test_encode_forward_kernel_matches_its_model_bit_for_bit(
                        chip_smoke._bits(torch, model))
 
 
-@pytest.mark.parametrize("kind", ["uniform", "rays"])
+@pytest.mark.parametrize("kind", ["uniform", "rays", "x_runs"])
 @pytest.mark.parametrize("otype,layout", ENCODE_OTYPES)
 def test_encode_backward_kernel_within_the_order_bound(cuda, otype, layout,
                                                         kind):
     """The fused backward against the float64 sum of the same float32
-    contributions: every row within (k - 1) eps sum|x|, k its count of
-    non-zero contributions (chip_smoke's check), on uniform positions and
-    on ray-ordered samples with an empty-slot tail."""
+    contributions: every row within (k - 1) eps sum|x| + k FLT_MIN, k its
+    count of non-zero contributions (chip_smoke's check), on uniform
+    positions, on
+    ray-ordered samples with an empty-slot tail and on runs along x with
+    half the x-pairs in one row pair."""
     levels, total, _, u, g = _encode_inputs(cuda, otype, layout, 200003,
                                             kind)
+    if kind == "x_runs":
+        _check_half_paired(levels, u)
     before = hash_encode.BACKWARD_LAUNCHES
     grad = hash_encode.encode_backward(g, u, levels, total)
     torch.cuda.synchronize()
@@ -310,6 +356,95 @@ def test_encode_backward_kernel_within_the_order_bound(cuda, otype, layout,
     _, within, max_k, _ = chip_smoke.check_encode_backward(torch, grad, g, u,
                                                            levels)
     assert within and max_k > 1
+
+
+def _odd_sized_levels():
+    """HashGrid's layout with its last two levels resized: a hash level
+    of 1001 rows and a tiled one of 1000 (neither a power of two)."""
+    levels, _ = hash_encoding.grid_layout("HashGrid", 8, 4, 2.0, 12)
+    (r1, _, o1, _), (r2, _, o2, _) = levels[-2:]
+    return levels[:-2] + [(r1, 1001, o1, "hash"), (r2, 1000, o2, "tiled")]
+
+
+@pytest.mark.parametrize("kind", ["uniform", "x_runs"])
+def test_encode_kernels_on_non_power_of_two_level_sizes(cuda, kind):
+    """A hash level of an odd size (its x-pairs no longer follow x's
+    parity) and a tiled level of 1000 rows (the flat index wraps): the
+    forward bit for bit with its model in both row types, the backward
+    within its per-row bound."""
+    levels = _odd_sized_levels()
+    _, total, table, u, g = _encode_inputs(cuda, None, None, 100003, kind,
+                                           levels=levels)
+    for compute_dtype in (None, torch.bfloat16):
+        out = hash_encode.encode_forward(table, u, levels, compute_dtype)
+        model = hash_encode.encode_forward_model(table, u, levels,
+                                                 compute_dtype)
+        assert torch.equal(chip_smoke._bits(torch, out),
+                           chip_smoke._bits(torch, model))
+    grad = hash_encode.encode_backward(g, u, levels, total)
+    _, within, max_k, _ = chip_smoke.check_encode_backward(torch, grad, g, u,
+                                                           levels)
+    assert within and max_k > 1
+
+
+def test_encode_backward_nan_and_inf_reach_the_table(cuda):
+    """NaN and +-inf cotangents reach every row they touch, through the
+    cellhash levels' bulk reductions and the vertex levels' F32x4 and
+    F32x2: the NaN and inf pattern (and the sign of each inf) of the
+    gradient is the float64 plain version's, which no summation order
+    changes; every finite row stays within its bound."""
+    levels, total, _, u, g = _encode_inputs(cuda, "HybridHashGrid",
+                                            (8, 4, 2.0, 12), 20003, "rays")
+    assert {m for *_, m in levels} == {"dense", "hash", "cellhash"}
+    g[100, :] = float("nan")
+    g[2000, ::2] = float("inf")
+    g[5000, 1::2] = float("-inf")
+    g[7000, :] = float("inf")
+    g[7001, :] = float("-inf")
+    grad = hash_encode.encode_backward(g, u, levels, total)
+    want = hash_encode.encode_backward_reference(g, u, levels, total,
+                                                 sum_dtype=torch.float64)
+    assert bool(torch.isnan(want).any() and torch.isinf(want).any())
+    assert torch.equal(torch.isnan(grad), torch.isnan(want))
+    assert torch.equal(torch.isinf(grad), torch.isinf(want))
+    inf = torch.isinf(want)
+    assert torch.equal(grad[inf] > 0, want[inf] > 0)
+    finite = torch.isfinite(want).all(-1)
+    exact = hash_encode.encode_backward_reference(
+        torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0), u, levels,
+        total, sum_dtype=torch.float64)
+    assert torch.allclose(grad[finite].double(), exact[finite], rtol=1e-4,
+                          atol=1e-4)
+
+
+def test_encode_bf16_copy_is_reused_until_an_optimizer_step(cuda):
+    """The wrapper's bf16 copy of the table: made once for two forwards
+    without an optimizer step, made again after one (the port's
+    optimizer writes the table in place); each forward bit for bit with
+    its model on the current table."""
+    from deblur_e_nerf_tpu_torch.training.optim import Optimizer
+
+    levels, _, table, u, g = _encode_inputs(cuda, "HybridHashGrid",
+                                            (8, 4, 2.0, 12), 4099)
+    t = torch.nn.Parameter(table)
+    opt = Optimizer([("default", 1e-2, 0.0, [("table", t)])], [], 1.0)
+    copies, launches = hash_encode.BF16_COPIES, hash_encode.FORWARD_LAUNCHES
+
+    def forward():
+        out = hash_encoding.encode(t, u, levels, compute_dtype=torch.bfloat16)
+        model = hash_encode.encode_forward_model(t.detach(), u, levels,
+                                                 torch.bfloat16)
+        assert torch.equal(chip_smoke._bits(torch, out.detach()),
+                           chip_smoke._bits(torch, model))
+        return out
+
+    forward()
+    (forward() * g).sum().backward()
+    assert hash_encode.BF16_COPIES == copies + 1
+    opt.step()
+    forward()
+    assert hash_encode.BF16_COPIES == copies + 2
+    assert hash_encode.FORWARD_LAUNCHES == launches + 3
 
 
 def test_encode_wrappers_raise_instead_of_falling_back(cuda):
@@ -338,6 +473,11 @@ def test_encode_wrappers_raise_instead_of_falling_back(cuda):
         many, rows = hash_encoding.grid_layout("DenseGrid", 33, 1, 1.0, 12)
         hash_encode.encode_forward(torch.zeros((rows, 2), device=cuda), u,
                                    many)
+    with pytest.raises(ValueError):  # the kernels read row pairs
+        hash_encode.encode_forward(torch.zeros((total + 1, 2), device=cuda),
+                                   u, levels)
+    with pytest.raises(ValueError):
+        hash_encode.encode_backward(g, u, levels, total + 1)
     with pytest.raises(TypeError):
         hash_encode.encode_backward(g.half(), u, levels, total)
     with pytest.raises(ValueError):  # not 8-byte aligned

@@ -251,3 +251,197 @@ def test_chip_smoke_encode_inputs_and_backward_check_on_the_cpu(kind):
         torch, chip_smoke.load_with_changes(chip_smoke.EDS_TRAIN_CONFIG, {}))
     assert [m for *_, m in levels] == ["dense"] * 5 + ["hash"] * 11
     assert dtype is None
+
+
+@pytest.mark.parametrize("otype", sorted(LAYOUTS))
+def test_plain_forward_on_the_bf16_copy_is_bit_equal(otype):
+    """The card's bf16 forward reads `table.to(torch.bfloat16)`: the plain
+    forward (and the model of the kernel's order) on that copy equals the
+    plain forward on the float32 table with compute_dtype bf16, bit for
+    bit (both round to nearest even)."""
+    levels, table, u, _ = _inputs(otype)
+    t, uu = torch.from_numpy(table), torch.from_numpy(u)
+    copy = t.to(torch.bfloat16)
+    for fn in (hash_encode.encode_forward, hash_encode.encode_forward_model):
+        want = fn(t, uu, levels, torch.bfloat16)
+        for compute_dtype in (torch.bfloat16, None):
+            got = fn(copy, uu, levels, compute_dtype)
+            assert got.dtype == torch.float32
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _cell_centres(cells, res):
+    return (torch.as_tensor(cells, dtype=torch.float32) + 0.5) / res
+
+
+def test_x_pair_rule_on_each_vertex_mode():
+    """`x_pairs`: corners k and k + 4 share one aligned row pair. A hash
+    level of power-of-two size pairs every even x as row ^ 1 and no odd
+    x; a dense
+    level pairs where row_k is even (row_{k+4} = row_k + 1); a tiled
+    level of a non-power-of-two size does not pair where the flat index
+    wraps, nor a hash level of an odd size as a rule."""
+    rng = np.random.default_rng(3)
+    res = 16
+    cells = rng.integers(0, res, (2000, 3))
+    uc = _cell_centres(cells, res)
+    x_even = torch.from_numpy(cells[:, 0] % 2 == 0)
+    # hash, 1024 rows at a 128-aligned offset
+    rows, _ = hash_encode.level_rows_weights(uc, res, 1024, 384, "hash",
+                                             torch.float32)
+    pairs = hash_encode.x_pairs(rows)
+    assert torch.equal(rows[x_even][:, 4:], rows[x_even][:, :4] ^ 1)
+    assert bool(pairs[x_even].all())
+    assert not bool(pairs[~x_even].any())  # x ^ (x + 1) flips bit 1
+    # dense: the x-neighbour is the next row
+    rows, _ = hash_encode.level_rows_weights(uc, res, 17 ** 3, 128, "dense",
+                                             torch.float32)
+    assert torch.equal(rows[:, 4:], rows[:, :4] + 1)
+    assert torch.equal(hash_encode.x_pairs(rows), rows[:, :4] % 2 == 0)
+    # tiled, 1001 rows: the wrap from local row 1000 (even) to 0
+    stride = res + 1
+    flat = lambda c: (c[2] * stride + c[1]) * stride + c[0]
+    wrap = next(c for c in np.ndindex(res, res, res)
+                if flat(c) % 1001 == 1000 and c[0] < res)
+    offset = 256
+    rows, _ = hash_encode.level_rows_weights(
+        _cell_centres([wrap], res), res, 1001, offset, "tiled",
+        torch.float32)
+    assert int(rows[0, 0]) == offset + 1000 and int(rows[0, 4]) == offset
+    assert not bool(hash_encode.x_pairs(rows)[0, 0])
+    rows, _ = hash_encode.level_rows_weights(uc, res, 1001, offset, "tiled",
+                                             torch.float32)
+    wraps = (rows[:, 4:] != rows[:, :4] + 1)
+    assert not bool(hash_encode.x_pairs(rows)[wraps & (rows[:, :4] % 2 == 0)]
+                    .any())
+    # hash of a non-power-of-two size: an even size keeps the pairs of
+    # even x (h ^ 1 = h +- 1 keeps its quotient), an odd one does not
+    rows, _ = hash_encode.level_rows_weights(uc, res, 1000, 384, "hash",
+                                             torch.float32)
+    assert bool(hash_encode.x_pairs(rows)[x_even].all())
+    rows, _ = hash_encode.level_rows_weights(uc, res, 1001, 384, "hash",
+                                             torch.float32)
+    assert 0.3 < float(hash_encode.x_pairs(rows)[x_even].float().mean()) \
+        < 0.7
+
+
+def _hand_count(g, u, levels):
+    """The backward kernel's reductions counted lane by lane, warp by warp
+    (the rules of `backward_reductions`, in loops)."""
+    uc = torch.clamp(u, 0.0, 1.0)
+    counts = {}
+    for li, level in enumerate(levels):
+        res, _, _, mode = level
+        rows, w = hash_encode.level_rows_weights(uc, *level, torch.float32)
+        gl = g[:, 2 * li:2 * li + 2]
+        nz = ((w[..., None] * gl[:, None]) != 0).any(-1)
+        cells = torch.floor(uc * res)
+        if mode == "dense":
+            cells = cells.clamp(0, res - 1)
+        c = counts.setdefault(mode, {"x2": 0, "x4": 0, "bulk64": 0})
+        for start in range(0, u.shape[0], 32):
+            groups = {}
+            for i in range(start, min(start + 32, u.shape[0])):
+                if not bool((gl[i] != 0).any()):
+                    continue  # a lane with nothing to add
+                key = (int(rows[i, 0]) if mode == "cellhash"
+                       else tuple(int(x) for x in cells[i]))
+                groups.setdefault(key, []).append(i)
+            for lanes in groups.values():
+                if mode == "cellhash":
+                    c["bulk64"] += any(bool(nz[i].any()) for i in lanes)
+                    continue
+                assert all(torch.equal(rows[i], rows[lanes[0]])
+                           for i in lanes)
+                for k in range(4):
+                    ra, rb = int(rows[lanes[0], k]), int(rows[lanes[0],
+                                                              k + 4])
+                    a = any(bool(nz[i, k]) for i in lanes)
+                    b = any(bool(nz[i, k + 4]) for i in lanes)
+                    if ra // 2 == rb // 2 and ra != rb:
+                        c["x4"] += a and b
+                        c["x2"] += a != b
+                    elif ra == rb:
+                        c["x2"] += a or b
+                    else:
+                        c["x2"] += a + b
+    return counts
+
+
+@pytest.mark.parametrize("otype", ["HybridHashGrid", "TiledGrid"])
+def test_backward_reduction_count_against_a_hand_count(otype):
+    """`backward_reductions` on 64 samples (two warps): runs of samples
+    along x (lanes sharing cells, rows and units), samples on grid planes
+    (zero weights), zero and partly zero cotangents; against the same
+    rules counted lane by lane."""
+    levels, _ = hash_encoding.grid_layout(otype, *LAYOUTS[otype])
+    rng = np.random.default_rng(5)
+    u = np.empty((64, 3), np.float32)
+    for run in range(4):  # 16 samples a run along x
+        start = rng.uniform(0.05, 0.6, 3)
+        u[16 * run:16 * (run + 1)] = start + np.outer(np.arange(16) / 64,
+                                                      [1, 0, 0])
+    u[5] = [0.25, 0.5, 0.125]    # on grid planes of every level
+    u[40] = [1.0, 1.0, 1.0]
+    g = rng.normal(size=(64, 2 * len(levels))).astype(np.float32)
+    g[48:] = 0.0                 # empty slots
+    g[10, :4] = 0.0              # levels 0-1 of one sample
+    g[20, ::2] = 0.0             # one feature of every level
+    uu, gg = torch.from_numpy(u), torch.from_numpy(g)
+    got = hash_encode.backward_reductions(gg, uu, levels)
+    want = _hand_count(gg, uu, levels)
+    assert got == want
+    modes = {m for *_, m in levels}
+    assert set(got) == modes
+    # combining and pairing both happened: fewer reductions than
+    # contributions, and F32x4s on the vertex levels
+    vertex = [c for m, c in got.items() if m != "cellhash"]
+    assert sum(c["x4"] for c in vertex) > 0
+    total = sum(sum(c.values()) for c in got.values())
+    live = int((gg.reshape(64, -1, 2) != 0).any(-1).sum())
+    assert total < 8 * live
+
+
+def test_chip_smoke_captures_the_encode_inputs_of_a_backward():
+    """chip_smoke's capture of the step's encode inputs: the positions and
+    cotangent that reach `encode_backward`, with the layout, the first
+    call only; the wrapper is gone after the block."""
+    import chip_smoke
+
+    levels, table, u, g = _inputs("HybridHashGrid", n=300)
+    real = hash_encode.encode_backward
+    store = {}
+    t = torch.from_numpy(table).requires_grad_(True)
+    with chip_smoke.capture_encode_inputs(store):
+        for _ in range(2):
+            out = hash_encoding.encode(t, torch.from_numpy(u), levels)
+            (out * torch.from_numpy(g)).sum().backward()
+    assert hash_encode.encode_backward is real
+    assert torch.equal(store["u"], torch.from_numpy(u))
+    assert torch.equal(store["g"], torch.from_numpy(g))
+    assert store["levels"] == tuple(levels)
+    assert store["table_rows"] == table.shape[0]
+
+
+def test_bf16_table_copy_is_made_once_per_change():
+    """`bf16_table` (the card's bf16 forward reads it): one copy for two
+    calls on an unchanged table, a new one after an optimizer step (an
+    in-place write) and for another tensor; the copy is the rounding."""
+    from deblur_e_nerf_tpu_torch.training.optim import Optimizer
+
+    _, table, _, _ = _inputs("HybridHashGrid", n=200)
+    t = torch.nn.Parameter(torch.from_numpy(table))
+    opt = Optimizer([("default", 1e-2, 0.0, [("table", t)])], [], 1.0)
+    before = hash_encode.BF16_COPIES
+    a = hash_encode.bf16_table(t)
+    assert hash_encode.bf16_table(t) is a
+    assert hash_encode.BF16_COPIES == before + 1
+    assert torch.equal(a, t.detach().to(torch.bfloat16))
+    t.grad = torch.ones_like(t)
+    opt.step()
+    b = hash_encode.bf16_table(t)
+    assert b is not a and hash_encode.BF16_COPIES == before + 2
+    assert torch.equal(b, t.detach().to(torch.bfloat16))
+    other = t.detach().clone()
+    hash_encode.bf16_table(other)
+    assert hash_encode.BF16_COPIES == before + 3
