@@ -13,7 +13,9 @@ Phases, each printing a start and an end line with elapsed seconds:
      (-Xptxas -v) and its SASS load and store forms: its stores must be
      16-byte vectors; each fused-encode instance's registers, spills and
      stack frame, and the backward's atomic forms (vector and bulk
-     reductions);
+     reductions); the weight-chain kernels' registers, spills and stack
+     frames, and that they run float32 FMAs and no tensor-core
+     instruction;
   3. kernels: each kernel against its plain PyTorch version on the card
      (the Pallas probes K2/K3's shapes too), with times of the kernel, the
      plain version and the PyTorch library calls computing the same
@@ -47,7 +49,18 @@ Phases, each printing a start and an end line with elapsed seconds:
      rows), on uniform indices and ray-ordered runs, the vertex-hash
      level's in sample-major and corner-major order, beside index_select
      and advanced indexing (tbl[idx64]), each with its bound by output
-     type;
+     type; the pixel-bandwidth weight chain (pb_weight_fwd, pb_weight_bwd)
+     at the flagship step's shape (S = 30, M = 4 x 429) on the default
+     and the stiff calibration with 0, 5 and all 29 steps at the 100 ns
+     floor (and, in "3b", on the parameters, intensities, steps and
+     weight cotangent the steady flagship step and EDS micro-step fed
+     it): the weights and the cotangents of intensity, dt and the packed
+     parameters against autograd of the plain chain (`pb_weight_check`),
+     two runs bit for bit, the kernels' times beside their bound, the
+     plain chain's forward and forward + backward, weight() as the step
+     runs it (in turns with the parent's chain with --parent) and
+     torch.linalg.matrix_exp of the same matrices (the expm part alone)
+     and its backward;
   4. training, two paths of configs/train/synthetic.yaml at full width on
      a synthetic dataset, each with the kernels' launch counts set to 0
      just before it and read just after:
@@ -58,9 +71,13 @@ Phases, each printing a start and an end line with elapsed seconds:
           each profiled, then 3 more past the occupancy warmup, with the
           per-call device times of each kernel), then one steady step
           (past the warmup) under torch.cuda.set_sync_debug_mode("warn"),
-          whose host syncs are counted by source line (none may come from
-          the optimizer) and whose kernel launches must be one fused
-          encode forward and one backward (no K1, no K3);
+          whose host syncs are counted by source line (there may be none;
+          one sync planted just before the step must be counted) and
+          whose kernel launches must be one fused encode forward and one
+          backward, one weight-chain forward and one backward (no K1, no
+          K3); then the operator calls by layer (op_census) of one more
+          steady step (the weight chain's its wrapper's alone) and of a
+          sampled and a warmup occupancy update;
   5. reference: on small inputs, the card (through the kernels) against
      the plain version on the CPU: the NGP field's outputs and table
      gradient, and one filter-on step's loss and gradients;
@@ -81,9 +98,9 @@ Phases, each printing a start and an end line with elapsed seconds:
      dataset with a distorted calibration: one epoch of 16 micro-steps
      through Trainer.train (each micro-step's launches, occupancy update
      and parameter change checked; a checkpoint at its end), the host
-     syncs of one steady micro-step (none from the optimizer, the EMA or
-     the accumulation), a fresh trainer resuming the checkpoint bit for
-     bit and training epoch 1 (pruning keeps one checkpoint), a third
+     syncs of one steady micro-step (none at all), a fresh trainer
+     resuming the checkpoint bit for bit and training epoch 1 (pruning
+     keeps one checkpoint), a third
      built from configs/test/07_ziggy_and_fuzz_hdr.yaml's values that
      evaluates the kept checkpoint, one 640x480 frame timed (one encode
      forward per field call), and a small EDS
@@ -100,7 +117,7 @@ Phases, each printing a start and an end line with elapsed seconds:
      launches checked against `r5fix_step_launches` for the path it took
      (the trainer runs the occlusion prepass only once the live demand
      fits its buffer: a step that ran it may not overflow it); the host
-     syncs of one steady step (none from training/ or the renderer); the
+     syncs of one steady step (none at all); the
      prepass against the full render on one marched sample set with the
      density raised (outputs on the training path; field gradients of
      both, each within 1e-3 of its largest entry of the float64 render's
@@ -371,7 +388,28 @@ def phase_build():
                                       operands=True), ptxas)
     check_encode_build(_cuda_build.sass_instructions(
         info["path"], ("RED", "ATOM", "UBLK")), ptxas)
+    check_pb_weight_build(_cuda_build.sass_instructions(
+        info["path"], ("FFMA", "HMMA")), ptxas)
     return info
+
+
+def check_pb_weight_build(sass, ptxas):
+    """Print the weight-chain kernels' registers, spills and stack frames
+    (-Xptxas -v; the backward keeps each squaring's input, up to 32 x 16
+    floats a lane, on its stack); fail unless both were built and both
+    run float32 fused multiply-adds, no tensor-core instruction."""
+    for kernel in ("pb_weight_fwd_kernel", "pb_weight_bwd_kernel"):
+        fns = [fn for fn in sass if kernel in fn]
+        if not fns:
+            raise AssertionError(f"{kernel}: no such kernel")
+        for fn in fns:
+            ops = sass[fn]
+            print(f"{kernel}: ptxas "
+                  f"[{ptxas.get(fn, 'not in the log (build reused)')}], "
+                  f"SASS FFMA {ops.count('FFMA')}, HMMA "
+                  f"{sum(op.startswith('HMMA') for op in ops)}", flush=True)
+            if "FFMA" not in ops or any(op.startswith("HMMA") for op in ops):
+                raise AssertionError(f"{kernel}: not float32 FMAs alone")
 
 
 def check_encode_build(atomics, ptxas):
@@ -828,12 +866,14 @@ def check_encode_backward(torch, grad, g, u, levels):
     return float(err.max()), within, int(k.max()), atomics
 
 
-def load_parent_encode(torch, parent_dir):
-    """The fused encode of another checkout of the port (the parent
-    commit), to time the change against it in turns on the same inputs:
-    that checkout's package imported under the name `parent_port`, whose
-    `ops.hash_encode` builds its own kernels from its own sources. Returns
-    its (encode_forward, encode_backward)."""
+def load_parent(torch, parent_dir):
+    """Another checkout of the port (the parent commit), to time the change
+    against it in turns on the same inputs: that checkout's package
+    imported under the name `parent_port`, whose `ops.hash_encode` builds
+    its own kernels from its own sources. Returns {"encode": its
+    (encode_forward, encode_backward), "pb": its models.pixel_bandwidth}
+    (whose intensity_sample_to_weight is the weight chain as the parent's
+    step ran it)."""
     import importlib
     import importlib.util
 
@@ -848,7 +888,9 @@ def load_parent_encode(torch, parent_dir):
     encode._library()
     print(f"parent kernels ({parent_dir}) built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    return encode.encode_forward, encode.encode_backward
+    return {"encode": (encode.encode_forward, encode.encode_backward),
+            "pb": importlib.import_module(
+                "parent_port.models.pixel_bandwidth")}
 
 
 def in_turns(fn, parent_fn, iters=20):
@@ -895,7 +937,7 @@ def encode_case(torch, name, layout, u, g, kind, parent=None, seed=0):
     contributions (any order of k float32 additions, each of which may
     flush a subnormal to zero); the reductions it issues
     (`hash_encode.backward_reductions`) by level mode. With `parent`
-    (`load_parent_encode`), the parent's kernels on the same inputs, timed
+    (`load_parent`), the parent's kernels on the same inputs, timed
     in turns with these, and its forward bit for bit with this one. No
     single PyTorch call computes a multi-level encode (library_ms null);
     one level's index_select + bmm (forward) and index_add_ (backward)
@@ -1122,7 +1164,7 @@ def phase_kernels(torch, parent=None):
                                    (n_eval, "uniform", "eval N = 2^20")):
             u, g = encode_inputs(torch, kind, n_enc, len(layout[0]))
             rows = encode_case(torch, f"{label}: {name}", layout, u, g,
-                               kind, parent)
+                               kind, parent and parent["encode"])
             del u, g
             encode["hash_encode_fwd"].append(rows[0])
             encode["hash_encode_bwd"].append(rows[1])
@@ -1199,16 +1241,28 @@ def phase_kernels(torch, parent=None):
         torch.cuda.empty_cache()
     scatter.append(probe_case("pallas_probe"))
     gather.append(probe_case("pallas_gather_probe"))
-    return dict(encode, scatter_add_rows=scatter, gather_rows=gather,
+    # the weight chain at the flagship step's shape; the step's own inputs
+    # follow phase 7
+    pb = {"pb_weight_fwd": [], "pb_weight_bwd": []}
+    for calib, S, M, n_clamped in PB_CASES:
+        fwd, bwd = pb_weight_case(
+            torch, f"{calib}, {n_clamped} of {S - 1} steps at the floor",
+            pb_weight_inputs(torch, calib, S, M, n_clamped, 2),
+            parent and parent["pb"])
+        pb["pb_weight_fwd"].append(fwd)
+        pb["pb_weight_bwd"].append(bwd)
+    return dict(encode, **pb, scatter_add_rows=scatter, gather_rows=gather,
                 scatter_add_rows_call_split=splits,
                 l2_reduction_rates=l2_rates)
 
 
 def phase_step_inputs(torch, rows, captured, parent=None):
-    """Phase 3's encode cases on the step's own inputs: the positions and
-    cotangent that the steady flagship step (phase 4) and the steady EDS
-    micro-step (phase 7) fed the encode backward (`capture_encode_inputs`),
-    at their layouts; the rows join phase 3's."""
+    """Phase 3's encode and weight-chain cases on the step's own inputs:
+    the positions and cotangent that the steady flagship step (phase 4)
+    and the steady EDS micro-step (phase 7) fed the encode backward
+    (`capture_encode_inputs`), at their layouts, and the parameters,
+    intensities, steps and weight cotangent they fed the weight-chain
+    backward (`capture_pb_inputs`); the rows join phase 3's."""
     for (name, config), label in zip(ENCODE_CASES, ("flagship", "EDS")):
         layout = encode_layout(torch, config())
         got = captured[label]
@@ -1221,17 +1275,327 @@ def phase_step_inputs(torch, rows, captured, parent=None):
         print(f"{label} step's encode inputs: N = {u.shape[0]}, "
               f"{live} samples with a non-zero cotangent", flush=True)
         fwd, bwd = encode_case(torch, f"N = K + 1: {name}", layout, u, g,
-                               "step", parent)
+                               "step", parent and parent["encode"])
         rows["hash_encode_fwd"].append(fwd)
         rows["hash_encode_bwd"].append(bwd)
         del u, g
         torch.cuda.empty_cache()
+        case = {k: v.cuda() if hasattr(v, "cuda") else v
+                for k, v in got["pb"].items()}
+        fwd, bwd = pb_weight_case(torch, f"{label} step's own inputs", case,
+                                  parent and parent["pb"])
+        rows["pb_weight_fwd"].append(fwd)
+        rows["pb_weight_bwd"].append(bwd)
+
+
+# ---------------------------------------------------------------------------
+# the pixel-bandwidth weight chain (csrc/pb_weight.cu, ops/pb_weight.py)
+
+# no Pallas kernel: the JAX package's rematerialized weight chain, which
+# XLA compiles, and its VJP
+PB_WEIGHT_SOURCE = "deblur_e_nerf_tpu_torch/csrc/pb_weight.cu"
+PB_WEIGHT_REPLACES = "deblur_e_nerf_tpu/models/pixel_bandwidth.py:282"
+# tests/test_torch_pixel_bandwidth.py's calibrations: (calibration,
+# min_ts, f_c_dominant_min)
+PB_CALIBRATIONS = {
+    "default": ({
+        "input_time_const_eff_it_prod": 1e-4,
+        "miller_time_const_eff_it_prod": 2e-5,
+        "amplifier_gain": 50.0, "closed_loop_gain": 10.0,
+        "output_time_const": 1e-4, "sf_cutoff_freq": 500.0,
+        "diff_amp_cutoff_freq": 200.0}, 0, 21.0),
+    "stiff": ({
+        "input_time_const_eff_it_prod": 8e-4,
+        "miller_time_const_eff_it_prod": 1.6e-4,
+        "amplifier_gain": 50.0, "closed_loop_gain": 10.0,
+        "output_time_const": 8e-4, "sf_cutoff_freq": 62.5,
+        "diff_amp_cutoff_freq": 25.0}, 1_000_000_000, 4.0),
+}
+# S = 30 samples over R = 4 render slices of N = 429 events, the flagship
+# step's active events at its default batch (the step itself runs the
+# chain over its batch capacity, 4 x 8192 columns, phase "3b")
+PB_STEP_SHAPE = (30, 4 * 429)
+# the forward's tolerance against the plain chain, of its largest weight:
+# 5e-5 as the plain port is held to JAX on a few events
+# (test_weights_with_x0_dir_match_jax), and PB_STEP_FORWARD_ATOL on
+# step-scale inputs (phase 3's PB_CASES at PB_STEP_SHAPE and "3b"'s at the
+# step's own 32,768 columns), where the kernel's worst reading on an H100
+# was 6.6e-5 (stiff, 5 clamped steps, at PB_STEP_SHAPE) and 5.4e-5 on the
+# steps' own inputs
+PB_FORWARD_ATOL = 5e-5
+PB_STEP_FORWARD_ATOL = 1e-4
+# phase 3's synthetic cases: (calibration, S, M, steps at the 100 ns floor)
+PB_CASES = (("default", 30, 4 * 429, 0), ("stiff", 30, 4 * 429, 5),
+            ("stiff", 30, 4 * 429, 29))
+# float32 operations, counted by hand from csrc/pb_weight.cu (a fused
+# multiply-add 2, a division 1): per system, fixed and per squaring; per
+# system and output row, the scan's. The forward's; the backward's reverse
+# passes alone (the scan's reverse, the FOH, expm and linearization in
+# reverse). The backward needs one recompute of the forward before them
+# (the kernel makes two: see pb_weight_bwd_kernel), so its bound counts
+# PB_FWD_OPS + PB_REVERSE_OPS.
+PB_FWD_OPS = (1530, 112, 43)
+PB_REVERSE_OPS = (2400, 240, 92)
+PB_BWD_OPS = tuple(f + r for f, r in zip(PB_FWD_OPS, PB_REVERSE_OPS))
+
+
+def pb_weight_inputs(torch, calib, S, M, n_clamped, n_out, seed=0,
+                     device="cuda"):
+    """A synthetic weight-chain case from a numpy seed: {params (the
+    packed (7,) parameters of the calibration), intensity (S, M) in
+    [0.05, 1.1], dt (S-1, M) in [1e5, 3e6] ns with the first `n_clamped`
+    steps at the 100 ns floor, g (S, M, o) normal, n_out}, float32 on
+    `device`."""
+    import numpy as np
+
+    from deblur_e_nerf_tpu_torch.models import pixel_bandwidth
+
+    cal, min_ts, f_c = PB_CALIBRATIONS[calib]
+    raw, consts = pixel_bandwidth.init_pixel_bandwidth(
+        cal, min_ts, f_c, 0.95, device=device)
+    rng = np.random.default_rng(seed)
+    it = rng.uniform(0.05, 1.1, (S, M)).astype(np.float32)
+    dt = rng.uniform(1e5, 3e6, (S - 1, M)).astype(np.float32)
+    dt[:n_clamped] = pixel_bandwidth.MIN_SAMPLE_DT_NS
+    g = rng.standard_normal((S, M, n_out)).astype(np.float32)
+    with torch.no_grad():
+        params = pixel_bandwidth.packed_params(raw, consts)
+    return {"params": params, "n_out": n_out,
+            **{k: torch.from_numpy(v).to(device)
+               for k, v in (("intensity", it), ("dt", dt), ("g", g))}}
+
+
+def pb_weight_run(torch, fn, case):
+    """(weights, [the cotangents of intensity, dt and the packed
+    parameters]) of fn(params, intensity, dt, o) on a case, by autograd
+    from its cotangent g."""
+    inputs = [case[k].detach().requires_grad_()
+              for k in ("params", "intensity", "dt")]
+    w = fn(*inputs, case["n_out"])
+    grads = torch.autograd.grad(w, inputs, case["g"])
+    return w.detach(), [grads[1], grads[2], grads[0]]
+
+
+def pb_weight_errors(torch, got, want):
+    """The cotangents of intensity, dt and the packed parameters in `got`
+    against `want`, at the tolerances of the CPU tests
+    (tests/test_torch_pb_weight.py): |a - b| <= rtol |b| + atol with rtol
+    1e-3 and atol 1e-3 of the intensity or parameter gradient's largest
+    entry, 2e-2 of the dt gradient's. Returns ({name: the largest
+    |a - b| / (rtol |b| + atol)} (at most 1 passes; inf where an entry
+    NaN in want is not NaN in got), the largest |a - b|), over the
+    entries finite in want."""
+    ratios, max_abs = {}, 0.0
+    for name, a, b, tol in zip(("intensity", "dt", "params"), got, want,
+                               (1e-3, 2e-2, 1e-3)):
+        if not bool(torch.isnan(a)[torch.isnan(b)].all()):
+            ratios[name] = math.inf
+            continue
+        finite = torch.isfinite(b)
+        a, b = a[finite].double(), b[finite].double()
+        if a.numel() == 0:
+            continue
+        diff = (a - b).abs()
+        atol = tol * float(b.abs().max())
+        ratios[name] = float((diff / (1e-3 * b.abs() + atol + 1e-300)).max())
+        max_abs = max(max_abs, float(diff.max()))
+    return ratios, max_abs
+
+
+def pb_weight_bound(torch, case, backward):
+    """(bound_ms, bound_by, squarings) of one kernel call on a case: each
+    input read once and each output written once, and the float32
+    operations of PB_FWD_OPS / PB_BWD_OPS with each system's own squaring
+    count."""
+    from deblur_e_nerf_tpu_torch.models import pixel_bandwidth
+    from deblur_e_nerf_tpu_torch.ops import linalg, pb_weight
+
+    it, dt, o = case["intensity"], case["dt"], case["n_out"]
+    S, M = it.shape[0], it[0].numel()
+    with torch.no_grad():
+        A, _, _ = pb_weight._linearize(case["params"], it[1:])
+        squarings = int(linalg.squaring_count(
+            A * (pixel_bandwidth.NS_TO_S * dt)[..., None, None]).sum())
+    fixed, per_squaring, per_row = PB_BWD_OPS if backward else PB_FWD_OPS
+    ops = (fixed * (S - 1) * M + per_squaring * squarings
+           + per_row * (S - 1) * M * o)
+    nbytes = 4 * (7 + S * M + (S - 1) * M + S * M * o)
+    if backward:
+        nbytes += 4 * (S * M + (S - 1) * M + 7 * M)
+    return bound(nbytes, ops) + (squarings,)
+
+
+def pb_forward_error(torch, got, want):
+    """The forward kernel's weights `got` against the plain chain's `want`:
+    (the largest |got - want| over the entries finite in `want`, the
+    largest |want| there, whether `got` is NaN exactly where `want` is and
+    equal to it where it is infinite). A NaN or an infinity in `got`
+    where `want` is finite makes the error NaN or infinite."""
+    fin = torch.isfinite(want)
+    err = float((got[fin].double() - want[fin].double()).abs().max()) \
+        if bool(fin.any()) else 0.0
+    scale = float(want[fin].abs().max()) if bool(fin.any()) else 0.0
+    inf = torch.isinf(want)
+    same_nonfinite = bool(torch.equal(torch.isnan(got), torch.isnan(want))) \
+        and bool(torch.equal(got[inf], want[inf]))
+    return err, scale, same_nonfinite
+
+
+def pb_weight_check(torch, case, fwd_atol=PB_FORWARD_ATOL):
+    """The two weight-chain kernels (through `pb_weight.weight`, twice) on
+    a case against the plain chain on the card: the weights within
+    `fwd_atol` of the plain version's largest, NaN exactly where it has
+    NaN (`pb_forward_error`); the cotangents by `pb_weight_errors`; the
+    two runs bit for bit. Returns a dict of the findings, "ok" among
+    them."""
+    from deblur_e_nerf_tpu_torch.ops import pb_weight
+
+    launches = (pb_weight.FORWARD_LAUNCHES, pb_weight.BACKWARD_LAUNCHES)
+    w_k, g_k = pb_weight_run(torch, pb_weight.weight, case)
+    w_k2, g_k2 = pb_weight_run(torch, pb_weight.weight, case)
+    launches = (pb_weight.FORWARD_LAUNCHES - launches[0],
+                pb_weight.BACKWARD_LAUNCHES - launches[1])
+    bits = lambda t: t.view(torch.int32)  # noqa: E731  (NaN == NaN)
+    bitwise = bool(torch.equal(bits(w_k), bits(w_k2))) and all(
+        torch.equal(bits(a), bits(b)) for a, b in zip(g_k, g_k2))
+    del w_k2, g_k2
+    w_p, g_p = pb_weight_run(torch, pb_weight.weight_reference, case)
+    torch.cuda.synchronize()
+    fwd_err, fwd_scale, same_nonfinite = pb_forward_error(torch, w_k, w_p)
+    fwd_ok = fwd_err <= fwd_atol * fwd_scale and same_nonfinite
+    ratios, bwd_err = pb_weight_errors(torch, g_k, g_p)
+    bwd_ok = all(r <= 1 for r in ratios.values())
+    return {"fwd_err": fwd_err, "fwd_scale": fwd_scale,
+            "fwd_tolerance": fwd_atol * fwd_scale, "fwd_ok": fwd_ok,
+            "ratios": ratios, "bwd_err": bwd_err, "bwd_ok": bwd_ok,
+            "bitwise": bitwise, "launches": launches,
+            "ok": fwd_ok and bwd_ok and bitwise and launches == (2, 2)}
+
+
+def pb_weight_case(torch, name, case, parent=None):
+    """`pb_weight_check` on a case at PB_STEP_FORWARD_ATOL, then times: the forward kernel in turns
+    with the plain chain's forward, the backward kernel in turns with the
+    plain chain's forward and backward by autograd, `weight` forward and
+    backward as the step runs it (in turns with `parent`, the parent
+    commit's models.pixel_bandwidth, whose intensity_sample_to_weight is
+    the chain as its step ran it), and the library's
+    torch.linalg.matrix_exp (the expm part only) and its backward on the
+    same (S - 1) M matrices. Returns (forward row, backward row)."""
+    from deblur_e_nerf_tpu_torch.models import pixel_bandwidth
+    from deblur_e_nerf_tpu_torch.ops import pb_weight
+
+    it, dt, g, o = case["intensity"], case["dt"], case["g"], case["n_out"]
+    S, M = it.shape[0], it[0].numel()
+    c = pb_weight_check(torch, case, PB_STEP_FORWARD_ATOL)
+    # times
+    p_det = case["params"]
+    it_r = it.detach().requires_grad_()
+    dt_r = dt.detach().requires_grad_()
+    p_r = p_det.clone().requires_grad_()
+
+    def step_like():
+        return torch.autograd.grad(pb_weight.weight(p_r, it_r, dt_r, o),
+                                   [it_r, dt_r, p_r], g)
+
+    parent_step = None
+    if parent is not None:
+        # the parent's chain takes the raw parameters and constants
+        from deblur_e_nerf_tpu_torch.ops import activations
+
+        raw = {f"{n}_raw": activations.softplus_inverse(p_det[i]).clone()
+               .requires_grad_()
+               for i, n in enumerate(pixel_bandwidth.PARAM_NAMES)}
+        consts = {"tau_in_it_eff_prod": p_det[6]}
+
+        def parent_step():
+            w = parent.intensity_sample_to_weight(
+                raw, consts, it_r, dt_r, output_sf_log_it=o == 2)
+            return torch.autograd.grad(w, [it_r, dt_r, *raw.values()], g)
+    def plain_fwd():
+        with torch.no_grad():
+            return pb_weight.weight_reference(p_det, it, dt, o)
+
+    def plain_fwd_bwd():
+        return torch.autograd.grad(pb_weight.weight_reference(
+            p_r, it_r, dt_r, o), [it_r, dt_r, p_r], g)
+
+    # each kernel in turns with the plain chain (plain, kernel, kernel,
+    # plain), and weight() as the step runs it with the parent's chain
+    fwd_ms, fwd_runs, plain_fwd_ms, plain_fwd_runs = in_turns(
+        lambda: pb_weight.weight_forward(p_det, it, dt, o), plain_fwd,
+        iters=10)
+    bwd_ms, bwd_runs, plain_bwd_ms, plain_bwd_runs = in_turns(
+        lambda: pb_weight.weight_backward(p_det, it, dt, g, o),
+        plain_fwd_bwd, iters=10)
+    step_ms, step_runs, parent_ms, parent_runs = in_turns(
+        step_like, parent_step, iters=10)
+    with torch.no_grad():
+        A, _, _ = pb_weight._linearize(p_det, it[1:])
+        a_dt = (A * (pixel_bandwidth.NS_TO_S * dt)[..., None, None]
+                ).reshape(-1, 4, 4).contiguous()
+    lib_fwd_ms = time_ms(lambda: torch.linalg.matrix_exp(a_dt))
+    a_req = a_dt.clone().requires_grad_()
+    cot = torch.randn_like(a_dt)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        torch.linalg.matrix_exp(a_req), a_req, cot))
+    del a_dt, a_req, cot
+    rows = []
+    for backward, ms, runs, err, plain_ms, plain_runs, lib_ms in (
+            (False, fwd_ms, fwd_runs, c["fwd_err"], plain_fwd_ms,
+             plain_fwd_runs, lib_fwd_ms),
+            (True, bwd_ms, bwd_runs, c["bwd_err"], plain_bwd_ms,
+             plain_bwd_runs, lib_bwd_ms)):
+        bound_ms, bound_by, squarings = pb_weight_bound(torch, case, backward)
+        rows.append({
+            "shape": name, "S": S, "M": M, "n_out": o,
+            "squarings": squarings, "max_abs_err": err, "ms": ms,
+            "ms_runs": runs, "plain_ms": plain_ms,
+            "plain_ms_runs": plain_runs,
+            "plain": "the plain chain's forward" if not backward else
+                     "the plain chain's forward and backward (autograd)",
+            "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "library_call": "torch.linalg.matrix_exp"
+                            + (" backward" if backward else "")
+                            + " of the same matrices (the expm part only)",
+            "bit_identical_runs": c["bitwise"],
+            "launches_per_check": c["launches"]})
+    rows[0].update(weight_scale=c["fwd_scale"],
+                   tolerance=c["fwd_tolerance"], within=c["fwd_ok"])
+    rows[1].update(error_ratios=c["ratios"], within=c["bwd_ok"],
+                   step_ms=step_ms,
+                   step_ms_runs=step_runs, parent_step_ms=parent_ms,
+                   parent_step_ms_runs=parent_runs)
+    print(f"pb_weight {name}: S={S} M={M} o={o}, {rows[0]['squarings']} "
+          f"squarings; forward max_abs_err {c['fwd_err']:.3e} of "
+          f"{c['fwd_scale']:.3e} (tolerance {c['fwd_tolerance']:.3e}: "
+          f"{c['fwd_ok']}); backward error / tolerance "
+          f"{json.dumps(c['ratios'])} (max_abs_err {c['bwd_err']:.3e}; "
+          f"ok: {c['bwd_ok']}); two runs "
+          f"bit identical {c['bitwise']}; launches {c['launches']}; kernel "
+          f"ms fwd {fwd_ms:.4f} {[round(t, 4) for t in fwd_runs]} bwd "
+          f"{bwd_ms:.4f} {[round(t, 4) for t in bwd_runs]}, bound "
+          f"{rows[0]['bound_ms']:.5f} / {rows[1]['bound_ms']:.5f} "
+          f"({rows[0]['bound_by']}); plain fwd {plain_fwd_ms:.3f} "
+          f"{[round(t, 3) for t in plain_fwd_runs]}, fwd + bwd "
+          f"{plain_bwd_ms:.3f} {[round(t, 3) for t in plain_bwd_runs]}; "
+          f"matrix_exp {lib_fwd_ms:.4f}, its "
+          f"backward {lib_bwd_ms:.4f}; weight() fwd + bwd as the step runs "
+          f"it {step_ms:.4f} ms {[round(t, 4) for t in step_runs]}, parent "
+          f"{parent_ms} ms {[round(t, 4) for t in parent_runs]}", flush=True)
+    if not c["ok"]:
+        raise AssertionError(f"pb_weight {name}: differs from the plain "
+                             f"chain, is not reproducible or launched "
+                             f"{c['launches']}")
+    return rows
 
 
 KERNEL_NAMES = {"scatter_add_rows": "scatter_add_rows_kernel",
                 "gather_rows": "gather_rows_kernel",
                 "hash_encode_fwd": "hash_encode_fwd_kernel",
-                "hash_encode_bwd": "hash_encode_bwd_kernel"}
+                "hash_encode_bwd": "hash_encode_bwd_kernel",
+                "pb_weight_fwd": "pb_weight_fwd_kernel",
+                "pb_weight_bwd": "pb_weight_bwd_kernel"}
 
 
 def _device_table(prof, label, n):
@@ -1329,12 +1693,14 @@ def profile_steps(torch, trainer, n_steps=3):
 def _launch_counters():
     """{kernel: (its wrapper's module, the name of its launch count)}."""
     from deblur_e_nerf_tpu_torch.ops import (gather_rows, hash_encode,
-                                             scatter_rows)
+                                             pb_weight, scatter_rows)
 
     return {"scatter_add_rows": (scatter_rows, "LAUNCHES"),
             "gather_rows": (gather_rows, "LAUNCHES"),
             "hash_encode_fwd": (hash_encode, "FORWARD_LAUNCHES"),
-            "hash_encode_bwd": (hash_encode, "BACKWARD_LAUNCHES")}
+            "hash_encode_bwd": (hash_encode, "BACKWARD_LAUNCHES"),
+            "pb_weight_fwd": (pb_weight, "FORWARD_LAUNCHES"),
+            "pb_weight_bwd": (pb_weight, "BACKWARD_LAUNCHES")}
 
 
 def reset_launches():
@@ -1347,22 +1713,34 @@ def read_launches():
             for kernel, (module, name) in _launch_counters().items()}
 
 
-def encode_launches(forward, backward):
-    """The launches of a path that calls the field `forward` times and runs
-    `backward` encode backwards: one fused encode kernel each, and neither
-    K1 nor K3 (the per-level encode's kernels, off every path since the
-    encode was fused)."""
+def encode_launches(forward, backward, filter_forward=0,
+                    filter_backward=None):
+    """The launches of a path that calls the field `forward` times, runs
+    `backward` encode backwards and `filter_forward` weight-chain forwards
+    (one a filter-on training step) and `filter_backward` backwards
+    (default: as many): one fused encode kernel each, one weight-chain
+    kernel each, and neither K1 nor K3 (the per-level encode's kernels,
+    off every path since the encode was fused)."""
     return {"scatter_add_rows": 0, "gather_rows": 0,
-            "hash_encode_fwd": forward, "hash_encode_bwd": backward}
+            "hash_encode_fwd": forward, "hash_encode_bwd": backward,
+            "pb_weight_fwd": filter_forward,
+            "pb_weight_bwd": (filter_forward if filter_backward is None
+                              else filter_backward)}
 
 
-def check_path_launches(path, counts, trains):
+def check_path_launches(path, counts, trains, filter_steps=0):
     """A path launches the fused forward, the backward if it `trains` (and
-    not if it does not), and neither K1 nor K3."""
+    not if it does not), one weight-chain forward and one backward for
+    each of its `filter_steps` filter-on training steps (none on an eval
+    or filter-off path), and neither K1 nor K3."""
     if not (counts["hash_encode_fwd"] > 0
             and (counts["hash_encode_bwd"] > 0) == trains
+            and counts["pb_weight_fwd"] == counts["pb_weight_bwd"]
+            == filter_steps
             and counts["scatter_add_rows"] == counts["gather_rows"] == 0):
-        raise AssertionError(f"{path}: launches {counts}")
+        raise AssertionError(f"{path}: launches {counts}, want "
+                             f"{filter_steps} weight-chain launches a "
+                             f"direction")
 
 
 def run_steps(torch, trainer, n_steps, label, profile=False):
@@ -1421,6 +1799,37 @@ def run_steps(torch, trainer, n_steps, label, profile=False):
                   + f"; {_per_call(prof)}", flush=True)
 
 
+def _planted_sync(torch):
+    """One host sync, made here on purpose: the sync counter must find it
+    (its self-check)."""
+    return torch.ones(1, device="cuda").item()
+
+
+@contextmanager
+def capture_pb_inputs(store):
+    """Record into `store` the inputs (clones on the card) of the first
+    weight-chain backward run inside: (params, intensity, dt, g, n_out),
+    the step's own. A wrapper around `pb_weight.weight_backward` while the
+    block runs."""
+    from deblur_e_nerf_tpu_torch.ops import pb_weight
+
+    real = pb_weight.weight_backward
+
+    def recording(params, intensity, dt, g, n_out):
+        if not store:
+            store.update(params=params.detach().clone(),
+                         intensity=intensity.detach().clone(),
+                         dt=dt.detach().clone(), g=g.detach().clone(),
+                         n_out=n_out)
+        return real(params, intensity, dt, g, n_out)
+
+    pb_weight.weight_backward = recording
+    try:
+        yield store
+    finally:
+        pb_weight.weight_backward = real
+
+
 @contextmanager
 def capture_encode_inputs(store):
     """Record into `store` the positions and cotangent (clones on the card)
@@ -1450,11 +1859,17 @@ def count_step_syncs(torch, trainer, label="flagship",
     """One steady step (past the occupancy warmup, off the occupancy
     schedule) under torch.cuda.set_sync_debug_mode("warn"): returns
     {source line: host syncs}, each sync attributed to the innermost line
-    of the port on the stack, and prints it. A sync in one of the
-    `forbidden` files (the optimizer's) fails the run, and so do kernel
-    launches other than `expected` (default: one fused encode forward and
-    one backward). With a dict `capture`, the step's encode inputs go
-    into it (`capture_encode_inputs`; moved to the host after the step)."""
+    of the port on the stack, and prints it. Any sync of the step fails
+    the run (since the weight chain became a kernel, the step reads no
+    device value), and so do kernel launches other than `expected`
+    (default: one fused encode forward and one backward, one weight-chain
+    forward and one backward). The counter's self-check: one sync planted
+    just before the step (`_planted_sync`) must be counted, once. With a
+    dict `capture`, the step's encode inputs go into it
+    (`capture_encode_inputs`) and its weight-chain inputs into
+    capture["pb"] (`capture_pb_inputs`), moved to the host after the
+    step. `forbidden` names the files whose syncs the message singles
+    out."""
     import traceback
     import warnings
 
@@ -1481,8 +1896,11 @@ def count_step_syncs(torch, trainer, label="flagship",
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
+        pb = {}
         try:
-            with capture_encode_inputs({} if capture is None else capture):
+            with capture_encode_inputs({} if capture is None else capture), \
+                    capture_pb_inputs(pb):
+                _planted_sync(torch)
                 trainer.train_step()
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -1490,21 +1908,66 @@ def count_step_syncs(torch, trainer, label="flagship",
     if capture is not None:
         for key in ("u", "g"):
             capture[key] = capture[key].cpu()
+        capture["pb"] = {k: v.cpu() if hasattr(v, "cpu") else v
+                         for k, v in pb.items()}
     launches = read_launches()
-    print(f"host syncs in one steady {label} step: {sum(sites.values())} "
-          f"({sites}); kernel launches {launches}", flush=True)
+    planted = {site: n for site, n in sites.items() if "_planted_sync" in site}
+    step_sites = {site: n for site, n in sites.items() if site not in planted}
+    print(f"host syncs in one steady {label} step: "
+          f"{sum(step_sites.values())} ({step_sites}); the planted sync "
+          f"counted {sum(planted.values())} time(s); kernel launches "
+          f"{launches}", flush=True)
     if expected is None:
-        expected = encode_launches(1, 1)
+        expected = encode_launches(1, 1, 1)
     if launches != expected:
         raise AssertionError(f"a steady {label} step launches {launches}, "
                              f"want {expected}")
-    if any(f in site for site in sites for f in forbidden):
-        raise AssertionError(f"{label}: a sync in {forbidden}: {sites}")
-    if not any("ops/linalg.py" in site for site in sites):
-        # the expm's squaring count is read on the host every step
-        raise AssertionError(f"the sync counter missed ops/linalg.py's "
-                             f"known sync: {sites}")
-    return sites
+    if sum(planted.values()) != 1:
+        raise AssertionError(f"the sync counter missed the planted sync: "
+                             f"{sites}")
+    if step_sites:
+        raise AssertionError(
+            f"{label}: a steady step made host syncs {step_sites}"
+            + (f" (in {forbidden})" if any(f in site for site in step_sites
+                                           for f in forbidden) else ""))
+    return step_sites
+
+
+def census_step(torch, trainer, label="flagship"):
+    """Operator calls by layer (op_census.count_ops) of one steady step and
+    of one occupancy update, sampled and warmup, printed; the step's
+    weight chain must be its kernels' wrapper alone. Also printed: the
+    operator calls of the plain chain that the kernels replace, forward
+    and backward under torch.utils.checkpoint as the step ran it before,
+    on the card at PB_STEP_SHAPE (default calibration)."""
+    from torch.utils import checkpoint
+
+    from deblur_e_nerf_tpu_torch import op_census
+    from deblur_e_nerf_tpu_torch.ops import pb_weight
+
+    warmup = int(trainer.params.nerf.occ_grid_config.warmup_steps)
+    trainer.global_step = warmup + 1
+    counts, _ = op_census.count_ops(trainer.train_step)
+    torch.cuda.synchronize()
+    print(f"operator calls by layer in one steady {label} step: "
+          f"{json.dumps(counts)}", flush=True)
+    chain = counts.get("B8 weight chain", {"forward": 0, "backward": 0})
+    if sum(chain.values()) > 20:
+        raise AssertionError(f"{label}: the weight chain ran {chain} "
+                             f"operators")
+    for kind, step in (("sampled", warmup), ("warmup", 0)):
+        occ, _ = op_census.count_ops(lambda: trainer.update_occupancy(step))
+        torch.cuda.synchronize()
+        print(f"operator calls by layer in one {kind} {label} occupancy "
+              f"update: {json.dumps(occ)}", flush=True)
+    case = pb_weight_inputs(torch, "default", *PB_STEP_SHAPE, 0, 2)
+    plain, _ = op_census.count_ops(lambda: pb_weight_run(
+        torch, lambda *a: checkpoint.checkpoint(
+            pb_weight.weight_reference, *a, use_reentrant=False), case))
+    torch.cuda.synchronize()
+    print(f"operator calls of the plain weight chain, checkpointed, at "
+          f"(S, M) = {PB_STEP_SHAPE}: {json.dumps(plain)}", flush=True)
+    return counts
 
 
 def build_trainer(torch, root, tmp, filter_on):
@@ -1570,11 +2033,14 @@ def phase_training(torch, tmp, profile=False, capture=None):
     trainer._flush_pending_metrics()
     count_step_syncs(torch, trainer, capture=capture)
     trainer._flush_pending_metrics()
+    census_step(torch, trainer)
+    trainer._flush_pending_metrics()
     if profile:
         profile_steps(torch, trainer)
     for path, counts in launches.items():
         print(f"training, {path}: launches {counts}", flush=True)
-        check_path_launches(path, counts, trains=True)
+        check_path_launches(path, counts, trains=True,
+                            filter_steps=3 if path == "filter on" else 0)
     return launches, trainer, root
 
 
@@ -2114,7 +2580,7 @@ def check_eds_epoch(records, occ_calls, accumulate, resolution):
     chunks = -(-(resolution ** 3) // (1 << 19))
     for r in records:
         occ = r["occupancy"]
-        want = encode_launches(1 + (chunks if occ else 0), 1)
+        want = encode_launches(1 + (chunks if occ else 0), 1, 1)
         if r["launches"] != want:
             raise AssertionError(f"EDS micro-step {r['step']}: launches "
                                  f"{r['launches']}, want {want}")
@@ -2368,8 +2834,9 @@ def phase_eds(torch, tmp, card, profile=False, capture=None):
     torch.cuda.empty_cache()
     eds_step_card_vs_cpu(torch, tmp)
     for path, counts in launches.items():
-        check_path_launches(path, counts, trains="eval" not in path
-                            and "frame" not in path)
+        trains = "eval" not in path and "frame" not in path
+        check_path_launches(path, counts, trains=trains,
+                            filter_steps=len(records) if trains else 0)
     return launches
 
 
@@ -2484,7 +2951,7 @@ def r5fix_step_launches(trainer, occupancy_update, prepass=True):
         forwards = field_calls + 1
     if occupancy_update:
         forwards += -(-(rc.grid_resolution ** 3) // (1 << 19))
-    return encode_launches(forwards, field_calls + 1)
+    return encode_launches(forwards, field_calls + 1, 1)
 
 
 def timed_r5fix_step(torch, trainer, card, step_fn, records,
@@ -2774,9 +3241,10 @@ def r5fix_chunked_step(torch, trainer, card):
                   f"backward), "
                   f"peak device memory {peak:.2f} GiB, launches forward "
                   f"{forward}, backward {backward} on {card}", flush=True)
-            if not (forward == encode_launches(want["hash_encode_fwd"], 0)
+            if not (forward == encode_launches(want["hash_encode_fwd"], 0,
+                                               1, 0)
                     and backward == encode_launches(
-                        0, want["hash_encode_bwd"])):
+                        0, want["hash_encode_bwd"], 0, 1)):
                 raise AssertionError(f"r5fix field_chunk {chunk}: launches "
                                      f"{forward}, {backward}, want {want}")
     finally:
@@ -2978,7 +3446,9 @@ def phase_r5fix(torch, tmp, card):
     torch.cuda.empty_cache()
     r5fix_vanilla_steps(torch, root, tmp, card)
     for path, counts in launches.items():
-        check_path_launches(path, counts, trains=path == "r5fix train")
+        check_path_launches(path, counts, trains=path == "r5fix train",
+                            filter_steps=len(records)
+                            if path == "r5fix train" else 0)
     return launches
 
 
@@ -3082,7 +3552,8 @@ def phase_quality(torch, tmp, card, device="cuda"):
           f"{[round(r[1], 4) for r in epochs]} against the flat field's "
           f"{epochs[0][3]:.4f}; launches {launches['quality']} on {card}",
           flush=True)
-    check_path_launches("quality", launches["quality"], trains=True)
+    check_path_launches("quality", launches["quality"], trains=True,
+                        filter_steps=len(records))
     return launches
 
 # phase 10: the flagship data parallel over MESH_WORLD ranks, through the
@@ -3686,7 +4157,7 @@ def main():
                         help="a checkout of the parent commit: phase 3 "
                              "also builds its encode kernels and times "
                              "them in turns with these on the same inputs "
-                             "(see load_parent_encode)")
+                             "(see load_parent)")
     args = parser.parse_args()
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(BUDGET_S)
@@ -3702,8 +4173,7 @@ def main():
     with phase("2 build"):
         phase_build()
     with phase("3 kernels vs plain"):
-        parent = (load_parent_encode(torch, args.parent) if args.parent
-                  else None)
+        parent = load_parent(torch, args.parent) if args.parent else None
         rows = phase_kernels(torch, parent)
     captured = {"flagship": {}, "EDS": {}}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3737,6 +4207,12 @@ def main():
 
     step_shape = f"N = K + 1: {ENCODE_CASES[0][0]}"
     kernels = [
+        kernel_line("pb_weight_fwd", PB_WEIGHT_SOURCE, PB_WEIGHT_REPLACES,
+                    rows["pb_weight_fwd"], launches,
+                    "flagship step's own inputs"),
+        kernel_line("pb_weight_bwd", PB_WEIGHT_SOURCE, PB_WEIGHT_REPLACES,
+                    rows["pb_weight_bwd"], launches,
+                    "flagship step's own inputs"),
         kernel_line("hash_encode_fwd", HASH_ENCODE_SOURCE,
                     HASH_ENCODE_FWD_REPLACES, rows["hash_encode_fwd"],
                     launches, step_shape, "step"),
@@ -3753,7 +4229,8 @@ def main():
                     "flagship step: cellhash view, levels 7-15"),
     ]
     for path in (p for p in launches if p.startswith("data parallel")):
-        check_path_launches(path, launches[path], trains=True)
+        check_path_launches(path, launches[path], trains=True,
+                            filter_steps=MESH_STEPS)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

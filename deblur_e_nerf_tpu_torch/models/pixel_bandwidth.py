@@ -23,9 +23,8 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
-from torch.utils import checkpoint
 
-from ..ops import activations, control, linalg
+from ..ops import activations, control, linalg, pb_weight
 from ..utils.device import constant
 
 TAU_IN_IT_EFF_PROD_KEY = "input_time_const_eff_it_prod"
@@ -93,28 +92,30 @@ def effective_params(params):
             for name in PARAM_NAMES}
 
 
+def packed_params(params, consts):
+    """The chain's parameters as one (7,) float32 tensor on their device:
+    the six effective values in PARAM_NAMES order, then
+    `tau_in_it_eff_prod` (no device value is read)."""
+    eff = effective_params(params)
+    return torch.stack([eff[name] for name in PARAM_NAMES]
+                       + [consts["tau_in_it_eff_prod"]])
+
+
+def _packed_sys_params(packed, steady_state_intensity):
+    lin = pb_weight.linearization(packed.unbind(), steady_state_intensity)
+    return lin["tzw"], lin["wn2"], lin["sf"], lin["df"]
+
+
 def linearized_sys_params(params, consts, steady_state_intensity):
     """Linearized 2nd-order sub-system parameters at the given steady
     states: (2 zeta omega_n, omega_n^2, omega_c_sf, omega_c_diff)."""
-    eff = effective_params(params)
-    tau_in = consts["tau_in_it_eff_prod"] / steady_state_intensity
-    tau_mil = eff["tau_mil_it_eff_prod"] / steady_state_intensity
-    A_amp = 1.0 / eff["A_amp_inv"]
-    A_loop = 1.0 / eff["A_loop_inv"]
-    denom = (tau_in + tau_mil) * eff["tau_out"]
-    two_zeta_omega_n = (
-        tau_in + eff["tau_out"] + (A_amp + 1) * tau_mil) / denom
-    omega_n_square = (A_loop + 1) / denom
-    omega_c_sf = 1.0 / eff["tau_sf"]
-    omega_c_diff = 1.0 / eff["tau_diff"]
-    return two_zeta_omega_n, omega_n_square, omega_c_sf, omega_c_diff
+    return _packed_sys_params(packed_params(params, consts),
+                              steady_state_intensity)
 
 
-def linearize_sys(params, consts, steady_state_intensity,
-                  output_sf_log_it=False):
-    """The batched linearized 4x4 continuous state space."""
+def _packed_linearize(packed, steady_state_intensity, output_sf_log_it):
     two_zeta_omega_n, omega_n_square, omega_c_sf, omega_c_diff = (
-        linearized_sys_params(params, consts, steady_state_intensity))
+        _packed_sys_params(packed, steady_state_intensity))
     shape = steady_state_intensity.shape
     dtype = steady_state_intensity.dtype
     device = steady_state_intensity.device
@@ -135,6 +136,13 @@ def linearize_sys(params, consts, steady_state_intensity,
         *shape, len(rows), 4)
     D = torch.zeros((*shape, len(rows), 1), dtype=dtype, device=device)
     return control.StateSpace(A=A, B=B, C=C, D=D)
+
+
+def linearize_sys(params, consts, steady_state_intensity,
+                  output_sf_log_it=False):
+    """The batched linearized 4x4 continuous state space."""
+    return _packed_linearize(packed_params(params, consts),
+                             steady_state_intensity, output_sf_log_it)
 
 
 def linearized_sys_omega_c_dominant(params, consts, steady_state_intensity,
@@ -222,20 +230,17 @@ def sample_lifetimes(params, consts, normalized_interval_gen):
     return lifetime.detach()
 
 
-# x_ss(u) = [0, u, u, u] at every linearization point (each stage has unit
-# DC gain), so the initial-state direction is a constant vector
-_X0_DIR = (0.0, 1.0, 1.0, 1.0)
-
-
-def _weight(output_sf_log_it, consts, intensity_sample, sample_dt,
-            *raw_params):
-    params = dict(zip((f"{n}_raw" for n in PARAM_NAMES), raw_params))
-    lin_sys = linearize_sys(params, consts, intensity_sample[1:],
-                            output_sf_log_it)
+def weight_chain(packed, intensity_sample, sample_dt, output_sf_log_it):
+    """The plain chain, in the packed parameters of `packed_params`:
+    linearize at intensity_sample[1:], FOH-discretize (efficient, state
+    preserving) and collapse to (S, ..., o) weights with the x0_dir term.
+    The CUDA kernels' plain version (ops/pb_weight.py)."""
+    lin_sys = _packed_linearize(packed, intensity_sample[1:],
+                                output_sf_log_it)
     sysd = control.foh_cont2discrete(
         lin_sys, NS_TO_S * sample_dt, is_state_preserved=True,
         is_efficient=True)
-    x0_dir = constant(_X0_DIR, intensity_sample.dtype,
+    x0_dir = constant(pb_weight.X0_DIR, intensity_sample.dtype,
                       intensity_sample.device).reshape(4, 1)
     weight = discretized_sys_to_weight(sysd, x0_dir=x0_dir)  # (S,...,o,1)
     return weight[..., 0]
@@ -246,16 +251,13 @@ def intensity_sample_to_weight(params, consts, intensity_sample, sample_dt,
     """Linearize + FOH-discretize + collapse to (S, ..., o) weights;
     sample_dt (S-1, ...) in ns, float32.
 
-    Rematerialized (torch.utils.checkpoint, the JAX package's
-    jax.checkpoint): the backward recomputes the expm chain instead of
-    keeping every squaring's residuals from forward to backward."""
-    raw = [params[f"{n}_raw"] for n in PARAM_NAMES]
-    if torch.is_grad_enabled():
-        return checkpoint.checkpoint(
-            _weight, bool(output_sf_log_it), consts, intensity_sample,
-            sample_dt, *raw, use_reentrant=False)
-    return _weight(bool(output_sf_log_it), consts, intensity_sample,
-                   sample_dt, *raw)
+    On the card, one kernel a direction (`ops.pb_weight.weight`); on the
+    CPU the plain chain, rematerialized (torch.utils.checkpoint, the JAX
+    package's jax.checkpoint): the backward recomputes the expm chain
+    instead of keeping every squaring's residuals from forward to
+    backward."""
+    return pb_weight.weight(packed_params(params, consts), intensity_sample,
+                            sample_dt, 2 if output_sf_log_it else 1)
 
 
 def _collapse_weighted_log_it(weight, intensity_sample):

@@ -16,7 +16,9 @@ package forces Precision.HIGHEST for the same reason).
 Provides:
   - eye, matmul
   - solve: unrolled Gaussian elimination with partial pivoting (the first
-    maximal pivot, as jnp.argmax picks it)
+    maximal pivot, as jnp.argmax picks it), built from factor and
+    solve_factored; solve_transposed reuses a factorization for a^-T b
+    (the weight chain's backward, ops/pb_weight.py)
   - expm: float32-safe Pade-13 scaling-and-squaring with the per-element
     scaling applied before any matrix power. `torch.linalg.matrix_exp` is
     a different algorithm, and the stiff pixel-circuit systems are why the
@@ -46,41 +48,97 @@ def matmul(a, b):
     return (a[..., :, :, None] * b[..., None, :, :]).sum(dim=-2)
 
 
-def solve(a, b):
-    """Solve a @ x = b for a (..., n, n), b (..., n, m) -> x (..., n, m).
+def _swap(t, col, piv):
+    """Swap list entry col with col + piv (per batch element), in place."""
+    old = list(t)
+    for off in range(1, len(t) - col):
+        t[col] = torch.where(piv == off, old[col + off], t[col])
+        t[col + off] = torch.where(piv == off, old[col], old[col + off])
 
-    Unrolled Gaussian elimination with partial pivoting; all arithmetic is
-    elementwise over the batch (n and m are small and static)."""
-    n, m = a.shape[-1], b.shape[-1]
-    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
-    a = a.expand(*batch, n, n)
-    b = b.expand(*batch, n, m)
-    rows = [torch.cat([a[..., i, :], b[..., i, :]], dim=-1)
-            for i in range(n)]  # (..., n + m) augmented rows
+
+def factor(a):
+    """The pivoted Gaussian elimination of a (..., n, n): each column's
+    pivot is the first row of largest magnitude at or below the diagonal
+    (as jnp.argmax and torch.argmax pick it; a NaN counts as the largest),
+    whole rows are swapped, then the rows below are eliminated. Returns
+    (the eliminated rows, whose upper triangle is U; each column's pivot
+    offset (..., 1); each column's multipliers (..., 1) for the rows
+    below it). n is small and static; all arithmetic is elementwise over
+    the batch."""
+    n = a.shape[-1]
+    rows = [a[..., i, :] for i in range(n)]
+    pivots, factors = [], []
     for col in range(n):
         mags = torch.stack([rows[r][..., col].abs()
                             for r in range(col, n)])  # (n - col, ...)
         piv = torch.argmax(mags, dim=0)[..., None]  # first maximum
-        pivot_row = rows[col]
-        for off in range(1, n - col):
-            pivot_row = torch.where(piv == off, rows[col + off], pivot_row)
-        new_rows = list(rows)
-        new_rows[col] = pivot_row
-        for off in range(1, n - col):
-            new_rows[col + off] = torch.where(piv == off, rows[col],
-                                              rows[col + off])
-        rows = new_rows
+        _swap(rows, col, piv)
         inv_p = 1.0 / rows[col][..., col]
+        f = []
         for r in range(col + 1, n):
-            factor = (rows[r][..., col] * inv_p)[..., None]
-            rows[r] = rows[r] - factor * rows[col]
+            f.append((rows[r][..., col] * inv_p)[..., None])
+            rows[r] = rows[r] - f[-1] * rows[col]
+        pivots.append(piv)
+        factors.append(f)
+    return rows, pivots, factors
+
+
+def solve_factored(fac, b):
+    """a^-1 b for b (..., n, m) from `factor(a)`: each column's swap and
+    eliminations on b's rows, then back substitution."""
+    rows, pivots, factors = fac
+    n = len(rows)
+    t = [b[..., i, :] for i in range(n)]
+    for col in range(n):
+        _swap(t, col, pivots[col])
+        for k, r in enumerate(range(col + 1, n)):
+            t[r] = t[r] - factors[col][k] * t[col]
     x = [None] * n
     for i in reversed(range(n)):
-        acc = rows[i][..., n:]  # (..., m)
+        acc = t[i]  # (..., m)
         for j in range(i + 1, n):
             acc = acc - rows[i][..., j, None] * x[j]
         x[i] = acc / rows[i][..., i, None]
     return torch.stack(x, dim=-2)
+
+
+def solve_transposed(fac, b):
+    """a^-T b for b (..., n, m) from `factor(a)`: the transpose of
+    `solve_factored`'s steps in reverse (U^T t = b by forward
+    substitution, then each column's eliminations and swap transposed,
+    the last column first). With a's own pivots the result is the
+    transpose of the forward's arithmetic, as autograd's adjoint of a
+    solve is."""
+    rows, pivots, factors = fac
+    n = len(rows)
+    t = [None] * n
+    for i in range(n):
+        acc = b[..., i, :]
+        for j in range(i):
+            acc = acc - rows[j][..., i, None] * t[j]
+        t[i] = acc / rows[i][..., i, None]
+    for col in reversed(range(n)):
+        for k, r in enumerate(range(col + 1, n)):
+            t[col] = t[col] - factors[col][k] * t[r]
+        _swap(t, col, pivots[col])
+    return torch.stack(t, dim=-2)
+
+
+def solve(a, b):
+    """Solve a @ x = b for a (..., n, n), b (..., n, m) -> x (..., n, m):
+    unrolled Gaussian elimination with partial pivoting."""
+    return solve_factored(factor(a), b)
+
+
+def squaring_count(a, max_squarings=MAX_SQUARINGS):
+    """`expm`'s per-element squaring count s (int32, no gradient): the
+    per-element 1-norm (largest column sum of magnitudes) over theta_13,
+    rounded up to a power of two, clipped to [0, max_squarings]; 0 where
+    the norm is NaN."""
+    norm = a.detach().abs().sum(dim=-2).amax(dim=-1)
+    norm = torch.clamp(norm, min=torch.finfo(a.dtype).tiny)
+    s = torch.nan_to_num(torch.ceil(torch.log2(norm / _THETA13)), nan=0.0)
+    return torch.clamp(s, 0, max_squarings).to(torch.int32)
 
 
 def expm(a, max_squarings=MAX_SQUARINGS):
@@ -94,11 +152,7 @@ def expm(a, max_squarings=MAX_SQUARINGS):
     dtype = a.dtype
     n = a.shape[-1]
     eye_n = eye(n, dtype, a.device)
-    # per-element 1-norm (max abs column sum); no gradient through s
-    norm = a.detach().abs().sum(dim=-2).amax(dim=-1)
-    norm = torch.clamp(norm, min=torch.finfo(dtype).tiny)
-    s = torch.ceil(torch.log2(norm / _THETA13))
-    s = torch.clamp(s, 0, max_squarings).to(torch.int32)
+    s = squaring_count(a, max_squarings)
     a = a * torch.exp2(-s.to(dtype))[..., None, None]
 
     b = _PADE13_B

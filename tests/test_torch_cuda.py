@@ -11,7 +11,8 @@ import torch
 
 import chip_smoke
 from deblur_e_nerf_tpu_torch.models import contraction, fields, hash_encoding
-from deblur_e_nerf_tpu_torch.ops import gather_rows, hash_encode, scatter_rows
+from deblur_e_nerf_tpu_torch.ops import (gather_rows, hash_encode, pb_weight,
+                                         scatter_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -520,8 +521,9 @@ def test_two_gloo_ranks_on_one_card_match_the_single_process(cuda,
     gloo`), take one small filter-on step (S = 30) through the command
     line with the replica check (equal digests), equal to a single-process
     step on the card within chip_smoke.py phase 10's tolerances, each rank
-    launching the fused encode's forward and backward (and neither K1 nor
-    K3, which no path launches)."""
+    launching the fused encode's forward and backward, one weight-chain
+    forward and backward (and neither K1 nor K3, which no path
+    launches)."""
     from deblur_e_nerf_tpu_torch.data import synthetic
 
     root = synthetic.make_dataset(str(tmp_path / "small"), img_height=16,
@@ -532,7 +534,8 @@ def test_two_gloo_ranks_on_one_card_match_the_single_process(cuda,
         evaluate=False, resume=False)
     assert set(launches) == {"rank 0", "rank 1"}
     for rank, counts in launches.items():
-        chip_smoke.check_path_launches(rank, counts, trains=True)
+        chip_smoke.check_path_launches(rank, counts, trains=True,
+                                       filter_steps=1)
 
 
 def test_ray_generation_on_card_is_bit_equal_over_batch_shares(cuda,
@@ -751,3 +754,116 @@ def test_vanilla_field_on_card_matches_cpu(cuda):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     for a, b in zip(outs["cpu"], outs["card"]):
         assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max())
+
+
+PB_GRID = [(calib, S, 5, n_clamped, n_out, chip_smoke.PB_FORWARD_ATOL)
+           for calib in ("default", "stiff") for S in (4, 12)
+           for n_clamped in (0, 5, 11) for n_out in (1, 2)]
+
+
+@pytest.mark.parametrize("calib,S,M,n_clamped,n_out,fwd_atol", PB_GRID + [
+    (*c, 2, chip_smoke.PB_STEP_FORWARD_ATOL) for c in chip_smoke.PB_CASES])
+def test_pb_weight_kernels_match_the_plain_chain(cuda, calib, S, M,
+                                                 n_clamped, n_out, fwd_atol):
+    """Both weight-chain kernels (through `pb_weight.weight`) against
+    autograd of the plain chain on the card: the CPU tests' grid of
+    calibrations, window lengths, clamped steps and outputs on 5 events,
+    and the flagship step's shape (S = 30, M = 1,716) with
+    chip_smoke.PB_CASES's clamping; the weights within 5e-5 of the
+    largest (PB_STEP_FORWARD_ATOL at the step's shape), NaN nowhere the
+    plain chain is finite, the cotangents at the CPU tests' tolerances
+    (`pb_weight_check`); two runs bit for bit."""
+    case = chip_smoke.pb_weight_inputs(torch, calib, S, M, n_clamped, n_out,
+                                       seed=4)
+    c = chip_smoke.pb_weight_check(torch, case, fwd_atol)
+    assert c["ok"], c
+
+
+@pytest.mark.parametrize("plant", ["one weight", "every weight"])
+def test_pb_weight_check_fails_on_a_planted_nan_weight(cuda, monkeypatch,
+                                                       plant):
+    """`pb_weight_check` refuses a forward kernel that writes NaN where the
+    plain chain is finite: one planted NaN weight, or all of them."""
+    real = pb_weight.weight
+
+    def planted(params, intensity, dt, n_out):
+        w = real(params, intensity, dt, n_out).clone()
+        if plant == "one weight":
+            w[3, 2, 0] = float("nan")
+        else:
+            w = w * float("nan")
+        return w
+
+    monkeypatch.setattr(pb_weight, "weight", planted)
+    case = chip_smoke.pb_weight_inputs(torch, "default", 12, 5, 0, 2, seed=4)
+    c = chip_smoke.pb_weight_check(torch, case)
+    assert not c["fwd_ok"] and not c["ok"], c
+
+
+def test_pb_weight_step_makes_no_host_sync(cuda):
+    """`weight` forward and backward read nothing on the host: no sync
+    under torch.cuda.set_sync_debug_mode("error")."""
+    case = chip_smoke.pb_weight_inputs(torch, "default", 30, 1716, 3, 2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chip_smoke.pb_weight_run(torch, pb_weight.weight, case)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_pb_weight_nan_reaches_weights_and_gradients(cuda):
+    """A NaN intensity or step: every weight and cotangent the plain chain
+    makes NaN, the kernels make NaN too."""
+    case = chip_smoke.pb_weight_inputs(torch, "default", 12, 5, 0, 2, seed=4)
+    case["intensity"][4, 1] = float("nan")
+    case["dt"][7, 3] = float("nan")
+    w_k, g_k = chip_smoke.pb_weight_run(torch, pb_weight.weight, case)
+    w_p, g_p = chip_smoke.pb_weight_run(torch, pb_weight.weight_reference,
+                                        case)
+    assert bool(torch.isnan(w_p).any())
+    for a, b in zip([w_k, *g_k], [w_p, *g_p]):
+        assert bool(torch.isnan(a)[torch.isnan(b)].all())
+
+
+def test_pb_weight_dispatch_on_the_card(cuda, monkeypatch):
+    """On CUDA tensors the model's intensity_sample_to_weight launches one
+    forward and one backward kernel and never runs the plain chain."""
+    from deblur_e_nerf_tpu_torch.models import pixel_bandwidth
+
+    def no_plain(*args):
+        raise AssertionError("the plain chain ran on the card")
+
+    monkeypatch.setattr(pb_weight, "weight_reference", no_plain)
+    cal, min_ts, f_c = chip_smoke.PB_CALIBRATIONS["stiff"]
+    raw, consts = pixel_bandwidth.init_pixel_bandwidth(cal, min_ts, f_c, 0.95,
+                                                       device=cuda)
+    case = chip_smoke.pb_weight_inputs(torch, "stiff", 30, 40, 5, 2)
+    it = case["intensity"].requires_grad_()
+    before = (pb_weight.FORWARD_LAUNCHES, pb_weight.BACKWARD_LAUNCHES)
+    w = pixel_bandwidth.intensity_sample_to_weight(
+        raw, consts, it, case["dt"], output_sf_log_it=True)
+    (w * case["g"]).sum().backward()
+    torch.cuda.synchronize()
+    assert (pb_weight.FORWARD_LAUNCHES - before[0],
+            pb_weight.BACKWARD_LAUNCHES - before[1]) == (1, 1)
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in raw.values())
+    assert bool(torch.isfinite(it.grad).all())
+
+
+def test_pb_weight_wrappers_raise_instead_of_falling_back(cuda):
+    case = chip_smoke.pb_weight_inputs(torch, "default", 12, 5, 0, 2)
+    p, it, dt, g = (case[k] for k in ("params", "intensity", "dt", "g"))
+    with pytest.raises(TypeError, match="float32"):
+        pb_weight.weight_forward(p, it.double(), dt, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        pb_weight.weight_backward(p, it, dt, g.transpose(0, 1).contiguous()
+                                  .transpose(0, 1), 2)
+    long = chip_smoke.pb_weight_inputs(torch, "default", 34, 5, 0, 2)
+    with pytest.raises(ValueError, match="at most 32 systems"):
+        pb_weight.weight_forward(long["params"], long["intensity"],
+                                 long["dt"], 2)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        pb_weight.weight_forward(p.cpu(), it, dt, 2)

@@ -181,22 +181,26 @@ def test_chip_smoke_r5fix_config_is_the_yaml_with_its_listed_cuts():
     trainer = type("T", (), {})()
     trainer.params = type("P", (), {"nerf": model})()
     # one fused encode forward a field call, one backward a field backward
-    # (K1 and K3 launch on no path)
+    # (K1 and K3 launch on no path), one weight-chain forward and backward
+    # a step
     launches = chip_smoke.encode_launches
-    assert chip_smoke.r5fix_step_launches(trainer, True) == launches(4, 2)
-    assert chip_smoke.r5fix_step_launches(trainer, False) == launches(3, 2)
+    assert chip_smoke.r5fix_step_launches(trainer, True) \
+        == launches(4, 2, 1)
+    assert chip_smoke.r5fix_step_launches(trainer, False) \
+        == launches(3, 2, 1)
     # a step the trainer runs without the prepass: the field over K + 1
     assert chip_smoke.r5fix_step_launches(trainer, True, False) \
-        == launches(3, 2)
+        == launches(3, 2, 1)
     assert chip_smoke.r5fix_step_launches(trainer, False, False) \
-        == launches(2, 2)
+        == launches(2, 2, 1)
     model.render_config.field_chunk = 1 << 18
     assert chip_smoke.r5fix_step_launches(trainer, False) \
-        == launches(5 + 3 + 1, 3 + 1)
+        == launches(5 + 3 + 1, 3 + 1, 1)
     assert chip_smoke.r5fix_step_launches(trainer, False, False) \
-        == launches(5 + 1, 5 + 1)
-    assert launches(5, 4) == {"hash_encode_fwd": 5, "hash_encode_bwd": 4,
-                              "scatter_add_rows": 0, "gather_rows": 0}
+        == launches(5 + 1, 5 + 1, 1)
+    assert launches(5, 4, 1, 0) == {
+        "hash_encode_fwd": 5, "hash_encode_bwd": 4, "scatter_add_rows": 0,
+        "gather_rows": 0, "pb_weight_fwd": 1, "pb_weight_bwd": 0}
 
 
 def test_trainer_runs_the_prepass_only_once_the_live_demand_fits(
