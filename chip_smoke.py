@@ -13,8 +13,9 @@ Phases, each printing a start and an end line with elapsed seconds:
      (-Xptxas -v) and its SASS load and store forms: its stores must be
      16-byte vectors; each fused-encode instance's registers, spills and
      stack frame, and the backward's atomic forms (vector and bulk
-     reductions); the weight-chain kernels' registers, spills and stack
-     frames, and that they run float32 FMAs and no tensor-core
+     reductions); the weight-chain kernels' registers and local memory,
+     read from the loaded binary (local memory, a stack frame or spills,
+     fails), and that they run float32 FMAs and no tensor-core
      instruction;
   3. kernels: each kernel against its plain PyTorch version on the card
      (the Pallas probes K2/K3's shapes too), with times of the kernel, the
@@ -54,13 +55,22 @@ Phases, each printing a start and an end line with elapsed seconds:
      and the stiff calibration with 0, 5 and all 29 steps at the 100 ns
      floor (and, in "3b", on the parameters, intensities, steps and
      weight cotangent the steady flagship step and EDS micro-step fed
-     it): the weights and the cotangents of intensity, dt and the packed
-     parameters against autograd of the plain chain (`pb_weight_check`),
-     two runs bit for bit, the kernels' times beside their bound, the
-     plain chain's forward and forward + backward, weight() as the step
-     runs it (in turns with the parent's chain with --parent) and
+     it, and on these with a seeded normal cotangent in every column):
+     the columns with a non-zero cotangent, the weights and the
+     cotangents of intensity, dt and the packed parameters against
+     autograd of the plain chain (`pb_weight_check`), the forward's and
+     the float32 plain chain's error against the plain chain in float64
+     on the card, two runs bit for bit, the kernels' times beside their
+     bound (the backward's over the live columns, and over every
+     column), each (with --parent) in turns with the parent's kernels,
+     the plain chain's forward and forward + backward, weight() as the
+     step runs it (in turns with the parent's chain with --parent) and
      torch.linalg.matrix_exp of the same matrices (the expm part alone)
-     and its backward;
+     and its backward; then, at M = 32,768 on synthetic steps where the
+     float32 chain is ill-conditioned (`PB_CONDITIONING_CASES`), the
+     kernels' and the float32 plain chain's errors against float64 and
+     the kernels' against the float32 plain chain, printed (ROADMAP
+     C13);
   4. training, two paths of configs/train/synthetic.yaml at full width on
      a synthetic dataset, each with the kernels' launch counts set to 0
      just before it and read just after:
@@ -388,28 +398,42 @@ def phase_build():
                                       operands=True), ptxas)
     check_encode_build(_cuda_build.sass_instructions(
         info["path"], ("RED", "ATOM", "UBLK")), ptxas)
-    check_pb_weight_build(_cuda_build.sass_instructions(
+    pb_build = check_pb_weight_build(_cuda_build.sass_instructions(
         info["path"], ("FFMA", "HMMA")), ptxas)
-    return info
+    return dict(info, pb_build=pb_build)
 
 
 def check_pb_weight_build(sass, ptxas):
-    """Print the weight-chain kernels' registers, spills and stack frames
-    (-Xptxas -v; the backward keeps each squaring's input, up to 32 x 16
-    floats a lane, on its stack); fail unless both were built and both
-    run float32 fused multiply-adds, no tensor-core instruction."""
+    """Print the weight-chain kernels' registers and local memory, as the
+    loaded binary states them (`pb_weight.kernel_attributes`), with the
+    ptxas line where the build log holds it; fail unless both were built,
+    both run float32 fused multiply-adds and no tensor-core instruction,
+    and neither keeps local memory (a stack frame or spills, where the
+    backward once kept its squarings' inputs). Returns {kernel:
+    {registers, local_bytes}}."""
+    from deblur_e_nerf_tpu_torch.ops import pb_weight
+
+    attrs = pb_weight.kernel_attributes()
+    found = {}
     for kernel in ("pb_weight_fwd_kernel", "pb_weight_bwd_kernel"):
         fns = [fn for fn in sass if kernel in fn]
-        if not fns:
-            raise AssertionError(f"{kernel}: no such kernel")
-        for fn in fns:
-            ops = sass[fn]
-            print(f"{kernel}: ptxas "
-                  f"[{ptxas.get(fn, 'not in the log (build reused)')}], "
-                  f"SASS FFMA {ops.count('FFMA')}, HMMA "
-                  f"{sum(op.startswith('HMMA') for op in ops)}", flush=True)
-            if "FFMA" not in ops or any(op.startswith("HMMA") for op in ops):
-                raise AssertionError(f"{kernel}: not float32 FMAs alone")
+        if len(fns) != 1:
+            raise AssertionError(f"{kernel}: {len(fns)} instances")
+        ops = sass[fns[0]]
+        info = ptxas.get(fns[0], "not in the log (build reused)")
+        registers, local_bytes = attrs[kernel]
+        found[kernel] = {"registers": registers, "local_bytes": local_bytes}
+        print(f"{kernel}: {registers} registers, {local_bytes} bytes of "
+              f"local memory a thread; ptxas [{info}], SASS FFMA "
+              f"{ops.count('FFMA')}, HMMA "
+              f"{sum(op.startswith('HMMA') for op in ops)}", flush=True)
+        if "FFMA" not in ops or any(op.startswith("HMMA") for op in ops):
+            raise AssertionError(f"{kernel}: not float32 FMAs alone")
+        if local_bytes > 0:
+            raise AssertionError(f"{kernel}: {local_bytes} bytes of local "
+                                 f"memory a thread (a stack frame or "
+                                 f"spills)")
+    return found
 
 
 def check_encode_build(atomics, ptxas):
@@ -871,9 +895,10 @@ def load_parent(torch, parent_dir):
     against it in turns on the same inputs: that checkout's package
     imported under the name `parent_port`, whose `ops.hash_encode` builds
     its own kernels from its own sources. Returns {"encode": its
-    (encode_forward, encode_backward), "pb": its models.pixel_bandwidth}
+    (encode_forward, encode_backward), "pb": its models.pixel_bandwidth
     (whose intensity_sample_to_weight is the weight chain as the parent's
-    step ran it)."""
+    step ran it), "pb_ops": its ops.pb_weight (the weight chain's
+    kernels)}."""
     import importlib
     import importlib.util
 
@@ -890,19 +915,39 @@ def load_parent(torch, parent_dir):
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     return {"encode": (encode.encode_forward, encode.encode_backward),
             "pb": importlib.import_module(
-                "parent_port.models.pixel_bandwidth")}
+                "parent_port.models.pixel_bandwidth"),
+            "pb_ops": importlib.import_module("parent_port.ops.pb_weight")}
 
 
-def in_turns(fn, parent_fn, iters=20):
+def in_turns(fn, parent_fn, iters=20, timer=None, parent_timer=None):
     """(ms of fn, [its two runs], ms of parent_fn or None, [its runs]):
     timed parent, change, change, parent (each run a mean over `iters`
-    calls), so that both see the same drift of clocks and power."""
+    calls, by `timer` and `parent_timer`, time_ms unless given), so that
+    both see the same drift of clocks and power."""
+    timer = timer or time_ms
+    parent_timer = parent_timer or time_ms
     if parent_fn is None:
-        ms = time_ms(fn, iters)
+        ms = timer(fn, iters)
         return ms, [ms], None, []
-    runs = [time_ms(f, iters) for f in (parent_fn, fn, fn, parent_fn)]
+    runs = [parent_timer(parent_fn, iters), timer(fn, iters),
+            timer(fn, iters), parent_timer(parent_fn, iters)]
     ours, theirs = runs[1:3], [runs[0], runs[3]]
     return sum(ours) / 2, ours, sum(theirs) / 2, theirs
+
+
+def graph_ms(fn, iters=20):
+    """Mean device milliseconds per call of fn, replayed from a CUDA graph
+    (captured once after a warm-up call) between CUDA events: the kernels'
+    time without the host's per-call work (argument checks, allocation,
+    the launch), which at a small size exceeds a kernel's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, iters)
 
 
 def encode_inputs(torch, kind, n, n_levels, seed=0):
@@ -1247,10 +1292,11 @@ def phase_kernels(torch, parent=None):
     for calib, S, M, n_clamped in PB_CASES:
         fwd, bwd = pb_weight_case(
             torch, f"{calib}, {n_clamped} of {S - 1} steps at the floor",
-            pb_weight_inputs(torch, calib, S, M, n_clamped, 2),
-            parent and parent["pb"])
+            pb_weight_inputs(torch, calib, S, M, n_clamped, 2), parent)
         pb["pb_weight_fwd"].append(fwd)
         pb["pb_weight_bwd"].append(bwd)
+    for calib, div in PB_CONDITIONING_CASES:
+        pb_conditioning_reading(torch, calib, div)
     return dict(encode, **pb, scatter_add_rows=scatter, gather_rows=gather,
                 scatter_add_rows_call_split=splits,
                 l2_reduction_rates=l2_rates)
@@ -1262,7 +1308,11 @@ def phase_step_inputs(torch, rows, captured, parent=None):
     and the steady EDS micro-step (phase 7) fed the encode backward
     (`capture_encode_inputs`), at their layouts, and the parameters,
     intensities, steps and weight cotangent they fed the weight-chain
-    backward (`capture_pb_inputs`); the rows join phase 3's."""
+    backward (`capture_pb_inputs`), and these with a seeded normal
+    cotangent in every column (the dense case: the zero-cotangent skip
+    must not hide the full path); the rows join phase 3's."""
+    import numpy as np
+
     for (name, config), label in zip(ENCODE_CASES, ("flagship", "EDS")):
         layout = encode_layout(torch, config())
         got = captured[label]
@@ -1282,10 +1332,16 @@ def phase_step_inputs(torch, rows, captured, parent=None):
         torch.cuda.empty_cache()
         case = {k: v.cuda() if hasattr(v, "cuda") else v
                 for k, v in got["pb"].items()}
-        fwd, bwd = pb_weight_case(torch, f"{label} step's own inputs", case,
-                                  parent and parent["pb"])
-        rows["pb_weight_fwd"].append(fwd)
-        rows["pb_weight_bwd"].append(bwd)
+        dense = dict(case, g=torch.from_numpy(
+            np.random.default_rng(0).standard_normal(tuple(case["g"].shape))
+            .astype(np.float32)).cuda())
+        for shape, inputs in ((f"{label} step's own inputs", case),
+                              (f"{label} step's own inputs, every "
+                               f"cotangent non-zero", dense)):
+            fwd, bwd = pb_weight_case(torch, shape, inputs, parent)
+            rows["pb_weight_fwd"].append(fwd)
+            rows["pb_weight_bwd"].append(bwd)
+        del case, dense
 
 
 # ---------------------------------------------------------------------------
@@ -1327,13 +1383,24 @@ PB_STEP_FORWARD_ATOL = 1e-4
 # phase 3's synthetic cases: (calibration, S, M, steps at the 100 ns floor)
 PB_CASES = (("default", 30, 4 * 429, 0), ("stiff", 30, 4 * 429, 5),
             ("stiff", 30, 4 * 429, 29))
+# synthetic cases of the step's 32,768 columns on which the float32 chain
+# is ill-conditioned: (calibration, the divisor of pb_weight_inputs's
+# steps): 12.5-375 us, 33-1,000 ns (partly below the 100 ns floor) and
+# 100-3,000 ns
+PB_CONDITIONING_CASES = (("default", 8), ("default", 3000),
+                         ("default", 1000))
 # float32 operations, counted by hand from csrc/pb_weight.cu (a fused
 # multiply-add 2, a division 1): per system, fixed and per squaring; per
 # system and output row, the scan's. The forward's; the backward's reverse
 # passes alone (the scan's reverse, the FOH, expm and linearization in
-# reverse). The backward needs one recompute of the forward before them
-# (the kernel makes two: see pb_weight_bwd_kernel), so its bound counts
-# PB_FWD_OPS + PB_REVERSE_OPS.
+# reverse). The reverse needs the forward's intermediates, which no input
+# of the function holds, so the backward's bound counts PB_FWD_OPS +
+# PB_REVERSE_OPS, over the columns whose cotangent is not zero (a zero
+# column's cotangents are 0: no operation), and no bytes for the systems
+# the forward saves: they are the design's, in place of that recompute,
+# as is the finiteness byte. What the kernel
+# adds beyond that (a..a6 built twice, the squarings rebuilt from their
+# checkpoints when s > 5) is the design's, not the function's.
 PB_FWD_OPS = (1530, 112, 43)
 PB_REVERSE_OPS = (2400, 240, 92)
 PB_BWD_OPS = tuple(f + r for f, r in zip(PB_FWD_OPS, PB_REVERSE_OPS))
@@ -1402,11 +1469,23 @@ def pb_weight_errors(torch, got, want):
     return ratios, max_abs
 
 
+def pb_live_columns(torch, g):
+    """The columns (M,) whose weight cotangent g (S, M, o) is not zero."""
+    return (g != 0).any(0).any(-1).reshape(-1)
+
+
 def pb_weight_bound(torch, case, backward):
-    """(bound_ms, bound_by, squarings) of one kernel call on a case: each
-    input read once and each output written once, and the float32
-    operations of PB_FWD_OPS / PB_BWD_OPS with each system's own squaring
-    count."""
+    """(bound_ms, bound_by, squarings, the bound over every column) of one
+    kernel call on a case: each of the function's inputs read once and
+    each of its outputs written once (the forward reads the parameters,
+    intensities and steps and writes the weights; the backward reads these
+    and the weights' cotangent and writes the cotangents of the
+    parameters, intensities and steps; the saved systems and the
+    finiteness byte are the design's), and the float32 operations of
+    PB_FWD_OPS (forward) or PB_FWD_OPS +
+    PB_REVERSE_OPS (backward) with each system's own squaring count; the
+    backward's over the live columns (`pb_live_columns`), its fourth value
+    over every column."""
     from deblur_e_nerf_tpu_torch.models import pixel_bandwidth
     from deblur_e_nerf_tpu_torch.ops import linalg, pb_weight
 
@@ -1414,15 +1493,26 @@ def pb_weight_bound(torch, case, backward):
     S, M = it.shape[0], it[0].numel()
     with torch.no_grad():
         A, _, _ = pb_weight._linearize(case["params"], it[1:])
-        squarings = int(linalg.squaring_count(
-            A * (pixel_bandwidth.NS_TO_S * dt)[..., None, None]).sum())
-    fixed, per_squaring, per_row = PB_BWD_OPS if backward else PB_FWD_OPS
-    ops = (fixed * (S - 1) * M + per_squaring * squarings
-           + per_row * (S - 1) * M * o)
+        s = linalg.squaring_count(
+            A * (pixel_bandwidth.NS_TO_S * dt)[..., None, None]
+        ).reshape(S - 1, M)
+        live = pb_live_columns(torch, case["g"]) if backward \
+            else torch.ones(M, dtype=torch.bool, device=s.device)
+        n_live = int(live.sum())
+        squarings, squarings_all = int(s[:, live].sum()), int(s.sum())
+    ops = [PB_FWD_OPS] + ([PB_REVERSE_OPS] if backward else [])
+    fixed, per_squaring, per_row = (sum(c) for c in zip(*ops))
+
+    def count(n, n_sq):
+        return fixed * (S - 1) * n + per_squaring * n_sq \
+            + per_row * (S - 1) * n * o
+
     nbytes = 4 * (7 + S * M + (S - 1) * M + S * M * o)
     if backward:
-        nbytes += 4 * (S * M + (S - 1) * M + 7 * M)
-    return bound(nbytes, ops) + (squarings,)
+        nbytes += 4 * (S * M + (S - 1) * M + 7)
+    all_ms = bound(nbytes, count(M, squarings_all))[0]
+    ms, by = bound(nbytes, count(n_live, squarings))
+    return ms, by, squarings, all_ms
 
 
 def pb_forward_error(torch, got, want):
@@ -1472,13 +1562,63 @@ def pb_weight_check(torch, case, fwd_atol=PB_FORWARD_ATOL):
             "ok": fwd_ok and bwd_ok and bitwise and launches == (2, 2)}
 
 
+def pb_conditioning_reading(torch, calib, div):
+    """The weight-chain kernels (through `pb_weight.weight`) and the
+    float32 plain chain on a synthetic case of 32,768 columns with its
+    steps divided by `div`, each against the plain chain in float64 (the
+    exact value), and the kernels against the float32 plain chain at
+    `pb_weight_check`'s tolerances. Here the float32 chain is far from
+    float64 itself, and the kernels miss those tolerances (ROADMAP C13):
+    the reading is printed, and it fails only where the forward kernel is
+    farther from float64 than the float32 plain chain by more than
+    PB_STEP_FORWARD_ATOL of the largest weight, or where its NaNs are
+    not the plain chain's."""
+    from deblur_e_nerf_tpu_torch.ops import pb_weight
+
+    case = pb_weight_inputs(torch, calib, PB_STEP_SHAPE[0], 32768, 0, 2)
+    case["dt"] = case["dt"] / div
+    S, M = case["intensity"].shape
+    c64 = dict(case, **{k: case[k].double()
+                        for k in ("params", "intensity", "dt", "g")})
+    w64, g64 = pb_weight_run(torch, pb_weight.weight_reference, c64)
+    w32, g32 = pb_weight_run(torch, pb_weight.weight_reference, case)
+    w_k, g_k = pb_weight_run(torch, pb_weight.weight, case)
+    fin = torch.isfinite(w64)
+    scale = float(w64[fin].abs().max())
+    f64 = {k: float((w[fin].double() - w64[fin]).abs().max()) / scale
+           for k, w in (("kernel", w_k), ("plain", w32))}
+    err, scale32, same_nonfinite = pb_forward_error(torch, w_k, w32)
+    ratios = pb_weight_errors(torch, g_k, g32)[0]
+    ratios64 = {k: pb_weight_errors(torch, g, g64)[0]
+                for k, g in (("kernel", g_k), ("plain", g32))}
+    print(f"pb_weight conditioning ({calib}, S={S} M={M}, steps "
+          f"{float(case['dt'].min()):.1f}-{float(case['dt'].max()):.1f} "
+          f"ns): forward against the float32 plain chain "
+          f"{err / scale32:.4e} of its largest weight (tolerance "
+          f"{PB_STEP_FORWARD_ATOL:g}), backward error / tolerance "
+          f"{json.dumps(ratios)}; against the float64 plain chain, "
+          f"forward kernel {f64['kernel']:.6e}, float32 plain chain "
+          f"{f64['plain']:.6e}, backward error / tolerance kernel "
+          f"{json.dumps(ratios64['kernel'])}, float32 plain chain "
+          f"{json.dumps(ratios64['plain'])}", flush=True)
+    if not same_nonfinite or \
+            f64["kernel"] > f64["plain"] + PB_STEP_FORWARD_ATOL:
+        raise AssertionError(f"pb_weight conditioning ({calib}, steps / "
+                             f"{div}): the forward kernel is farther from "
+                             f"float64 than the float32 plain chain, or "
+                             f"its NaNs differ")
+
+
 def pb_weight_case(torch, name, case, parent=None):
-    """`pb_weight_check` on a case at PB_STEP_FORWARD_ATOL, then times: the forward kernel in turns
-    with the plain chain's forward, the backward kernel in turns with the
-    plain chain's forward and backward by autograd, `weight` forward and
-    backward as the step runs it (in turns with `parent`, the parent
-    commit's models.pixel_bandwidth, whose intensity_sample_to_weight is
-    the chain as its step ran it), and the library's
+    """`pb_weight_check` on a case at PB_STEP_FORWARD_ATOL, the forward
+    kernel's and the float32 plain chain's error against the plain chain
+    in float64 on the card (the C11 reading), then times: the forward
+    kernel in turns with the plain chain's forward, the backward kernel
+    (on the forward's finiteness byte and saved systems) in turns with the
+    plain chain's forward and backward by autograd, each kernel, with
+    `parent` (load_parent), in turns with the parent commit's kernels on
+    the same inputs, `weight` forward and backward as the step runs it (in turns
+    with the parent's chain as its step ran it), and the library's
     torch.linalg.matrix_exp (the expm part only) and its backward on the
     same (S - 1) M matrices. Returns (forward row, backward row)."""
     from deblur_e_nerf_tpu_torch.models import pixel_bandwidth
@@ -1486,9 +1626,21 @@ def pb_weight_case(torch, name, case, parent=None):
 
     it, dt, g, o = case["intensity"], case["dt"], case["g"], case["n_out"]
     S, M = it.shape[0], it[0].numel()
+    live = int(pb_live_columns(torch, g).sum())
     c = pb_weight_check(torch, case, PB_STEP_FORWARD_ATOL)
-    # times
     p_det = case["params"]
+    # the C11 reading: the float64 plain chain as the exact value
+    with torch.no_grad():
+        w64 = pb_weight.weight_reference(p_det.double(), it.double(),
+                                         dt.double(), o)
+        w_k, finite, systems = pb_weight.weight_forward(p_det, it, dt, o)
+        w_p = pb_weight.weight_reference(p_det, it, dt, o)
+        fin = torch.isfinite(w64)
+        scale64 = float(w64[fin].abs().max())
+        f64 = {k: float((w[fin].double() - w64[fin]).abs().max()) / scale64
+               for k, w in (("kernel", w_k), ("plain", w_p))}
+    del w64, w_p
+    # times
     it_r = it.detach().requires_grad_()
     dt_r = dt.detach().requires_grad_()
     p_r = p_det.clone().requires_grad_()
@@ -1497,7 +1649,7 @@ def pb_weight_case(torch, name, case, parent=None):
         return torch.autograd.grad(pb_weight.weight(p_r, it_r, dt_r, o),
                                    [it_r, dt_r, p_r], g)
 
-    parent_step = None
+    parent_step = parent_fwd = parent_bwd = None
     if parent is not None:
         # the parent's chain takes the raw parameters and constants
         from deblur_e_nerf_tpu_torch.ops import activations
@@ -1508,9 +1660,16 @@ def pb_weight_case(torch, name, case, parent=None):
         consts = {"tau_in_it_eff_prod": p_det[6]}
 
         def parent_step():
-            w = parent.intensity_sample_to_weight(
+            w = parent["pb"].intensity_sample_to_weight(
                 raw, consts, it_r, dt_r, output_sf_log_it=o == 2)
             return torch.autograd.grad(w, [it_r, dt_r, *raw.values()], g)
+
+        def parent_fwd():
+            return parent["pb_ops"].weight_forward(p_det, it, dt, o)
+
+        def parent_bwd():
+            return parent["pb_ops"].weight_backward(p_det, it, dt, g, o)
+
     def plain_fwd():
         with torch.no_grad():
             return pb_weight.weight_reference(p_det, it, dt, o)
@@ -1519,16 +1678,29 @@ def pb_weight_case(torch, name, case, parent=None):
         return torch.autograd.grad(pb_weight.weight_reference(
             p_r, it_r, dt_r, o), [it_r, dt_r, p_r], g)
 
-    # each kernel in turns with the plain chain (plain, kernel, kernel,
-    # plain), and weight() as the step runs it with the parent's chain
+    def fwd():
+        return pb_weight.weight_forward(p_det, it, dt, o)
+
+    def bwd():
+        return pb_weight.weight_backward(p_det, it, dt, g, o, finite,
+                                         systems)
+
+    # each kernel in turns (a, b, b, a) with the plain chain and with the
+    # parent's kernel; weight() as the step runs it with the parent's chain
+    # (the kernels by graph replay: device time, without the wrappers'
+    # host work, which exceeds a kernel's at M = 1,716)
     fwd_ms, fwd_runs, plain_fwd_ms, plain_fwd_runs = in_turns(
-        lambda: pb_weight.weight_forward(p_det, it, dt, o), plain_fwd,
-        iters=10)
+        fwd, plain_fwd, iters=10, timer=graph_ms)
     bwd_ms, bwd_runs, plain_bwd_ms, plain_bwd_runs = in_turns(
-        lambda: pb_weight.weight_backward(p_det, it, dt, g, o),
-        plain_fwd_bwd, iters=10)
+        bwd, plain_fwd_bwd, iters=10, timer=graph_ms)
+    parent_fwd_ms = in_turns(fwd, parent_fwd, iters=10, timer=graph_ms,
+                             parent_timer=graph_ms)
+    parent_bwd_ms = in_turns(bwd, parent_bwd, iters=10, timer=graph_ms,
+                             parent_timer=graph_ms)
+    host_ms = (time_ms(fwd, 10), time_ms(bwd, 10))
     step_ms, step_runs, parent_ms, parent_runs = in_turns(
         step_like, parent_step, iters=10)
+    del systems
     with torch.no_grad():
         A, _, _ = pb_weight._linearize(p_det, it[1:])
         a_dt = (A * (pixel_bandwidth.NS_TO_S * dt)[..., None, None]
@@ -1540,49 +1712,67 @@ def pb_weight_case(torch, name, case, parent=None):
         torch.linalg.matrix_exp(a_req), a_req, cot))
     del a_dt, a_req, cot
     rows = []
-    for backward, ms, runs, err, plain_ms, plain_runs, lib_ms in (
-            (False, fwd_ms, fwd_runs, c["fwd_err"], plain_fwd_ms,
-             plain_fwd_runs, lib_fwd_ms),
-            (True, bwd_ms, bwd_runs, c["bwd_err"], plain_bwd_ms,
-             plain_bwd_runs, lib_bwd_ms)):
-        bound_ms, bound_by, squarings = pb_weight_bound(torch, case, backward)
+    for backward, ms, runs, err, plain_ms, plain_runs, lib_ms, par \
+            in ((False, fwd_ms, fwd_runs, c["fwd_err"], plain_fwd_ms,
+                 plain_fwd_runs, lib_fwd_ms, parent_fwd_ms),
+                (True, bwd_ms, bwd_runs, c["bwd_err"], plain_bwd_ms,
+                 plain_bwd_runs, lib_bwd_ms, parent_bwd_ms)):
+        bound_ms, bound_by, squarings, all_ms = pb_weight_bound(
+            torch, case, backward)
         rows.append({
-            "shape": name, "S": S, "M": M, "n_out": o,
+            "shape": name, "S": S, "M": M, "n_out": o, "live_columns": live,
             "squarings": squarings, "max_abs_err": err, "ms": ms,
             "ms_runs": runs, "plain_ms": plain_ms,
             "plain_ms_runs": plain_runs,
             "plain": "the plain chain's forward" if not backward else
                      "the plain chain's forward and backward (autograd)",
-            "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_every_column": all_ms, "library_ms": lib_ms,
             "library_call": "torch.linalg.matrix_exp"
                             + (" backward" if backward else "")
                             + " of the same matrices (the expm part only)",
+            "parent_kernel_ms": par[2], "parent_kernel_ms_runs": par[3],
+            "in_turns_with_parent_ms_runs": par[1],
+            "host_inclusive_ms": host_ms[backward],
             "bit_identical_runs": c["bitwise"],
             "launches_per_check": c["launches"]})
     rows[0].update(weight_scale=c["fwd_scale"],
-                   tolerance=c["fwd_tolerance"], within=c["fwd_ok"])
+                   tolerance=c["fwd_tolerance"], within=c["fwd_ok"],
+                   float64_error=f64)
     rows[1].update(error_ratios=c["ratios"], within=c["bwd_ok"],
                    step_ms=step_ms,
                    step_ms_runs=step_runs, parent_step_ms=parent_ms,
                    parent_step_ms_runs=parent_runs)
-    print(f"pb_weight {name}: S={S} M={M} o={o}, {rows[0]['squarings']} "
-          f"squarings; forward max_abs_err {c['fwd_err']:.3e} of "
-          f"{c['fwd_scale']:.3e} (tolerance {c['fwd_tolerance']:.3e}: "
-          f"{c['fwd_ok']}); backward error / tolerance "
-          f"{json.dumps(c['ratios'])} (max_abs_err {c['bwd_err']:.3e}; "
-          f"ok: {c['bwd_ok']}); two runs "
-          f"bit identical {c['bitwise']}; launches {c['launches']}; kernel "
-          f"ms fwd {fwd_ms:.4f} {[round(t, 4) for t in fwd_runs]} bwd "
-          f"{bwd_ms:.4f} {[round(t, 4) for t in bwd_runs]}, bound "
+
+    def runs_of(t):
+        return [round(x, 4) for x in t]
+
+    print(f"pb_weight {name}: S={S} M={M} o={o}, {live} of {M} columns "
+          f"with a non-zero cotangent, {rows[0]['squarings']} squarings "
+          f"({rows[1]['squarings']} in live columns); forward max_abs_err "
+          f"{c['fwd_err']:.3e} of {c['fwd_scale']:.3e} (tolerance "
+          f"{c['fwd_tolerance']:.3e}: {c['fwd_ok']}); against the float64 "
+          f"plain chain, of its largest weight: kernel "
+          f"{f64['kernel']:.4e}, float32 plain chain {f64['plain']:.4e}; "
+          f"backward error / tolerance {json.dumps(c['ratios'])} "
+          f"(max_abs_err {c['bwd_err']:.3e}; ok: {c['bwd_ok']}); two runs "
+          f"bit identical {c['bitwise']}; launches {c['launches']}",
+          flush=True)
+    print(f"pb_weight {name} times (ms): kernel (graph replay) fwd "
+          f"{fwd_ms:.4f} {runs_of(fwd_runs)} bwd {bwd_ms:.4f} "
+          f"{runs_of(bwd_runs)}, with the wrappers' host work "
+          f"{host_ms[0]:.4f} / {host_ms[1]:.4f}; bound "
           f"{rows[0]['bound_ms']:.5f} / {rows[1]['bound_ms']:.5f} "
-          f"({rows[0]['bound_by']}); plain fwd {plain_fwd_ms:.3f} "
-          f"{[round(t, 3) for t in plain_fwd_runs]}, fwd + bwd "
-          f"{plain_bwd_ms:.3f} {[round(t, 3) for t in plain_bwd_runs]}; "
-          f"matrix_exp {lib_fwd_ms:.4f}, its "
+          f"({rows[0]['bound_by']} / {rows[1]['bound_by']}; backward over "
+          f"every column {all_ms:.5f}); parent's kernels in turns: fwd "
+          f"{runs_of(parent_fwd_ms[1])} vs {runs_of(parent_fwd_ms[3])}, "
+          f"bwd {runs_of(parent_bwd_ms[1])} vs "
+          f"{runs_of(parent_bwd_ms[3])}; plain fwd {plain_fwd_ms:.3f} "
+          f"{runs_of(plain_fwd_runs)}, fwd + bwd {plain_bwd_ms:.3f} "
+          f"{runs_of(plain_bwd_runs)}; matrix_exp {lib_fwd_ms:.4f}, its "
           f"backward {lib_bwd_ms:.4f}; weight() fwd + bwd as the step runs "
-          f"it {step_ms:.4f} ms {[round(t, 4) for t in step_runs]}, parent "
-          f"{parent_ms} ms {[round(t, 4) for t in parent_runs]}", flush=True)
+          f"it {step_ms:.4f} {runs_of(step_runs)}, parent {parent_ms} "
+          f"{runs_of(parent_runs)}", flush=True)
     if not c["ok"]:
         raise AssertionError(f"pb_weight {name}: differs from the plain "
                              f"chain, is not reproducible or launched "
@@ -1815,13 +2005,13 @@ def capture_pb_inputs(store):
 
     real = pb_weight.weight_backward
 
-    def recording(params, intensity, dt, g, n_out):
+    def recording(params, intensity, dt, g, n_out, *record):
         if not store:
             store.update(params=params.detach().clone(),
                          intensity=intensity.detach().clone(),
                          dt=dt.detach().clone(), g=g.detach().clone(),
                          n_out=n_out)
-        return real(params, intensity, dt, g, n_out)
+        return real(params, intensity, dt, g, n_out, *record)
 
     pb_weight.weight_backward = recording
     try:
@@ -4171,7 +4361,7 @@ def main():
     with phase("1 environment"):
         card = phase_environment(torch)
     with phase("2 build"):
-        phase_build()
+        pb_build = phase_build()["pb_build"]
     with phase("3 kernels vs plain"):
         parent = load_parent(torch, args.parent) if args.parent else None
         rows = phase_kernels(torch, parent)
@@ -4207,12 +4397,14 @@ def main():
 
     step_shape = f"N = K + 1: {ENCODE_CASES[0][0]}"
     kernels = [
-        kernel_line("pb_weight_fwd", PB_WEIGHT_SOURCE, PB_WEIGHT_REPLACES,
-                    rows["pb_weight_fwd"], launches,
-                    "flagship step's own inputs"),
-        kernel_line("pb_weight_bwd", PB_WEIGHT_SOURCE, PB_WEIGHT_REPLACES,
-                    rows["pb_weight_bwd"], launches,
-                    "flagship step's own inputs"),
+        dict(kernel_line("pb_weight_fwd", PB_WEIGHT_SOURCE,
+                         PB_WEIGHT_REPLACES, rows["pb_weight_fwd"], launches,
+                         "flagship step's own inputs"),
+             build=pb_build.get("pb_weight_fwd_kernel")),
+        dict(kernel_line("pb_weight_bwd", PB_WEIGHT_SOURCE,
+                         PB_WEIGHT_REPLACES, rows["pb_weight_bwd"], launches,
+                         "flagship step's own inputs"),
+             build=pb_build.get("pb_weight_bwd_kernel")),
         kernel_line("hash_encode_fwd", HASH_ENCODE_SOURCE,
                     HASH_ENCODE_FWD_REPLACES, rows["hash_encode_fwd"],
                     launches, step_shape, "step"),

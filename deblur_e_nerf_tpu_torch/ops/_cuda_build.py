@@ -168,14 +168,19 @@ def library():
         fn.restype = ctypes.c_int
         fn = lib.pb_weight_fwd
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
-                       ctypes.c_int32, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int32, ctypes.c_int64, ctypes.c_int32,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.pb_weight_bwd
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
-                       ctypes.c_int32, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int32, ctypes.c_int64, ctypes.c_int32,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.pb_weight_attributes
+        fn.argtypes = [ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.l2_reduction_rate
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,

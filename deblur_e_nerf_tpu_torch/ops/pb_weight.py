@@ -12,12 +12,17 @@ ops/linalg.py `expm_ml` / `solve_ml` / `matmul_ml` and
     `weight_chain`) under torch.utils.checkpoint when a gradient is
     wanted.
   - `weight_forward` / `weight_backward`: the kernels' entries (CUDA
-    tensors only; they raise on anything else). `FORWARD_LAUNCHES` and
+    tensors only; they raise on anything else). The forward also returns
+    a finiteness byte a column and each system's Ad, which the backward
+    takes: it skips a column whose cotangent is exactly 0 and whose byte
+    is set, and reverses each live system from the saved Ad (its Bd and
+    Bt from Ad by the FOH) without a second expm. `FORWARD_LAUNCHES` and
     `BACKWARD_LAUNCHES` count their launches.
-  - `weight_backward_model`: a plain PyTorch transcription of the
-    backward kernel, step by step (the recomputed forward, the reverse
-    weight scan, each system's FOH and expm in reverse, the
-    linearization in reverse), held to autograd and to JAX on the CPU.
+  - `weight_forward_model` / `weight_backward_model`: plain PyTorch
+    transcriptions of the kernels, step by step (the forward, its byte
+    and saved systems; the reverse weight scan, each system's FOH and
+    expm in reverse, the linearization in reverse, the skip), held to
+    autograd and to JAX on the CPU.
 
 `params` is the (7,) float32 tensor of `models.pixel_bandwidth
 .packed_params`: tau_mil_it_eff_prod, A_amp_inv, A_loop_inv, tau_out,
@@ -40,6 +45,7 @@ BACKWARD_LAUNCHES = 0  # backward kernel launches since the last reset
 
 MAX_SYSTEMS = 32  # S - 1 at most: one lane of a warp a system
 N_PARAMS = 7
+SYSTEM_FLOATS = 16  # a saved system: its Ad
 NS_TO_S = 1e-9
 # x_ss(u) = [0, u, u, u] at every linearization point (each stage has unit
 # DC gain), so the initial-state direction is a constant vector
@@ -288,36 +294,70 @@ def _linearize_reverse(u, lin, A_bar, B_bar):
     return u_bar, p_bar
 
 
-def weight_backward_model(params, intensity, dt, g, n_out):
+def _finite(u, lin, d, w):
+    """The forward kernel's finiteness byte (...) of each column: every
+    divisor of its systems (u, the parameters' reciprocals, the
+    linearization's denominator, the U diagonals of the three
+    factorizations) and every weight finite. Where it holds, every value
+    the column's reverse reads is finite (csrc/pb_weight.cu)."""
+    divisors = [u, lin["denom"]] + [
+        fac[0][i][..., i] for fac in (d["e"]["fac_p"], d["fac_a"],
+                                      d["fac_a_dt"]) for i in range(4)]
+    ok = torch.stack([torch.isfinite(x) for x in divisors]).all(0).all(0)
+    ok = ok & torch.isfinite(lin["p"][[1, 2, 4, 5]]).all()
+    return ok & torch.isfinite(w).all(-1).all(0)
+
+
+def weight_backward_model(params, intensity, dt, g, n_out, finite=None,
+                          systems=None):
     """The backward kernel's arithmetic in plain PyTorch: from the weights'
     cotangent g (S, ..., o), the cotangents (intensity (S, ...), dt
-    (S-1, ...), params (7,)). Recomputes the forward (`_linearize`,
-    `_discretize`, `_scan`), then runs the scan, each system's FOH and
-    the linearization in reverse. No autograd; float32 or float64."""
+    (S-1, ...), params (7,)). Runs the forward (`_linearize`,
+    `_discretize`; with `systems`, the forward's saved Ad in place of its
+    own, the same values, with (Bd, Bt) from it by the FOH, as here),
+    then the scan, each system's FOH and the linearization in reverse.
+    With `finite` (the forward's byte, `weight_forward_model`), a column
+    whose cotangent is exactly 0 and whose byte is set gets zeros, as the
+    kernel skips it. No autograd; float32 or float64."""
     u = intensity[1:]
     A, B, lin = _linearize(params, u)
     (Ad, Bd, Bt), d = _discretize(A, B, dt)
+    if systems is not None:
+        Ad = d["phi"] = systems.movedim(-2, 0).unflatten(-1, (4, 4)).to(
+            u.dtype)
+    g = g.to(u.dtype)
     c, _ = _scan(Ad, Bd, Bt, n_out)
-    Ad_bar, Bd_bar, Bt_bar = _scan_reverse(Ad, Bd, Bt, c, g.to(u.dtype))
+    Ad_bar, Bd_bar, Bt_bar = _scan_reverse(Ad, Bd, Bt, c, g)
     A_bar, B_bar, dt_bar = _discretize_reverse(A, d, Ad_bar, Bd_bar, Bt_bar)
     u_bar, p_bar = _linearize_reverse(u, lin, A_bar, B_bar)
+    if finite is not None:
+        dead = finite & (g == 0).all(-1).all(0)
+        u_bar = torch.where(dead, 0.0, u_bar)
+        dt_bar = torch.where(dead, 0.0, dt_bar)
+        p_bar = torch.where(dead, 0.0, p_bar)
     g_intensity = torch.cat([torch.zeros_like(intensity[:1]), u_bar])
     return g_intensity, dt_bar, p_bar.reshape(N_PARAMS, -1).sum(-1)
 
 
 def weight_forward_model(params, intensity, dt, n_out):
     """The forward kernel's arithmetic in plain PyTorch (the recompute of
-    `weight_backward_model`): (S, ..., o) weights."""
-    A, B, _ = _linearize(params, intensity[1:])
-    (Ad, Bd, Bt), _ = _discretize(A, B, dt)
-    return _scan(Ad, Bd, Bt, n_out)[1]
+    `weight_backward_model`): the (S, ..., o) weights, the finiteness
+    byte (...) (bool) and the saved systems, each one's Ad
+    (..., S-1, 16)."""
+    u = intensity[1:]
+    A, B, lin = _linearize(params, u)
+    (Ad, Bd, Bt), d = _discretize(A, B, dt)
+    w = _scan(Ad, Bd, Bt, n_out)[1]
+    return w, _finite(u, lin, d, w), \
+        Ad.flatten(-2).movedim(0, -2).contiguous()
 
 
 # ---------------------------------------------------------------------------
 # the kernels
 
 
-def _check(params, intensity, dt, n_out, g=None):
+def _check(params, intensity, dt, n_out, g=None, finite=None,
+           systems=None):
     """The kernels' own limits, the device last; returns (S, M)."""
     if n_out not in (1, 2):
         raise ValueError(f"n_out must be 1 or 2, got {n_out}")
@@ -325,7 +365,8 @@ def _check(params, intensity, dt, n_out, g=None):
         raise ValueError(f"expected intensity (S, ...) with S >= 2, got "
                          f"{tuple(intensity.shape)}")
     S = intensity.shape[0]
-    if tuple(dt.shape) != (S - 1, *intensity.shape[1:]):
+    batch = tuple(intensity.shape[1:])
+    if tuple(dt.shape) != (S - 1, *batch):
         raise ValueError(f"dt {tuple(dt.shape)} does not fit intensity "
                          f"{tuple(intensity.shape)}")
     if tuple(params.shape) != (N_PARAMS,):
@@ -337,8 +378,21 @@ def _check(params, intensity, dt, n_out, g=None):
             raise ValueError(f"g {tuple(g.shape)} does not fit weights "
                              f"{(*intensity.shape, n_out)}")
         tensors["g"] = g
+    if g is not None and (finite is None or systems is None):
+        raise ValueError("the backward takes the forward's finiteness byte "
+                         "and saved systems")
+    if finite is not None:
+        if tuple(finite.shape) != batch or finite.dtype != torch.bool:
+            raise ValueError(f"finite must be bool {batch}, got "
+                             f"{finite.dtype} {tuple(finite.shape)}")
+        tensors["finite"] = finite
+    if systems is not None:
+        if tuple(systems.shape) != (*batch, S - 1, SYSTEM_FLOATS):
+            raise ValueError(f"systems {tuple(systems.shape)} does not fit "
+                             f"{(*batch, S - 1, SYSTEM_FLOATS)}")
+        tensors["systems"] = systems
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
+        if name != "finite" and t.dtype != torch.float32:
             raise TypeError(f"the CUDA kernel takes float32 {name}, got "
                             f"{t.dtype}")
         if not t.is_contiguous():
@@ -366,30 +420,58 @@ def _library():
     return _cuda_build.library()
 
 
+def kernel_attributes():
+    """{kernel: (registers a thread, local-memory bytes a thread)} of the
+    built forward and backward, read from the loaded binary
+    (cudaFuncGetAttributes): local memory is a stack frame or spills."""
+    import ctypes
+
+    lib = _library()
+    found = {}
+    for backward, name in enumerate(("pb_weight_fwd_kernel",
+                                     "pb_weight_bwd_kernel")):
+        regs, local = ctypes.c_int32(), ctypes.c_int64()
+        err = lib.pb_weight_attributes(backward, ctypes.byref(regs),
+                                       ctypes.byref(local))
+        if err != 0:
+            raise RuntimeError(f"{name}: attributes unread: CUDA {err}")
+        found[name] = (regs.value, local.value)
+    return found
+
+
 def weight_forward(params, intensity, dt, n_out):
-    """The forward kernel: (S, ..., o) float32 weights."""
+    """The forward kernel: (the (S, ..., o) float32 weights, the
+    finiteness byte (...) (bool; `weight_forward_model`), each system's
+    Ad (..., S-1, 16) float32 for `weight_backward`)."""
     global FORWARD_LAUNCHES
     S, M = _check(params, intensity, dt, n_out)
     w = torch.empty((*intensity.shape, n_out), dtype=torch.float32,
                     device=intensity.device)
+    finite = torch.empty(intensity.shape[1:], dtype=torch.bool,
+                         device=intensity.device)
+    systems = torch.empty((*intensity.shape[1:], S - 1, SYSTEM_FLOATS),
+                          dtype=torch.float32, device=intensity.device)
     if M:
         err = _library().pb_weight_fwd(
             params.data_ptr(), intensity.data_ptr(), dt.data_ptr(),
-            w.data_ptr(), S, M, n_out, _stream(intensity.device))
+            w.data_ptr(), finite.data_ptr(), systems.data_ptr(), S, M, n_out,
+            _stream(intensity.device))
         if err != 0:
             raise RuntimeError(f"pb_weight_fwd launch failed: CUDA {err}")
         FORWARD_LAUNCHES += 1
-    return w
+    return w, finite, systems
 
 
-def weight_backward(params, intensity, dt, g, n_out):
+def weight_backward(params, intensity, dt, g, n_out, finite, systems):
     """The backward kernel: the cotangents (intensity (S, ...), dt
-    (S-1, ...), params (7,)) from the weights' cotangent g (S, ..., o).
-    The kernel writes each event's parameter partials, summed over its
-    systems in a fixed order, into an (M, 7) buffer; the sum over events
-    is torch.sum's (deterministic)."""
+    (S-1, ...), params (7,)) from the weights' cotangent g (S, ..., o),
+    with the forward's finiteness byte and saved systems. A
+    column whose cotangent is exactly 0 and whose byte is set gets zeros
+    without any work. The kernel writes each event's parameter partials,
+    summed over its systems in a fixed order, into an (M, 7) buffer; the
+    sum over events is torch.sum's (deterministic)."""
     global BACKWARD_LAUNCHES
-    S, M = _check(params, intensity, dt, n_out, g)
+    S, M = _check(params, intensity, dt, n_out, g, finite, systems)
     g_intensity = torch.empty_like(intensity)
     g_dt = torch.empty_like(dt)
     partials = torch.empty((M, N_PARAMS), dtype=torch.float32,
@@ -397,8 +479,9 @@ def weight_backward(params, intensity, dt, g, n_out):
     if M:
         err = _library().pb_weight_bwd(
             params.data_ptr(), intensity.data_ptr(), dt.data_ptr(),
-            g.data_ptr(), g_intensity.data_ptr(), g_dt.data_ptr(),
-            partials.data_ptr(), S, M, n_out, _stream(intensity.device))
+            g.data_ptr(), finite.data_ptr(), systems.data_ptr(),
+            g_intensity.data_ptr(), g_dt.data_ptr(), partials.data_ptr(), S,
+            M, n_out, _stream(intensity.device))
         if err != 0:
             raise RuntimeError(f"pb_weight_bwd launch failed: CUDA {err}")
         BACKWARD_LAUNCHES += 1
@@ -409,23 +492,25 @@ class _Weight(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, params, intensity, dt, n_out):
-        ctx.save_for_backward(params, intensity, dt)
+        w, finite, systems = weight_forward(params, intensity, dt, n_out)
+        ctx.save_for_backward(params, intensity, dt, finite, systems)
         ctx.n_out = n_out
-        return weight_forward(params, intensity, dt, n_out)
+        return w
 
     @staticmethod
     def backward(ctx, g):
-        params, intensity, dt = ctx.saved_tensors
         g_intensity, g_dt, g_params = weight_backward(
-            params, intensity, dt, g.contiguous(), ctx.n_out)
+            *ctx.saved_tensors[:3], g.contiguous(), ctx.n_out,
+            *ctx.saved_tensors[3:])
         return g_params, g_intensity, g_dt, None
 
 
 def weight(params, intensity, dt, n_out):
     """The (S, ..., o) weights of the chain, differentiable in params,
     intensity and dt. CUDA tensors go through the kernels (each input made
-    contiguous first); CPU tensors through the plain chain, rematerialized
-    when a gradient is wanted."""
+    contiguous first; the forward keeps each system's Ad, 64 bytes, for
+    the backward); CPU tensors through the plain chain,
+    rematerialized when a gradient is wanted."""
     if intensity.device.type == "cpu":
         if torch.is_grad_enabled():
             return checkpoint.checkpoint(weight_reference, params, intensity,

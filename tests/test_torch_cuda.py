@@ -853,14 +853,81 @@ def test_pb_weight_dispatch_on_the_card(cuda, monkeypatch):
     assert bool(torch.isfinite(it.grad).all())
 
 
+@pytest.mark.parametrize("calib", ["default", "stiff"])
+def test_pb_weight_skips_zero_cotangent_columns_exactly(cuda, calib):
+    """Half the columns with a zero cotangent (as the padded batch's
+    invalid events have): the backward kernel gives them exactly what
+    autograd of the plain chain gives, 0 (as values: a skipped zero is +0
+    where autograd may give -0), and the live columns and the parameters
+    the cotangents within the CPU tests' tolerances; the finiteness byte
+    is the plain model's."""
+    case = chip_smoke.pb_weight_inputs(torch, calib, 30, 64, 5, 2, seed=4)
+    case["g"][:, ::2] = 0.0
+    w_k, g_k = chip_smoke.pb_weight_run(torch, pb_weight.weight, case)
+    w_p, g_p = chip_smoke.pb_weight_run(torch, pb_weight.weight_reference,
+                                        case)
+    for a, b in zip(g_k[:2], g_p[:2]):
+        assert bool((a[:, ::2] == 0).all() and (b[:, ::2] == 0).all())
+    ratios, _ = chip_smoke.pb_weight_errors(
+        torch, [g_k[0][:, 1::2], g_k[1][:, 1::2], g_k[2]],
+        [g_p[0][:, 1::2], g_p[1][:, 1::2], g_p[2]])
+    assert all(r <= 1 for r in ratios.values()), ratios
+    args = [case[k] for k in ("params", "intensity", "dt")]
+    _, finite, _ = pb_weight.weight_forward(*args, 2)
+    assert torch.equal(finite, pb_weight.weight_forward_model(*args, 2)[1])
+    assert bool(finite.all())
+
+
+def test_pb_weight_nan_in_a_zero_cotangent_column(cuda):
+    """A column whose cotangent is zero but whose intensity holds a NaN:
+    its finiteness byte is unset, so the backward kernel reverses it and
+    gives NaN wherever autograd of the plain chain does (0 * NaN), the
+    parameters' cotangents included."""
+    case = chip_smoke.pb_weight_inputs(torch, "default", 12, 5, 0, 2, seed=4)
+    case["g"][:, 1] = 0.0
+    case["g"][:, 3] = 0.0
+    case["intensity"][4, 1] = float("nan")
+    args = [case[k] for k in ("params", "intensity", "dt")]
+    _, finite, _ = pb_weight.weight_forward(*args, 2)
+    assert finite.tolist() == [True, False, True, True, True]
+    _, g_k = chip_smoke.pb_weight_run(torch, pb_weight.weight, case)
+    _, g_p = chip_smoke.pb_weight_run(torch, pb_weight.weight_reference,
+                                      case)
+    assert bool(torch.isnan(g_p[0][:, 1]).any())
+    assert bool(torch.isnan(g_p[2]).all())
+    for a, b in zip(g_k, g_p):
+        assert bool(torch.isnan(a)[torch.isnan(b)].all())
+    assert bool((g_k[0][:, 3] == 0).all() and (g_k[1][:, 3] == 0).all())
+
+
+def test_pb_weight_kernels_keep_no_local_memory(cuda):
+    """Neither weight-chain kernel, as loaded, has a local-memory stack
+    frame or spills (the backward once kept its squarings' inputs
+    there)."""
+    attrs = pb_weight.kernel_attributes()
+    assert set(attrs) == {"pb_weight_fwd_kernel", "pb_weight_bwd_kernel"}
+    for name, (registers, local_bytes) in attrs.items():
+        assert 0 < registers <= 255, name
+        assert local_bytes == 0, (name, local_bytes)
+
+
 def test_pb_weight_wrappers_raise_instead_of_falling_back(cuda):
     case = chip_smoke.pb_weight_inputs(torch, "default", 12, 5, 0, 2)
     p, it, dt, g = (case[k] for k in ("params", "intensity", "dt", "g"))
+    finite = torch.ones(it.shape[1:], dtype=torch.bool, device=cuda)
+    systems = torch.zeros(5, 11, 16, device=cuda)
     with pytest.raises(TypeError, match="float32"):
         pb_weight.weight_forward(p, it.double(), dt, 2)
     with pytest.raises(ValueError, match="contiguous"):
         pb_weight.weight_backward(p, it, dt, g.transpose(0, 1).contiguous()
-                                  .transpose(0, 1), 2)
+                                  .transpose(0, 1), 2, finite, systems)
+    with pytest.raises(ValueError, match="finite must be bool"):
+        pb_weight.weight_backward(p, it, dt, g, 2, finite.float(), systems)
+    with pytest.raises(ValueError, match="saved systems"):
+        pb_weight.weight_backward(p, it, dt, g, 2, finite, None)
+    with pytest.raises(ValueError, match="systems"):
+        pb_weight.weight_backward(p, it, dt, g, 2, finite,
+                                  torch.zeros(5, 11, 23, device=cuda))
     long = chip_smoke.pb_weight_inputs(torch, "default", 34, 5, 0, 2)
     with pytest.raises(ValueError, match="at most 32 systems"):
         pb_weight.weight_forward(long["params"], long["intensity"],

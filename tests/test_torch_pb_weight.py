@@ -49,15 +49,20 @@ def window(S, n_clamped, n_out, seed=4, N=5):
     return it, dt, g
 
 
-def model_grads(tp, tc, it, dt, g, n_out, dtype=torch.float32):
+def model_grads(tp, tc, it, dt, g, n_out, dtype=torch.float32, skip=False):
     """The model's cotangents of (intensity, dt) and, through softplus, of
-    the six raw parameters (in tp's key order)."""
+    the six raw parameters (in tp's key order); with `skip`, from the
+    forward model's finiteness byte and saved systems, as the kernels run
+    it."""
     raw = {k: v.detach().to(dtype).requires_grad_() for k, v in tp.items()}
     consts = {"tau_in_it_eff_prod": tc["tau_in_it_eff_prod"].to(dtype)}
     packed = tpb.packed_params(raw, consts)
+    args = [packed.detach(), torch.from_numpy(it).to(dtype),
+            torch.from_numpy(dt).to(dtype)]
+    record = pb_weight.weight_forward_model(*args, n_out)[1:] if skip \
+        else ()
     gi, gd, gp = pb_weight.weight_backward_model(
-        packed.detach(), torch.from_numpy(it).to(dtype),
-        torch.from_numpy(dt).to(dtype), torch.from_numpy(g).to(dtype), n_out)
+        *args, torch.from_numpy(g).to(dtype), n_out, *record)
     g_raw = torch.autograd.grad(packed, list(raw.values()), gp)
     return [gi, gd, *g_raw]
 
@@ -120,11 +125,11 @@ def test_backward_model_matches_jax_vjp(name, S, n_clamped, n_out):
     # the forward: the model is the plain chain's arithmetic, bit for bit;
     # JAX's within the tolerance test_weights_with_x0_dir_match_jax holds
     packed = tpb.packed_params(tp, tc).detach()
-    w_m = pb_weight.weight_forward_model(
+    w_m, finite, _ = pb_weight.weight_forward_model(
         packed, torch.from_numpy(it), torch.from_numpy(dt), n_out)
     w_p = pb_weight.weight_reference(packed, torch.from_numpy(it),
                                      torch.from_numpy(dt), n_out)
-    assert torch.equal(w_m, w_p)
+    assert torch.equal(w_m, w_p) and bool(finite.all())
     w_j = np.asarray(w_j)
     np.testing.assert_allclose(w_m.numpy(), w_j, rtol=0,
                                atol=5e-5 * np.abs(w_j).max())
@@ -151,7 +156,7 @@ def test_plain_chain_matches_jax_at_the_step_shape(name, n_clamped):
     packed = tpb.packed_params(tp, tc).detach()  # JAX's raw values
     w_p = pb_weight.weight_reference(packed, it, dt, 2)
     assert torch.equal(w_p, pb_weight.weight_forward_model(packed, it, dt,
-                                                           2))
+                                                           2)[0])
     w_j = np.asarray(_jax_weight(2)(jp, jc, jnp.asarray(it.numpy()),
                                     jnp.asarray(dt.numpy())))
     np.testing.assert_allclose(
@@ -186,17 +191,138 @@ def test_backward_model_keeps_nan_where_the_plain_chain_has_it():
     it[4, 1] = np.nan
     dt[7, 3] = np.nan
     packed = tpb.packed_params(tp, tc).detach()
-    w_m = pb_weight.weight_forward_model(
+    w_m, finite, _ = pb_weight.weight_forward_model(
         packed, torch.from_numpy(it), torch.from_numpy(dt), 2)
     w_p = pb_weight.weight_reference(packed, torch.from_numpy(it),
                                      torch.from_numpy(dt), 2)
     assert bool(torch.isnan(w_p).any())
+    assert finite.tolist() == [True, False, True, False, True]
     assert bool(torch.isnan(w_m)[torch.isnan(w_p)].all())
     got = model_grads(tp, tc, it, dt, g, 2)
     want = autograd_grads(tp, tc, it, dt, g, 2)
     for a, b in zip(got, want):
         assert bool(torch.isnan(a)[torch.isnan(b)].all())
     assert bool(torch.isnan(want[0]).any())
+
+
+def dead_window(name, plant):
+    """A (12, 8) window, 5 clamped steps, whose columns 1, 2, 5 and 6 have
+    a zero cotangent (the padded batch's invalid events); with `plant`
+    "nan", dead column 6 has a NaN intensity."""
+    it, dt, g = window(12, 5, 2, N=8)
+    g[:, [1, 2, 5, 6]] = 0.0
+    if plant == "nan":
+        it[4, 6] = np.nan
+    return it, dt, g
+
+
+@pytest.mark.parametrize("plant", ["none", "nan"])
+@pytest.mark.parametrize("name", ["default", "stiff"])
+def test_backward_model_skips_zero_cotangent_columns_as_autograd(name,
+                                                                 plant):
+    """The model with the forward's finiteness byte and saved systems, as
+    the backward kernel runs: on a column whose cotangent is exactly 0 it
+    gives exactly what autograd of the plain chain gives, 0 where the
+    column is finite, NaN where a planted NaN intensity reaches the
+    reverse (its byte is unset, so it is not skipped: 0 * NaN); the live
+    columns and the parameters as before, within the CPU tolerances."""
+    _, _, tp, tc = make_models(name)
+    it, dt, g = dead_window(name, plant)
+    packed = tpb.packed_params(tp, tc).detach()
+    _, finite, _ = pb_weight.weight_forward_model(
+        packed, torch.from_numpy(it), torch.from_numpy(dt), 2)
+    assert finite.tolist() == [True] * 6 + [plant == "none", True]
+    got = model_grads(tp, tc, it, dt, g, 2, skip=True)
+    want = autograd_grads(tp, tc, it, dt, g, 2)
+    for a, b in zip(got[:2], want[:2]):
+        for col in (1, 2, 5):
+            assert bool((a[:, col] == 0).all() and (b[:, col] == 0).all())
+        nan = torch.isnan(b[:, 6])
+        assert bool(nan.any()) == (plant == "nan")
+        assert bool(torch.isnan(a[:, 6])[nan].all())
+        if plant == "none":
+            assert bool((a[:, 6] == 0).all() and (b[:, 6] == 0).all())
+    live = [0, 3, 4, 7]
+    if plant == "nan":  # the NaN column's partials reach every parameter
+        assert all(bool(torch.isnan(a).all()) for a in got[2:] + want[2:])
+        got[2:] = want[2:] = [torch.ones(1)]
+    assert_grads_close([got[0][:, live], got[1][:, live], *got[2:]],
+                       [want[0][:, live], want[1][:, live], *want[2:]])
+
+
+@pytest.mark.parametrize("name", ["default", "stiff"])
+def test_backward_model_with_the_skip_equals_the_model_without(name):
+    """On a mix of live and dead columns, the model run as the kernel runs
+    it (the byte, the saved systems, the skip) and the model recomputing
+    every column give equal cotangents, entry for entry (a skipped zero is
+    +0 where the full reverse may give -0)."""
+    _, _, tp, tc = make_models(name)
+    it, dt, g = dead_window(name, "none")
+    for a, b in zip(model_grads(tp, tc, it, dt, g, 2, skip=True),
+                    model_grads(tp, tc, it, dt, g, 2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_clamped", [0, 5])
+@pytest.mark.parametrize("name", ["default", "stiff"])
+def test_float32_chains_against_a_float64_chain(name, n_clamped,
+                                                monkeypatch):
+    """The weight chain's float32 error at the flagship step's shape
+    (chip_smoke.PB_STEP_SHAPE), against the port's plain chain in float64
+    (JAX's float64 chain agrees with it within 1e-6 of the largest weight;
+    measured 1.1e-8 and 1.6e-8): the port's float32 plain chain, its
+    step-by-step model (the same bits) and JAX's float32 chain are all
+    1.487e-2 (default) and 5.00e-3 (stiff; JAX 5.01e-3, the farthest) of
+    the largest weight from it, with or without clamped steps, while they
+    differ from each other by at most 2.3e-4
+    (test_plain_chain_matches_jax_at_the_step_shape). The error is the
+    float32 expm's (Pade-13 at theta_13 with the 1-norm scaling, then its
+    squarings): with the expm alone in float64 the float32 chain comes
+    within 9.0e-7 (default) and 1.4e-5 (stiff; 1.9e-4 with the clamped
+    steps, whose (A dt)^-1 rounds next). chip_smoke's phase 3 prints the
+    kernel's error against the same float64 chain on the card."""
+    import chip_smoke
+    from deblur_e_nerf_tpu_torch.ops import linalg
+
+    jp, jc, tp, tc = make_models(name)
+    S, M = chip_smoke.PB_STEP_SHAPE
+    case = chip_smoke.pb_weight_inputs(torch, name, S, M, n_clamped, 2,
+                                       device="cpu")
+    it, dt = case["intensity"], case["dt"]
+    packed = tpb.packed_params(tp, tc).detach()
+    exact = pb_weight.weight_reference(packed.double(), it.double(),
+                                       dt.double(), 2).numpy()
+    scale = np.abs(exact).max()
+
+    def error(w):
+        return np.abs(np.asarray(w, np.float64) - exact).max() / scale
+
+    def jax_weight(dtype):
+        cast = functools.partial(jax.tree_util.tree_map,
+                                 lambda x: jnp.asarray(x, dtype))
+        return np.asarray(_jax_weight(2)(cast(jp), cast(jc),
+                                         jnp.asarray(it.numpy(), dtype),
+                                         jnp.asarray(dt.numpy(), dtype)))
+
+    w_j64 = jax_weight(jnp.float64)
+    assert w_j64.dtype == np.float64 and error(w_j64) <= 1e-6
+    readings = {
+        "plain": pb_weight.weight_reference(packed, it, dt, 2),
+        "model": pb_weight.weight_forward_model(packed, it, dt, 2)[0],
+        "jax": jax_weight(jnp.float32)}
+    errors = {k: error(w) for k, w in readings.items()}
+    print(f"{name}, {n_clamped} clamped: float32 error of the largest "
+          f"weight {errors}")
+    bound = {"default": 1.6e-2, "stiff": 5.5e-3}[name]
+    assert all(e <= bound for e in errors.values()), errors
+    assert max(errors.values()) - min(errors.values()) <= 2.5e-4
+    # the expm alone in float64: the float32 chain's error falls 25x or more
+    real = linalg.expm
+    monkeypatch.setattr(linalg, "expm",
+                        lambda a, *k: real(a.double(), *k).to(a.dtype))
+    rest = error(pb_weight.weight_reference(packed, it, dt, 2))
+    print(f"  with the expm in float64: {rest}")
+    assert rest <= min(errors.values()) / 25
 
 
 def _inputs(S=12, N=5, dtype=torch.float32):
@@ -216,7 +342,11 @@ def test_kernel_entries_check_their_inputs(entry):
         if entry == "forward":
             return pb_weight.weight_forward(params, it, dt, n_out)
         g = torch.zeros((*it.shape, n_out), dtype=it.dtype)
-        return pb_weight.weight_backward(params, it, dt, g, n_out)
+        finite = torch.ones(it.shape[1:], dtype=torch.bool)
+        systems = torch.zeros((*it.shape[1:], it.shape[0] - 1,
+                               pb_weight.SYSTEM_FLOATS), dtype=it.dtype)
+        return pb_weight.weight_backward(params, it, dt, g, n_out, finite,
+                                         systems)
 
     params, it, dt = _inputs()
     before = (pb_weight.FORWARD_LAUNCHES, pb_weight.BACKWARD_LAUNCHES)
