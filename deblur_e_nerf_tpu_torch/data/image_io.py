@@ -10,8 +10,8 @@ for the files the evaluation data holds, with OpenCV's channel order
   - PNG, 8 or 16 bit, gray, RGB or RGBA, not interlaced, with the five row
     filters.
 
-`imwrite(path, img)` writes a float32 TIFF (`.tif`, `.tiff`) or an 8-bit
-PNG (`.png`) from an OpenCV-ordered array. Any other format or variant
+`imwrite(path, img)` writes a float32 TIFF (`.tif`, `.tiff`) or an 8- or
+16-bit PNG (`.png`) from an OpenCV-ordered array. Any other format or variant
 (compressed or tiled TIFF, integer TIFF, palette or gray-alpha PNG,
 interlaced PNG, a transparency chunk, EXR, ...) raises `ValueError`: it is
 never approximated.
@@ -56,8 +56,8 @@ def imread(path):
 
 
 def imwrite(path, img):
-    """Write `img` (OpenCV channel order) as a float32 TIFF or 8-bit PNG,
-    chosen by the file extension."""
+    """Write `img` (OpenCV channel order) as a float32 TIFF or an 8- or
+    16-bit PNG, chosen by the file extension."""
     ext = os.path.splitext(path)[1].lower()
     if ext in (".tif", ".tiff"):
         data = _encode_tiff(img)
@@ -65,7 +65,7 @@ def imwrite(path, img):
         data = _encode_png(img)
     else:
         raise ValueError(f"{path}: unsupported extension {ext!r} "
-                         "(writers: float32 .tiff, 8-bit .png)")
+                         "(writers: float32 .tiff, 8- and 16-bit .png)")
     with open(path, "wb") as f:
         f.write(data)
 
@@ -283,8 +283,10 @@ def _read_png(data, path):
 
 def _encode_png(img):
     img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"the PNG writer takes uint8, got {img.dtype}")
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"the PNG writer takes uint8 or uint16, got "
+                         f"{img.dtype}")
+    depth = 8 * img.dtype.itemsize
     channels = _channels(img, "PNG writer")
     height, width = img.shape[:2]
     pixels = img.reshape(height, width, channels)
@@ -292,7 +294,8 @@ def _encode_png(img):
         pixels = np.concatenate([pixels[..., 2::-1], pixels[..., 3:]],
                                 axis=-1)
     color = {1: 0, 3: 2, 4: 6}[channels]
-    rows = np.ascontiguousarray(pixels).reshape(height, width * channels)
+    rows = np.ascontiguousarray(pixels.astype(f">u{depth // 8}")).view(
+        np.uint8).reshape(height, -1)
     raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
 
     def chunk(kind, body):
@@ -300,7 +303,7 @@ def _encode_png(img):
                 + struct.pack(">I", zlib.crc32(kind + body)))
 
     return (PNG_SIGNATURE
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, color,
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth, color,
                                          0, 0, 0))
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + chunk(b"IEND", b""))

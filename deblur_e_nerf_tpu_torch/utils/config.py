@@ -3,9 +3,12 @@
 Same YAML schema and the same attribute-access `ConfigDict`;
 `ConfigDict.from_dict` builds a config in code. Neither loading nor saving
 needs PyYAML (the GPU machine has none). `load_config` reads with
-`yaml_load`, a reader of the YAML subset the repo's configs are written in:
-block mappings, flow mappings and sequences (also as the whole document),
-plain and quoted scalars resolved as PyYAML resolves them, comments.
+`yaml_load`, a reader of the YAML subset the repo's configs and Kalibr's
+camera chains are written in: block mappings, block sequences of scalars,
+flow values and nested sequences (`- [1.0, 0.0]`, and `- - 1.0` as
+`yaml.safe_dump` writes a list of lists), flow mappings and sequences
+(also as the whole document), plain and quoted scalars resolved as PyYAML
+resolves them, comments.
 `save_config` writes with `yaml_text`, which emits only that subset (block
 mappings, every list in flow style), so both readers load it back to the
 same values.
@@ -180,53 +183,109 @@ def _yaml_scan(line):
     return line.rstrip(), depth
 
 
-def yaml_load(text):
-    """Load the YAML subset of the repo's configs (see the module
-    docstring) into nested dicts, lists and scalars; anything outside it
-    raises ValueError."""
-    lines = []
-    for raw in text.splitlines():
-        line, depth = _yaml_scan(raw)
-        if not line.strip():
+def _yaml_is_item(body):
+    return body == "-" or body.startswith("- ")
+
+
+def _yaml_node(lines, i, indent):
+    """The block value (mapping or sequence) whose entries start at
+    lines[i], at `indent`; returns (value, next line)."""
+    if _yaml_is_item(lines[i][1]):
+        return _yaml_sequence(lines, i, indent)
+    return _yaml_mapping(lines, i, indent)
+
+
+def _yaml_after(lines, i, indent):
+    """The value of an entry whose text ended on line i - 1 at `indent`:
+    the block on the lines below it (deeper, or a sequence at the same
+    indent, as PyYAML's `key:` then `- item`), or null."""
+    if i < len(lines) and (lines[i][0] > indent or (
+            lines[i][0] == indent and _yaml_is_item(lines[i][1]))):
+        return _yaml_node(lines, i, lines[i][0])
+    return None, i
+
+
+def _yaml_sequence(lines, i, indent):
+    """A block sequence: `- scalar`, `- [flow]`, or `- - ...` (a nested
+    sequence, as yaml.safe_dump writes a list of lists); an item that is
+    a mapping or empty raises ValueError."""
+    items = []
+    while i < len(lines) and lines[i][0] == indent \
+            and _yaml_is_item(lines[i][1]):
+        body = lines[i][1][1:]
+        rest = body.lstrip(" ")
+        if _yaml_is_item(rest):  # `- - x`: the inner item starts here
+            lines[i] = (indent + 1 + len(body) - len(rest), rest)
+            value, i = _yaml_sequence(lines, i, lines[i][0])
+            items.append(value)
             continue
-        if lines and lines[-1][1] > 0:  # inside a multi-line flow value
-            indent, open_, body = lines[-1]
-            lines[-1] = (indent, open_ + depth, body + " " + line.strip())
-            continue
-        lines.append((len(line) - len(line.lstrip(" ")), depth,
-                      line.strip()))
-    if lines and lines[0][2][0] in "[{":  # the document is one flow value
-        value, end = _yaml_flow(lines[0][2], 0)
-        if len(lines) > 1 or lines[0][2][end:].strip():
-            raise ValueError(f"trailing text after {lines[0][2]!r}")
-        return value
-    root = {}
-    stack = [(-1, root)]
-    blocks = []  # (parent, key) of each entry with its value on later lines
-    for indent, _, body in lines:
-        if body.startswith("- ") or body == "-":
-            raise ValueError(f"block sequences are not supported: {body!r}")
+        end = _yaml_scalar_end(rest, 0, ":") if rest else 0
+        if not rest or (rest[0] not in "[{" and rest[end:end + 1] == ":"
+                        and rest[end + 1:end + 2] in ("", " ")):
+            raise ValueError(f"only scalars, flow values and sequences are "
+                             f"supported as sequence items: "
+                             f"{lines[i][1]!r}")
+        value, end = _yaml_flow(rest, 0)
+        if rest[end:].strip():
+            raise ValueError(f"trailing text in {lines[i][1]!r}")
+        items.append(value)
+        i += 1
+    if i < len(lines) and lines[i][0] > indent:
+        raise ValueError(f"unexpected indentation: {lines[i][1]!r}")
+    return items, i
+
+
+def _yaml_mapping(lines, i, indent):
+    mapping = {}
+    while i < len(lines) and lines[i][0] == indent \
+            and not _yaml_is_item(lines[i][1]):
+        body = lines[i][1]
         end = _yaml_scalar_end(body, 0, ":")
         key, sep, rest = body[:end], body[end:end + 1], body[end + 1:]
         if not sep or (rest and not rest.startswith(" ")):
             raise ValueError(f"not a mapping entry: {body!r}")
-        while indent <= stack[-1][0]:
-            stack.pop()
-        parent = stack[-1][1]
         key = _yaml_plain(key)
+        i += 1
         if rest.strip():
             value, end = _yaml_flow(rest, 0)
             if rest[end:].strip():
                 raise ValueError(f"trailing text in {body!r}")
-            parent[key] = value
+            mapping[key] = value
         else:
-            parent[key] = {}
-            stack.append((indent, parent[key]))
-            blocks.append((parent, key))
-    for parent, key in blocks:
-        if not parent[key]:  # nothing under the key: null, as in YAML
-            parent[key] = None
-    return root
+            mapping[key], i = _yaml_after(lines, i, indent)
+    if i < len(lines) and lines[i][0] > indent:
+        raise ValueError(f"unexpected indentation: {lines[i][1]!r}")
+    return mapping, i
+
+
+def yaml_load(text):
+    """Load the YAML subset of the repo's configs and of Kalibr's camera
+    chains (see the module docstring) into nested dicts, lists and
+    scalars; anything outside it raises ValueError."""
+    lines = []
+    open_brackets = 0
+    for raw in text.splitlines():
+        line, depth = _yaml_scan(raw)
+        if not line.strip():
+            continue
+        if open_brackets > 0:  # inside a multi-line flow value
+            indent, body = lines[-1]
+            lines[-1] = (indent, body + " " + line.strip())
+            open_brackets += depth
+            continue
+        lines.append((len(line) - len(line.lstrip(" ")), line.strip()))
+        open_brackets = depth
+    if not lines:
+        return {}
+    if lines[0][1][0] in "[{":  # the document is one flow value
+        value, end = _yaml_flow(lines[0][1], 0)
+        if len(lines) > 1 or lines[0][1][end:].strip():
+            raise ValueError(f"trailing text after {lines[0][1]!r}")
+        return value
+    value, i = _yaml_node(lines, 0, lines[0][0])
+    if i < len(lines):
+        raise ValueError(f"unexpected indentation: {lines[i][1]!r}")
+    return value
 
 
 def save_config(config, path):

@@ -13,6 +13,7 @@ import chip_smoke
 from deblur_e_nerf_tpu_torch.models import contraction, fields, hash_encoding
 from deblur_e_nerf_tpu_torch.ops import (gather_rows, hash_encode, pb_weight,
                                          scatter_rows)
+from torch_pb_plant import PLANTS, planted_entry, planted_weight
 
 pytestmark = pytest.mark.cuda
 
@@ -766,17 +767,64 @@ PB_GRID = [(calib, S, 5, n_clamped, n_out, chip_smoke.PB_FORWARD_ATOL)
 def test_pb_weight_kernels_match_the_plain_chain(cuda, calib, S, M,
                                                  n_clamped, n_out, fwd_atol):
     """Both weight-chain kernels (through `pb_weight.weight`) against
-    autograd of the plain chain on the card: the CPU tests' grid of
+    autograd of the plain chain on the card: on the CPU tests' grid of
     calibrations, window lengths, clamped steps and outputs on 5 events,
-    and the flagship step's shape (S = 30, M = 1,716) with
-    chip_smoke.PB_CASES's clamping; the weights within 5e-5 of the
-    largest (PB_STEP_FORWARD_ATOL at the step's shape), NaN nowhere the
-    plain chain is finite, the cotangents at the CPU tests' tolerances
-    (`pb_weight_check`); two runs bit for bit."""
+    the weights within 5e-5 of the float32 plain chain's largest, NaN
+    nowhere it is finite, the cotangents at the CPU tests' tolerances
+    (`pb_weight_check`); at the flagship step's shape (S = 30, M = 1,716)
+    with chip_smoke.PB_CASES's clamping, the step-scale rule
+    (`pb_accuracy_check`: each column no farther from the float64 chain
+    than 1.25 times the float32 plain chain's plus PB_STEP_FORWARD_ATOL
+    forward and one tolerance backward; ROADMAP C13) and, as phase 3
+    holds them, the float32 plain chain's tolerances as well; two runs
+    bit for bit."""
     case = chip_smoke.pb_weight_inputs(torch, calib, S, M, n_clamped, n_out,
                                        seed=4)
-    c = chip_smoke.pb_weight_check(torch, case, fwd_atol)
+    if M == chip_smoke.PB_STEP_SHAPE[1]:
+        c = chip_smoke.pb_accuracy_check(torch, case, fwd_atol,
+                                         float32_gate=True)
+    else:
+        c = chip_smoke.pb_weight_check(torch, case, fwd_atol)
     assert c["ok"], c
+
+
+@pytest.mark.parametrize("calib,div", chip_smoke.PB_CONDITIONING_CASES)
+def test_pb_weight_kernels_hold_the_step_scale_rule_ill_conditioned(
+        cuda, calib, div):
+    """The step-scale rule (`pb_accuracy_check`) on chip_smoke's three
+    conditioning cases of 32,768 columns, where the float32 chain is far
+    from float64 and the kernels miss the float32 plain chain's
+    tolerances."""
+    case = chip_smoke.pb_conditioning_case(torch, calib, div)
+    c = chip_smoke.pb_accuracy_check(torch, case)
+    assert c["ok"], chip_smoke.pb_accuracy_text(c)
+
+
+@pytest.mark.parametrize("plant", list(PLANTS))
+def test_pb_accuracy_check_on_a_planted_kernel_error(cuda, monkeypatch,
+                                                     plant):
+    """`pb_accuracy_check` on the kernels with one entry planted off the
+    float64 chain at the flagship step's shape: beyond its column's limit
+    in the column where the float32 plain chain is farthest from float64
+    or in a well-conditioned one, or a NaN where the plain chain is
+    finite, fails it; half a slack within the limit passes."""
+    case = chip_smoke.pb_weight_inputs(torch, "default",
+                                       *chip_smoke.PB_STEP_SHAPE, 0, 2)
+    references = chip_smoke.pb_plain_references(torch, case)
+    what, column, size = PLANTS[plant]
+    _, _, e_plain, _ = planted_entry(references, what, column, size)
+    if column == "best":
+        assert chip_smoke.PB_STEP_FACTOR * e_plain <= (
+            chip_smoke.PB_STEP_FORWARD_ATOL if what == "forward"
+            else chip_smoke.PB_STEP_BACKWARD_SLACK)
+    monkeypatch.setattr(pb_weight, "weight", planted_weight(
+        references, what, column, size))
+    c = chip_smoke.pb_accuracy_check(torch, case, references=references)
+    if size < 0:
+        assert c["ok"], chip_smoke.pb_accuracy_text(c)
+    else:
+        assert not c["ok"], chip_smoke.pb_accuracy_text(c)
+        assert not c[f"{'fwd' if what == 'forward' else 'bwd'}_ok"]
 
 
 @pytest.mark.parametrize("plant", ["one weight", "every weight"])

@@ -76,12 +76,58 @@ def test_gather_argument_errors():
     assert gather_rows.LAUNCHES == launches  # no kernel on the CPU
 
 
-@pytest.mark.parametrize("case", sorted(perf_microbench.CASES))
+@pytest.mark.parametrize("case", sorted(set(perf_microbench.CASES)
+                                        - set(perf_microbench.LIBRARY_CASES)))
 def test_microbench_checks_hold_on_cpu(case):
-    """The microbenchmark's own checks, on its plain versions."""
+    """The microbenchmark's probes' own checks, on their plain versions."""
     row = perf_microbench.CASES[case]("cpu")
     assert row["max_abs_err"] <= row["tolerance"]
+    assert perf_microbench.within(row)
     assert "ms" not in row  # no time from a CPU run
+
+
+@pytest.mark.parametrize("case", perf_microbench.LIBRARY_CASES)
+def test_microbench_library_baselines_refuse_to_run_without_a_card(case):
+    """The library baselines (the JAX script's XLA-only cases) time the
+    card and nothing else: without one they raise, by default and when
+    given the CPU, before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("the refusal needs a machine without CUDA")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        perf_microbench.CASES[case]()
+    with pytest.raises(ValueError, match="CUDA card only"):
+        perf_microbench.CASES[case]("cpu")
+
+
+def test_sort_boundary_diff_is_the_segment_sum():
+    """The sort_boundary_diff baseline's algorithm (sort by index, cumsum,
+    searchsorted bounds, difference) on the CPU at a small size, with
+    empty rows among the table's, against index_add_ in float64 within
+    its stated 2 N eps sum|x|, and bit for bit on integer-valued data."""
+    gen = torch.Generator().manual_seed(0)
+    n, n_rows = 5000, 3000  # many rows get no contribution
+    idx = torch.randint(0, n_rows, (n,), generator=gen, dtype=torch.int32)
+    v = torch.randn((n,), generator=gen, dtype=torch.float64)
+    got, = perf_microbench.sort_boundary_diff(idx, [v], n_rows)
+    want = torch.zeros(n_rows, dtype=torch.float64).index_add_(
+        0, idx.long(), v)
+    tol = 2 * n * torch.finfo(torch.float64).eps * float(v.abs().sum())
+    assert float((got - want).abs().max()) <= tol
+    assert bool((got[torch.bincount(idx.long(), minlength=n_rows) == 0]
+                 == 0).all())
+    ints = torch.randint(-50, 50, (n,), generator=gen).float()
+    a, b = perf_microbench.sort_boundary_diff(idx, [ints, 2 * ints], n_rows)
+    exact = torch.zeros(n_rows).index_add_(0, idx.long(), ints)
+    assert torch.equal(a, exact) and torch.equal(b, 2 * exact)
+
+
+def test_microbench_within_reads_every_width():
+    """`within` holds a case with one row or with rows by width."""
+    ok = {"max_abs_err": 1.0, "tolerance": 1.0}
+    bad = {"max_abs_err": 2.0, "tolerance": 1.0}
+    assert perf_microbench.within(ok) and not perf_microbench.within(bad)
+    assert perf_microbench.within({"rows": [ok, ok]})
+    assert not perf_microbench.within({"rows": [ok, bad]})
 
 
 def _pack_dense_segment(segment, res):
@@ -207,3 +253,44 @@ def test_vertex_hash_orders_gather_the_same_rows():
     rows_c = gather_rows.gather_rows(tbl, corner, torch.bfloat16)
     assert torch.equal(rows_s.reshape(n, 8, 2).transpose(0, 1),
                        rows_c.reshape(8, n, 2))
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.float32, 1),
+                                         (torch.float32, 8),
+                                         (torch.bfloat16, 1)])
+def test_microbench_scatter_check_holds_each_row(dtype, width):
+    """The scatter baselines' check (`scatter_check`) on index_add_ on the
+    CPU, at the cases' 32 contributions a row (2^20 into 2^15 rows): within
+    every row's tolerance ((k - 1) eps sum|x| in float32, BF16_EPS eps
+    sum|x| in bfloat16), and refused with the largest
+    contribution misrouted to the next row, or with one row's sum off by
+    the largest contribution."""
+    gen = torch.Generator().manual_seed(0)
+    n, n_rows = 1 << 20, 1 << 15
+    idx = torch.randint(0, n_rows, (n,), generator=gen, dtype=torch.int32)
+    val = torch.randn((n, width) if width > 1 else (n,), generator=gen
+                      ).to(dtype)
+
+    def call(i):
+        return torch.zeros((n_rows, *val.shape[1:]), dtype=dtype) \
+            .index_add_(0, i, val)
+
+    err, ratio, misrouted = perf_microbench.scatter_check(idx, val, n_rows,
+                                                          call)
+    print(dtype, width, err, ratio, misrouted)
+    assert 0 <= ratio <= 1 < misrouted
+    assert perf_microbench.within({"max_abs_err": err,
+                                   "error_over_tolerance": ratio,
+                                   "misrouted_error_over_tolerance":
+                                   misrouted})
+    if dtype == torch.bfloat16:
+        # far inside the tolerance: a random walk of roundings
+        assert ratio <= 0.5
+    big = float(val.double().abs().max())
+
+    def off(i):
+        out = call(i)
+        out[7] += big
+        return out
+
+    assert perf_microbench.scatter_check(idx, val, n_rows, off)[1] > 1

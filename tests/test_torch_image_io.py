@@ -153,9 +153,13 @@ def test_each_png_row_filter_matches_cv2(tmp_path, kind):
 
 
 def test_png_writer_reads_back_in_cv2(tmp_path):
+    """8- and 16-bit PNGs of 1, 3 and 4 channels, as cv2 and the reader
+    read them."""
     rng = np.random.default_rng(5)
-    for shape in ((13, 17), (13, 17, 1), (13, 17, 3), (13, 17, 4)):
-        img = rng.integers(0, 256, shape, dtype=np.uint8)
+    for shape, dtype in [(s, d) for d in (np.uint8, np.uint16)
+                         for s in ((13, 17), (13, 17, 1), (13, 17, 3),
+                                   (13, 17, 4))]:
+        img = rng.integers(0, np.iinfo(dtype).max + 1, shape, dtype=dtype)
         image_io.imwrite(str(tmp_path / "w.png"), img)
         want = img[..., 0] if shape[-1] == 1 else img
         _same(_cv2_read(tmp_path / "w.png"), want)

@@ -1,6 +1,6 @@
 """The port and chip_smoke.py import nothing that the GPU machine lacks:
-no jax, flax, optax, orbax, yaml, cv2, tensorboard or deblur_e_nerf_tpu
-(checked in a fresh interpreter)."""
+no jax, flax, optax, orbax, yaml, cv2, h5py, tensorboard or
+deblur_e_nerf_tpu (checked in a fresh interpreter)."""
 
 import os
 import re
@@ -8,8 +8,8 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "yaml", "cv2", "tensorboard",
-             "tensorboardX", "deblur_e_nerf_tpu", "triton",
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "yaml", "cv2", "h5py",
+             "tensorboard", "tensorboardX", "deblur_e_nerf_tpu", "triton",
              "torch.utils.cpp_extension")
 
 SCRIPT = f"""
@@ -26,7 +26,8 @@ for name in ("ops.linalg", "ops.control", "ops.gather_rows",
              "data.image_io", "data.posed_images", "models.offset_gamma",
              "training.metrics", "training.evaluation",
              "training.checkpoint", "quality_run", "cli", "parallel",
-             "parallel.mesh", "parallel.data_parallel"):
+             "parallel.mesh", "parallel.data_parallel", "data.eds_to_esim",
+             "data.hdf5", "data.undistort"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 loaded = sorted(m for m in sys.modules
@@ -56,7 +57,7 @@ def test_sources_use_neither_torch_builders_nor_top_level_imports():
         paths += [os.path.join(root, f) for f in files
                   if f.endswith((".py", ".cu", ".cuh"))]
     top_level_import = re.compile(
-        r"^(import|from)\s+(jax|yaml|cv2|tensorboard\w*)\b", re.M)
+        r"^(import|from)\s+(jax|yaml|cv2|h5py|tensorboard\w*)\b", re.M)
     for path in paths:
         with open(path) as f:
             text = f.read()
@@ -64,3 +65,25 @@ def test_sources_use_neither_torch_builders_nor_top_level_imports():
                        "torch.compile"):
             assert banned not in text, f"{banned!r} in {path}"
         assert not top_level_import.search(text), path
+
+
+CONVERTER = f"""
+import sys
+from deblur_e_nerf_tpu_torch.data import eds_to_esim, hdf5, undistort
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in {FORBIDDEN!r})
+print(loaded)
+"""
+
+
+def test_eds_converter_imports_no_forbidden_module():
+    """The EDS converter and its HDF5 reader and undistortion, alone in a
+    fresh interpreter, import none of jax, deblur_e_nerf_tpu, h5py, cv2
+    and yaml (the GPU machine has none of them)."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", CONVERTER], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout

@@ -18,6 +18,18 @@ from deblur_e_nerf_tpu.models import pixel_bandwidth as jpb
 from deblur_e_nerf_tpu_torch.models import pixel_bandwidth as tpb
 from deblur_e_nerf_tpu_torch.ops import pb_weight
 from test_torch_pixel_bandwidth import make_models
+from torch_pb_plant import PLANTS, planted_entry, planted_weight
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the tier-1 run puts several test processes on
+    the same cores, where torch's spinning thread pool makes the chains'
+    small batched ops many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @functools.lru_cache(maxsize=None)
@@ -433,3 +445,97 @@ def test_chip_smoke_forward_comparison_refuses_nan_where_plain_is_finite(
     if within:
         assert 0 < err <= 2e-7 and scale == float(want[torch.isfinite(want)]
                                                    .max())
+
+
+RULE_CASES = ("ill-conditioned", "step shape")
+
+
+@pytest.fixture(scope="module", params=RULE_CASES)
+def rule_case(request):
+    """A reduced case of chip_smoke's step-scale rule on the CPU, with the
+    plain chain's float32 and float64 references: "ill-conditioned" (S =
+    30, 2,048 columns, the steps / 1000: 100-3,000 ns, where every column
+    of the float32 chain is far from float64) or "step shape" (phase 3's
+    default case, S = 30, at 512 columns, where some columns are
+    well-conditioned)."""
+    import chip_smoke
+
+    if request.param == "ill-conditioned":
+        case = chip_smoke.pb_conditioning_case(torch, "default", 1000,
+                                               M=2048, device="cpu")
+    else:
+        case = chip_smoke.pb_weight_inputs(
+            torch, "default", chip_smoke.PB_STEP_SHAPE[0], 512, 0, 2,
+            device="cpu")
+    return request.param, case, chip_smoke.pb_plain_references(torch, case)
+
+
+def test_step_scale_rule_passes_the_float32_plain_chain(rule_case):
+    """chip_smoke.pb_accuracy_check (ROADMAP C13) with the float32 plain
+    chain in the kernels' place (`weight` runs it on CPU tensors): it
+    passes, column by column within 1 / PB_STEP_FACTOR of each limit, and
+    its own float32 gate, with no launch counted; on the ill-conditioned
+    case, where that chain is itself far from float64 (the case the rule
+    is for), and on the step's shape, where it is near float64 in some
+    columns."""
+    import chip_smoke
+
+    name, case, references = rule_case
+    c = chip_smoke.pb_accuracy_check(torch, case, references=references,
+                                     float32_gate=True)
+    print(chip_smoke.pb_accuracy_text(c))
+    assert c["ok"] and c["float32_ok"], c
+    assert c["launches"] == (0, 0)
+    assert all(r <= 1 / chip_smoke.PB_STEP_FACTOR
+               for r in [c["fwd_reading"], *c["bwd_readings"].values()])
+    assert set(c["bwd"]) == {"intensity", "dt", "params"}
+    assert c["fwd"]["columns"] == case["intensity"][0].numel()
+    assert c["bwd"]["params"]["columns"] == 7
+    if name == "ill-conditioned":
+        # the float32 chain is far from float64 in every column: 2e-2 of
+        # the largest weight, and hundreds of tolerances on each cotangent
+        assert c["fwd"]["plain_max"] > 1e-2
+        assert c["fwd"]["well_conditioned"] == 0
+        assert min(d["plain_max"] for d in c["bwd"].values()) > 100
+    else:
+        assert c["fwd"]["well_conditioned"] > 0
+        assert c["bwd"]["intensity"]["well_conditioned"] > 0
+
+
+@pytest.mark.parametrize("plant", list(PLANTS))
+def test_step_scale_rule_on_planted_errors(rule_case, monkeypatch, plant):
+    """chip_smoke.pb_accuracy_check with one entry planted off the float64
+    chain: beyond its column's limit (PB_STEP_FACTOR times the float32
+    plain chain's column error plus the slack), in the column where that
+    chain is farthest from float64 or in the one where it is nearest (on
+    the step's shape a well-conditioned column, where the planted weight
+    is 2e-4 of the largest beyond the plain chain's error: the entry the
+    largest error over every column does not see), or a NaN where the
+    plain chain is finite, is refused; half a slack within the limit
+    passes."""
+    import chip_smoke
+
+    name, case, references = rule_case
+    what, column, size = PLANTS[plant]
+    _, _, e_plain, limit = planted_entry(references, what, column, size)
+    monkeypatch.setattr(pb_weight, "weight", planted_weight(
+        references, what, column, size))
+    c = chip_smoke.pb_accuracy_check(torch, case, references=references)
+    print(plant, chip_smoke.pb_accuracy_text(c))
+    assert c["bitwise"] and c["launches"] == (0, 0)
+    slack = chip_smoke.PB_STEP_FORWARD_ATOL if what == "forward" \
+        else chip_smoke.PB_STEP_BACKWARD_SLACK
+    if column == "best" and name == "step shape":
+        # a well-conditioned column: the plain chain within the slack
+        assert chip_smoke.PB_STEP_FACTOR * e_plain <= slack
+        if what == "forward" and size > 0:
+            assert limit + size * slack - e_plain >= 2e-4
+    if size < 0:
+        assert c["ok"], c
+    elif what == "forward":
+        assert not c["fwd_ok"] and c["bwd_ok"] and not c["ok"]
+        assert size != size or c["fwd_reading"] > 1
+        assert size == size or not c["same_nonfinite"]
+    else:
+        assert c["fwd_ok"] and not c["bwd_ok"] and not c["ok"]
+        assert c["bwd_readings"]["intensity"] > 1
