@@ -16,7 +16,8 @@ Phases, each printing a start and an end line with elapsed seconds:
      reductions); the weight-chain kernels' registers and local memory,
      read from the loaded binary (local memory, a stack frame or spills,
      fails), and that they run float32 FMAs and no tensor-core
-     instruction;
+     instruction; the render kernels' registers and spills (the
+     compaction's three, the composite's two in float and double);
   3. kernels: each kernel against its plain PyTorch version on the card
      (the Pallas probes K2/K3's shapes too), with times of the kernel, the
      plain version and the PyTorch library calls computing the same
@@ -79,7 +80,21 @@ Phases, each printing a start and an end line with elapsed seconds:
      library baselines of the encode's and K1/K3's rows
      (`perf_microbench.LIBRARY_CASES`: index_add_ in float32, by rows of
      2-32 and in bfloat16, sort + cumsum + searchsorted, index_select, at
-     the JAX script's N = 2^24 and T = 2^19), each within its check;
+     the JAX script's N = 2^24 and T = 2^19), each within its check; the
+     render layer's scans: the stream compaction (compact, three kernels
+     a call) at the flagship's sample and block stages and the r5fix
+     prepass's three-channel put, each below and above its budget, every
+     buffer, the total and the cutoff bit for bit against the plain
+     version, with torch.masked_select timed beside it; the composite
+     forward, its density-only call (the prepass's live mask) and its
+     backward on a dense buffer of the flagship step's size with early
+     stop, clamped samples and truncated rays, alpha_thre 0 and 0.05,
+     against the plain version (forward within COMPOSITE_FWD_*, live
+     counts and masks equal, backward within COMPOSITE_BWD_* of
+     autograd), two runs bit for bit; and, in "3b", both on the steps'
+     own inputs (`capture_render_inputs`: each march stage's compaction
+     at its budget and at half its flagged lanes, the composite's buffer
+     and cotangents of phase 4's and phase 7's steady steps);
   4. training, two paths of configs/train/synthetic.yaml at full width on
      a synthetic dataset, each with the kernels' launch counts set to 0
      just before it and read just after:
@@ -94,7 +109,9 @@ Phases, each printing a start and an end line with elapsed seconds:
           one sync planted just before the step must be counted) and
           whose kernel launches must be one fused encode forward and one
           backward, one weight-chain forward and one backward (no K1, no
-          K3); then the operator calls by layer (op_census) of one more
+          K3), a compaction a march stage, one composite forward and one
+          backward; then the operator calls by layer (op_census) of one
+          more
           steady step (the weight chain's its wrapper's alone) and of a
           sampled and a warmup occupancy update;
   5. reference: on small inputs, the card (through the kernels) against
@@ -181,6 +198,13 @@ Phases, each printing a start and an end line with elapsed seconds:
      output equal, the events the fixture's within the pose window, the
      output read by the port's loaders.
 
+Every path's launches are read with the counts set to 0 just before it
+and must include the compaction and the composite forward, and the
+composite backward exactly on the paths that train; where a step's or a
+frame's counts are known (`render_launches`: a compaction a march stage
+and a prepass, a composite forward a render and a prepass) they must be
+those.
+
 Any failed check raises and the script exits non-zero. The line before
 the last is a JSON object describing each kernel; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -199,7 +223,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 BUDGET_S = 15 * 60
 SCATTER_SOURCE = "deblur_e_nerf_tpu_torch/csrc/scatter_rows.cu"
@@ -417,6 +441,7 @@ def phase_build():
         info["path"], ("RED", "ATOM", "UBLK")), ptxas)
     pb_build = check_pb_weight_build(_cuda_build.sass_instructions(
         info["path"], ("FFMA", "HMMA")), ptxas)
+    check_render_build(ptxas)
     return dict(info, pb_build=pb_build)
 
 
@@ -763,7 +788,8 @@ def vertex_hash_indices(torch, n_samples, size, corner_major, seed=0,
 
 def _bits(torch, t):
     """t's bits as integers of its width (a bit-for-bit comparison)."""
-    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
 
 
 def gather_case(torch, gather_rows, name, width, n_rows, idx, kind, gen):
@@ -1189,6 +1215,439 @@ def l2_reduction_rates(torch, n_rows):
         rows.append(row)
     return rows
 
+# ---------------------------------------------------------------------------
+# the render layer's scans (csrc/compact.cu, ops/compact.py; csrc/
+# composite.cu, ops/composite.py)
+
+# no Pallas kernel: the JAX package's `_compact` (with the prepass's
+# `put`) and `composite`, which XLA compiles
+COMPACT_SOURCE = "deblur_e_nerf_tpu_torch/csrc/compact.cu"
+COMPACT_REPLACES = "deblur_e_nerf_tpu/models/renderer.py:196"
+COMPOSITE_SOURCE = "deblur_e_nerf_tpu_torch/csrc/composite.cu"
+COMPOSITE_REPLACES = "deblur_e_nerf_tpu/models/renderer.py:613"
+# The composite kernels against their plain version on the card,
+# |kernel - plain| <= RTOL |plain| + ATOL (backward: ATOL times the largest
+# entry). Forward: both take each ray's optical depth as a float64 sum
+# rounded to float32 and each ray's weighted sums in float64, in another
+# order (the plain version differences global cumsums): an ulp of float32
+# or so. Backward: the kernel forms each slot's weight cotangent with fused
+# multiply-adds and adds the two paths of sigma dt (the optical depth's
+# and alpha's) in another order than autograd, and the two can cancel.
+COMPOSITE_FWD_RTOL, COMPOSITE_FWD_ATOL = 2e-6, 1e-8
+COMPOSITE_BWD_RTOL, COMPOSITE_BWD_ATOL = 1e-4, 1e-5
+# the flagship march's stage shapes (K = MAIN_PATH_SAMPLE_BUDGET, KB = K /
+# 4, KSB = KB / 2): the sample stage's (KB + 1) x 8 lanes into K slots, the
+# block stage's (KSB + 1) x 4 lanes into KB; the r5fix prepass's put of
+# its K + 1 marched slots into K / 2 (phase 8 checks this K)
+FLAGSHIP_BLOCK_BUDGET = MAIN_PATH_SAMPLE_BUDGET // 4
+FLAGSHIP_SUPERBLOCK_BUDGET = FLAGSHIP_BLOCK_BUDGET // 2
+R5FIX_SAMPLE_BUDGET = 8192 * 30 * 4 * 5 // 4
+# the flagship step's rays at its batch capacity (429 events x S x 4)
+FLAGSHIP_RAYS = 429 * 30 * 4
+
+
+def check_render_build(ptxas):
+    """Print the render kernels' registers and spills (-Xptxas -v); fail
+    unless each was built (the composite kernels in float and double)."""
+    kernels = ("compact_count", "compact_scan", "compact_write",
+               "composite_fwd_kernelIfE", "composite_fwd_kernelIdE",
+               "composite_bwd_kernelIfE", "composite_bwd_kernelIdE")
+    for kernel in kernels:
+        fns = [fn for fn in ptxas if kernel in fn]
+        if not fns and ptxas:
+            raise AssertionError(f"{kernel}: no such instance in the build")
+        for fn in fns:
+            print(f"{kernel} ({fn}): ptxas [{ptxas[fn]}]", flush=True)
+
+
+def compact_inputs(torch, n, fraction, prepass, seed=0):
+    """Seeded flags (each lane with probability `fraction`) and payloads on
+    the card: the march's ascending int64 codes, or the prepass's three
+    channels (t_mid and dt float32, ascending int64 ray ids)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    flags = torch.rand(n, generator=gen, device="cuda") < fraction
+    if not prepass:
+        codes = torch.arange(n, dtype=torch.int64, device="cuda") * 7 + 3
+        return flags, [codes], [7 * n + 3]
+    rays = torch.sort(torch.randint(0, FLAGSHIP_RAYS, (n,), generator=gen,
+                                    device="cuda"))[0]
+    return flags, [torch.rand(n, generator=gen, device="cuda") * 4,
+                   torch.rand(n, generator=gen, device="cuda") * 0.02,
+                   rays], [0.0, 0.0, FLAGSHIP_RAYS]
+
+
+def compact_case(torch, label, kind, flags, payloads, budget, fills,
+                 cutoff=False):
+    """The compaction kernels against their plain version: every buffer bit
+    for bit, the total and the cutoff equal, two runs bit for bit; the
+    kernels' time beside the plain version's, torch.masked_select's of
+    channel 0 (the library call nearest the function) and the bound (the
+    flags read once, the kept lanes' payloads read once and, for the
+    cutoff, the dropped lanes' channel 0, every output slot written
+    once)."""
+    from deblur_e_nerf_tpu_torch.ops import compact as compact_ops
+
+    args = (flags, payloads, budget, fills, cutoff)
+    got = compact_ops.compact(*args)
+    again = compact_ops.compact(*args)
+    plain = compact_ops.compact_reference(*args)
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        return (all(x.dtype == y.dtype and torch.equal(_bits(torch, x),
+                                                       _bits(torch, y))
+                    for x, y in zip(a[0], b[0]))
+                and all(int(x) == int(y) for x, y in zip(a[1:], b[1:])))
+
+    exact, repeat = same(got, plain), same(got, again)
+    err = max([float((x.double() - y.double()).abs().max())
+               for x, y in zip(got[0], plain[0])]
+              + [abs(int(x) - int(y)) for x, y in zip(got[1:], plain[1:])])
+    del got, again, plain
+    total = int(flags.sum())
+    kept = min(total, budget)
+    ms = time_ms(lambda: compact_ops.compact(*args))
+    plain_ms = time_ms(lambda: compact_ops.compact_reference(*args),
+                       iters=10)
+    library_ms = time_ms(lambda: torch.masked_select(payloads[0], flags),
+                         iters=10)
+    size = sum(p.element_size() for p in payloads)
+    nbytes = (flags.numel() + size * kept
+              + (8 * (total - kept) if cutoff else 0)
+              + size * (budget + 1) + 8 * (1 + int(cutoff)))
+    bound_ms, bound_by = bound(nbytes)
+    row = {"shape": label, "index_structure": kind, "n": flags.numel(),
+           "budget": budget, "flagged": total, "overflow": total > budget,
+           "channels": [str(p.dtype).replace("torch.", "")
+                        for p in payloads],
+           "cutoff": cutoff, "max_abs_err": err, "bit_exact": exact,
+           "reproducible": repeat, "tolerance": 0.0, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms,
+           "library_call": "torch.masked_select (channel 0)"}
+    print(f"compact {label} ({kind}): {flags.numel()} lanes, {total} "
+          f"flagged into {budget} (overflow {total > budget}), channels "
+          f"{row['channels']}, cutoff {cutoff}: bit exact {exact}, two runs "
+          f"bit for bit {repeat}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, masked_select {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    if not (exact and repeat):
+        raise AssertionError(f"compact {label} ({kind}): differs from its "
+                             f"plain version or from its own second run")
+    return row
+
+
+def composite_inputs(torch, n_slots, n_rays, channels, density, seed=0):
+    """A seeded ray-contiguous buffer of `n_slots` slots on the card:
+    `n_rays` rays of half to 3/2 their mean count, 5% more samples than
+    the slots hold (the last rays truncated, the last slot empty); sigma
+    uniform below `density` (sigma dt ~ density / 80 a sample), 32
+    overflowed (inf) and 32 with sigma dt far above 25; rgb and t_mid
+    uniform."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    mean = n_slots * 21 // (20 * n_rays)
+    counts = torch.randint(mean // 2, mean * 3 // 2 + 1, (n_rays,),
+                           generator=gen, device="cuda")
+    filled = min(int(counts.sum()), n_slots - 1)
+    ray_idx = torch.full((n_slots,), n_rays, dtype=torch.int64,
+                         device="cuda")
+    ray_idx[:filled] = torch.repeat_interleave(
+        torch.arange(n_rays, device="cuda"), counts)[:filled]
+    valid = ray_idx < n_rays
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape or (n_slots,),
+                                           generator=gen, device="cuda")
+
+    sigma = uniform(0.0, density)
+    extreme = torch.randint(0, filled, (64,), generator=gen, device="cuda")
+    sigma[extreme[:32]] = float("inf")
+    sigma[extreme[32:]] = 1e5
+    return {"sigma": sigma, "rgb": uniform(0.0, 1.0, n_slots, channels),
+            "t_mid": torch.where(valid, uniform(1.0, 5.0), 0.0),
+            "dt": torch.where(valid, uniform(0.005, 0.02), 0.0),
+            "ray_idx": ray_idx, "offsets": torch.cumsum(counts, 0) - counts,
+            "counts": counts, "n_rays": n_rays}
+
+
+def composite_cotangents(torch, n_rays, channels, seed=0):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device="cuda")
+                 for shape in ((n_rays, channels), (n_rays,), (n_rays,)))
+
+
+def _excess(torch, got, want, rtol, atol, scaled):
+    """(largest |got - want|, largest |got - want| - rtol |want| - tol)
+    over the tensors, tol = atol (times the largest finite |want| where
+    `scaled`); equal infinities and NaN in both count as no error, NaN or
+    an infinity in one alone as an infinite one."""
+    err, excess = 0.0, -math.inf
+    for a, b in zip(got, want):
+        a, b = a.double(), b.double()
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        diff = torch.where(same, 0.0, (a - b).abs().nan_to_num(math.inf))
+        finite = b[torch.isfinite(b)]
+        tol = atol * (float(finite.abs().max()) if finite.numel() else 0.0) \
+            if scaled else atol
+        err = max(err, float(diff.max()))
+        excess = max(excess, float(
+            (diff - rtol * b.abs().nan_to_num(0.0, 0.0, 0.0) - tol).max()))
+    return err, excess
+
+
+def composite_case(torch, label, kind, case, early_stop_eps, alpha_thre,
+                   cotangents):
+    """The composite kernels against their plain version on one buffer:
+    the forward's colours, opacities and depths within COMPOSITE_FWD_*,
+    its live counts equal, the density-only call's live mask and counts
+    (the prepass's) equal to the plain version's and to the forward's; the
+    backward's sigma and rgb cotangents within COMPOSITE_BWD_* of autograd
+    through the plain version; every kernel output of two runs bit for
+    bit. Times of each kernel, the plain forward (no gradient), the plain
+    backward alone (torch.autograd.grad on a kept graph) and the bounds
+    (the bytes of the slots in ray segments read once, every output
+    written once; about 40 and 60 operations a slot). Returns the
+    forward's and the backward's rows."""
+    from deblur_e_nerf_tpu_torch.ops import composite as composite_ops
+
+    c = case
+    n_rays, n = c["n_rays"], c["dt"].shape[0]
+    args = (c["sigma"], c["rgb"], c["t_mid"], c["dt"], c["ray_idx"],
+            c["offsets"], c["counts"], n_rays, early_stop_eps, alpha_thre)
+    density_args = (c["sigma"],) + args[3:]
+    fwd = composite_ops.composite_forward(*args, save_trans=True)
+    fwd2 = composite_ops.composite_forward(*args, save_trans=True)
+    live = composite_ops.live_mask(*density_args)
+    live2 = composite_ops.live_mask(*density_args)
+    with torch.no_grad():
+        plain = composite_ops.composite_reference(*args)
+    plain_live = composite_ops.live_mask_reference(*density_args)
+    bwd = composite_ops.composite_backward(*args, fwd[4], *cotangents)
+    bwd2 = composite_ops.composite_backward(*args, fwd[4], *cotangents)
+    sigma = c["sigma"].detach().requires_grad_()
+    rgb = c["rgb"].detach().requires_grad_()
+    outs = composite_ops.composite_reference(sigma, rgb, *args[2:])
+
+    def plain_backward():
+        return torch.autograd.grad(outs[:3], (sigma, rgb), cotangents,
+                                   retain_graph=True)
+
+    plain_grads = plain_backward()
+    torch.cuda.synchronize()
+
+    segment = min(int(c["offsets"][-1] + c["counts"][-1]), n)
+
+    def bitwise(a, b):
+        return all(torch.equal(_bits(torch, x), _bits(torch, y))
+                   for x, y in zip(a, b) if x is not None)
+
+    # T a slot is written for the slots of ray segments only
+    repeat = (bitwise(fwd[:4] + (fwd[4][:segment],),
+                      fwd2[:4] + (fwd2[4][:segment],))
+              and bitwise(live, live2) and bitwise(bwd, bwd2))
+    fwd_err, fwd_excess = _excess(torch, fwd[:3], plain[:3],
+                                  COMPOSITE_FWD_RTOL, COMPOSITE_FWD_ATOL,
+                                  False)
+    bwd_err, bwd_excess = _excess(torch, bwd, plain_grads,
+                                  COMPOSITE_BWD_RTOL, COMPOSITE_BWD_ATOL,
+                                  True)
+    live_equal = (torch.equal(fwd[3], plain[3])
+                  and torch.equal(live[0], plain_live[0])
+                  and torch.equal(live[1], plain_live[1])
+                  and torch.equal(live[1], fwd[3]))
+    n_live = int(fwd[3].sum())
+    ch = c["rgb"].shape[1]
+    width = c["sigma"].element_size()
+    ms_f = time_ms(lambda: composite_ops.composite_forward(
+        *args, save_trans=True))
+    ms_live = time_ms(lambda: composite_ops.live_mask(*density_args))
+    ms_b = time_ms(lambda: composite_ops.composite_backward(
+        *args, fwd[4], *cotangents))
+
+    def plain_forward():
+        with torch.no_grad():
+            return composite_ops.composite_reference(*args)
+
+    plain_f = time_ms(plain_forward, iters=5, warmup=1)
+    plain_b = time_ms(plain_backward, iters=5, warmup=1)
+    plain_live_ms = time_ms(
+        lambda: composite_ops.live_mask_reference(*density_args), iters=5,
+        warmup=1)
+    # a slot of a ray segment reads sigma, rgb (width bytes each), dt,
+    # t_mid (4) and ray_idx (8); the forward writes T, the backward reads
+    # it. A ray: offsets and counts in (16), its ch + 2 outputs (or their
+    # cotangents) and the forward's live count (8)
+    slot_in = width * (1 + ch) + 16
+    per_ray = 16 + (ch + 2) * width
+    bound_f = bound(segment * (slot_in + width) + n_rays * (per_ray + 8),
+                    40 * segment)
+    bound_live = bound(segment * (width + 12) + n + n_rays * 24,
+                       25 * segment)
+    bound_b = bound(segment * (slot_in + width) + n_rays * per_ray
+                    + n * width * (1 + ch), 60 * segment)
+    common = {"shape": label, "index_structure": kind, "n": n,
+              "n_rays": n_rays, "channels": ch,
+              "dtype": str(c["sigma"].dtype).replace("torch.", ""),
+              "segment_slots": segment, "live_samples": n_live,
+              "early_stop_eps": early_stop_eps, "alpha_thre": alpha_thre,
+              "reproducible": repeat, "library_ms": None}
+    rows = (
+        dict(common, max_abs_err=fwd_err, excess=fwd_excess,
+             rtol=COMPOSITE_FWD_RTOL, atol=COMPOSITE_FWD_ATOL,
+             live_equal=live_equal, ms=ms_f, plain_ms=plain_f,
+             bound_ms=bound_f[0], bound_by=bound_f[1],
+             density_only_ms=ms_live, density_only_plain_ms=plain_live_ms,
+             density_only_bound_ms=bound_live[0]),
+        dict(common, max_abs_err=bwd_err, excess=bwd_excess,
+             rtol=COMPOSITE_BWD_RTOL, atol_of_largest=COMPOSITE_BWD_ATOL,
+             ms=ms_b, plain_ms=plain_b, bound_ms=bound_b[0],
+             bound_by=bound_b[1]))
+    print(f"composite {label} ({kind}): {n} slots, {n_rays} rays, {segment} "
+          f"in ray segments, {n_live} live, ch {ch}, "
+          f"{common['dtype']}, alpha_thre {alpha_thre}: forward max_abs_err "
+          f"{fwd_err:.3e} (excess over rtol {COMPOSITE_FWD_RTOL:g} atol "
+          f"{COMPOSITE_FWD_ATOL:g}: {fwd_excess:.3e}), live counts and the "
+          f"prepass's mask equal {live_equal}; backward max_abs_err "
+          f"{bwd_err:.3e} (excess over rtol {COMPOSITE_BWD_RTOL:g} atol "
+          f"{COMPOSITE_BWD_ATOL:g} of the largest: {bwd_excess:.3e}); two "
+          f"runs bit for bit {repeat}; forward {ms_f:.4f} ms (plain "
+          f"{plain_f:.4f}, bound {bound_f[0]:.4f} {bound_f[1]}), "
+          f"density-only {ms_live:.4f} ms (plain {plain_live_ms:.4f}, "
+          f"bound {bound_live[0]:.4f}), backward {ms_b:.4f} ms (plain "
+          f"{plain_b:.4f}, bound {bound_b[0]:.4f} {bound_b[1]})", flush=True)
+    if not (fwd_excess <= 0 and bwd_excess <= 0 and live_equal and repeat):
+        raise AssertionError(f"composite {label} ({kind}): outside its "
+                             f"tolerances, live counts or masks differ, or "
+                             f"not reproducible")
+    return rows
+
+
+def render_kernel_cases(torch):
+    """Phase 3's synthetic cases of the render kernels: the compaction at
+    the flagship's sample and block stages and the r5fix prepass's
+    three-channel put, each below and above its budget; the composite on a
+    dense buffer of the flagship step's size (K + 1 slots, its rays at
+    full batch capacity) with early stop, clamped samples and truncated
+    rays, with alpha_thre 0 and 0.05. Returns {kernel: rows}."""
+    rows = {"compact": [], "composite_fwd": [], "composite_bwd": []}
+    stages = (
+        ("flagship sample stage", (FLAGSHIP_BLOCK_BUDGET + 1) * 8,
+         MAIN_PATH_SAMPLE_BUDGET, False, False, (0.4, 0.6)),
+        ("flagship block stage", (FLAGSHIP_SUPERBLOCK_BUDGET + 1) * 4,
+         FLAGSHIP_BLOCK_BUDGET, False, True, (0.3, 0.7)),
+        ("r5fix prepass put", R5FIX_SAMPLE_BUDGET + 1,
+         R5FIX_SAMPLE_BUDGET // 2, True, False, (0.3, 0.7)))
+    for label, n, budget, prepass, cutoff, fractions in stages:
+        for seed, fraction in enumerate(fractions):
+            flags, payloads, fills = compact_inputs(torch, n, fraction,
+                                                    prepass, seed)
+            rows["compact"].append(compact_case(
+                torch, label, f"synthetic, {fraction:.0%} flagged", flags,
+                payloads, budget, fills, cutoff))
+            del flags, payloads
+            torch.cuda.empty_cache()
+    # one channel, as the flagship's and EDS's event intensities
+    for alpha_thre in (0.0, 0.05):
+        case = composite_inputs(torch, MAIN_PATH_SAMPLE_BUDGET + 1,
+                                FLAGSHIP_RAYS, 1, density=6.0)
+        fwd, bwd = composite_case(
+            torch, "flagship step size", "synthetic, dense", case, 1e-4,
+            alpha_thre, composite_cotangents(torch, FLAGSHIP_RAYS, 1))
+        rows["composite_fwd"].append(fwd)
+        rows["composite_bwd"].append(bwd)
+        del case
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextmanager
+def capture_render_inputs(store):
+    """Record into `store` the inputs (clones on the card) of the render
+    kernels' calls inside: every compaction's (flags, payloads, budget,
+    fills, cutoff) in call order under "compact", the first composite's
+    buffer under "composite" and its backward's cotangents under
+    "cotangents". Wrappers around ops.compact.compact, ops.composite
+    .composite and .composite_backward while the block runs."""
+    from deblur_e_nerf_tpu_torch.ops import compact as compact_ops
+    from deblur_e_nerf_tpu_torch.ops import composite as composite_ops
+
+    real = (compact_ops.compact, composite_ops.composite,
+            composite_ops.composite_backward)
+    store.setdefault("compact", [])
+
+    def compact(flags, payloads, budget, fills, return_cutoff=False):
+        store["compact"].append((flags.clone(),
+                                 [p.clone() for p in payloads], budget,
+                                 list(fills), return_cutoff))
+        return real[0](flags, payloads, budget, fills, return_cutoff)
+
+    def composite(sigma, rgb, t_mid, dt, ray_idx, offsets, counts, n_rays,
+                  early_stop_eps, alpha_thre):
+        if "composite" not in store:
+            store["composite"] = dict(
+                sigma=sigma.detach().clone(), rgb=rgb.detach().clone(),
+                t_mid=t_mid.clone(), dt=dt.clone(), ray_idx=ray_idx.clone(),
+                offsets=offsets.clone(), counts=counts.clone(),
+                n_rays=int(n_rays), early_stop_eps=early_stop_eps,
+                alpha_thre=alpha_thre)
+        return real[1](sigma, rgb, t_mid, dt, ray_idx, offsets, counts,
+                       n_rays, early_stop_eps, alpha_thre)
+
+    def composite_backward(*args):
+        if "cotangents" not in store:
+            store["cotangents"] = tuple(g.clone() for g in args[-3:])
+        return real[2](*args)
+
+    compact_ops.compact = compact
+    composite_ops.composite = composite
+    composite_ops.composite_backward = composite_backward
+    try:
+        yield store
+    finally:
+        (compact_ops.compact, composite_ops.composite,
+         composite_ops.composite_backward) = real
+
+
+def _to_device(value, device):
+    if hasattr(value, "to"):
+        return value.to(device)
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_device(v, device) for v in value)
+    if isinstance(value, dict):
+        return {k: _to_device(v, device) for k, v in value.items()}
+    return value
+
+
+def render_step_cases(torch, label, captured):
+    """The render kernels on a step's own inputs (`capture_render_inputs`,
+    moved to the host): each of the march's compactions at its own budget
+    and at half its flagged lanes (an overflow), and the composite on the
+    step's buffer and cotangents. Returns {kernel: rows}."""
+    rows = {"compact": [], "composite_fwd": [], "composite_bwd": []}
+    calls = captured["compact"]
+    names = ("superblock stage", "block stage", "sample stage")[-len(calls):]
+    for name, call in zip(names, calls):
+        flags, payloads, budget, fills, cutoff = _to_device(call, "cuda")
+        total = int(flags.sum())
+        for kind, b in (("step", budget), ("step, overflow", total // 2)):
+            rows["compact"].append(compact_case(
+                torch, f"{label} step's own inputs: {name}", kind, flags,
+                payloads, b, fills, cutoff))
+        del flags, payloads
+    case = _to_device(captured["composite"], "cuda")
+    eps, alpha_thre = case.pop("early_stop_eps"), case.pop("alpha_thre")
+    fwd, bwd = composite_case(
+        torch, f"{label} step's own inputs", "step", case, eps, alpha_thre,
+        _to_device(captured["cotangents"], "cuda"))
+    rows["composite_fwd"].append(fwd)
+    rows["composite_bwd"].append(bwd)
+    del case
+    torch.cuda.empty_cache()
+    return rows
+
 
 def probe_case(case):
     """A case of the port's microbenchmark: K2/K3 (the JAX script's check)
@@ -1326,7 +1785,8 @@ def phase_kernels(torch, parent=None):
     pb["pb_weight_conditioning"] = [
         pb_conditioning_check(torch, calib, div)
         for calib, div in PB_CONDITIONING_CASES]
-    return dict(encode, **pb, scatter_add_rows=scatter, gather_rows=gather,
+    return dict(encode, **pb, **render_kernel_cases(torch),
+                scatter_add_rows=scatter, gather_rows=gather,
                 scatter_add_rows_call_split=splits,
                 l2_reduction_rates=l2_rates, library_baselines=library)
 
@@ -1339,7 +1799,9 @@ def phase_step_inputs(torch, rows, captured, parent=None):
     intensities, steps and weight cotangent they fed the weight-chain
     backward (`capture_pb_inputs`), and these with a seeded normal
     cotangent in every column (the dense case: the zero-cotangent skip
-    must not hide the full path); the rows join phase 3's."""
+    must not hide the full path); and the render kernels on the
+    compactions and the composite of the same steps
+    (`render_step_cases`); the rows join phase 3's."""
     import numpy as np
 
     for (name, config), label in zip(ENCODE_CASES, ("flagship", "EDS")):
@@ -1371,6 +1833,9 @@ def phase_step_inputs(torch, rows, captured, parent=None):
             rows["pb_weight_fwd"].append(fwd)
             rows["pb_weight_bwd"].append(bwd)
         del case, dense
+        for kernel, found in render_step_cases(torch, label,
+                                               got["render"]).items():
+            rows[kernel] += found
 
 
 # ---------------------------------------------------------------------------
@@ -2004,7 +2469,11 @@ KERNEL_NAMES = {"scatter_add_rows": "scatter_add_rows_kernel",
                 "hash_encode_fwd": "hash_encode_fwd_kernel",
                 "hash_encode_bwd": "hash_encode_bwd_kernel",
                 "pb_weight_fwd": "pb_weight_fwd_kernel",
-                "pb_weight_bwd": "pb_weight_bwd_kernel"}
+                "pb_weight_bwd": "pb_weight_bwd_kernel",
+                # the compaction's three kernels: count, scan, write
+                "compact": "compact_",
+                "composite_fwd": "composite_fwd_kernel",
+                "composite_bwd": "composite_bwd_kernel"}
 
 
 def _device_table(prof, label, n):
@@ -2101,15 +2570,19 @@ def profile_steps(torch, trainer, n_steps=3):
 
 def _launch_counters():
     """{kernel: (its wrapper's module, the name of its launch count)}."""
-    from deblur_e_nerf_tpu_torch.ops import (gather_rows, hash_encode,
-                                             pb_weight, scatter_rows)
+    from deblur_e_nerf_tpu_torch.ops import (compact, composite, gather_rows,
+                                             hash_encode, pb_weight,
+                                             scatter_rows)
 
     return {"scatter_add_rows": (scatter_rows, "LAUNCHES"),
             "gather_rows": (gather_rows, "LAUNCHES"),
             "hash_encode_fwd": (hash_encode, "FORWARD_LAUNCHES"),
             "hash_encode_bwd": (hash_encode, "BACKWARD_LAUNCHES"),
             "pb_weight_fwd": (pb_weight, "FORWARD_LAUNCHES"),
-            "pb_weight_bwd": (pb_weight, "BACKWARD_LAUNCHES")}
+            "pb_weight_bwd": (pb_weight, "BACKWARD_LAUNCHES"),
+            "compact": (compact, "LAUNCHES"),
+            "composite_fwd": (composite, "FORWARD_LAUNCHES"),
+            "composite_bwd": (composite, "BACKWARD_LAUNCHES")}
 
 
 def reset_launches():
@@ -2123,33 +2596,70 @@ def read_launches():
 
 
 def encode_launches(forward, backward, filter_forward=0,
-                    filter_backward=None):
+                    filter_backward=None, render=None):
     """The launches of a path that calls the field `forward` times, runs
     `backward` encode backwards and `filter_forward` weight-chain forwards
     (one a filter-on training step) and `filter_backward` backwards
     (default: as many): one fused encode kernel each, one weight-chain
     kernel each, and neither K1 nor K3 (the per-level encode's kernels,
-    off every path since the encode was fused)."""
+    off every path since the encode was fused); with `render` (a
+    `render_launches` dict), the render layer's kernels too. Compare with
+    `launches_match`: the keys left out are not compared."""
     return {"scatter_add_rows": 0, "gather_rows": 0,
             "hash_encode_fwd": forward, "hash_encode_bwd": backward,
             "pb_weight_fwd": filter_forward,
             "pb_weight_bwd": (filter_forward if filter_backward is None
-                              else filter_backward)}
+                              else filter_backward), **(render or {})}
+
+
+def render_launches(rc, renders=1, trains=True, prepasses=0):
+    """The render layer's launches for `renders` marches under the render
+    config `rc` (two stream compactions each, three with the superblock
+    stage) and composites (one forward each, one backward each if it
+    `trains`), with `prepasses` occlusion prepasses (a density-only
+    composite forward and one three-channel compaction each)."""
+    from deblur_e_nerf_tpu_torch.models import renderer
+
+    stages = 3 if renderer.uses_superblocks(rc) else 2
+    return {"compact": renders * stages + prepasses,
+            "composite_fwd": renders + prepasses,
+            "composite_bwd": renders if trains else 0}
+
+
+def frame_render_launches(render):
+    """The render kernels' launches of the last frame that `render` (a
+    `make_render_image_fn` renderer) drew: a march and a composite a ray
+    chunk, and a prepass a ray chunk where its density pass ran."""
+    stats = render.stats
+    return render_launches(
+        render.render_config, renders=stats["ray_chunks"], trains=False,
+        prepasses=stats["ray_chunks"] if stats["density_chunks"] else 0)
+
+
+def launches_match(got, want):
+    """Whether `got` has `want`'s count for every kernel `want` names."""
+    return all(got.get(k) == v for k, v in want.items())
 
 
 def check_path_launches(path, counts, trains, filter_steps=0):
     """A path launches the fused forward, the backward if it `trains` (and
     not if it does not), one weight-chain forward and one backward for
     each of its `filter_steps` filter-on training steps (none on an eval
-    or filter-off path), and neither K1 nor K3."""
+    or filter-off path), neither K1 nor K3, the stream compaction and the
+    composite forward, and the composite backward if it `trains` (and not
+    if it does not)."""
     if not (counts["hash_encode_fwd"] > 0
             and (counts["hash_encode_bwd"] > 0) == trains
             and counts["pb_weight_fwd"] == counts["pb_weight_bwd"]
             == filter_steps
-            and counts["scatter_add_rows"] == counts["gather_rows"] == 0):
+            and counts["scatter_add_rows"] == counts["gather_rows"] == 0
+            and counts["compact"] > 0 and counts["composite_fwd"] > 0
+            and (counts["composite_bwd"] > 0) == trains):
         raise AssertionError(f"{path}: launches {counts}, want "
                              f"{filter_steps} weight-chain launches a "
-                             f"direction")
+                             f"direction, the render kernels launched "
+                             f"(the composite backward "
+                             f"{'' if trains else 'not '}among them)")
 
 
 def run_steps(torch, trainer, n_steps, label, profile=False):
@@ -2305,10 +2815,12 @@ def count_step_syncs(torch, trainer, label="flagship",
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
-        pb = {}
+        pb, render = {}, {}
         try:
             with capture_encode_inputs({} if capture is None else capture), \
-                    capture_pb_inputs(pb):
+                    capture_pb_inputs(pb), \
+                    (capture_render_inputs(render) if capture is not None
+                     else nullcontext()):
                 _planted_sync(torch)
                 trainer.train_step()
         finally:
@@ -2319,6 +2831,7 @@ def count_step_syncs(torch, trainer, label="flagship",
             capture[key] = capture[key].cpu()
         capture["pb"] = {k: v.cpu() if hasattr(v, "cpu") else v
                          for k, v in pb.items()}
+        capture["render"] = _to_device(render, "cpu")
     launches = read_launches()
     planted = {site: n for site, n in sites.items() if "_planted_sync" in site}
     step_sites = {site: n for site, n in sites.items() if site not in planted}
@@ -2327,8 +2840,9 @@ def count_step_syncs(torch, trainer, label="flagship",
           f"counted {sum(planted.values())} time(s); kernel launches "
           f"{launches}", flush=True)
     if expected is None:
-        expected = encode_launches(1, 1, 1)
-    if launches != expected:
+        expected = encode_launches(
+            1, 1, 1, render=render_launches(trainer.params.nerf.render_config))
+    if not launches_match(launches, expected):
         raise AssertionError(f"a steady {label} step launches {launches}, "
                              f"want {expected}")
     if sum(planted.values()) != 1:
@@ -2759,8 +3273,10 @@ def phase_eval(torch, tmp, trainer, root):
           f"memory {peak:.3f} GiB above the trainer's "
           f"{base / 2**30:.3f} GiB; kernel launches {frame_launches} on "
           f"{card}", flush=True)
-    want = encode_launches(stats["field_chunks"], 0)
-    if not (frame_launches == want and stats["field_chunks"] > 0):
+    want = encode_launches(stats["field_chunks"], 0,
+                           render=frame_render_launches(render))
+    if not (launches_match(frame_launches, want)
+            and stats["field_chunks"] > 0):
         raise AssertionError(f"eval frame launches {frame_launches}, want "
                              f"{want}")
     if img.shape != (H, W) or not bool(torch.isfinite(img).all()) \
@@ -2983,14 +3499,16 @@ def train_eds_epoch(torch, trainer, card):
     return records, occ_calls, saves
 
 
-def check_eds_epoch(records, occ_calls, accumulate, resolution):
-    """Phase 7's checks of epoch 0's micro-steps."""
+def check_eds_epoch(records, occ_calls, accumulate, rc):
+    """Phase 7's checks of epoch 0's micro-steps (`rc` the render
+    config)."""
     # the warmup update's field calls, of 2^19 cells each
-    chunks = -(-(resolution ** 3) // (1 << 19))
+    chunks = -(-(rc.grid_resolution ** 3) // (1 << 19))
     for r in records:
         occ = r["occupancy"]
-        want = encode_launches(1 + (chunks if occ else 0), 1, 1)
-        if r["launches"] != want:
+        want = encode_launches(1 + (chunks if occ else 0), 1, 1,
+                               render=render_launches(rc))
+        if not launches_match(r["launches"], want):
             raise AssertionError(f"EDS micro-step {r['step']}: launches "
                                  f"{r['launches']}, want {want}")
         if occ != (r["step"] % accumulate == 0):
@@ -3095,7 +3613,7 @@ def phase_eds(torch, tmp, card, profile=False, capture=None):
     epoch_s = time.perf_counter() - t_epoch
     launches["eds train"] = read_launches()
     check_eds_epoch(records, occ_calls, accumulate,
-                    trainer.params.nerf.render_config.grid_resolution)
+                    trainer.params.nerf.render_config)
     ckpt0 = f"{log_dir}/checkpoints/epoch_0000"
     size_mib = os.path.getsize(ckpt0) / 2**20
     steady = sorted(r["ms"] for r in records
@@ -3231,8 +3749,10 @@ def phase_eds(torch, tmp, card, profile=False, capture=None):
           f"memory {frame_peak:.3f} GiB above the evaluator's "
           f"{base / 2**30:.3f} GiB; launches {launches['eds frame']} on "
           f"{card}", flush=True)
-    want = encode_launches(stats["field_chunks"], 0)
-    if not (launches["eds frame"] == want and stats["field_chunks"] > 0):
+    want = encode_launches(stats["field_chunks"], 0,
+                           render=frame_render_launches(render))
+    if not (launches_match(launches["eds frame"], want)
+            and stats["field_chunks"] > 0):
         raise AssertionError(f"EDS frame launches {launches['eds frame']}, "
                              f"want {want}")
     if img.shape != (H, W) or not bool(torch.isfinite(img).all()) \
@@ -3360,7 +3880,8 @@ def r5fix_step_launches(trainer, occupancy_update, prepass=True):
         forwards = field_calls + 1
     if occupancy_update:
         forwards += -(-(rc.grid_resolution ** 3) // (1 << 19))
-    return encode_launches(forwards, field_calls + 1, 1)
+    return encode_launches(forwards, field_calls + 1, 1,
+                           render=render_launches(rc, prepasses=int(prepass)))
 
 
 def timed_r5fix_step(torch, trainer, card, step_fn, records,
@@ -3404,7 +3925,7 @@ def timed_r5fix_step(torch, trainer, card, step_fn, records,
           f"{r['peak_gib']:.2f} GiB, launches {r['launches']} on {card}",
           flush=True)
     want = r5fix_step_launches(trainer, occupancy_update, r["prepass"])
-    if r["launches"] != want:
+    if not launches_match(r["launches"], want):
         raise AssertionError(f"{label} step {r['step']}: launches "
                              f"{r['launches']}, want {want}")
     if not math.isfinite(r["loss"]):
@@ -3650,10 +4171,18 @@ def r5fix_chunked_step(torch, trainer, card):
                   f"backward), "
                   f"peak device memory {peak:.2f} GiB, launches forward "
                   f"{forward}, backward {backward} on {card}", flush=True)
-            if not (forward == encode_launches(want["hash_encode_fwd"], 0,
-                                               1, 0)
-                    and backward == encode_launches(
-                        0, want["hash_encode_bwd"], 0, 1)):
+            # the render kernels: the march, prepass and composite
+            # forward in the forward, the composite backward in the
+            # backward
+            render = {k: want[k] for k in ("compact", "composite_fwd",
+                                           "composite_bwd")}
+            if not (launches_match(forward, encode_launches(
+                        want["hash_encode_fwd"], 0, 1, 0,
+                        render=dict(render, composite_bwd=0)))
+                    and launches_match(backward, encode_launches(
+                        0, want["hash_encode_bwd"], 0, 1,
+                        render={"compact": 0, "composite_fwd": 0,
+                                "composite_bwd": render["composite_bwd"]}))):
                 raise AssertionError(f"r5fix field_chunk {chunk}: launches "
                                      f"{forward}, {backward}, want {want}")
     finally:
@@ -3741,8 +4270,8 @@ def r5fix_eval(torch, tmp, trainer, root, card):
           f"{peak:.3f} GiB above the trainer's {base / 2**30:.3f} GiB; "
           f"launches {frame} on {card}", flush=True)
     want = encode_launches(stats["density_chunks"] + stats["field_chunks"],
-                           0)
-    if not (frame == want and stats["field_chunks"] > 0):
+                           0, render=frame_render_launches(render))
+    if not (launches_match(frame, want) and stats["field_chunks"] > 0):
         raise AssertionError(f"r5fix frame launches {frame}, want {want}")
     if img.shape != (H, W) or not bool(torch.isfinite(img).all()) \
             or stats["truncated_rays"]:
@@ -3821,7 +4350,7 @@ def phase_r5fix(torch, tmp, card):
           f"{trainer.ema_decay}", flush=True)
     if not ([m for _, _, _, m in model.field.levels]
             == ["dense"] * 5 + ["hash"] * 11
-            and rc.sample_budget == 8192 * 30 * 4 * 5 // 4
+            and rc.sample_budget == R5FIX_SAMPLE_BUDGET
             and rc.prepass_budget == rc.sample_budget // 2
             and rc.superblock_budget == 0 and rc.field_chunk == 0):
         raise AssertionError("the r5fix trainer is not the one configured")
@@ -4886,6 +5415,15 @@ def main():
         kernel_line("gather_rows", GATHER_SOURCE, GATHER_REPLACES,
                     rows["gather_rows"], launches,
                     "flagship step: cellhash view, levels 7-15"),
+        kernel_line("compact", COMPACT_SOURCE, COMPACT_REPLACES,
+                    rows["compact"], launches,
+                    "flagship step's own inputs: sample stage", "step"),
+        kernel_line("composite_fwd", COMPOSITE_SOURCE, COMPOSITE_REPLACES,
+                    rows["composite_fwd"], launches,
+                    "flagship step's own inputs", "step"),
+        kernel_line("composite_bwd", COMPOSITE_SOURCE, COMPOSITE_REPLACES,
+                    rows["composite_bwd"], launches,
+                    "flagship step's own inputs", "step"),
     ]
     for path in (p for p in launches if p.startswith("data parallel")):
         check_path_launches(path, launches[path], trains=True,

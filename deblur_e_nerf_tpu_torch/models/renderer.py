@@ -25,11 +25,14 @@ the survivors into a (K / prepass_div + 1)-slot buffer, in place of
 nerfacc's in-loop early stop. Its buffers have fixed sizes, so it reads
 nothing back to the host.
 
-Compositing takes each ray's exclusive optical depth (clamped at 25 per
-sample) from a global cumsum minus the ray's segment base. Its value comes
-from a float64 cumsum (the JAX package's double-f32 blocked sums exist
-because the TPU has no fast f64) and its gradient from the float32 path;
-the prepass's live mask reads the same value.
+The stream compactions (the march's stages and the prepass's three
+payloads) go through ops/compact.py, and compositing, with the prepass's
+density-only live mask, through ops/composite.py: on CUDA tensors the
+hand-written kernels of csrc/compact.cu and csrc/composite.cu, on CPU
+tensors their plain versions. Each ray's exclusive optical depth (sigma
+dt clamped at 25 per sample) is a float64 sum rounded to float32 (the JAX
+package's double-f32 blocked sums exist because the TPU has no fast f64),
+and the prepass's live mask comes from the same code as composite's.
 The stratified jitter is an input (`jitter`, (R,) uniforms).
 
 With `rc.field_chunk`, the training render runs the field `field_chunk`
@@ -53,6 +56,8 @@ from torch.utils import checkpoint
 
 from . import contraction as contraction_lib
 from . import occupancy
+from ..ops import compact as compact_ops
+from ..ops import composite as composite_ops
 from ..utils.device import constant
 
 
@@ -187,24 +192,30 @@ def _maxpool_binary(binary, resolution, pool):
 
 def _compact(flags, payload, budget, fill, return_cutoff=False):
     """Stream-compact `payload[flags]` (in lane order) into a (budget + 1,)
-    buffer whose slot `budget` holds `fill`. Returns (buffer, number of
-    flagged lanes[, the smallest dropped payload, == fill if none])."""
-    flags = flags.reshape(-1)
-    payload = payload.reshape(-1)
-    csum = torch.cumsum(flags.to(torch.int64), dim=0)
-    keep = flags & (csum <= budget)
-    # overflow lanes land in a discarded extra slot budget + 1
-    write_idx = torch.where(keep, csum - 1, torch.full_like(csum, budget + 1))
-    buf = torch.full((budget + 2,), fill, dtype=payload.dtype,
-                     device=payload.device)
-    buf[write_idx] = payload
-    buf = buf[:budget + 1]
-    total = csum[-1]
-    if return_cutoff:
-        dropped = torch.where(flags & (csum > budget), payload,
-                              torch.full_like(payload, fill))
-        return buf, total, dropped.min()
-    return buf, total
+    buffer whose slot `budget` holds `fill` (ops/compact.py). Returns
+    (buffer, number of flagged lanes[, the smallest dropped payload, ==
+    fill if none])."""
+    out = compact_ops.compact(flags.reshape(-1), (payload.reshape(-1),),
+                              budget, (fill,), return_cutoff)
+    return (out[0][0], *out[1:])
+
+
+def uses_superblocks(rc):
+    """Whether the march runs its superblock stage (three compactions, else
+    two): the geometry must allow it."""
+    res = rc.grid_resolution
+    n_blocks = -(-rc.max_samples_per_ray // BLOCK_STEPS)
+    min_cell_extent = min((rc.aabb[3 + i] - rc.aabb[i]) / res
+                          for i in range(3))
+    sb_reach = ((SB_BLOCKS * BLOCK_STEPS / 2 + BLOCK_STEPS / 2)
+                * rc.render_step_size)
+    # the superblock reach assumes the uniform timeline
+    return (rc.cone_angle <= 0.0
+            and res % POOL == 0
+            and n_blocks % SB_BLOCKS == 0
+            and n_blocks >= 2 * SB_BLOCKS
+            and sb_reach <= 2 * POOL * min_cell_extent
+            and rc.superblock_budget != 0)
 
 
 @torch.no_grad()
@@ -236,22 +247,9 @@ def march_rays(binary, rays_o, rays_d, ray_mask, jitter, rc):
         t_near = t_near + jitter * rc.render_step_size
 
     dilated = _dilate_binary(binary, res)
-    min_cell_extent = min((rc.aabb[3 + i] - rc.aabb[i]) / res
-                          for i in range(3))
-    sb_reach = ((SB_BLOCKS * BLOCK_STEPS / 2 + BLOCK_STEPS / 2)
-                * rc.render_step_size)
-    # the superblock reach assumes the uniform timeline
-    use_superblocks = (
-        rc.cone_angle <= 0.0
-        and res % POOL == 0
-        and n_blocks % SB_BLOCKS == 0
-        and n_blocks >= 2 * SB_BLOCKS
-        and sb_reach <= 2 * POOL * min_cell_extent
-        and rc.superblock_budget != 0
-    )
     num_superblocks = None
     first_bad_ray = torch.full((), R, dtype=torch.int64, device=device)
-    if use_superblocks:
+    if uses_superblocks(rc):
         pooled_res = res // POOL
         pooled = _maxpool_binary(dilated, res, POOL)
         pooled = _dilate_binary(_dilate_binary(pooled, pooled_res),
@@ -348,86 +346,6 @@ def march_rays(binary, rays_o, rays_d, ray_mask, jitter, rc):
     )
 
 
-def _sigma_dt_alpha(sigma, samples, n_rays, rc):
-    slot_valid = samples.ray_idx < n_rays
-    # per-sample optical depth clamp: exp(-25) is far below any
-    # early-stop eps, and an overflowed density (inf) would poison the
-    # global cumsum with inf - inf
-    sigma_dt = torch.clamp(sigma * samples.dt * slot_valid, max=25.0)
-    alpha = 1.0 - torch.exp(-sigma_dt)
-    if rc.alpha_thre > 0:
-        keep = alpha >= rc.alpha_thre
-        sigma_dt = sigma_dt * keep
-        alpha = alpha * keep
-    return slot_valid, sigma_dt, alpha
-
-
-class _ExclusiveOpticalDepth(torch.autograd.Function):
-    """Per-ray exclusive prefix sums of a ray-contiguous buffer (each ray's
-    samples at offsets .. offsets + counts - 1, empty slots after the last
-    ray), in float64 both ways, rounded to the input's type.
-
-    Forward: a float64 cumsum less each ray's segment base. Backward: the
-    cotangent of sample j is the sum of the cotangents after it in its
-    ray, C[e] - C[j + 1] with C the exclusive float64 cumsum of the
-    cotangent and e the ray's segment end: gathers only, so it is
-    deterministic whatever the thread count (the transpose of a gather is
-    an accumulating index write, whose CPU and CUDA versions add in the
-    order threads finish), and a sample's cotangent carries no error of
-    the buffer's running total (a float32 cumsum's transpose would).
-    Empty slots get a zero cotangent."""
-
-    @staticmethod
-    def forward(ctx, sigma_dt, offsets, counts, safe_ray_idx):
-        x = sigma_dt.detach().double()
-        n = x.shape[0]
-        cum = torch.cumsum(x, dim=0)
-        seg_base = torch.where(
-            offsets > 0, cum[(offsets - 1).clamp(0, n - 1)],
-            torch.zeros((), dtype=cum.dtype, device=cum.device))
-        ctx.save_for_backward((offsets + counts).clamp(max=n)[safe_ray_idx])
-        return (cum - x - seg_base[safe_ray_idx]).to(sigma_dt.dtype)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (ends,) = ctx.saved_tensors
-        g = grad.double()
-        csum = torch.cat([g.new_zeros(1), torch.cumsum(g, dim=0)])
-        pos = torch.arange(g.shape[0], device=g.device)
-        out = torch.where(ends > pos, csum[ends] - csum[1:], 0.0)
-        return out.to(grad.dtype), None, None, None
-
-
-def _optical_depth(sigma_dt, samples, safe_ray_idx):
-    """Exclusive optical depth (`_ExclusiveOpticalDepth`). Composite and
-    the prepass's live mask both read it, so they agree at the early-stop
-    boundary."""
-    return _ExclusiveOpticalDepth.apply(sigma_dt, samples.offsets,
-                                        samples.counts, safe_ray_idx)
-
-
-class _SegmentSum(torch.autograd.Function):
-    """Per-ray sums of a buffer whose ray ids never decrease, with no
-    atomics: the forward takes differences of a float64 cumsum at the
-    segment bounds (rounded to the input's type), the backward gives each
-    slot its ray's cotangent (a gather; zero for slots of id n_rays). An
-    `index_add` adds on the card in the order threads finish, so its
-    sums, and the step's loss, differed run to run."""
-
-    @staticmethod
-    def forward(ctx, values, bounds, seg_ids):
-        csum = torch.cumsum(values.detach().double(), dim=0)
-        csum = torch.cat([csum.new_zeros((1, *csum.shape[1:])), csum])
-        ctx.save_for_backward(seg_ids)
-        return (csum[bounds[1:]] - csum[bounds[:-1]]).to(values.dtype)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (seg_ids,) = ctx.saved_tensors
-        padded = torch.cat([grad, grad.new_zeros((1, *grad.shape[1:]))])
-        return padded[seg_ids], None, None
-
-
 def composite(sigma, rgb, samples, n_rays, rc, render_bkgd=None):
     """Differentiable compositing over flat ray-contiguous samples (K is
     the buffer's own: the prepass's buffer is K / prepass_div + 1 slots).
@@ -435,24 +353,11 @@ def composite(sigma, rgb, samples, n_rays, rc, render_bkgd=None):
     Returns colors (R, ch), opacities (R,), depths (R,) and
     num_rendering_samples () — samples contributing before early stop.
     """
-    slot_valid, sigma_dt, alpha = _sigma_dt_alpha(sigma, samples, n_rays, rc)
-    safe_ray_idx = samples.ray_idx.clamp(0, n_rays - 1)
-    trans_excl = torch.exp(-_optical_depth(sigma_dt, samples, safe_ray_idx))
-    live = trans_excl > rc.early_stop_eps
-    weights = trans_excl * alpha * live * slot_valid
-
-    seg_ids = torch.where(slot_valid, samples.ray_idx,
-                          torch.full_like(samples.ray_idx, n_rays))
-    bounds = torch.searchsorted(
-        seg_ids, torch.arange(n_rays + 1, device=seg_ids.device))
-
-    def segment_sum(values):
-        return _SegmentSum.apply(values, bounds, seg_ids)
-
-    colors = segment_sum(weights[:, None] * rgb)
-    opacities = segment_sum(weights)
-    depths = segment_sum(weights * samples.t_mid)
-    num_rendering_samples = (slot_valid & live).sum()
+    colors, opacities, depths, live_counts = composite_ops.composite(
+        sigma, rgb, samples.t_mid, samples.dt, samples.ray_idx,
+        samples.offsets, samples.counts, n_rays, rc.early_stop_eps,
+        rc.alpha_thre)
+    num_rendering_samples = live_counts.sum()
     if render_bkgd is not None:
         colors = colors + render_bkgd * (1.0 - opacities[:, None])
     return colors, opacities, depths, num_rendering_samples
@@ -468,17 +373,6 @@ def _positions(samples, rays_o, rays_d, n_rays):
     safe_idx = samples.ray_idx.clamp(0, n_rays - 1)
     return (rays_o[safe_idx] + rays_d[safe_idx] * samples.t_mid[:, None],
             rays_d[safe_idx])
-
-
-def _segment_counts(ray_idx, flags, n_rays):
-    """Per-ray counts of `flags` over a buffer whose `ray_idx` never
-    decreases (empty slots, == n_rays, at the end): a difference of the
-    flags' cumsum at the segment bounds, with no read to the host."""
-    csum = torch.cumsum(flags.to(torch.int64), dim=0)
-    csum = torch.cat([csum.new_zeros(1), csum])
-    bounds = torch.searchsorted(
-        ray_idx, torch.arange(n_rays + 1, device=ray_idx.device))
-    return csum[bounds[1:]] - csum[bounds[:-1]]
 
 
 @torch.no_grad()
@@ -505,29 +399,20 @@ def occlusion_prepass(density_only_fn, samples, rays_o, rays_d, n_rays, rc,
     sigma = torch.cat([density_only_fn(positions[sl])[..., 0]
                        for sl in _chunks(positions.shape[0],
                                          rc.field_chunk)])
-    slot_valid, sigma_dt, _ = _sigma_dt_alpha(sigma, samples, n_rays, rc)
-    optical = _optical_depth(sigma_dt, samples,
-                             samples.ray_idx.clamp(0, n_rays - 1))
-    live = (torch.exp(-optical) > rc.early_stop_eps) & slot_valid
-    csum = torch.cumsum(live.to(torch.int64), dim=0)
-    written = live & (csum <= budget)
-    # overflow and dead lanes land in a discarded extra slot budget + 1
-    write_idx = torch.where(written, csum - 1,
-                            torch.full_like(csum, budget + 1))
-
-    def put(payload, fill):
-        buf = torch.full((budget + 2,), fill, dtype=payload.dtype,
-                         device=payload.device)
-        buf[write_idx] = payload
-        return buf[:budget + 1]
-
-    counts = _segment_counts(samples.ray_idx, written, n_rays)
-    live_counts = _segment_counts(samples.ray_idx, live, n_rays)
+    live, live_counts = composite_ops.live_mask(
+        sigma, samples.dt, samples.ray_idx, samples.offsets, samples.counts,
+        n_rays, rc.early_stop_eps, rc.alpha_thre)
+    (t_mid, dt, ray_idx), demand = compact_ops.compact(
+        live, (samples.t_mid, samples.dt, samples.ray_idx), budget,
+        (0.0, 0.0, n_rays))
+    # the buffer keeps the first `budget` live samples in ray order: ray r
+    # keeps those of its live samples that come before the budget
+    live_before = torch.cumsum(live_counts, dim=0) - live_counts
+    counts = torch.minimum((budget - live_before).clamp(min=0), live_counts)
     compacted = samples._replace(
-        t_mid=put(samples.t_mid, 0.0), dt=put(samples.dt, 0.0),
-        ray_idx=put(samples.ray_idx, n_rays), counts=counts,
+        t_mid=t_mid, dt=dt, ray_idx=ray_idx, counts=counts,
         offsets=torch.cumsum(counts, dim=0) - counts)
-    return compacted, csum[-1], live_counts
+    return compacted, demand, live_counts
 
 
 def _run_field(field_fn, positions, directions, chunk):

@@ -182,6 +182,23 @@ def library():
         fn = lib.pb_weight_attributes
         fn.argtypes = [ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.compact_launch
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int32] * 3
+                       + [ctypes.c_uint64] * 3
+                       + [ctypes.c_int64] + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
+        shared = ([ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int32]
+                  + [ctypes.c_void_p] * 5
+                  + [ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
+                     ctypes.c_double])
+        fn = lib.composite_fwd
+        fn.argtypes = shared + [ctypes.c_void_p] * 7
+        fn.restype = ctypes.c_int
+        fn = lib.composite_bwd
+        fn.argtypes = shared + [ctypes.c_void_p] * 7
+        fn.restype = ctypes.c_int
         fn = lib.l2_reduction_rate
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int32, ctypes.c_void_p]

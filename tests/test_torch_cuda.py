@@ -11,7 +11,8 @@ import torch
 
 import chip_smoke
 from deblur_e_nerf_tpu_torch.models import contraction, fields, hash_encoding
-from deblur_e_nerf_tpu_torch.ops import (gather_rows, hash_encode, pb_weight,
+from deblur_e_nerf_tpu_torch.ops import (compact, composite, gather_rows,
+                                         hash_encode, pb_weight,
                                          scatter_rows)
 from torch_pb_plant import PLANTS, planted_entry, planted_weight
 
@@ -982,3 +983,153 @@ def test_pb_weight_wrappers_raise_instead_of_falling_back(cuda):
                                  long["dt"], 2)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         pb_weight.weight_forward(p.cpu(), it, dt, 2)
+
+
+# the render layer's scans: the compaction and the composite kernels
+
+
+@pytest.mark.parametrize("n,fraction,budget_of,cutoff,prepass", [
+    (1, 1.0, 1.0, True, False),           # one lane
+    (4097, 0.5, 2.0, True, False),        # two tiles, below the budget
+    (1000003, 0.3, 2.0, True, False),     # ragged tiles, below
+    (1000003, 0.6, 0.5, True, False),     # overflow, with the cutoff
+    (1000003, 0.5, 1.0, False, False),    # at the budget
+    (1000003, 0.0, None, True, False),    # nothing flagged
+    (1000003, 1.0, 0.25, True, False),    # every lane, overflow
+    (1228801, 0.4, 0.5, False, True),     # the prepass's three channels
+    (1228801, 0.4, 2.0, False, True),
+])
+def test_compact_kernel_matches_plain_bit_for_bit(cuda, n, fraction,
+                                                  budget_of, cutoff,
+                                                  prepass):
+    """Every buffer, the total and the cutoff bit for bit against the plain
+    version, and two runs bit for bit (chip_smoke.compact_case)."""
+    flags, payloads, fills = chip_smoke.compact_inputs(torch, n, fraction,
+                                                       prepass, seed=n % 7)
+    total = int(flags.sum())
+    budget = int(total * budget_of) if budget_of is not None else 1000
+    before = compact.LAUNCHES
+    row = chip_smoke.compact_case(torch, "card test", "synthetic", flags,
+                                  payloads, budget, fills, cutoff)
+    assert row["bit_exact"] and row["reproducible"]
+    assert compact.LAUNCHES > before
+
+
+def test_compact_wrapper_raises_instead_of_falling_back(cuda):
+    flags = torch.ones(10, dtype=torch.bool, device=cuda)
+    codes = torch.arange(10, device=cuda)
+    with pytest.raises(TypeError, match="bool"):
+        compact.compact(flags.int(), [codes], 5, [0])
+    with pytest.raises(TypeError, match="int64"):
+        compact.compact(flags, [codes.float()], 5, [0], True)
+    with pytest.raises(ValueError, match="contiguous"):
+        compact.compact(flags, [torch.arange(20, device=cuda)[::2]], 5, [0])
+    with pytest.raises(ValueError, match="payloads"):
+        compact.compact(flags, [codes] * 4, 5, [0] * 4)
+    with pytest.raises(ValueError, match="flags on"):
+        compact.compact(flags, [codes.cpu()], 5, [0])
+
+
+def _zero_count_rays(case):
+    """Give every fifth ray of a composite case no samples (its slots go
+    to the next rays)."""
+    counts = case["counts"].clone()
+    counts[::5] = 0
+    n, n_rays = case["dt"].shape[0], case["n_rays"]
+    filled = min(int(counts.sum()), n - 1)
+    ray_idx = torch.full_like(case["ray_idx"], n_rays)
+    ray_idx[:filled] = torch.repeat_interleave(
+        torch.arange(n_rays, device=counts.device), counts)[:filled]
+    valid = ray_idx < n_rays
+    # an empty slot's sigma stays finite, as a field's is there (an
+    # infinite one would make the plain version's sigma dt 0 x inf = NaN)
+    return dict(case, counts=counts, ray_idx=ray_idx,
+                offsets=torch.cumsum(counts, 0) - counts,
+                dt=torch.where(valid, case["dt"].clamp(min=0.005), 0.0),
+                sigma=torch.where(valid, case["sigma"], 1.0))
+
+
+@pytest.mark.parametrize("alpha_thre", [0.0, 0.05])
+@pytest.mark.parametrize("channels,dtype,kind", [
+    (3, torch.float32, "dense"), (1, torch.float32, "dense"),
+    (3, torch.float64, "dense"), (3, torch.float32, "zero-count rays")])
+def test_composite_kernels_match_plain(cuda, alpha_thre, channels, dtype,
+                                       kind):
+    """Forward (colours, opacities, depths; live counts and the prepass's
+    density-only mask exactly), backward (sigma and rgb cotangents) within
+    chip_smoke's COMPOSITE_* tolerances of the plain version through
+    autograd, every output of two runs bit for bit
+    (chip_smoke.composite_case), on 200,001 slots of 700 rays with early
+    stop, clamped and truncated rays; in float64 too (the prepass check's
+    render), and with rays of no samples."""
+    case = chip_smoke.composite_inputs(torch, 200001, 700, channels,
+                                       density=6.0, seed=channels)
+    if kind == "zero-count rays":
+        case = _zero_count_rays(case)
+    case["sigma"], case["rgb"] = (case["sigma"].to(dtype),
+                                  case["rgb"].to(dtype))
+    cot = tuple(g.to(dtype) for g in chip_smoke.composite_cotangents(
+        torch, 700, channels))
+    before = (composite.FORWARD_LAUNCHES, composite.BACKWARD_LAUNCHES)
+    fwd, bwd = chip_smoke.composite_case(torch, "card test", kind, case,
+                                         1e-4, alpha_thre, cot)
+    assert fwd["live_equal"] and fwd["reproducible"]
+    assert 0 < fwd["live_samples"] < fwd["segment_slots"]
+    assert composite.FORWARD_LAUNCHES > before[0]
+    assert composite.BACKWARD_LAUNCHES > before[1]
+
+
+def test_composite_through_the_renderer_launches_the_kernels(cuda):
+    """renderer.composite on card tensors goes through the kernels (one
+    forward, one backward) and its num_rendering_samples is the live
+    counts' sum."""
+    from deblur_e_nerf_tpu_torch.models import renderer
+
+    case = chip_smoke.composite_inputs(torch, 50001, 200, 3, density=6.0)
+    samples = renderer.RaySamples(
+        t_mid=case["t_mid"], dt=case["dt"], ray_idx=case["ray_idx"],
+        counts=case["counts"], offsets=case["offsets"],
+        num_samples=case["counts"].sum(), num_blocks=torch.tensor(0),
+        num_superblocks=None,
+        coarse_complete=torch.ones(200, dtype=torch.bool, device=cuda))
+    rc = renderer.RenderConfig(
+        aabb=(-1.0,) * 3 + (1.0,) * 3,
+        contraction_type=contraction.ContractionType.AABB,
+        grid_resolution=16, near_plane=0.0, far_plane=None,
+        render_step_size=0.01)
+    sig = case["sigma"].requires_grad_()
+    col = case["rgb"].requires_grad_()
+    before = (composite.FORWARD_LAUNCHES, composite.BACKWARD_LAUNCHES)
+    c, op, dep, n_live = renderer.composite(sig, col, samples, 200, rc)
+    (c.sum() + op.sum() + dep.sum()).backward()
+    torch.cuda.synchronize()
+    assert (composite.FORWARD_LAUNCHES - before[0],
+            composite.BACKWARD_LAUNCHES - before[1]) == (1, 1)
+    plain = composite.composite_reference(
+        case["sigma"].detach(), case["rgb"].detach(), case["t_mid"],
+        case["dt"], case["ray_idx"], case["offsets"], case["counts"], 200,
+        rc.early_stop_eps, rc.alpha_thre)
+    assert int(n_live) == int(plain[3].sum())
+
+
+def test_composite_wrapper_raises_instead_of_falling_back(cuda):
+    case = chip_smoke.composite_inputs(torch, 1001, 10, 3, density=6.0)
+    args = [case[k] for k in ("sigma", "rgb", "t_mid", "dt", "ray_idx",
+                              "offsets", "counts")] + [10, 1e-4, 0.0]
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        composite.composite_forward(*[a.cpu() if torch.is_tensor(a) else a
+                                      for a in args])
+    with pytest.raises(TypeError, match="float32 or float64"):
+        composite.composite_forward(args[0].half(), *args[1:])
+    with pytest.raises(TypeError, match="rgb is"):
+        composite.composite_forward(args[0], args[1].double(), *args[2:])
+    with pytest.raises(TypeError, match="int64"):
+        composite.composite_forward(*args[:4], args[4].int(), *args[5:])
+    with pytest.raises(ValueError, match="contiguous"):
+        composite.composite_forward(
+            *args[:3], torch.stack([args[3], args[3]], 1)[:, 0], *args[4:])
+    with pytest.raises(ValueError, match="contiguous"):
+        composite.composite_forward(
+            torch.stack([args[0], args[0]], 1)[:, 0], *args[1:])
+    with pytest.raises(ValueError, match="offsets and counts"):
+        composite.composite_forward(*args[:7], 11, *args[8:])

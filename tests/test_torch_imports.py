@@ -21,7 +21,8 @@ for name in names:
 # the filter path, the kernels' and the evaluation stack's modules, the
 # quality harness, the command line and data parallelism are among them
 for name in ("ops.linalg", "ops.control", "ops.gather_rows",
-             "ops.hash_encode", "ops.pb_weight", "models.pixel_bandwidth",
+             "ops.hash_encode", "ops.pb_weight", "ops.compact",
+             "ops.composite", "models.pixel_bandwidth",
              "perf_microbench",
              "data.image_io", "data.posed_images", "models.offset_gamma",
              "training.metrics", "training.evaluation",

@@ -177,27 +177,39 @@ def test_chip_smoke_r5fix_config_is_the_yaml_with_its_listed_cuts():
     model.field = type("F", (), {"levels": [None] * 16})()
     model.render_config = type("RC", (), dict(
         sample_budget=1_228_800, prepass_budget=614_400, field_chunk=0,
-        grid_resolution=64))()
+        grid_resolution=64, aabb=tuple(want["model"]["nerf"]["aabb"]),
+        max_samples_per_ray=1024, render_step_size=3 ** 0.5 * 3 / 1024,
+        cone_angle=0.0, superblock_budget=0))()
     trainer = type("T", (), {})()
     trainer.params = type("P", (), {"nerf": model})()
     # one fused encode forward a field call, one backward a field backward
     # (K1 and K3 launch on no path), one weight-chain forward and backward
-    # a step
-    launches = chip_smoke.encode_launches
+    # a step; the render kernels: the march's two compactions (no
+    # superblock stage at superblock_budget 0), one composite forward and
+    # one backward, and with the prepass one more compaction and one more
+    # composite forward (its live mask)
+
+    def step_launches(forward, backward, filter_forward, prepass):
+        return chip_smoke.encode_launches(
+            forward, backward, filter_forward, render={
+                "compact": 2 + prepass, "composite_fwd": 1 + prepass,
+                "composite_bwd": 1})
+
     assert chip_smoke.r5fix_step_launches(trainer, True) \
-        == launches(4, 2, 1)
+        == step_launches(4, 2, 1, True)
     assert chip_smoke.r5fix_step_launches(trainer, False) \
-        == launches(3, 2, 1)
+        == step_launches(3, 2, 1, True)
     # a step the trainer runs without the prepass: the field over K + 1
     assert chip_smoke.r5fix_step_launches(trainer, True, False) \
-        == launches(3, 2, 1)
+        == step_launches(3, 2, 1, False)
     assert chip_smoke.r5fix_step_launches(trainer, False, False) \
-        == launches(2, 2, 1)
+        == step_launches(2, 2, 1, False)
     model.render_config.field_chunk = 1 << 18
     assert chip_smoke.r5fix_step_launches(trainer, False) \
-        == launches(5 + 3 + 1, 3 + 1, 1)
+        == step_launches(5 + 3 + 1, 3 + 1, 1, True)
     assert chip_smoke.r5fix_step_launches(trainer, False, False) \
-        == launches(5 + 1, 5 + 1, 1)
+        == step_launches(5 + 1, 5 + 1, 1, False)
+    launches = chip_smoke.encode_launches
     assert launches(5, 4, 1, 0) == {
         "hash_encode_fwd": 5, "hash_encode_bwd": 4, "scatter_add_rows": 0,
         "gather_rows": 0, "pb_weight_fwd": 1, "pb_weight_bwd": 0}

@@ -17,6 +17,7 @@ from deblur_e_nerf_tpu.models.contraction import ContractionType as JCT
 from deblur_e_nerf_tpu_torch.models import occupancy as tocc
 from deblur_e_nerf_tpu_torch.models import renderer as tr
 from deblur_e_nerf_tpu_torch.models.contraction import ContractionType
+from deblur_e_nerf_tpu_torch.ops import composite as composite_ops
 
 AABB = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)
 RES = 16
@@ -337,9 +338,10 @@ def test_composite_and_its_gradient_match_jax(alpha_thre):
                                    rtol=1e-4, atol=1e-6)
     # the port's optical depth itself is the exact sum rounded to f32
     st = _samples_to_torch(s)
-    _, sdt, _ = tr._sigma_dt_alpha(sig_t.detach(), st, R, rc_t)
+    _, sdt, _ = composite_ops.sigma_dt_alpha(sig_t.detach(), st.dt,
+                                             st.ray_idx, R, rc_t.alpha_thre)
     safe = st.ray_idx.clamp(0, R - 1)
-    port = tr._optical_depth(sdt, st, safe)
+    port = composite_ops.optical_depth(sdt, st.offsets, st.counts, safe)
     exact = np.zeros(sdt.shape[0])
     sdt64 = sdt.double().numpy()
     for start, count in zip(st.offsets.tolist(), st.counts.tolist()):
