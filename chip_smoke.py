@@ -17,7 +17,8 @@ Phases, each printing a start and an end line with elapsed seconds:
      read from the loaded binary (local memory, a stack frame or spills,
      fails), and that they run float32 FMAs and no tensor-core
      instruction; the render kernels' registers and spills (the
-     compaction's three, the composite's two in float and double);
+     compaction's three, the composite's two in float and double, the
+     march's four);
   3. kernels: each kernel against its plain PyTorch version on the card
      (the Pallas probes K2/K3's shapes too), with times of the kernel, the
      plain version and the PyTorch library calls computing the same
@@ -91,10 +92,21 @@ Phases, each printing a start and an end line with elapsed seconds:
      stop, clamped samples and truncated rays, alpha_thre 0 and 0.05,
      against the plain version (forward within COMPOSITE_FWD_*, live
      counts and masks equal, backward within COMPOSITE_BWD_* of
-     autograd), two runs bit for bit; and, in "3b", both on the steps'
-     own inputs (`capture_render_inputs`: each march stage's compaction
-     at its budget and at half its flagged lanes, the composite's buffer
-     and cotangents of phase 4's and phase 7's steady steps);
+     autograd), two runs bit for bit; the march's four kernels (masks,
+     coarse stages, sample stage, decode) on the flagship's, EDS's and
+     r5fix's render configs at full width on synthetic scenes, at the
+     configs' budgets and cut below the demands (`march_cases`): each
+     kernel call on its plain version's inputs, every output bit for bit
+     (under a cone angle t_mid and dt within 2 ulp, with the differing
+     elements counted), two runs bit for bit, march_rays against
+     march_reference field for field, each kernel's ms a march beside
+     its plain version's and its bound, max_pool3d beside the masks, the
+     whole march in turns with the parent's (with --parent) and beside
+     the plain march; and, in "3b", all of them on the steps' own inputs
+     (`capture_render_inputs`: each march stage's compaction at its
+     budget and at half its flagged lanes, the composite's buffer and
+     cotangents, the march's rays, mask, jitter and grid of phase 4's
+     and phase 7's steady steps);
   4. training, two paths of configs/train/synthetic.yaml at full width on
      a synthetic dataset, each with the kernels' launch counts set to 0
      just before it and read just after:
@@ -109,11 +121,12 @@ Phases, each printing a start and an end line with elapsed seconds:
           one sync planted just before the step must be counted) and
           whose kernel launches must be one fused encode forward and one
           backward, one weight-chain forward and one backward (no K1, no
-          K3), a compaction a march stage, one composite forward and one
-          backward; then the operator calls by layer (op_census) of one
-          more
-          steady step (the weight chain's its wrapper's alone) and of a
-          sampled and a warmup occupancy update;
+          K3), a compaction a march stage, the march's kernels (three
+          masks launches, two coarse stages, one sample stage, one
+          decode), one composite forward and one backward; then the
+          operator calls by layer (op_census) of one more steady step
+          (the weight chain's its wrapper's alone, the march's at most
+          MARCH_MAX_OPS) and of a sampled and a warmup occupancy update;
   5. reference: on small inputs, the card (through the kernels) against
      the plain version on the CPU: the NGP field's outputs and table
      gradient, and one filter-on step's loss and gradients;
@@ -199,11 +212,11 @@ Phases, each printing a start and an end line with elapsed seconds:
      output read by the port's loaders.
 
 Every path's launches are read with the counts set to 0 just before it
-and must include the compaction and the composite forward, and the
-composite backward exactly on the paths that train; where a step's or a
-frame's counts are known (`render_launches`: a compaction a march stage
-and a prepass, a composite forward a render and a prepass) they must be
-those.
+and must include the compaction, the march's four kernels and the
+composite forward, and the composite backward exactly on the paths that
+train; where a step's or a frame's counts are known (`render_launches`:
+a compaction a march stage and a prepass, the march's kernels a march, a
+composite forward a render and a prepass) they must be those.
 
 Any failed check raises and the script exits non-zero. The line before
 the last is a JSON object describing each kernel; the last line is
@@ -957,6 +970,8 @@ def load_parent(torch, parent_dir):
     print(f"parent kernels ({parent_dir}) built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     return {"encode": (encode.encode_forward, encode.encode_backward),
+            "renderer": importlib.import_module(
+                "parent_port.models.renderer"),
             "pb": importlib.import_module(
                 "parent_port.models.pixel_bandwidth"),
             "pb_ops": importlib.import_module("parent_port.ops.pb_weight")}
@@ -1248,10 +1263,13 @@ FLAGSHIP_RAYS = 429 * 30 * 4
 
 def check_render_build(ptxas):
     """Print the render kernels' registers and spills (-Xptxas -v); fail
-    unless each was built (the composite kernels in float and double)."""
+    unless each was built (the composite kernels in float and double, the
+    march's four)."""
     kernels = ("compact_count", "compact_scan", "compact_write",
                "composite_fwd_kernelIfE", "composite_fwd_kernelIdE",
-               "composite_bwd_kernelIfE", "composite_bwd_kernelIdE")
+               "composite_bwd_kernelIfE", "composite_bwd_kernelIdE",
+               "march_masks_kernel", "march_coarse_kernel",
+               "march_samples_kernel", "march_decode_kernel")
     for kernel in kernels:
         fns = [fn for fn in ptxas if kernel in fn]
         if not fns and ptxas:
@@ -1569,14 +1587,24 @@ def capture_render_inputs(store):
     kernels' calls inside: every compaction's (flags, payloads, budget,
     fills, cutoff) in call order under "compact", the first composite's
     buffer under "composite" and its backward's cotangents under
-    "cotangents". Wrappers around ops.compact.compact, ops.composite
-    .composite and .composite_backward while the block runs."""
+    "cotangents", the first march's (binary, rays_o, rays_d, ray_mask,
+    jitter) and render config under "march". Wrappers around
+    ops.compact.compact, ops.composite.composite and .composite_backward
+    and models.renderer.march_rays while the block runs."""
+    from deblur_e_nerf_tpu_torch.models import renderer
     from deblur_e_nerf_tpu_torch.ops import compact as compact_ops
     from deblur_e_nerf_tpu_torch.ops import composite as composite_ops
 
     real = (compact_ops.compact, composite_ops.composite,
-            composite_ops.composite_backward)
+            composite_ops.composite_backward, renderer.march_rays)
     store.setdefault("compact", [])
+
+    def march_rays(binary, rays_o, rays_d, ray_mask, jitter, rc):
+        if "march" not in store:
+            store["march"] = dict(
+                inputs=[None if t is None else t.clone() for t in (
+                    binary, rays_o, rays_d, ray_mask, jitter)], rc=rc)
+        return real[3](binary, rays_o, rays_d, ray_mask, jitter, rc)
 
     def compact(flags, payloads, budget, fills, return_cutoff=False):
         store["compact"].append((flags.clone(),
@@ -1604,11 +1632,12 @@ def capture_render_inputs(store):
     compact_ops.compact = compact
     composite_ops.composite = composite
     composite_ops.composite_backward = composite_backward
+    renderer.march_rays = march_rays
     try:
         yield store
     finally:
         (compact_ops.compact, composite_ops.composite,
-         composite_ops.composite_backward) = real
+         composite_ops.composite_backward, renderer.march_rays) = real
 
 
 def _to_device(value, device):
@@ -1621,12 +1650,21 @@ def _to_device(value, device):
     return value
 
 
-def render_step_cases(torch, label, captured):
+def render_step_cases(torch, label, captured, parent=None):
     """The render kernels on a step's own inputs (`capture_render_inputs`,
     moved to the host): each of the march's compactions at its own budget
-    and at half its flagged lanes (an overflow), and the composite on the
-    step's buffer and cotangents. Returns {kernel: rows}."""
+    and at half its flagged lanes (an overflow), the composite on the
+    step's buffer and cotangents, and the march's kernels on the step's
+    rays, mask, jitter and grid at the step's budgets and cut below its
+    demands (`march_cases`). Returns {kernel: rows}."""
     rows = {"compact": [], "composite_fwd": [], "composite_bwd": []}
+    march = captured["march"]
+    for kernel, found in march_cases(
+            torch, f"{label} step's own inputs",
+            _to_device(march["inputs"], "cuda"), march["rc"], parent,
+            below=False).items():
+        rows[kernel] = found
+    torch.cuda.empty_cache()
     calls = captured["compact"]
     names = ("superblock stage", "block stage", "sample stage")[-len(calls):]
     for name, call in zip(names, calls):
@@ -1646,6 +1684,438 @@ def render_step_cases(torch, label, captured):
     rows["composite_bwd"].append(bwd)
     del case
     torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the march's stages (csrc/march.cu, ops/march.py)
+
+MARCH_SOURCE = "deblur_e_nerf_tpu_torch/csrc/march.cu"
+# the JAX functions each kernel replaces (renderer.py's march_rays :226)
+MARCH_REPLACES = {
+    "march_masks": "deblur_e_nerf_tpu/models/renderer.py:164",
+    "march_coarse": "deblur_e_nerf_tpu/models/renderer.py:294",
+    "march_samples": "deblur_e_nerf_tpu/models/renderer.py:395",
+    "march_decode": "deblur_e_nerf_tpu/models/renderer.py:425",
+}
+MARCH_KERNELS = tuple(MARCH_REPLACES)
+MARCH_OUTPUTS = {"march_masks": ("dilated", "pooled"),
+                 "march_coarse": ("flags", "codes", "t_near", "t_far"),
+                 "march_samples": ("flags", "codes", "counts"),
+                 "march_decode": ("t_mid", "dt", "ray_idx",
+                                  "coarse_complete")}
+# phase 3's full-width marches: (label, train config, rays a step): the
+# flagship's and EDS's batch capacity 8,192 events x S = 30 x 4 render
+# slices, r5fix's 1,024 x 30 x 4
+MARCH_CONFIGS = (
+    ("flagship", "configs/train/synthetic.yaml", 8192 * 30 * 4),
+    ("EDS", "configs/train/07_ziggy_and_fuzz_hdr.yaml", 8192 * 30 * 4),
+    ("r5fix", "configs/train/quality_sphere_blur32_dense_r5fix.yaml",
+     1024 * 30 * 4))
+# the synthetic scenes' occupied cells: (fraction, radius in contracted
+# units around the grid's centre), sized so that every stage's demand
+# fits the config's budgets
+MARCH_SCENES = {"flagship": (0.3, 0.05), "EDS": (0.3, 0.06),
+                "r5fix": (0.3, 0.11)}
+# the float32 operations of a lane, counted from the plain version's
+# operators (the bound's operation count; the bytes bound every stage)
+MARCH_TIMELINE_OPS = {False: 2, True: 11}   # by cone angle
+MARCH_CONTRACT_OPS = {"aabb": 6, "sphere": 35, "tanh": 15}
+MARCH_BOUNDS_OPS = 30  # a ray's slab test and jitter
+# the operator calls of a steady step's march (op_census "B4 march"): one
+# allocation a stage and one more for each of the two per-ray outputs
+# (the counts, zeroed, and coarse_complete), two a compaction, the
+# offsets' cumsum and difference (15 with superblocks)
+MARCH_MAX_OPS = 15
+
+
+def march_render_config(path):
+    """The render config the trainer builds for the train config at
+    `path` (its own aabb; the default sample budget)."""
+    from deblur_e_nerf_tpu_torch.models import nerf_model
+
+    config = load_with_changes(path, {})
+    nerf = config.model.nerf
+    return nerf_model.make_render_config(
+        nerf, nerf_model.resolve_aabb(nerf, None),
+        flagship_sample_budget(config))
+
+
+def march_inputs(torch, rc, n_rays, occupied, radius, seed=0,
+                 device="cuda"):
+    """Synthetic march inputs (binary, rays_o, rays_d, ray_mask, jitter)
+    on `device`: for an AABB scene rays from 1.5 half-diagonals off the
+    box's centre, for an unbounded one from inside the box, each towards
+    a point of the box's middle half (unit directions); 3% of the rays
+    masked off; the cells within `radius` of the contracted grid's centre
+    occupied with probability `occupied`; uniform jitter."""
+    from deblur_e_nerf_tpu_torch.models.contraction import ContractionType
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    lo = torch.tensor(rc.aabb[:3], device=device)
+    hi = torch.tensor(rc.aabb[3:], device=device)
+    center, half = (lo + hi) / 2, (hi - lo) / 2
+    targets = center + (rand(n_rays, 3) * 2 - 1) * half * 0.5
+    if rc.contraction_type == ContractionType.AABB:
+        v = torch.randn((n_rays, 3), generator=gen, device=device)
+        o = center + v / v.norm(dim=-1, keepdim=True) * half.norm() * 1.5
+    else:
+        o = center + (rand(n_rays, 3) * 2 - 1) * half
+    d = targets - o
+    d = d / d.norm(dim=-1, keepdim=True)
+    res = rc.grid_resolution
+    c = (torch.arange(res, dtype=torch.float32, device=device) + 0.5) / res
+    z, y, x = torch.meshgrid(c, c, c, indexing="ij")
+    inside = (x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.5) ** 2 < radius ** 2
+    binary = (inside & (rand(res, res, res) < occupied)).reshape(-1)
+    return (binary, o.contiguous(), d.contiguous(), rand(n_rays) >= 0.03,
+            rand(n_rays))
+
+
+def march_stage_calls(inputs, rc):
+    """The plain march stage by stage: ([(kernel, stage, its arguments,
+    its plain outputs)], {stage: demand}); each kernel call takes its plain
+    version's inputs, so that a kernel's error does not reach the next."""
+    from deblur_e_nerf_tpu_torch.models import renderer
+    from deblur_e_nerf_tpu_torch.ops import march as M
+    from deblur_e_nerf_tpu_torch.ops.compact import compact_reference
+
+    binary, o, d, mask, jitter = inputs
+    R = o.shape[0]
+    n_blocks = M.n_blocks_of(rc)
+    sb = renderer.uses_superblocks(rc)
+    calls, demand, sb_cut = [], {}, None
+    args = (binary, rc, sb)
+    dilated, pooled = out = M.masks_reference(*args)
+    calls.append(("march_masks", "masks", args, out))
+    if sb:
+        args = (M.SUPERBLOCKS, o, d, mask, jitter, pooled, rc)
+        out = M.coarse_reference(*args)
+        calls.append(("march_coarse", "superblock stage", args, out))
+        (sb_buf,), demand["superblocks"], sb_cut = compact_reference(
+            out[0], [out[1]], rc.superblock_capacity,
+            [R * (n_blocks // M.SB_BLOCKS)], True)
+        args = (M.BLOCKS_AFTER, o, d, mask, jitter, dilated, rc, out[2],
+                out[3], sb_buf)
+        label = "block stage"
+    else:
+        args = (M.BLOCKS_DENSE, o, d, mask, jitter, dilated, rc)
+        label = "dense block stage"
+    out = M.coarse_reference(*args)
+    calls.append(("march_coarse", label, args, out))
+    t_near, t_far = out[2:]
+    (blk_buf,), demand["blocks"], blk_cut = compact_reference(
+        out[0], [out[1]], rc.block_capacity, [R * n_blocks], True)
+    args = (o, d, binary, t_near, t_far, blk_buf, rc)
+    out = M.samples_reference(*args)
+    calls.append(("march_samples", "sample stage", args, out))
+    (code_buf,), demand["samples"] = compact_reference(
+        out[0], [out[1]], rc.sample_budget, [R * rc.max_samples_per_ray])
+    args = (code_buf, t_near, sb_cut, blk_cut, R, rc)
+    calls.append(("march_decode", "decode", args,
+                  M.decode_reference(*args)))
+    return calls, {k: int(v) for k, v in demand.items()}
+
+
+def march_compare(torch, kernel, got, want, cone):
+    """(bit exact, within the rule, largest |difference|, largest ulp
+    distance, differing elements) of a march kernel's outputs against its
+    plain version's: every output bit for bit (the coarse stage's bounds
+    by value, -0 == +0: no zero's sign reaches a sample), except under a
+    cone angle the decode's t_mid and dt, within 2 ulp (powf)."""
+    exact = ok = True
+    err, ulp, differ = 0.0, 0, 0
+    for name, a, b in zip(MARCH_OUTPUTS[kernel], got, want):
+        if a is None or b is None:
+            exact = ok = exact and a is None and b is None
+            continue
+        if a.dtype != b.dtype or a.shape != b.shape:
+            exact = ok = False
+            continue
+        if not a.is_floating_point():
+            same = torch.equal(a, b)
+            differ += int((a != b).sum())
+        elif name in ("t_near", "t_far"):
+            same = torch.equal(a, b)
+            differ += int((a != b).sum())
+        else:
+            bits_a, bits_b = _bits(torch, a), _bits(torch, b)
+            same = torch.equal(bits_a, bits_b)
+            dist = (bits_a.long() - bits_b.long()).abs()
+            differ += int((dist > 0).sum())
+            ulp = max(ulp, int(dist.max()) if dist.numel() else 0)
+            if not same:
+                err = max(err, float((a.double() - b.double()).abs()
+                                     .nan_to_num(math.inf).max()))
+                if not (cone and kernel == "march_decode"
+                        and name in ("t_mid", "dt")
+                        and int(dist.max()) <= 2):
+                    ok = False
+                exact = False
+                continue
+        exact = exact and same
+        ok = ok and same
+    return exact, ok, err, ulp, differ
+
+
+def march_bound(kernel, args, rc):
+    """The least time of a kernel call: its inputs read once and its
+    outputs written once over 3.35 TB/s, or its float32 operations
+    (MARCH_*_OPS) over 67 TFLOP/s."""
+    from deblur_e_nerf_tpu_torch.ops import march as M
+
+    cone = rc.cone_angle > 0
+    tl = MARCH_TIMELINE_OPS[cone]
+    contract = MARCH_CONTRACT_OPS[rc.contraction_type.value]
+    res = rc.grid_resolution
+    if kernel == "march_masks":
+        binary, _, sb = args
+        n = binary.numel()
+        return bound(2 * n + (n // M.POOL ** 3 if sb else 0))
+    if kernel == "march_decode":
+        code_buf, t_near = args[:2]
+        n, R = code_buf.numel(), t_near.numel()
+        return bound(8 * n + 4 * R + 16 + 16 * n + R, n * (2 * tl + 4))
+    o = args[1] if kernel == "march_coarse" else args[0]
+    R = o.shape[0]
+    if kernel == "march_samples":
+        blk_buf = args[5]
+        n = blk_buf.numel() * M.BLOCK_STEPS
+        return bound(8 * blk_buf.numel() + 32 * R + res ** 3 + 9 * n + 8 * R,
+                     n * (2 * tl + 3 + 6 + contract + 12 + 6))
+    mask = args[5]
+    n_blocks = M.n_blocks_of(rc)
+    lane_ops = 3 * tl + 3 + 6 + contract + 12 + 3
+    if args[0] == M.BLOCKS_AFTER:
+        buf = args[-1]
+        n = buf.numel() * M.SB_BLOCKS
+        return bound(8 * buf.numel() + 32 * R + mask.numel() + 9 * n,
+                     n * lane_ops)
+    n = R * (n_blocks // M.SB_BLOCKS if args[0] == M.SUPERBLOCKS
+             else n_blocks)
+    return bound(29 * R + mask.numel() + 9 * n + 8 * R,
+                 n * lane_ops + R * MARCH_BOUNDS_OPS)
+
+
+def _masks_library_ms(torch, binary, rc, sb):
+    """torch.nn.functional.max_pool3d computing the masks on a float copy
+    of the grid: the 3^3 dilation (kernel 3, stride 1, padding 1) and,
+    with superblocks, the 4^3 pool (kernel 4, stride 4) and the pooled
+    radius-2 dilation (kernel 5, stride 1, padding 2)."""
+    import torch.nn.functional as F
+
+    res = rc.grid_resolution
+    g = binary.reshape(1, 1, res, res, res).float()
+    ms = time_ms(lambda: F.max_pool3d(g, 3, 1, 1))
+    if sb:
+        p = F.max_pool3d(g, 4, 4)
+        ms += time_ms(lambda: F.max_pool3d(g, 4, 4))
+        ms += time_ms(lambda: F.max_pool3d(p, 5, 1, 2))
+    return ms
+
+
+def march_case(torch, label, kind, inputs, rc, parent=None, timed=True):
+    """The march kernels against their plain versions on one input set:
+    each kernel call on its plain version's inputs (`march_stage_calls`),
+    every output held by `march_compare`, two runs bit for bit, one launch
+    a call (the masks: one or three a march); then `march_rays` (the
+    kernels and the compactions) against `march_reference` (the plain
+    march) output for output. With `timed`, each kernel's ms a march
+    beside its plain version's and its bound, max_pool3d's for the masks,
+    and the whole march in turns with the parent checkout's `march_rays`
+    (with `parent`) and the plain march's. Returns ({kernel: row}, the
+    whole march's row, the demands)."""
+    from deblur_e_nerf_tpu_torch.models import renderer
+    from deblur_e_nerf_tpu_torch.ops import march as M
+
+    cone = rc.cone_angle > 0
+    calls, demand = march_stage_calls(inputs, rc)
+    fns = {"march_masks": M.masks, "march_coarse": M.coarse,
+           "march_samples": M.samples, "march_decode": M.decode}
+    refs = {"march_masks": M.masks_reference,
+            "march_coarse": M.coarse_reference,
+            "march_samples": M.samples_reference,
+            "march_decode": M.decode_reference}
+    counters = {"march_masks": "MASKS_LAUNCHES",
+                "march_coarse": "COARSE_LAUNCHES",
+                "march_samples": "SAMPLES_LAUNCHES",
+                "march_decode": "DECODE_LAUNCHES"}
+    sb = renderer.uses_superblocks(rc)
+    rows, failed = {}, []
+    for kernel in MARCH_KERNELS:
+        mine = [c for c in calls if c[0] == kernel]
+        exact = ok = repeat = True
+        err, ulp, differ, launches = 0.0, 0, 0, 0
+        for _, stage, args, want in mine:
+            before = getattr(M, counters[kernel])
+            got = fns[kernel](*args)
+            again = fns[kernel](*args)
+            _sync(torch, str(inputs[1].device))
+            launches += getattr(M, counters[kernel]) - before
+            e, o_k, a, u, n = march_compare(torch, kernel, got, want, cone)
+            exact, ok = exact and e, ok and o_k
+            err, ulp, differ = max(err, a), max(ulp, u), differ + n
+            repeat = repeat and march_compare(torch, kernel, again, got,
+                                              False)[0]
+            del got, again
+        want_launches = 0 if not inputs[1].is_cuda else (
+            2 * (3 if sb else 1) if kernel == "march_masks"
+            else 2 * len(mine))
+        row = {"shape": label, "index_structure": kind,
+               "stages": [c[1] for c in mine], "bit_exact": exact,
+               "within_rule": ok, "reproducible": repeat,
+               "max_abs_err": err, "max_ulp": ulp, "differing": differ,
+               "tolerance": ("bit for bit; t_mid and dt within 2 ulp"
+                             if cone and kernel == "march_decode"
+                             else "bit for bit"),
+               "launches_a_march": launches // 2,
+               "library_ms": None}
+        if timed:
+            row["ms"] = sum(time_ms(lambda a=args: fns[kernel](*a))
+                            for _, _, args, _ in mine)
+            row["plain_ms"] = sum(
+                time_ms(lambda a=args: refs[kernel](*a), iters=3, warmup=1)
+                for _, _, args, _ in mine)
+            bounds = [march_bound(kernel, c[2], rc) for c in mine]
+            row["bound_ms"] = sum(b[0] for b in bounds)
+            row["bound_by"] = max(bounds)[1]
+            if kernel == "march_masks":
+                row["library_ms"] = _masks_library_ms(torch, inputs[0], rc,
+                                                      sb)
+                row["library_call"] = "torch.nn.functional.max_pool3d"
+        rows[kernel] = row
+        print(f"{kernel} {label} ({kind}): {row['stages']}, bit exact "
+              f"{exact}, within its rule ({row['tolerance']}) {ok}, "
+              f"largest ulp {ulp}, differing {differ}, two runs bit for "
+              f"bit {repeat}, launches a march {row['launches_a_march']}"
+              + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
+                 f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+                 + (f", max_pool3d {row['library_ms']:.4f} ms"
+                    if row["library_ms"] is not None else "")
+                 if timed else ""), flush=True)
+        if not (ok and repeat and launches == want_launches):
+            failed.append(kernel)
+    del calls
+    # the whole march: the kernels with the compactions against the plain
+    got = renderer.march_rays(*inputs, rc)
+    want = renderer.march_reference(*inputs, rc)
+    _sync(torch, str(inputs[1].device))
+    fields = []
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if a is None or b is None:
+            same = a is None and b is None
+        elif name in ("t_mid", "dt"):
+            dist = (_bits(torch, a).long() - _bits(torch, b).long()).abs()
+            same = int(dist.max()) <= (2 if cone else 0)
+        else:
+            same = torch.equal(a, b)
+        if not same:
+            fields.append(name)
+    del got, want
+    whole = {"shape": label, "index_structure": kind, "demand": demand,
+             "budgets": {"superblocks": rc.superblock_capacity if sb
+                         else None, "blocks": rc.block_capacity,
+                         "samples": rc.sample_budget},
+             "overflow": {k: v > {"superblocks": rc.superblock_capacity,
+                                  "blocks": rc.block_capacity,
+                                  "samples": rc.sample_budget}[k]
+                          for k, v in demand.items()},
+             "equal_to_plain": not fields}
+    if timed:
+        parent_fn = None
+        if parent is not None:
+            # the parent's render config, with its own contraction enum
+            import dataclasses
+
+            p_rc = parent["renderer"].RenderConfig(**dict(
+                {f.name: getattr(rc, f.name)
+                 for f in dataclasses.fields(rc)},
+                contraction_type=parent["renderer"].contraction_lib
+                .ContractionType(rc.contraction_type.value)))
+
+            def parent_fn():
+                return parent["renderer"].march_rays(*inputs, p_rc)
+        ms, runs, parent_ms, parent_runs = in_turns(
+            lambda: renderer.march_rays(*inputs, rc), parent_fn, iters=5)
+        whole.update(ms=ms, runs=runs, parent_ms=parent_ms,
+                     parent_runs=parent_runs,
+                     plain_ms=time_ms(lambda: renderer.march_reference(
+                         *inputs, rc), iters=3, warmup=1))
+    print(f"march {label} ({kind}): {inputs[1].shape[0]} rays, demand "
+          f"{demand} against budgets {whole['budgets']} (overflow "
+          f"{whole['overflow']}); march_rays equal to march_reference "
+          f"{not fields} {fields or ''}"
+          + (f"; march_rays {whole['ms']:.4f} ms {whole['runs']}, parent "
+             f"{whole['parent_ms']} {whole['parent_runs']}, plain march "
+             f"{whole['plain_ms']:.4f} ms" if timed else ""), flush=True)
+    _empty_cache(torch, str(inputs[1].device))
+    if failed or fields:
+        raise AssertionError(f"march {label} ({kind}): {failed} differ from "
+                             f"their plain versions, are not reproducible "
+                             f"or launched otherwise; march fields {fields}")
+    return rows, whole, demand
+
+
+def cut_budgets(rc, demand):
+    """`rc` with every coarse budget and the sample budget below the
+    demands measured at its own budgets: the superblock budget half the
+    superblock demand, the block budget a quarter of the block demand, the
+    sample budget an eighth of the sample demand."""
+    import dataclasses
+
+    changes = {"block_budget": max(demand["blocks"] // 4, 1),
+               "sample_budget": max(demand["samples"] // 8, 1)}
+    if "superblocks" in demand:
+        changes["superblock_budget"] = max(demand["superblocks"] // 2, 1)
+    return dataclasses.replace(rc, **changes)
+
+
+def march_cases(torch, label, inputs, rc, parent=None, below=True):
+    """`march_case` at `rc`'s budgets (timed; with `below`, every stage's
+    demand must fit them) and at `cut_budgets` (each coarse stage and the
+    sample stage must drop lanes, so that the cutoffs and
+    coarse_complete are exercised). Returns {kernel: rows}."""
+    rows = {k: [] for k in MARCH_KERNELS + ("march",)}
+    kind = "budgets" if below else "step"
+    found, whole, demand = march_case(torch, label, kind, inputs, rc,
+                                      parent)
+    if below and any(whole["overflow"].values()):
+        raise AssertionError(f"march {label}: the demand {demand} does not "
+                             f"fit the budgets {whole['budgets']}")
+    for k, row in found.items():
+        rows[k].append(row)
+    rows["march"].append(whole)
+    found, whole, _ = march_case(torch, label, f"{kind}, cut budgets",
+                                 inputs, cut_budgets(rc, demand),
+                                 timed=False)
+    if not all(whole["overflow"].values()):
+        raise AssertionError(f"march {label}, cut budgets: not every stage "
+                             f"overflowed: {whole['overflow']}")
+    for k, row in found.items():
+        rows[k].append(row)
+    rows["march"].append(whole)
+    return rows
+
+
+def march_kernel_cases(torch, parent=None):
+    """Phase 3's march cases: each of MARCH_CONFIGS at full width on
+    synthetic inputs (`march_inputs`, MARCH_SCENES), at its budgets and
+    cut below its demand. Returns {kernel: rows}."""
+    rows = {k: [] for k in MARCH_KERNELS + ("march",)}
+    for label, path, n_rays in MARCH_CONFIGS:
+        rc = march_render_config(path)
+        inputs = march_inputs(torch, rc, n_rays, *MARCH_SCENES[label])
+        for k, found in march_cases(torch, f"{label} synthetic", inputs, rc,
+                                    parent).items():
+            rows[k] += found
+        del inputs
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1786,6 +2256,7 @@ def phase_kernels(torch, parent=None):
         pb_conditioning_check(torch, calib, div)
         for calib, div in PB_CONDITIONING_CASES]
     return dict(encode, **pb, **render_kernel_cases(torch),
+                **march_kernel_cases(torch, parent),
                 scatter_add_rows=scatter, gather_rows=gather,
                 scatter_add_rows_call_split=splits,
                 l2_reduction_rates=l2_rates, library_baselines=library)
@@ -1833,8 +2304,8 @@ def phase_step_inputs(torch, rows, captured, parent=None):
             rows["pb_weight_fwd"].append(fwd)
             rows["pb_weight_bwd"].append(bwd)
         del case, dense
-        for kernel, found in render_step_cases(torch, label,
-                                               got["render"]).items():
+        for kernel, found in render_step_cases(torch, label, got["render"],
+                                               parent).items():
             rows[kernel] += found
 
 
@@ -2352,8 +2823,15 @@ def pb_weight_case(torch, name, case, parent=None, float32_gate=False):
         def parent_fwd():
             return parent["pb_ops"].weight_forward(p_det, it, dt, o)
 
+        # a parent whose forward saves the finiteness byte and the
+        # systems hands them to its backward; an older one returned the
+        # weights alone
+        saved = parent_fwd()
+        saved = saved[1:] if isinstance(saved, tuple) else ()
+
         def parent_bwd():
-            return parent["pb_ops"].weight_backward(p_det, it, dt, g, o)
+            return parent["pb_ops"].weight_backward(p_det, it, dt, g, o,
+                                                    *saved)
 
     def plain_fwd():
         with torch.no_grad():
@@ -2473,7 +2951,11 @@ KERNEL_NAMES = {"scatter_add_rows": "scatter_add_rows_kernel",
                 # the compaction's three kernels: count, scan, write
                 "compact": "compact_",
                 "composite_fwd": "composite_fwd_kernel",
-                "composite_bwd": "composite_bwd_kernel"}
+                "composite_bwd": "composite_bwd_kernel",
+                "march_masks": "march_masks_kernel",
+                "march_coarse": "march_coarse_kernel",
+                "march_samples": "march_samples_kernel",
+                "march_decode": "march_decode_kernel"}
 
 
 def _device_table(prof, label, n):
@@ -2571,7 +3053,7 @@ def profile_steps(torch, trainer, n_steps=3):
 def _launch_counters():
     """{kernel: (its wrapper's module, the name of its launch count)}."""
     from deblur_e_nerf_tpu_torch.ops import (compact, composite, gather_rows,
-                                             hash_encode, pb_weight,
+                                             hash_encode, march, pb_weight,
                                              scatter_rows)
 
     return {"scatter_add_rows": (scatter_rows, "LAUNCHES"),
@@ -2582,7 +3064,11 @@ def _launch_counters():
             "pb_weight_bwd": (pb_weight, "BACKWARD_LAUNCHES"),
             "compact": (compact, "LAUNCHES"),
             "composite_fwd": (composite, "FORWARD_LAUNCHES"),
-            "composite_bwd": (composite, "BACKWARD_LAUNCHES")}
+            "composite_bwd": (composite, "BACKWARD_LAUNCHES"),
+            "march_masks": (march, "MASKS_LAUNCHES"),
+            "march_coarse": (march, "COARSE_LAUNCHES"),
+            "march_samples": (march, "SAMPLES_LAUNCHES"),
+            "march_decode": (march, "DECODE_LAUNCHES")}
 
 
 def reset_launches():
@@ -2615,15 +3101,21 @@ def encode_launches(forward, backward, filter_forward=0,
 def render_launches(rc, renders=1, trains=True, prepasses=0):
     """The render layer's launches for `renders` marches under the render
     config `rc` (two stream compactions each, three with the superblock
-    stage) and composites (one forward each, one backward each if it
-    `trains`), with `prepasses` occlusion prepasses (a density-only
-    composite forward and one three-channel compaction each)."""
+    stage; the march's kernels: one masks launch, one coarse stage, one
+    sample stage and one decode, or with superblocks three masks launches
+    and two coarse stages) and composites (one forward each, one backward
+    each if it `trains`), with `prepasses` occlusion prepasses (a
+    density-only composite forward and one three-channel compaction
+    each)."""
     from deblur_e_nerf_tpu_torch.models import renderer
 
-    stages = 3 if renderer.uses_superblocks(rc) else 2
-    return {"compact": renders * stages + prepasses,
+    sb = renderer.uses_superblocks(rc)
+    return {"compact": renders * (3 if sb else 2) + prepasses,
             "composite_fwd": renders + prepasses,
-            "composite_bwd": renders if trains else 0}
+            "composite_bwd": renders if trains else 0,
+            "march_masks": renders * (3 if sb else 1),
+            "march_coarse": renders * (2 if sb else 1),
+            "march_samples": renders, "march_decode": renders}
 
 
 def frame_render_launches(render):
@@ -2646,14 +3138,15 @@ def check_path_launches(path, counts, trains, filter_steps=0):
     not if it does not), one weight-chain forward and one backward for
     each of its `filter_steps` filter-on training steps (none on an eval
     or filter-off path), neither K1 nor K3, the stream compaction and the
-    composite forward, and the composite backward if it `trains` (and not
-    if it does not)."""
+    composite forward, each of the march's kernels, and the composite
+    backward if it `trains` (and not if it does not)."""
     if not (counts["hash_encode_fwd"] > 0
             and (counts["hash_encode_bwd"] > 0) == trains
             and counts["pb_weight_fwd"] == counts["pb_weight_bwd"]
             == filter_steps
             and counts["scatter_add_rows"] == counts["gather_rows"] == 0
             and counts["compact"] > 0 and counts["composite_fwd"] > 0
+            and all(counts[k] > 0 for k in MARCH_KERNELS)
             and (counts["composite_bwd"] > 0) == trains):
         raise AssertionError(f"{path}: launches {counts}, want "
                              f"{filter_steps} weight-chain launches a "
@@ -2878,6 +3371,13 @@ def census_step(torch, trainer, label="flagship"):
     if sum(chain.values()) > 20:
         raise AssertionError(f"{label}: the weight chain ran {chain} "
                              f"operators")
+    # the march: its kernels and compactions, with their allocations and
+    # the offsets' cumsum
+    march = counts.get("B4 march", {"forward": 0, "backward": 0})
+    print(f"{label}: the march ran {march['forward']} operators forward "
+          f"(at most {MARCH_MAX_OPS})", flush=True)
+    if march["forward"] > MARCH_MAX_OPS or march["backward"]:
+        raise AssertionError(f"{label}: the march ran {march} operators")
     for kind, step in (("sampled", warmup), ("warmup", 0)):
         occ, _ = op_census.count_ops(lambda: trainer.update_occupancy(step))
         torch.cuda.synchronize()
@@ -4175,14 +4675,14 @@ def r5fix_chunked_step(torch, trainer, card):
             # forward in the forward, the composite backward in the
             # backward
             render = {k: want[k] for k in ("compact", "composite_fwd",
-                                           "composite_bwd")}
+                                           "composite_bwd") + MARCH_KERNELS}
             if not (launches_match(forward, encode_launches(
                         want["hash_encode_fwd"], 0, 1, 0,
                         render=dict(render, composite_bwd=0)))
                     and launches_match(backward, encode_launches(
                         0, want["hash_encode_bwd"], 0, 1,
-                        render={"compact": 0, "composite_fwd": 0,
-                                "composite_bwd": render["composite_bwd"]}))):
+                        render=dict({k: 0 for k in render},
+                                    composite_bwd=render["composite_bwd"])))):
                 raise AssertionError(f"r5fix field_chunk {chunk}: launches "
                                      f"{forward}, {backward}, want {want}")
     finally:
@@ -5424,7 +5924,11 @@ def main():
         kernel_line("composite_bwd", COMPOSITE_SOURCE, COMPOSITE_REPLACES,
                     rows["composite_bwd"], launches,
                     "flagship step's own inputs", "step"),
-    ]
+    ] + [kernel_line(name, MARCH_SOURCE, MARCH_REPLACES[name], rows[name],
+                     launches, "flagship step's own inputs", "step")
+         for name in MARCH_KERNELS]
+    # the whole march (its kernels and compactions) beside its plain version
+    kernels[-len(MARCH_KERNELS)]["whole_march"] = rows["march"]
     for path in (p for p in launches if p.startswith("data parallel")):
         check_path_launches(path, launches[path], trains=True,
                             filter_steps=MESH_STEPS)

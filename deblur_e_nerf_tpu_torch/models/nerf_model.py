@@ -112,27 +112,18 @@ def _vanilla_field(nerf_config, aabb, contraction_type, radiance_dim,
 FIELDS = {"ngp": _ngp_field, "mlp": _vanilla_field}
 
 
-def build(nerf_config, camera_positions, radiance_dim, render_bkgd,
-          sample_budget, field_chunk=0, stratified=True, generator=None,
-          device=None):
-    """Build the NeRF module from a reference-schema nerf config; weights
-    are drawn from `generator`. `field_chunk` > 0 runs the training
-    render's field that many samples at a time (renderer.py)."""
-    if nerf_config.arch not in FIELDS:
-        raise ValueError(f"unknown nerf arch {nerf_config.arch!r} (known: "
-                         f"{sorted(FIELDS)})")
-    aabb = resolve_aabb(nerf_config, camera_positions)
-    render_step_size = resolve_render_step_size(nerf_config, aabb)
-    contraction_type = contraction_lib.ContractionType(
-        nerf_config.contraction_type)
-    field = FIELDS[nerf_config.arch](
-        nerf_config, aabb, contraction_type, radiance_dim, generator, device)
-    render_config = renderer.RenderConfig(
-        aabb=aabb, contraction_type=contraction_type,
+def make_render_config(nerf_config, aabb, sample_budget, field_chunk=0,
+                       stratified=True):
+    """The training render's RenderConfig of a reference-schema nerf
+    config and its resolved `aabb`."""
+    return renderer.RenderConfig(
+        aabb=aabb,
+        contraction_type=contraction_lib.ContractionType(
+            nerf_config.contraction_type),
         grid_resolution=int(nerf_config.occ_grid.resolution),
         near_plane=nerf_config.get("near_plane"),
         far_plane=nerf_config.get("far_plane"),
-        render_step_size=render_step_size,
+        render_step_size=resolve_render_step_size(nerf_config, aabb),
         cone_angle=float(nerf_config.cone_angle),
         early_stop_eps=float(nerf_config.early_stop_eps),
         alpha_thre=float(nerf_config.alpha_thre),
@@ -147,6 +138,24 @@ def build(nerf_config, camera_positions, radiance_dim, render_bkgd,
         field_chunk=int(field_chunk),
         prepass_div=int(nerf_config.get("occlusion_prepass_div") or 0),
     )
+
+
+def build(nerf_config, camera_positions, radiance_dim, render_bkgd,
+          sample_budget, field_chunk=0, stratified=True, generator=None,
+          device=None):
+    """Build the NeRF module from a reference-schema nerf config; weights
+    are drawn from `generator`. `field_chunk` > 0 runs the training
+    render's field that many samples at a time (renderer.py)."""
+    if nerf_config.arch not in FIELDS:
+        raise ValueError(f"unknown nerf arch {nerf_config.arch!r} (known: "
+                         f"{sorted(FIELDS)})")
+    aabb = resolve_aabb(nerf_config, camera_positions)
+    contraction_type = contraction_lib.ContractionType(
+        nerf_config.contraction_type)
+    field = FIELDS[nerf_config.arch](
+        nerf_config, aabb, contraction_type, radiance_dim, generator, device)
+    render_config = make_render_config(nerf_config, aabb, sample_budget,
+                                       field_chunk, stratified)
     if render_bkgd not in (None, "parameter"):
         raise NotImplementedError(
             f"render_bkgd {render_bkgd!r}: the port takes None or "

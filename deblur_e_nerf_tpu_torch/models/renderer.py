@@ -25,14 +25,18 @@ the survivors into a (K / prepass_div + 1)-slot buffer, in place of
 nerfacc's in-loop early stop. Its buffers have fixed sizes, so it reads
 nothing back to the host.
 
-The stream compactions (the march's stages and the prepass's three
-payloads) go through ops/compact.py, and compositing, with the prepass's
-density-only live mask, through ops/composite.py: on CUDA tensors the
-hand-written kernels of csrc/compact.cu and csrc/composite.cu, on CPU
-tensors their plain versions. Each ray's exclusive optical depth (sigma
-dt clamped at 25 per sample) is a float64 sum rounded to float32 (the JAX
-package's double-f32 blocked sums exist because the TPU has no fast f64),
-and the prepass's live mask comes from the same code as composite's.
+The march's stages (the masks, the coarse stages' and the sample
+stage's flags and codes, the demand counts, the decode) go through
+ops/march.py, the stream compactions (the march's stages and the
+prepass's three payloads) through ops/compact.py, and compositing, with
+the prepass's density-only live mask, through ops/composite.py: on CUDA
+tensors the hand-written kernels of csrc/march.cu, csrc/compact.cu and
+csrc/composite.cu, on CPU tensors their plain versions
+(`march_reference` runs the plain march on any device). Each ray's
+exclusive optical depth (sigma dt clamped at 25 per sample) is a float64
+sum rounded to float32 (the JAX package's double-f32 blocked sums exist
+because the TPU has no fast f64), and the prepass's live mask comes from
+the same code as composite's.
 The stratified jitter is an input (`jitter`, (R,) uniforms).
 
 With `rc.field_chunk`, the training render runs the field `field_chunk`
@@ -55,10 +59,9 @@ import torch
 from torch.utils import checkpoint
 
 from . import contraction as contraction_lib
-from . import occupancy
 from ..ops import compact as compact_ops
 from ..ops import composite as composite_ops
-from ..utils.device import constant
+from ..ops import march as march_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,77 +129,21 @@ class RaySamples(NamedTuple):
     coarse_complete: torch.Tensor  # (R,) bool
 
 
-def _ray_t_bounds(rays_o, rays_d, rc):
-    """Per-ray [t_near, t_far] from the scene AABB and near/far planes."""
-    near = 0.0 if rc.near_plane is None else rc.near_plane
-    far = float("inf") if rc.far_plane is None else rc.far_plane
-    shape = rays_o.shape[:-1]
-    t_near = torch.full(shape, near, dtype=torch.float32,
-                        device=rays_o.device)
-    t_far = torch.full(shape, far, dtype=torch.float32, device=rays_o.device)
-    if rc.contraction_type == contraction_lib.ContractionType.AABB:
-        aabb = constant(rc.aabb, torch.float32, rays_o.device)
-        safe_d = torch.where(rays_d.abs() < 1e-10,
-                             torch.full_like(rays_d, 1e-10), rays_d)
-        inv_d = 1.0 / safe_d
-        t0 = (aabb[:3] - rays_o) * inv_d
-        t1 = (aabb[3:] - rays_o) * inv_d
-        t_in = torch.minimum(t0, t1).amax(dim=-1)
-        t_out = torch.maximum(t0, t1).amin(dim=-1)
-        t_near = torch.maximum(t_near, t_in)
-        t_far = torch.minimum(t_far, t_out)
-    return t_near, t_far
+BLOCK_STEPS = march_ops.BLOCK_STEPS   # timeline steps per block
+SB_BLOCKS = march_ops.SB_BLOCKS       # blocks per superblock
+POOL = march_ops.POOL                 # the superblock mask's pooling
+_timeline_at = march_ops.timeline_at  # the closed-form march timeline
 
 
-def _timeline_at(k, t_start, rc):
-    """Closed-form march timeline t_k (k float32, broadcast against
-    t_start): uniform steps of render_step_size without a cone angle;
-    with one, uniform up to t_cross = step / cone, then geometric,
-    t_{k+1} = t_k * (1 + cone), the closed form of nerfacc's
-    dt = clamp(t * cone, min=step) recurrence."""
-    step = rc.render_step_size
-    if rc.cone_angle <= 0.0:
-        return t_start + k * step
-    cone = rc.cone_angle
-    m = torch.ceil(torch.clamp(step / cone - t_start, min=0.0) / step)
-    t_uniform = t_start + k * step
-    t_geom = (t_start + m * step) * torch.pow(
-        1.0 + cone, torch.clamp(k - m, min=0.0))
-    return torch.where(k <= m, t_uniform, t_geom)
-
-
-def _dilate_binary(binary, resolution):
-    """3^3 max-pool (one-cell dilation) of a flat occupancy mask."""
-    g = binary.reshape(resolution, resolution, resolution)
-    for axis in range(3):
-        lo = torch.zeros_like(g)
-        hi = torch.zeros_like(g)
-        lo.narrow(axis, 0, resolution - 1).copy_(
-            g.narrow(axis, 1, resolution - 1))
-        hi.narrow(axis, 1, resolution - 1).copy_(
-            g.narrow(axis, 0, resolution - 1))
-        g = g | lo | hi
-    return g.reshape(-1)
-
-
-BLOCK_STEPS = 8   # timeline steps per block (~one grid cell)
-SB_BLOCKS = 4     # blocks per superblock
-POOL = 4          # occupancy pooling factor for the superblock mask
-
-
-def _maxpool_binary(binary, resolution, pool):
-    r = resolution // pool
-    g = binary.reshape(r, pool, r, pool, r, pool)
-    return g.any(dim=5).any(dim=3).any(dim=1).reshape(-1)
-
-
-def _compact(flags, payload, budget, fill, return_cutoff=False):
+def _compact(flags, payload, budget, fill, return_cutoff=False,
+             plain=False):
     """Stream-compact `payload[flags]` (in lane order) into a (budget + 1,)
-    buffer whose slot `budget` holds `fill` (ops/compact.py). Returns
-    (buffer, number of flagged lanes[, the smallest dropped payload, ==
-    fill if none])."""
-    out = compact_ops.compact(flags.reshape(-1), (payload.reshape(-1),),
-                              budget, (fill,), return_cutoff)
+    buffer whose slot `budget` holds `fill` (ops/compact.py; its plain
+    version with `plain`). Returns (buffer, number of flagged lanes[, the
+    smallest dropped payload, == fill if none])."""
+    fn = compact_ops.compact_reference if plain else compact_ops.compact
+    out = fn(flags.reshape(-1), (payload.reshape(-1),), budget, (fill,),
+             return_cutoff)
     return (out[0][0], *out[1:])
 
 
@@ -204,7 +151,7 @@ def uses_superblocks(rc):
     """Whether the march runs its superblock stage (three compactions, else
     two): the geometry must allow it."""
     res = rc.grid_resolution
-    n_blocks = -(-rc.max_samples_per_ray // BLOCK_STEPS)
+    n_blocks = march_ops.n_blocks_of(rc)
     min_cell_extent = min((rc.aabb[3 + i] - rc.aabb[i]) / res
                           for i in range(3))
     sb_reach = ((SB_BLOCKS * BLOCK_STEPS / 2 + BLOCK_STEPS / 2)
@@ -218,9 +165,61 @@ def uses_superblocks(rc):
             and rc.superblock_budget != 0)
 
 
+def _march(binary, rays_o, rays_d, ray_mask, jitter, rc, plain):
+    """The march's stages (ops/march.py) and the compactions between them;
+    with `plain`, every stage's plain version whatever the device."""
+    if plain:
+        masks, coarse, samples, decode = (
+            march_ops.masks_reference, march_ops.coarse_reference,
+            march_ops.samples_reference, march_ops.decode_reference)
+    else:
+        masks, coarse, samples, decode = (
+            march_ops.masks, march_ops.coarse, march_ops.samples,
+            march_ops.decode)
+    R = rays_o.shape[0]
+    S = rc.max_samples_per_ray
+    n_blocks = march_ops.n_blocks_of(rc)
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+    if jitter is not None:
+        jitter = jitter.contiguous()
+    ray_mask = ray_mask.contiguous()
+
+    dilated, pooled = masks(binary, rc, uses_superblocks(rc))
+    num_superblocks = sb_cut = None
+    if pooled is not None:
+        n_sb = n_blocks // SB_BLOCKS
+        flags, codes, t_near, t_far = coarse(
+            march_ops.SUPERBLOCKS, rays_o, rays_d, ray_mask, jitter, pooled,
+            rc)
+        sb_buf, num_superblocks, sb_cut = _compact(
+            flags, codes, rc.superblock_capacity, R * n_sb, True, plain)
+        flags, codes, _, _ = coarse(
+            march_ops.BLOCKS_AFTER, rays_o, rays_d, ray_mask, jitter,
+            dilated, rc, t_near, t_far, sb_buf)
+    else:
+        flags, codes, t_near, t_far = coarse(
+            march_ops.BLOCKS_DENSE, rays_o, rays_d, ray_mask, jitter,
+            dilated, rc)
+    blk_buf, num_blocks, blk_cut = _compact(
+        flags, codes, rc.block_capacity, R * n_blocks, True, plain)
+    flags, codes, counts = samples(rays_o, rays_d, binary, t_near, t_far,
+                                   blk_buf, rc)
+    code_buf, num_samples = _compact(flags, codes, rc.sample_budget, R * S,
+                                     False, plain)
+    t_mid, dt, ray_idx, coarse_complete = decode(code_buf, t_near, sb_cut,
+                                                 blk_cut, R, rc)
+    return RaySamples(
+        t_mid=t_mid, dt=dt, ray_idx=ray_idx, counts=counts,
+        offsets=torch.cumsum(counts, dim=0) - counts,
+        num_samples=num_samples, num_blocks=num_blocks,
+        num_superblocks=num_superblocks, coarse_complete=coarse_complete)
+
+
 @torch.no_grad()
 def march_rays(binary, rays_o, rays_d, ray_mask, jitter, rc):
-    """Occupancy-gated marching with fixed-budget compaction.
+    """Occupancy-gated marching with fixed-budget compaction: on CUDA
+    tensors the kernels of ops/march.py and ops/compact.py, on CPU tensors
+    their plain versions.
 
     Args:
         binary: (grid_resolution**3,) bool occupancy mask.
@@ -232,118 +231,14 @@ def march_rays(binary, rays_o, rays_d, ray_mask, jitter, rc):
     Returns:
         RaySamples.
     """
-    device = rays_o.device
-    R = rays_o.shape[0]
-    K = rc.sample_budget
-    S = rc.max_samples_per_ray
-    n_blocks = -(-S // BLOCK_STEPS)
-    KB = rc.block_capacity
-    res = rc.grid_resolution
-    aabb = constant(rc.aabb, torch.float32, device)
-    ray_ids = torch.arange(R, device=device)
+    return _march(binary, rays_o, rays_d, ray_mask, jitter, rc, plain=False)
 
-    t_near, t_far = _ray_t_bounds(rays_o, rays_d, rc)
-    if rc.stratified:
-        t_near = t_near + jitter * rc.render_step_size
 
-    dilated = _dilate_binary(binary, res)
-    num_superblocks = None
-    first_bad_ray = torch.full((), R, dtype=torch.int64, device=device)
-    if uses_superblocks(rc):
-        pooled_res = res // POOL
-        pooled = _maxpool_binary(dilated, res, POOL)
-        pooled = _dilate_binary(_dilate_binary(pooled, pooled_res),
-                                pooled_res)
-        n_sb = n_blocks // SB_BLOCKS
-        KSB = rc.superblock_capacity
-        sb = torch.arange(n_sb, dtype=torch.float32, device=device)
-        sb_steps = SB_BLOCKS * BLOCK_STEPS
-        tn = t_near[:, None]
-        t_sb_mid = _timeline_at(sb * sb_steps + sb_steps / 2, tn, rc)
-        t_sb_lo = _timeline_at(sb * sb_steps, tn, rc)
-        t_sb_hi = _timeline_at((sb + 1) * sb_steps, tn, rc)
-        pos = rays_o[:, None, :] + rays_d[:, None, :] * t_sb_mid[..., None]
-        u = contraction_lib.contract(pos, aabb, rc.contraction_type)
-        cell, _ = occupancy.grid_index(u.clamp(0.0, 1.0 - 1e-7), pooled_res)
-        sb_valid = (pooled[cell] & (t_sb_lo < t_far[:, None])
-                    & (t_sb_hi > tn) & ray_mask[:, None])
-        sb_code = ray_ids[:, None] * n_sb + torch.arange(n_sb, device=device)
-        sb_buf, num_superblocks, sb_cut = _compact(
-            sb_valid, sb_code, KSB, fill=R * n_sb, return_cutoff=True)
-        first_bad_ray = sb_cut // n_sb
-        sb_ray = torch.clamp(sb_buf // n_sb, max=R - 1)
-        cand_ray = sb_ray[:, None].expand(KSB + 1, SB_BLOCKS)
-        cand_blk = ((sb_buf % n_sb)[:, None] * SB_BLOCKS
-                    + torch.arange(SB_BLOCKS, device=device))
-        cand_active = (sb_buf < R * n_sb)[:, None]
-    else:
-        cand_ray = ray_ids[:, None].expand(R, n_blocks)
-        cand_blk = torch.arange(n_blocks, device=device)[None, :].expand(
-            R, n_blocks)
-        cand_active = ray_mask[:, None]
-    tn_c = t_near[cand_ray]
-    tf_c = t_far[cand_ray]
-
-    blk_f = cand_blk.to(torch.float32)
-    t_blk_mid = _timeline_at(blk_f * BLOCK_STEPS + BLOCK_STEPS / 2, tn_c, rc)
-    t_blk_lo = _timeline_at(blk_f * BLOCK_STEPS, tn_c, rc)
-    t_blk_hi = _timeline_at((blk_f + 1) * BLOCK_STEPS, tn_c, rc)
-    pos = rays_o[cand_ray] + rays_d[cand_ray] * t_blk_mid[..., None]
-    u = contraction_lib.contract(pos, aabb, rc.contraction_type)
-    cell, _ = occupancy.grid_index(u.clamp(0.0, 1.0 - 1e-7), res)
-    blk_valid = (dilated[cell] & (t_blk_lo < tf_c) & (t_blk_hi > tn_c)
-                 & cand_active)
-    blk_code = cand_ray * n_blocks + cand_blk
-    blk_buf, num_blocks, blk_cut = _compact(
-        blk_valid, blk_code, KB, fill=R * n_blocks, return_cutoff=True)
-    first_bad_ray = torch.minimum(first_bad_ray, blk_cut // n_blocks)
-
-    blk_ray = torch.clamp(blk_buf // n_blocks, max=R - 1)
-    step_k = ((blk_buf % n_blocks)[:, None] * BLOCK_STEPS
-              + torch.arange(BLOCK_STEPS, device=device))  # (KB+1, 8)
-    tn_b = t_near[blk_ray][:, None]
-    tf_b = t_far[blk_ray][:, None]
-    step_f = step_k.to(torch.float32)
-    t_mid = 0.5 * (_timeline_at(step_f, tn_b, rc)
-                   + _timeline_at(step_f + 1.0, tn_b, rc))
-    pos = rays_o[blk_ray][:, None, :] + rays_d[blk_ray][:, None, :] \
-        * t_mid[..., None]
-    u = contraction_lib.contract(pos, aabb, rc.contraction_type)
-    occ = occupancy.query(binary, u, res)
-    sample_valid = (occ & (t_mid < tf_b) & (t_mid >= tn_b) & (step_k < S)
-                    & (blk_buf < R * n_blocks)[:, None])
-    sample_code = blk_ray[:, None] * S + step_k
-    code_buf, num_samples = _compact(sample_valid, sample_code, K,
-                                     fill=R * S)
-
-    live = code_buf < R * S
-    ray_idx = torch.where(live, code_buf // S, torch.full_like(code_buf, R))
-    step = (code_buf % S).to(torch.float32)
-    tn_s = t_near[torch.clamp(ray_idx, max=R - 1)]
-    s_t0 = _timeline_at(step, tn_s, rc)
-    s_t1 = _timeline_at(step + 1.0, tn_s, rc)
-    zero = torch.zeros_like(s_t0)
-    t_buf = torch.where(live, 0.5 * (s_t0 + s_t1), zero)
-    dt_buf = torch.where(live, s_t1 - s_t0, zero)
-
-    # per-ray demand counts (every valid sample, before the budget). The
-    # lanes are in ray order (blk_ray never decreases: both compactions
-    # keep the ray-major lane order, and the fill lanes sit at the end as
-    # ray R - 1), so each ray's lanes are one segment and its count is a
-    # difference of the lanes' valid-flag cumsum at the segment bounds.
-    # (torch.bincount would read its output size back to the host.)
-    csum = torch.cumsum(sample_valid.reshape(-1).to(torch.int64), dim=0)
-    csum = torch.cat([csum.new_zeros(1), csum])
-    lane_ray = blk_ray[:, None].expand(-1, BLOCK_STEPS).reshape(-1)
-    bounds = torch.searchsorted(lane_ray, torch.arange(R + 1, device=device))
-    counts = csum[bounds[1:]] - csum[bounds[:-1]]
-    offsets = torch.cumsum(counts, dim=0) - counts
-    return RaySamples(
-        t_mid=t_buf, dt=dt_buf, ray_idx=ray_idx, counts=counts,
-        offsets=offsets, num_samples=num_samples, num_blocks=num_blocks,
-        num_superblocks=num_superblocks,
-        coarse_complete=ray_ids < first_bad_ray,
-    )
+@torch.no_grad()
+def march_reference(binary, rays_o, rays_d, ray_mask, jitter, rc):
+    """`march_rays` through every stage's and compaction's plain version,
+    on any device."""
+    return _march(binary, rays_o, rays_d, ray_mask, jitter, rc, plain=True)
 
 
 def composite(sigma, rgb, samples, n_rays, rc, render_bkgd=None):

@@ -199,6 +199,19 @@ def library():
         fn = lib.composite_bwd
         fn.argtypes = shared + [ctypes.c_void_p] * 7
         fn.restype = ctypes.c_int
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+        fn = lib.march_masks
+        fn.argtypes = [vp, vp, i64, i32, i32, vp]
+        fn.restype = ctypes.c_int
+        fn = lib.march_coarse
+        fn.argtypes = [vp, i32] + [vp] * 6 + [i64] + [vp] * 5
+        fn.restype = ctypes.c_int
+        fn = lib.march_samples
+        fn.argtypes = [vp] * 7 + [i64] + [vp] * 4
+        fn.restype = ctypes.c_int
+        fn = lib.march_decode
+        fn.argtypes = [vp, vp, i64] + [vp] * 8
+        fn.restype = ctypes.c_int
         fn = lib.l2_reduction_rate
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int32, ctypes.c_void_p]

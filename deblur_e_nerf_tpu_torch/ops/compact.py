@@ -112,10 +112,11 @@ def compact(flags, payloads, budget, fills, return_cutoff=False):
     bits = [_fill_bits(f, p.dtype) for p, f in zip(payloads, fills)]
     bufs = [torch.empty(budget + 1, dtype=p.dtype, device=device)
             for p in payloads]
-    tiles = torch.empty(-(-n // TILE), dtype=torch.int64, device=device)
-    total = torch.empty((), dtype=torch.int64, device=device)
-    cutoff = (torch.empty((), dtype=torch.int64, device=device)
-              if return_cutoff else None)
+    # the tile counts, the total and the cutoff: one allocation
+    n_tiles = -(-n // TILE)
+    scratch = torch.empty(n_tiles + 2, dtype=torch.int64, device=device)
+    tiles, total = scratch[:n_tiles], scratch[n_tiles]
+    cutoff = scratch[n_tiles + 1] if return_cutoff else None
     pad = MAX_CHANNELS - len(payloads)
     src = [p.data_ptr() for p in payloads] + [None] * pad
     dst = [b.data_ptr() for b in bufs] + [None] * pad

@@ -1133,3 +1133,109 @@ def test_composite_wrapper_raises_instead_of_falling_back(cuda):
             torch.stack([args[0], args[0]], 1)[:, 0], *args[1:])
     with pytest.raises(ValueError, match="offsets and counts"):
         composite.composite_forward(*args[:7], 11, *args[8:])
+
+
+# the march's stages (csrc/march.cu)
+
+MARCH_SMALL = [(label, path, n_rays // 64)
+               for label, path, n_rays in chip_smoke.MARCH_CONFIGS]
+
+
+@pytest.mark.parametrize("label,path,n_rays", MARCH_SMALL)
+def test_march_kernels_match_plain(cuda, label, path, n_rays):
+    """Each march kernel on its plain version's inputs, every output bit
+    for bit (under EDS's cone angle t_mid and dt within 2 ulp, the sample
+    sets equal), two runs bit for bit, its launches a march; march_rays
+    against march_reference; at the config's budgets and cut below every
+    stage's demand (chip_smoke.march_cases), at 1/64 of a step's rays."""
+    rc = chip_smoke.march_render_config(path)
+    inputs = chip_smoke.march_inputs(torch, rc, n_rays,
+                                     *chip_smoke.MARCH_SCENES[label])
+    rows = chip_smoke.march_cases(torch, f"card test {label}", inputs, rc)
+    for kernel in chip_smoke.MARCH_KERNELS:
+        assert all(r["within_rule"] and r["reproducible"]
+                   for r in rows[kernel])
+    assert all(r["equal_to_plain"] for r in rows["march"])
+
+
+def test_march_kernels_match_plain_under_tanh_contraction(cuda):
+    """The tanh contraction (no config of the repo uses it) through the
+    same checks, on the flagship's geometry."""
+    import dataclasses
+
+    from deblur_e_nerf_tpu_torch.models.contraction import ContractionType
+
+    rc = dataclasses.replace(
+        chip_smoke.march_render_config(chip_smoke.MARCH_CONFIGS[0][1]),
+        contraction_type=ContractionType.UN_BOUNDED_TANH)
+    inputs = chip_smoke.march_inputs(torch, rc, 4096, 0.3, 0.2)
+    rows = chip_smoke.march_cases(torch, "card test tanh", inputs, rc,
+                                  below=False)
+    assert all(r["equal_to_plain"] for r in rows["march"])
+
+
+@pytest.mark.parametrize("label,path,n_rays", MARCH_SMALL)
+def test_march_lane_model_on_the_card(cuda, label, path, n_rays):
+    """The per-lane model with the card's division (a product with the
+    step's float32 reciprocal, as torch's CUDA kernel divides by a Python
+    number) equals the plain version on the card output for output, and
+    so does each kernel."""
+    from deblur_e_nerf_tpu_torch.ops import march as mo
+
+    rc = chip_smoke.march_render_config(path)
+    inputs = chip_smoke.march_inputs(torch, rc, n_rays // 4,
+                                     *chip_smoke.MARCH_SCENES[label], seed=1)
+    calls, _ = chip_smoke.march_stage_calls(inputs, rc)
+    models = {"march_masks": mo.masks_model,
+              "march_coarse": mo.coarse_model,
+              "march_samples": mo.samples_model,
+              "march_decode": mo.decode_model}
+    for kernel, stage, args, want in calls:
+        extra = {} if kernel == "march_masks" else {"cuda_division": True}
+        got = models[kernel](*args, **extra)
+        for name, a, b in zip(chip_smoke.MARCH_OUTPUTS[kernel], got, want):
+            assert (a is None and b is None) or torch.equal(a, b), \
+                (kernel, stage, name)
+
+
+def test_march_through_the_renderer_launches_the_kernels(cuda):
+    """march_rays on card tensors launches the masks (three with
+    superblocks), two coarse stages, the samples and the decode once each,
+    and three compactions (chip_smoke.render_launches' march counts)."""
+    from deblur_e_nerf_tpu_torch.models import renderer
+
+    rc = chip_smoke.march_render_config(chip_smoke.MARCH_CONFIGS[0][1])
+    inputs = chip_smoke.march_inputs(torch, rc, 4096, 0.3, 0.05)
+    chip_smoke.reset_launches()
+    renderer.march_rays(*inputs, rc)
+    torch.cuda.synchronize()
+    got = chip_smoke.read_launches()
+    want = chip_smoke.render_launches(rc, trains=False)
+    assert {k: got[k] for k in chip_smoke.MARCH_KERNELS + ("compact",)} \
+        == {k: want[k] for k in chip_smoke.MARCH_KERNELS + ("compact",)}
+
+
+def test_march_wrappers_raise_instead_of_falling_back(cuda):
+    from deblur_e_nerf_tpu_torch.ops import march as mo
+
+    rc = chip_smoke.march_render_config(chip_smoke.MARCH_CONFIGS[0][1])
+    binary, o, d, mask, jitter = chip_smoke.march_inputs(torch, rc, 64, 0.3,
+                                                         0.05)
+    with pytest.raises(TypeError, match="bool"):
+        mo.masks(binary.float(), rc, True)
+    with pytest.raises(ValueError, match="elements"):
+        mo.masks(binary[:-1], rc, True)
+    pooled = mo.masks(binary, rc, True)[1]
+    with pytest.raises(TypeError, match="float32"):
+        mo.coarse(mo.SUPERBLOCKS, o.double(), d, mask, jitter, pooled, rc)
+    with pytest.raises(ValueError, match="contiguous"):
+        mo.coarse(mo.SUPERBLOCKS, o.t().contiguous().t(), d, mask, jitter,
+                  pooled, rc)
+    with pytest.raises(ValueError, match="jitter"):
+        mo.coarse(mo.SUPERBLOCKS, o, d, mask, None, pooled, rc)
+    with pytest.raises(ValueError, match="rays on"):
+        mo.coarse(mo.SUPERBLOCKS, o, d, mask.cpu(), jitter, pooled, rc)
+    with pytest.raises(TypeError, match="int64"):
+        mo.decode(torch.zeros(9, dtype=torch.int32, device=cuda),
+                  torch.zeros(64, device=cuda), None,
+                  torch.zeros((), dtype=torch.int64, device=cuda), 64, rc)

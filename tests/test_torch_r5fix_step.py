@@ -185,15 +185,17 @@ def test_chip_smoke_r5fix_config_is_the_yaml_with_its_listed_cuts():
     # one fused encode forward a field call, one backward a field backward
     # (K1 and K3 launch on no path), one weight-chain forward and backward
     # a step; the render kernels: the march's two compactions (no
-    # superblock stage at superblock_budget 0), one composite forward and
-    # one backward, and with the prepass one more compaction and one more
-    # composite forward (its live mask)
+    # superblock stage at superblock_budget 0) and its kernels (one masks
+    # launch, the dense block stage, the sample stage, the decode), one
+    # composite forward and one backward, and with the prepass one more
+    # compaction and one more composite forward (its live mask)
 
     def step_launches(forward, backward, filter_forward, prepass):
         return chip_smoke.encode_launches(
             forward, backward, filter_forward, render={
                 "compact": 2 + prepass, "composite_fwd": 1 + prepass,
-                "composite_bwd": 1})
+                "composite_bwd": 1, "march_masks": 1, "march_coarse": 1,
+                "march_samples": 1, "march_decode": 1})
 
     assert chip_smoke.r5fix_step_launches(trainer, True) \
         == step_launches(4, 2, 1, True)
