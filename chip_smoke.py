@@ -18,7 +18,9 @@ Phases, each printing a start and an end line with elapsed seconds:
      fails), and that they run float32 FMAs and no tensor-core
      instruction; the render kernels' registers and spills (the
      compaction's three, the composite's two in float and double, the
-     march's four);
+     march's four) and the occupancy update's (its ten: points, the EMA's
+     tile and scatter passes, the threshold's finish, histogram, digit
+     and mask passes, the sampler's count, scan and search);
   3. kernels: each kernel against its plain PyTorch version on the card
      (the Pallas probes K2/K3's shapes too), with times of the kernel, the
      plain version and the PyTorch library calls computing the same
@@ -102,11 +104,29 @@ Phases, each printing a start and an end line with elapsed seconds:
      march_reference field for field, each kernel's ms a march beside
      its plain version's and its bound, max_pool3d beside the masks, the
      whole march in turns with the parent's (with --parent) and beside
-     the plain march; and, in "3b", all of them on the steps' own inputs
-     (`capture_render_inputs`: each march stage's compaction at its
-     budget and at half its flagged lanes, the composite's buffer and
-     cotangents, the march's rays, mask, jitter and grid of phase 4's
-     and phase 7's steady steps);
+     the plain march; the occupancy update's four kernels (occ_points,
+     occ_ema, occ_threshold, occ_sample_occupied) on the flagship's
+     (128^3, aabb), EDS's (256^3, sphere, cone angle 0.004) and r5fix's
+     (64^3, thre_floor, max_occupied_fraction 0.125) grids at full size
+     with a synthetic density (`occ_cases`: two warmup updates from an
+     empty grid, a sampled update, a sampled update on an empty mask (the
+     sampler's fallback), a warmup and a sampled update with NaN planted
+     in the density): each kernel call on its plain version's inputs,
+     points, steps, EMA and sampler bit for bit, the EMA's float64
+     partials against their model, the threshold within OCC_MEAN_RTOL
+     with the cells between the two thresholds counted, the quantile bit
+     for bit against torch.quantile, two runs bit for bit, the whole
+     update against the plain update, each kernel's ms an update beside
+     its plain version's, its bound and the library call
+     (scatter_reduce(amax), torch.quantile and torch.kthvalue,
+     searchsorted over a cumsum); and, in "3b", all of them on the steps'
+     own inputs (`capture_render_inputs`: each march stage's compaction
+     at its budget and at half its flagged lanes, the composite's buffer
+     and cotangents, the march's rays, mask, jitter and grid of phase 4's
+     and phase 7's steady steps; `capture_occupancy`: the trainers' own
+     grids and fields, a warmup and a sampled update each, with the whole
+     update's wall and kernel ms, the field's share printed apart, its
+     peak memory, in turns with the parent's update with --parent);
   4. training, two paths of configs/train/synthetic.yaml at full width on
      a synthetic dataset, each with the kernels' launch counts set to 0
      just before it and read just after:
@@ -126,7 +146,10 @@ Phases, each printing a start and an end line with elapsed seconds:
           decode), one composite forward and one backward; then the
           operator calls by layer (op_census) of one more steady step
           (the weight chain's its wrapper's alone, the march's at most
-          MARCH_MAX_OPS) and of a sampled and a warmup occupancy update;
+          MARCH_MAX_OPS) and of a sampled and a warmup occupancy update
+          (outside the field an allocation a kernel call at most, the
+          occupancy kernels' launches `occupancy_launches`), and the host
+          syncs of each update (there may be none);
   5. reference: on small inputs, the card (through the kernels) against
      the plain version on the CPU: the NGP field's outputs and table
      gradient, and one filter-on step's loss and gradients;
@@ -213,10 +236,14 @@ Phases, each printing a start and an end line with elapsed seconds:
 
 Every path's launches are read with the counts set to 0 just before it
 and must include the compaction, the march's four kernels and the
-composite forward, and the composite backward exactly on the paths that
-train; where a step's or a frame's counts are known (`render_launches`:
-a compaction a march stage and a prepass, the march's kernels a march, a
-composite forward a render and a prepass) they must be those.
+composite forward, and the composite backward and the occupancy update's
+points, EMA and threshold kernels exactly on the paths that train (the
+sampler where a sampled update ran); where a step's or a frame's counts
+are known (`render_launches`: a compaction a march stage and a prepass,
+the march's kernels a march, a composite forward a render and a prepass;
+`occupancy_launches`: a points and an EMA launch a chunk of an update, a
+threshold an update, the sampler a sampled update, a points launch a
+sparsity prior) they must be those.
 
 Any failed check raises and the script exits non-zero. The line before
 the last is a JSON object describing each kernel; the last line is
@@ -954,7 +981,9 @@ def load_parent(torch, parent_dir):
     (encode_forward, encode_backward), "pb": its models.pixel_bandwidth
     (whose intensity_sample_to_weight is the weight chain as the parent's
     step ran it), "pb_ops": its ops.pb_weight (the weight chain's
-    kernels)}."""
+    kernels), "occupancy" and "contraction": its models.occupancy (the
+    occupancy update) and models.contraction, "package": the name it is
+    imported under}."""
     import importlib
     import importlib.util
 
@@ -969,12 +998,17 @@ def load_parent(torch, parent_dir):
     encode._library()
     print(f"parent kernels ({parent_dir}) built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    return {"encode": (encode.encode_forward, encode.encode_backward),
+    return {"package": "parent_port",
+            "encode": (encode.encode_forward, encode.encode_backward),
             "renderer": importlib.import_module(
                 "parent_port.models.renderer"),
             "pb": importlib.import_module(
                 "parent_port.models.pixel_bandwidth"),
-            "pb_ops": importlib.import_module("parent_port.ops.pb_weight")}
+            "pb_ops": importlib.import_module("parent_port.ops.pb_weight"),
+            "occupancy": importlib.import_module(
+                "parent_port.models.occupancy"),
+            "contraction": importlib.import_module(
+                "parent_port.models.contraction")}
 
 
 def in_turns(fn, parent_fn, iters=20, timer=None, parent_timer=None):
@@ -1262,14 +1296,20 @@ FLAGSHIP_RAYS = 429 * 30 * 4
 
 
 def check_render_build(ptxas):
-    """Print the render kernels' registers and spills (-Xptxas -v); fail
-    unless each was built (the composite kernels in float and double, the
-    march's four)."""
+    """Print the render and occupancy kernels' registers and spills
+    (-Xptxas -v); fail unless each was built (the composite kernels in
+    float and double, the march's four, the occupancy update's ten)."""
     kernels = ("compact_count", "compact_scan", "compact_write",
                "composite_fwd_kernelIfE", "composite_fwd_kernelIdE",
                "composite_bwd_kernelIfE", "composite_bwd_kernelIdE",
                "march_masks_kernel", "march_coarse_kernel",
-               "march_samples_kernel", "march_decode_kernel")
+               "march_samples_kernel", "march_decode_kernel",
+               "occ_points_kernel", "occ_ema_tiles_kernel",
+               "occ_ema_scatter_kernel", "occ_threshold_finish_kernel",
+               "occ_threshold_histogram_kernel",
+               "occ_threshold_digit_kernel", "occ_threshold_binary_kernel",
+               "occ_sample_count_kernel", "occ_sample_scan_kernel",
+               "occ_sample_search_kernel")
     for kernel in kernels:
         fns = [fn for fn in ptxas if kernel in fn]
         if not fns and ptxas:
@@ -2119,6 +2159,659 @@ def march_kernel_cases(torch, parent=None):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the occupancy update (csrc/occupancy.cu, ops/occupancy.py)
+
+OCC_SOURCE = "deblur_e_nerf_tpu_torch/csrc/occupancy.cu"
+# no Pallas kernel: the JAX package's occupancy update, which XLA compiles
+OCC_REPLACES = {
+    "occ_points": "deblur_e_nerf_tpu/models/occupancy.py:143",
+    "occ_ema": "deblur_e_nerf_tpu/models/occupancy.py:152",
+    "occ_threshold": "deblur_e_nerf_tpu/models/occupancy.py:180",
+    "occ_sample_occupied": "deblur_e_nerf_tpu/models/occupancy.py:64"}
+OCC_KERNELS = tuple(OCC_REPLACES)
+OCC_COUNTERS = {"occ_points": "POINTS_LAUNCHES", "occ_ema": "EMA_LAUNCHES",
+                "occ_threshold": "THRESHOLD_LAUNCHES",
+                "occ_sample_occupied": "SAMPLE_LAUNCHES"}
+# phase 3's grids: the flagship's (128^3, aabb), EDS's (256^3, sphere, cone
+# angle 0.004) and r5fix's (64^3, thre_floor 1e-3, max_occupied_fraction
+# 0.125), each with its train config's render and occupancy settings
+OCC_CONFIGS = (("flagship", "configs/train/synthetic.yaml"),
+               ("EDS", "configs/train/07_ziggy_and_fuzz_hdr.yaml"),
+               ("r5fix", "configs/train/quality_sphere_blur32_dense_r5fix"
+                         ".yaml"))
+# the threshold's mean: float64 partials summed in a fixed order against
+# torch.mean's float32 tree; the cells between the two thresholds flip
+OCC_MEAN_RTOL = 1e-5
+# the partial sums against partials_model's float64 sums in another order
+OCC_PARTIALS_RTOL = 1e-12
+# the quantile every grid is also held to (the threshold kernel with
+# occ_thre = -inf returns it alone); r5fix's own cap
+OCC_QUANTILE_FRACTION = 0.125
+# the float32 operations of a point lane by contraction, and of the cone
+# step (the bound's operation count; bytes bound every B7 kernel)
+OCC_POINT_OPS = {"aabb": 12, "sphere": 35, "tanh": 30}
+OCC_STEP_OPS = 12
+
+
+def occ_keywords(occ):
+    """models/occupancy.update's threshold and EMA keywords from an
+    `occ_grid` config, as nerf_model.update_occupancy forms them."""
+    return dict(occ_thre=float(occ.occ_thre), ema_decay=float(occ.ema_decay),
+                thre_floor=float(occ.get("thre_floor", 0.0)),
+                max_occupied_fraction=float(
+                    occ.get("max_occupied_fraction", 1.0)),
+                thre_rel_max=float(occ.get("thre_rel_max", 0.0)))
+
+
+def occ_settings(path):
+    """(render config, occupancy settings) of the train config at `path`:
+    the render config the trainer builds and update()'s keywords."""
+    config = load_with_changes(path, {})
+    return march_render_config(path), occ_keywords(
+        config.model.nerf.occ_grid)
+
+
+def occ_density(torch, rc, scale=40.0, device="cuda"):
+    """A synthetic density: a Gaussian blob of `scale` around the aabb's
+    centre, 0.15 of its extent wide (N, 1)."""
+    lo = torch.tensor(rc.aabb[:3], device=device)
+    hi = torch.tensor(rc.aabb[3:], device=device)
+    center, width = (lo + hi) / 2, (hi - lo) * 0.15
+
+    def density(x):
+        d = (x - center) / width
+        return scale * torch.exp(-(d * d).sum(-1, keepdim=True))
+    return density
+
+
+def occ_eval_of(rc, density):
+    from deblur_e_nerf_tpu_torch.models import occupancy
+
+    return occupancy.make_occ_eval_fn(density, rc.render_step_size,
+                                      rc.cone_angle, rc.near_plane,
+                                      rc.far_plane)
+
+
+def occ_draws(torch, rc, warmup, seed, n_cameras=21, device="cuda"):
+    """One update's draws (occupancy.draw_update) and camera positions
+    inside the aabb's middle half."""
+    from deblur_e_nerf_tpu_torch.models import occupancy
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    cone = rc.cone_angle > 0.0
+    draws = occupancy.draw_update(gen, rc.grid_resolution, warmup, device,
+                                  num_cameras=n_cameras if cone else 0)
+    lo = torch.tensor(rc.aabb[:3], device=device)
+    hi = torch.tensor(rc.aabb[3:], device=device)
+    cams = (lo + hi) / 2 + (torch.rand((n_cameras, 3), generator=gen,
+                                       device=device) - 0.5) * (hi - lo) / 2
+    return draws, cams
+
+
+@contextmanager
+def plain_occupancy():
+    """ops/occupancy.py's wrappers routed to their plain versions while
+    the block runs: the plain update on the card."""
+    from deblur_e_nerf_tpu_torch.ops import occupancy as oo
+
+    names = ("points", "ema", "threshold", "sample_occupied")
+    real = [getattr(oo, n) for n in names]
+    oo.points, oo.ema = oo.points_reference, oo.ema_reference
+    oo.threshold = lambda occs, partials, *a: oo.threshold_reference(occs, *a)
+    oo.sample_occupied = oo.sample_occupied_reference
+    try:
+        yield
+    finally:
+        for n, fn in zip(names, real):
+            setattr(oo, n, fn)
+
+
+def _nan_equal(torch, a, b):
+    """Bit for bit, a NaN equal to any NaN."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        _bits(torch, torch.where(nan, 0.0, a)),
+        _bits(torch, torch.where(nan, 0.0, b)))
+
+
+def occ_update_inputs(torch, state, occ_eval, warmup, draws, rc, kw, cams,
+                      chunk=1 << 19):
+    """The plain update step by step on the card: {sampled cells, the
+    chunks' points (start, count, x, step), densities, the EMA's occs, the
+    threshold's (binary, thre)}, and the arguments each kernel takes
+    there, so that a kernel's error does not reach the next."""
+    from deblur_e_nerf_tpu_torch.ops import occupancy as oo
+
+    grid = oo.Grid(rc.grid_resolution, tuple(rc.aabb), rc.contraction_type)
+    steps = occ_eval.steps
+    out = {"grid": grid, "steps": steps, "cams": cams}
+    if warmup:
+        cells = ()
+    else:
+        out["sample_args"] = (state.binary, draws["occupied"])
+        out["sampled"] = oo.sample_occupied_reference(*out["sample_args"])
+        cells = (draws["uniform_cells"], out["sampled"])
+    out["cells"] = cells
+    n = draws["jitter"].shape[0]
+    chunk = max(oo.TILE, chunk // oo.TILE * oo.TILE)
+    out["points"], out["chunks"] = [], []
+    for start in range(0, n, chunk):
+        args = (grid, draws["jitter"], start, min(chunk, n - start), cells,
+                steps, draws.get("cam_ids"), cams)
+        x, step = oo.points_reference(*args)
+        out["points"].append((args, (x, step)))
+        with torch.no_grad():
+            out["chunks"].append((start, occ_eval.density_fn(x), step))
+    out["ema_args"] = (state.occs, kw["ema_decay"], out["chunks"],
+                       cells if cells else None, steps.render_step_size)
+    out["occs"], _ = oo.ema_reference(*out["ema_args"])
+    out["thre_args"] = (kw["occ_thre"], kw["thre_floor"], kw["thre_rel_max"],
+                        kw["max_occupied_fraction"])
+    out["binary"], out["thre"] = oo.threshold_reference(out["occs"],
+                                                        *out["thre_args"])
+    return out
+
+
+def occ_bounds(kernel, inputs, rc, n_cells):
+    """The least time of a kernel's calls in an update: its inputs read
+    once and its outputs written once over 3.35 TB/s (the sampled EMA's
+    keys and the threshold's partials and select passes are scratch; the
+    sampler reads its fallback cells only when no cell is occupied), or
+    its float32 operations over 67 TFLOP/s."""
+    lanes = sum(a[3] for a, _ in inputs["points"])
+    listed = 8 * lanes if inputs["cells"] else 0
+    cone = rc.cone_angle > 0
+    step_bytes = 4 * lanes if cone else 0
+    if kernel == "occ_points":
+        ops = lanes * (OCC_POINT_OPS[rc.contraction_type.value]
+                       + (OCC_STEP_OPS if cone else 0))
+        return bound(listed + 24 * lanes + (8 * lanes if cone else 0)
+                     + step_bytes, ops)
+    if kernel == "occ_ema":
+        return bound(8 * n_cells + 4 * lanes + step_bytes + listed,
+                     3 * lanes)
+    if kernel == "occ_threshold":
+        return bound(5 * n_cells, 2 * n_cells)
+    binary, draws = inputs["sample_args"]
+    n = draws["u"].numel()
+    # the mask, u (float32) and the cells out (int64)
+    return bound(n_cells + 12 * n + (0 if bool(binary.any()) else 8 * n))
+
+
+def occ_case(torch, label, kind, state, occ_eval, warmup, draws, rc, kw,
+             cams, timed=True):
+    """The four occupancy kernels against their plain versions on one
+    update: each call on its plain version's inputs
+    (`occ_update_inputs`), points, steps, EMA and sampler bit for bit
+    (NaN equal to NaN), the EMA's partials within OCC_PARTIALS_RTOL of
+    partials_model, the threshold within OCC_MEAN_RTOL of the plain one
+    with the binary mask equal but for the cells between the two
+    thresholds (counted), the quantile (the threshold kernel with occ_thre
+    -inf at the config's fraction, else OCC_QUANTILE_FRACTION) bit for bit
+    against torch.quantile; two runs bit for bit, one launch a call (the
+    EMA one a chunk and one more for a sampled update); then the whole
+    update (models/occupancy.update) against the plain update. With
+    `timed`, each kernel's ms an update (its device time, replayed from a
+    CUDA graph, and its calls' time with the wrappers' host work) beside
+    its plain version's, its bound and the library call. Returns ({kernel:
+    row}, the new state)."""
+    from deblur_e_nerf_tpu_torch.models import occupancy
+    from deblur_e_nerf_tpu_torch.ops import occupancy as oo
+
+    inputs = occ_update_inputs(torch, state, occ_eval, warmup, draws, rc, kw,
+                               cams)
+    n_cells = state.occs.numel()
+    device = str(state.occs.device)
+    on_card = state.occs.is_cuda
+    rows, failed = {}, []
+
+    def launches_of(kernel, fn):
+        before = getattr(oo, OCC_COUNTERS[kernel])
+        out = fn()
+        _sync(torch, device)
+        return out, getattr(oo, OCC_COUNTERS[kernel]) - before
+
+    def row(kernel, exact, repeat, launches, want_launches, extra=None):
+        want_launches *= on_card  # the plain versions launch nothing
+        r = {"shape": label, "index_structure": kind, "bit_exact": exact,
+             "within_rule": exact, "reproducible": repeat,
+             "max_abs_err": 0.0, "launches_an_update": launches,
+             "tolerance": "bit for bit (NaN equal to NaN)",
+             "library_ms": None, **(extra or {})}
+        rows[kernel] = r
+        if not (r["within_rule"] and repeat and launches == want_launches):
+            failed.append(kernel)
+        return r
+
+    # the sampler
+    if not warmup:
+        got, n1 = launches_of("occ_sample_occupied",
+                              lambda: oo.sample_occupied(
+                                  *inputs["sample_args"]))
+        again = oo.sample_occupied(*inputs["sample_args"])
+        row("occ_sample_occupied", torch.equal(got, inputs["sampled"]),
+            torch.equal(got, again), n1, 1,
+            {"fallback": not bool(state.binary.any())})
+    # the points, chunk by chunk
+    exact = repeat = True
+    launches = 0
+    for args, (x, step) in inputs["points"]:
+        (gx, gs), n1 = launches_of("occ_points", lambda a=args: oo.points(*a))
+        ax, as_ = oo.points(*args)
+        exact = exact and _nan_equal(torch, gx, x) and (
+            step is None and gs is None or _nan_equal(torch, gs, step))
+        repeat = repeat and torch.equal(_bits(torch, gx), _bits(torch, ax))
+        launches += n1
+    row("occ_points", exact, repeat, launches, len(inputs["points"]))
+    # the EMA on the plain densities
+    (g_occs, partials), n1 = launches_of(
+        "occ_ema", lambda: oo.ema(*inputs["ema_args"]))
+    again, _ = oo.ema(*inputs["ema_args"])
+    p_err, p_max = 0.0, True  # the plain version has no partials
+    if partials is not None:
+        psum, pmax = oo.partials_model(inputs["occs"])
+        p_err = float(((partials[0] - psum).abs()
+                       / psum.abs().clamp(min=1e-30)).nan_to_num(0.0).max())
+        p_max = _nan_equal(torch, partials[1], pmax)
+    ema_row = row("occ_ema", _nan_equal(torch, g_occs, inputs["occs"]),
+                  _nan_equal(torch, again, g_occs), n1,
+                  len(inputs["chunks"]) + (0 if warmup else 1),
+                  {"partials_rel_err": p_err, "partials_max_equal": p_max})
+    if not (p_err <= OCC_PARTIALS_RTOL and ema_row["partials_max_equal"]):
+        failed.append("occ_ema partials")
+    # the threshold on the kernel EMA's outputs
+    (binary, thre), n1 = launches_of("occ_threshold", lambda: oo.threshold(
+        g_occs, partials, *inputs["thre_args"]))
+    b2, t2 = oo.threshold(g_occs, partials, *inputs["thre_args"])
+    want_t = inputs["thre"]
+    t_err = float((thre.double() - want_t.double()).abs()
+                  / want_t.double().abs().clamp(min=1e-30))
+    nan_t = bool(torch.isnan(want_t))
+    flips = binary != inputs["binary"]
+    lo = torch.minimum(thre, want_t)
+    hi = torch.maximum(thre, want_t)
+    between = (g_occs >= lo) & (g_occs <= hi)
+    frac = kw["max_occupied_fraction"]
+    q = 1.0 - (frac if frac < 1.0 else OCC_QUANTILE_FRACTION)
+    qmode = (float("-inf"), 0.0, 0.0, 1.0 - q)
+    (q_bin, q_got), _ = launches_of("occ_threshold", lambda: oo.threshold(
+        g_occs, partials, *qmode))
+    q_want = torch.quantile(inputs["occs"], q)
+    thre_ok = (t_err <= OCC_MEAN_RTOL or (nan_t and bool(torch.isnan(thre))))
+    trow = row("occ_threshold",
+               thre_ok and not bool((flips & ~between).any())
+               and _nan_equal(torch, q_got, q_want),
+               torch.equal(binary, b2) and _nan_equal(torch, thre, t2),
+               n1, 1,
+               {"thre": float(thre), "plain_thre": float(want_t),
+                "thre_rel_err": t_err, "flipped_cells": int(flips.sum()),
+                "cells_between": int(between.sum()),
+                "quantile_q": q, "quantile": float(q_got),
+                "quantile_bit_exact": _nan_equal(torch, q_got, q_want),
+                "tolerance": f"thre within {OCC_MEAN_RTOL:g} relative, the "
+                             f"mask but the cells between the two "
+                             f"thresholds, the quantile bit for bit"})
+    trow["bit_exact"] = torch.equal(binary, inputs["binary"]) and \
+        _nan_equal(torch, thre, want_t)
+    trow["max_abs_err"] = abs(float(thre) - float(want_t)) if not nan_t \
+        else 0.0
+    # the whole update
+    steps_kw = dict(resolution=rc.grid_resolution, aabb=rc.aabb,
+                    contraction_type=rc.contraction_type,
+                    camera_positions=cams, **kw)
+    new = occupancy.update(state, occ_eval, warmup, draws, **steps_kw)
+    with plain_occupancy():
+        plain = occupancy.update(state, occ_eval, warmup, draws, **steps_kw)
+    _sync(torch, device)
+    whole_ok = _nan_equal(torch, new.occs, plain.occs) and not bool(
+        ((new.binary != plain.binary) & ~between).any())
+    if timed:
+        import functools
+
+        plain_fns = {"occ_points": oo.points_reference,
+                     "occ_ema": oo.ema_reference,
+                     "occ_sample_occupied": oo.sample_occupied_reference}
+        fns = {"occ_points": oo.points, "occ_ema": oo.ema,
+               "occ_sample_occupied": oo.sample_occupied}
+        calls = {"occ_points": [a for a, _ in inputs["points"]],
+                 "occ_ema": [inputs["ema_args"]],
+                 "occ_sample_occupied": ([inputs["sample_args"]]
+                                         if not warmup else [])}
+        # the kernels' device time from a CUDA graph's replay ("ms"), and
+        # their calls' time with the wrappers' host work ("call_ms")
+        for kernel, r in rows.items():
+            if kernel == "occ_threshold":
+                call = functools.partial(oo.threshold, g_occs, partials,
+                                         *inputs["thre_args"])
+                r["ms"], r["call_ms"] = graph_ms(call), time_ms(call)
+                r["plain_ms"] = time_ms(lambda: oo.threshold_reference(
+                    inputs["occs"], *inputs["thre_args"]), iters=5)
+                r["quantile_ms"] = graph_ms(lambda: oo.threshold(
+                    g_occs, partials, *qmode))
+                r["library_ms"] = time_ms(lambda: torch.quantile(
+                    inputs["occs"], q), iters=5)
+                r["library_call"] = "torch.quantile"
+                k = int(q * (n_cells - 1)) + 1
+                r["kthvalue_ms"] = time_ms(lambda: torch.kthvalue(
+                    inputs["occs"], k), iters=5)
+            else:
+                r["ms"] = sum(graph_ms(functools.partial(fns[kernel], *a))
+                              for a in calls[kernel])
+                r["call_ms"] = sum(
+                    time_ms(functools.partial(fns[kernel], *a))
+                    for a in calls[kernel])
+                r["plain_ms"] = sum(
+                    time_ms(functools.partial(plain_fns[kernel], *a),
+                            iters=5)
+                    for a in calls[kernel])
+            r["bound_ms"], r["bound_by"] = occ_bounds(kernel, inputs, rc,
+                                                      n_cells)
+        if not warmup:
+            cells = torch.cat([c.to(torch.int64) for c in inputs["cells"]])
+            occ = torch.cat([d.reshape(-1) * (s if s is not None
+                                              else rc.render_step_size)
+                             for _, d, s in inputs["chunks"]])
+            rows["occ_ema"]["library_ms"] = time_ms(
+                lambda: state.occs.scatter_reduce(0, cells, occ, "amax",
+                                                  include_self=True))
+            rows["occ_ema"]["library_call"] = "scatter_reduce(amax)"
+            b, d = inputs["sample_args"]
+            rows["occ_sample_occupied"]["library_ms"] = time_ms(
+                lambda: torch.searchsorted(
+                    torch.cumsum(b.to(torch.float32), 0), d["u"],
+                    right=True))
+            rows["occ_sample_occupied"]["library_call"] = \
+                "torch.searchsorted over a cumsum"
+    for kernel, r in rows.items():
+        print(f"{kernel} {label} ({kind}): bit exact {r['bit_exact']}, "
+              f"within its rule ({r['tolerance']}) {r['within_rule']}, two "
+              f"runs bit for bit {r['reproducible']}, launches an update "
+              f"{r['launches_an_update']}"
+              + (f"; thre {r['thre']:.9g} against {r['plain_thre']:.9g} "
+                 f"(relative {r['thre_rel_err']:.3e}), cells flipped "
+                 f"{r['flipped_cells']} of {r['cells_between']} between "
+                 f"the thresholds, quantile({r['quantile_q']:.3f}) "
+                 f"{r['quantile']:.9g} bit for bit "
+                 f"{r['quantile_bit_exact']}"
+                 if kernel == "occ_threshold" else "")
+              + (f"; partials relative error {r['partials_rel_err']:.2e}"
+                 if kernel == "occ_ema" else "")
+              + (f"; kernel {r['ms']:.4f} ms (graph replay; {r['call_ms']:.4f}"
+                 f" ms a call with the host's work), plain "
+                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                 f"({r['bound_by']})"
+                 + (f", {r['library_call']} {r['library_ms']:.4f} ms"
+                    if r["library_ms"] is not None else "")
+                 + (f", quantile alone {r['quantile_ms']:.4f} ms (graph "
+                    f"replay), torch.kthvalue {r['kthvalue_ms']:.4f} ms"
+                    if kernel == "occ_threshold" else "")
+                 if timed else ""), flush=True)
+    print(f"occupancy update {label} ({kind}): occupied fraction "
+          f"{float(new.binary.float().mean()):.5f}, update equal to the "
+          f"plain update {whole_ok} (cells flipped "
+          f"{int((new.binary != plain.binary).sum())})", flush=True)
+    del inputs
+    if failed or not whole_ok:
+        raise AssertionError(f"occupancy {label} ({kind}): {failed} differ "
+                             f"from their plain versions, are not "
+                             f"reproducible or launched otherwise; the "
+                             f"whole update equal {whole_ok}")
+    return rows, new
+
+
+def capture_occupancy(trainer):
+    """A trainer's grid (clones), its model (the field the update
+    evaluates), camera positions and occupancy settings, for
+    `occ_step_cases`."""
+    from deblur_e_nerf_tpu_torch.models import occupancy
+
+    model = trainer.params.nerf
+    return dict(
+        state=occupancy.OccupancyGridState(trainer.occ_state.occs.clone(),
+                                           trainer.occ_state.binary.clone()),
+        model=model,
+        cams=trainer.bundle.consts["trajectory"].T_wc_position.clone(),
+        kw=occ_keywords(model.occ_grid_config))
+
+
+def _profiled_update(torch, fn):
+    """(device ms of all kernels, of the occupancy kernels, of the encode,
+    {occupancy kernel: the device launches of its family (KERNEL_NAMES)},
+    the memsets of every source) of one call of fn under torch.profiler,
+    after one call whose records are dropped: a profile that starts with
+    the call loses the records of its first kernels (one to four of them
+    on an H100 with torch 2.11), and one profile in some held no device
+    record at all: such a profile is taken again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # the schedule's step annotation spans the step on the device too
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("ProfilerStep")]
+        if kernels:
+            break
+        print(f"profile {attempt + 1} of an update held no device record",
+              flush=True)
+
+    def ms(match):
+        return sum(e.self_device_time_total for e in kernels
+                   if match(e.key)) / 1e3
+    device = {k: sum(e.count for e in kernels if KERNEL_NAMES[k] in e.key)
+              for k in OCC_KERNELS}
+    return (ms(lambda k: True), ms(lambda k: "occ_" in k),
+            ms(lambda k: KERNEL_NAMES["hash_encode_fwd"] in k), device,
+            sum(e.count for e in kernels if "memset" in e.key.lower()))
+
+
+def time_update(torch, label, fn, parent_fn):
+    """A whole update timed: wall ms (a mean of 5 calls between
+    synchronizations), in turns with the parent's update (parent,
+    change, change, parent), its kernels' device ms from one profiled call
+    (all, the occupancy kernels', the encode's, and the rest: the field's
+    MLPs and the draws' RNG; the encode and the MLPs are not B7's) and
+    its peak device memory above the memory held before it, and the
+    occupancy kernels' device launches in that call beside their entry
+    points' calls in another (ops/occupancy's counts); the parent's
+    likewise, and its plain B7's device ms (its kernels less the change's
+    other than the occupancy kernels'). Returns the row."""
+    from deblur_e_nerf_tpu_torch.ops import occupancy as oo
+
+    def wall(f):
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            f()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 5 * 1e3
+
+    def peak(f):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        f()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    ms, runs, parent_ms, parent_runs = in_turns(
+        fn, parent_fn, iters=1, timer=lambda f, _: wall(f),
+        parent_timer=lambda f, _: wall(f))
+    total, occ, encode, device, memsets = _profiled_update(torch, fn)
+    before = {k: getattr(oo, v) for k, v in OCC_COUNTERS.items()}
+    fn()
+    calls = {k: getattr(oo, v) - before[k] for k, v in OCC_COUNTERS.items()}
+    row = {"shape": label, "wall_ms": ms, "wall_runs": runs,
+           "kernel_ms": total, "occ_kernel_ms": occ,
+           "encode_kernel_ms": encode,
+           "other_kernel_ms": total - occ - encode, "peak_mib": peak(fn),
+           "entry_point_calls": calls, "device_launches": device,
+           "memsets": memsets}
+    if parent_fn is not None:
+        p_total, _, p_encode, _, _ = _profiled_update(torch, parent_fn)
+        row.update(parent_wall_ms=parent_ms, parent_wall_runs=parent_runs,
+                   parent_kernel_ms=p_total, parent_encode_kernel_ms=p_encode,
+                   parent_b7_kernel_ms=p_total - (total - occ),
+                   parent_peak_mib=peak(parent_fn))
+    print(f"whole update {label}: the occupancy kernels' device launches "
+          f"{device} from their entry points' calls {calls}, memsets (all "
+          f"sources) {memsets}", flush=True)
+    print(f"whole update {label}: wall {ms:.3f} ms {runs}, kernels "
+          f"{total:.3f} ms (the occupancy kernels {occ:.3f}, the encode "
+          f"{encode:.3f}, the rest {row['other_kernel_ms']:.3f}: the "
+          f"field's MLPs and the draws), peak {row['peak_mib']:.1f} MiB "
+          f"above the state"
+          + (f"; parent: wall {parent_ms:.3f} ms {parent_runs}, kernels "
+             f"{p_total:.3f} ms (the encode {p_encode:.3f}; its plain B7 "
+             f"about {row['parent_b7_kernel_ms']:.3f}), peak "
+             f"{row['parent_peak_mib']:.1f} MiB"
+             if parent_fn is not None else ""), flush=True)
+    return row
+
+
+def occ_step_cases(torch, label, got, parent=None):
+    """The occupancy kernels on a trainer's own grid and field
+    (`capture_occupancy`, "3b"): a warmup and a sampled update from the
+    grid, seeded draws, each kernel against its plain version (`occ_case`,
+    timed), then the whole update timed (`time_update`) in turns with the
+    parent's update (with `parent`), and with `parent` the operators
+    outside the field (op_census "B7 occupancy update") of both updates.
+    Returns {kernel: rows} and, under "occ_update", the whole updates'
+    rows."""
+    from deblur_e_nerf_tpu_torch import op_census
+    from deblur_e_nerf_tpu_torch.models import nerf_model, occupancy
+
+    model, state, cams, kw = (got["model"], got["state"], got["cams"],
+                              got["kw"])
+    rc = model.render_config
+    cone = rc.cone_angle > 0.0
+
+    def density(x):
+        return nerf_model.density_fn(model, x, None)
+
+    occ_eval = occ_eval_of(rc, density)
+    steps_kw = dict(resolution=rc.grid_resolution, aabb=rc.aabb,
+                    contraction_type=rc.contraction_type, **kw)
+    rows = {k: [] for k in OCC_KERNELS + ("occ_update",)}
+    for kind, warmup, seed in (("warmup", True, 11), ("sampled", False, 12)):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        draws = occupancy.draw_update(gen, rc.grid_resolution, warmup,
+                                      "cuda", cams.shape[0] if cone else 0)
+        found, _ = occ_case(torch, f"{label} step's own grid", kind, state,
+                            occ_eval, warmup, draws, rc, kw, cams)
+        for k, r in found.items():
+            rows[k].append(r)
+
+        def fn():
+            return occupancy.update(state, occ_eval, warmup, draws,
+                                    camera_positions=cams, **steps_kw)
+
+        parent_fn = None
+        if parent is not None:
+            p_occ = parent["occupancy"]
+            p_eval = p_occ.make_occ_eval_fn(
+                density, rc.render_step_size, rc.cone_angle, rc.near_plane,
+                rc.far_plane)
+            p_kw = dict(steps_kw, contraction_type=parent["contraction"]
+                        .ContractionType(rc.contraction_type.value))
+
+            def parent_fn():
+                return p_occ.update(state, p_eval, warmup, draws,
+                                    camera_positions=cams, **p_kw)
+
+        row = time_update(torch, f"{label} {kind}", fn, parent_fn)
+        rows["occ_update"].append(row)
+        if parent is None:
+            continue
+        # the parent's update counted by the same layers: its field calls
+        # run within its "B7 occupancy update"
+        counts = {}
+        for who, f, packages in (("change", fn, ()),
+                                 ("parent", parent_fn, (parent["package"],))):
+            found, _ = op_census.count_ops(f, packages)
+            torch.cuda.synchronize()
+            counts[who] = {k: found.get(k, {}).get("forward", 0) for k in (
+                "B7 occupancy update", "B7 occupancy update: field")}
+        row["operators"] = counts
+        print(f"operators of one {kind} {label} update, outside the field "
+              f"and the field's: {counts['change']} against the parent's "
+              f"{counts['parent']}", flush=True)
+    return rows
+
+def occ_cases(torch, label, path, timed=True, scale=40.0, resolution=None,
+              device="cuda"):
+    """Phase 3's occupancy cases on one config's grid with the synthetic
+    density (`occ_density`): two warmup updates from an empty grid, a
+    sampled update, a sampled update on a grid with nothing occupied (the
+    sampler's fallback) and a warmup and a sampled update with NaN planted
+    in the density at the blob's core (NaN reaches the same cells, the
+    same NaN threshold and an empty mask as in the plain version), at the
+    config's resolution unless `resolution` is given. Returns {kernel:
+    rows}."""
+    import dataclasses
+
+    from deblur_e_nerf_tpu_torch.models import occupancy
+
+    rc, kw = occ_settings(path)
+    if resolution is not None:
+        rc = dataclasses.replace(rc, grid_resolution=resolution)
+    density = occ_density(torch, rc, scale, device)
+    occ_eval = occ_eval_of(rc, density)
+    state = occupancy.init_state(rc.grid_resolution, device)
+    rows = {k: [] for k in OCC_KERNELS}
+
+    def run(kind, state, warmup, seed, timed=False, occ_eval=occ_eval):
+        draws, cams = occ_draws(torch, rc, warmup, seed, device=device)
+        found, new = occ_case(torch, f"{label} synthetic", kind, state,
+                              occ_eval, warmup, draws, rc, kw, cams, timed)
+        for k, r in found.items():
+            rows[k].append(r)
+        return new
+
+    state = run("warmup from empty", state, True, 1)
+    state = run("warmup", state, True, 2, timed)
+    run("sampled", state, False, 3, timed)
+    empty = occupancy.OccupancyGridState(state.occs,
+                                         torch.zeros_like(state.binary))
+    run("sampled, nothing occupied (fallback)", empty, False, 4)
+
+    def nan_density(x):  # NaN in the blob's core
+        d = density(x)
+        return torch.where(d > 0.9 * scale, math.nan, d)
+
+    nan_eval = occ_eval_of(rc, nan_density)
+    nan_state = run("warmup, NaN density", state, True, 5, occ_eval=nan_eval)
+    run("sampled, NaN density", nan_state, False, 6, occ_eval=nan_eval)
+    _empty_cache(torch, device)
+    return rows
+
+
+def occ_kernel_cases(torch):
+    """Phase 3's occupancy cases on each of OCC_CONFIGS. Returns {kernel:
+    rows}."""
+    rows = {k: [] for k in OCC_KERNELS + ("occ_update",)}
+    for label, path in OCC_CONFIGS:
+        for k, found in occ_cases(torch, label, path).items():
+            rows[k] += found
+    return rows
+
+
 def probe_case(case):
     """A case of the port's microbenchmark: K2/K3 (the JAX script's check)
     or a library baseline (B11: its stated check); raises where it is not
@@ -2257,6 +2950,7 @@ def phase_kernels(torch, parent=None):
         for calib, div in PB_CONDITIONING_CASES]
     return dict(encode, **pb, **render_kernel_cases(torch),
                 **march_kernel_cases(torch, parent),
+                **occ_kernel_cases(torch),
                 scatter_add_rows=scatter, gather_rows=gather,
                 scatter_add_rows_call_split=splits,
                 l2_reduction_rates=l2_rates, library_baselines=library)
@@ -2270,9 +2964,10 @@ def phase_step_inputs(torch, rows, captured, parent=None):
     intensities, steps and weight cotangent they fed the weight-chain
     backward (`capture_pb_inputs`), and these with a seeded normal
     cotangent in every column (the dense case: the zero-cotangent skip
-    must not hide the full path); and the render kernels on the
+    must not hide the full path); the render kernels on the
     compactions and the composite of the same steps
-    (`render_step_cases`); the rows join phase 3's."""
+    (`render_step_cases`); and the occupancy kernels on the trainers' own
+    grids and fields (`occ_step_cases`); the rows join phase 3's."""
     import numpy as np
 
     for (name, config), label in zip(ENCODE_CASES, ("flagship", "EDS")):
@@ -2307,6 +3002,11 @@ def phase_step_inputs(torch, rows, captured, parent=None):
         for kernel, found in render_step_cases(torch, label, got["render"],
                                                parent).items():
             rows[kernel] += found
+        for kernel, found in occ_step_cases(torch, label, got["occupancy"],
+                                            parent).items():
+            rows[kernel] += found
+        del got["occupancy"]
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2955,7 +3655,12 @@ KERNEL_NAMES = {"scatter_add_rows": "scatter_add_rows_kernel",
                 "march_masks": "march_masks_kernel",
                 "march_coarse": "march_coarse_kernel",
                 "march_samples": "march_samples_kernel",
-                "march_decode": "march_decode_kernel"}
+                "march_decode": "march_decode_kernel",
+                # the occupancy kernels' families (csrc/occupancy.cu)
+                "occ_points": "occ_points_kernel",
+                "occ_ema": "occ_ema_",
+                "occ_threshold": "occ_threshold_",
+                "occ_sample_occupied": "occ_sample_"}
 
 
 def _device_table(prof, label, n):
@@ -3053,8 +3758,8 @@ def profile_steps(torch, trainer, n_steps=3):
 def _launch_counters():
     """{kernel: (its wrapper's module, the name of its launch count)}."""
     from deblur_e_nerf_tpu_torch.ops import (compact, composite, gather_rows,
-                                             hash_encode, march, pb_weight,
-                                             scatter_rows)
+                                             hash_encode, march, occupancy,
+                                             pb_weight, scatter_rows)
 
     return {"scatter_add_rows": (scatter_rows, "LAUNCHES"),
             "gather_rows": (gather_rows, "LAUNCHES"),
@@ -3068,7 +3773,8 @@ def _launch_counters():
             "march_masks": (march, "MASKS_LAUNCHES"),
             "march_coarse": (march, "COARSE_LAUNCHES"),
             "march_samples": (march, "SAMPLES_LAUNCHES"),
-            "march_decode": (march, "DECODE_LAUNCHES")}
+            "march_decode": (march, "DECODE_LAUNCHES"),
+            **{k: (occupancy, n) for k, n in OCC_COUNTERS.items()}}
 
 
 def reset_launches():
@@ -3118,6 +3824,33 @@ def render_launches(rc, renders=1, trains=True, prepasses=0):
             "march_samples": renders, "march_decode": renders}
 
 
+def occupancy_launches(rc, warmups=0, sampled=0, priors=0,
+                       prior_targeted=False, chunk=1 << 19):
+    """The occupancy kernels' launches of `warmups` warmup and `sampled`
+    sampled updates under the render config `rc` (a points and an EMA
+    launch a chunk of `chunk` evaluated cells, one more EMA launch a
+    sampled update, a threshold an update, a sampler a sampled update) and
+    of `priors` sparsity priors (a points launch each, and a sampler
+    launch with targeted cells)."""
+    n = rc.grid_resolution ** 3
+    w, s = -(-n // chunk), -(-(2 * (n // 4)) // chunk)
+    return {"occ_points": warmups * w + sampled * s + priors,
+            "occ_ema": warmups * w + sampled * (s + 1),
+            "occ_threshold": warmups + sampled,
+            "occ_sample_occupied": sampled + (priors if prior_targeted
+                                              else 0)}
+
+
+def prior_launches(trainer, steps=1):
+    """`occupancy_launches`' keywords of `steps` steps' sparsity priors."""
+    sc = trainer.bundle.static_config
+    on = sc.loss_weight_sparsity > 0.0
+    return dict(priors=steps if on else 0,
+                prior_targeted=on and round(sc.sparsity_samples
+                                            * sc.sparsity_targeted_fraction)
+                > 0)
+
+
 def frame_render_launches(render):
     """The render kernels' launches of the last frame that `render` (a
     `make_render_image_fn` renderer) drew: a march and a composite a ray
@@ -3133,13 +3866,24 @@ def launches_match(got, want):
     return all(got.get(k) == v for k, v in want.items())
 
 
-def check_path_launches(path, counts, trains, filter_steps=0):
+def check_path_launches(path, counts, trains, filter_steps=0,
+                        sampled=False):
     """A path launches the fused forward, the backward if it `trains` (and
     not if it does not), one weight-chain forward and one backward for
     each of its `filter_steps` filter-on training steps (none on an eval
     or filter-off path), neither K1 nor K3, the stream compaction and the
     composite forward, each of the march's kernels, and the composite
-    backward if it `trains` (and not if it does not)."""
+    backward if it `trains` (and not if it does not); a training path
+    updates the grid (the occupancy points, EMA and threshold kernels),
+    and runs the occupied-cell sampler if it ran a `sampled` update; an
+    eval path launches no occupancy kernel."""
+    occ = [counts[k] for k in OCC_KERNELS[:3]]
+    if not ((all(occ) if trains else not any(occ))
+            and (counts["occ_sample_occupied"] > 0) == sampled):
+        raise AssertionError(f"{path}: occupancy launches "
+                             f"{ {k: counts[k] for k in OCC_KERNELS} }, "
+                             f"want {'an update' if trains else 'none'}"
+                             f"{' with the sampler' if sampled else ''}")
     if not (counts["hash_encode_fwd"] > 0
             and (counts["hash_encode_bwd"] > 0) == trains
             and counts["pb_weight_fwd"] == counts["pb_weight_bwd"]
@@ -3265,23 +4009,11 @@ def capture_encode_inputs(store):
         hash_encode.encode_backward = real
 
 
-def count_step_syncs(torch, trainer, label="flagship",
-                     forbidden=("training/optim.py",), expected=None,
-                     capture=None):
-    """One steady step (past the occupancy warmup, off the occupancy
-    schedule) under torch.cuda.set_sync_debug_mode("warn"): returns
-    {source line: host syncs}, each sync attributed to the innermost line
-    of the port on the stack, and prints it. Any sync of the step fails
-    the run (since the weight chain became a kernel, the step reads no
-    device value), and so do kernel launches other than `expected`
-    (default: one fused encode forward and one backward, one weight-chain
-    forward and one backward). The counter's self-check: one sync planted
-    just before the step (`_planted_sync`) must be counted, once. With a
-    dict `capture`, the step's encode inputs go into it
-    (`capture_encode_inputs`) and its weight-chain inputs into
-    capture["pb"] (`capture_pb_inputs`), moved to the host after the
-    step. `forbidden` names the files whose syncs the message singles
-    out."""
+@contextmanager
+def sync_sites(torch):
+    """{source line: host syncs} of the block, under
+    torch.cuda.set_sync_debug_mode("warn"): each sync attributed to the
+    innermost line of the port on the stack (else its callers)."""
     import traceback
     import warnings
 
@@ -3300,24 +4032,45 @@ def count_step_syncs(torch, trainer, label="flagship",
                                f" {f.name}" for f in reversed(stack[-4:]))
         sites[site] = sites.get(site, 0) + 1
 
-    trainer.global_step = int(trainer.params.nerf.occ_grid_config
-                              .warmup_steps) + 1
-    torch.cuda.synchronize()
-    reset_launches()
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
-        pb, render = {}, {}
         try:
-            with capture_encode_inputs({} if capture is None else capture), \
-                    capture_pb_inputs(pb), \
-                    (capture_render_inputs(render) if capture is not None
-                     else nullcontext()):
-                _planted_sync(torch)
-                trainer.train_step()
+            yield sites
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+def count_step_syncs(torch, trainer, label="flagship",
+                     forbidden=("training/optim.py",), expected=None,
+                     capture=None):
+    """One steady step (past the occupancy warmup, off the occupancy
+    schedule) under torch.cuda.set_sync_debug_mode("warn"): returns
+    {source line: host syncs}, each sync attributed to the innermost line
+    of the port on the stack, and prints it. Any sync of the step fails
+    the run (since the weight chain became a kernel, the step reads no
+    device value), and so do kernel launches other than `expected`
+    (default: one fused encode forward and one backward, one weight-chain
+    forward and one backward). The counter's self-check: one sync planted
+    just before the step (`_planted_sync`) must be counted, once. With a
+    dict `capture`, the step's encode inputs go into it
+    (`capture_encode_inputs`) and its weight-chain inputs into
+    capture["pb"] (`capture_pb_inputs`), moved to the host after the
+    step. `forbidden` names the files whose syncs the message singles
+    out."""
+    trainer.global_step = int(trainer.params.nerf.occ_grid_config
+                              .warmup_steps) + 1
+    torch.cuda.synchronize()
+    reset_launches()
+    pb, render = {}, {}
+    with sync_sites(torch) as sites, \
+            capture_encode_inputs({} if capture is None else capture), \
+            capture_pb_inputs(pb), \
+            (capture_render_inputs(render) if capture is not None
+             else nullcontext()):
+        _planted_sync(torch)
+        trainer.train_step()
     torch.cuda.synchronize()
     if capture is not None:
         for key in ("u", "g"):
@@ -3333,8 +4086,10 @@ def count_step_syncs(torch, trainer, label="flagship",
           f"counted {sum(planted.values())} time(s); kernel launches "
           f"{launches}", flush=True)
     if expected is None:
-        expected = encode_launches(
-            1, 1, 1, render=render_launches(trainer.params.nerf.render_config))
+        rc = trainer.params.nerf.render_config
+        expected = encode_launches(1, 1, 1, render=dict(
+            render_launches(rc), **occupancy_launches(
+                rc, **prior_launches(trainer))))
     if not launches_match(launches, expected):
         raise AssertionError(f"a steady {label} step launches {launches}, "
                              f"want {expected}")
@@ -3378,11 +4133,35 @@ def census_step(torch, trainer, label="flagship"):
           f"(at most {MARCH_MAX_OPS})", flush=True)
     if march["forward"] > MARCH_MAX_OPS or march["backward"]:
         raise AssertionError(f"{label}: the march ran {march} operators")
+    rc = trainer.params.nerf.render_config
     for kind, step in (("sampled", warmup), ("warmup", 0)):
         occ, _ = op_census.count_ops(lambda: trainer.update_occupancy(step))
         torch.cuda.synchronize()
         print(f"operator calls by layer in one {kind} {label} occupancy "
               f"update: {json.dumps(occ)}", flush=True)
+        b7 = occ.get("B7 occupancy update", {"forward": 0})
+        launches = b7.get("launches", {})
+        want = occupancy_launches(rc, **{("warmups" if kind == "warmup"
+                                          else "sampled"): 1})
+        ops_bound = want["occ_points"] + 2 + (kind == "sampled")
+        print(f"{label} {kind} update: {b7['forward']} operators outside "
+              f"the field (at most {ops_bound}: an allocation a kernel "
+              f"call), the field's {occ.get('B7 occupancy update: field')}, "
+              f"kernel entry-point calls {launches}", flush=True)
+        if b7["forward"] > ops_bound or b7.get("backward") or {
+                k: launches.get(v, 0) for k, v in OCC_COUNTERS.items()} \
+                != want:
+            raise AssertionError(f"{label} {kind} update: {b7} operators "
+                                 f"and launches, want launches {want}")
+        torch.cuda.synchronize()
+        with sync_sites(torch) as sites:
+            trainer.update_occupancy(step)
+        torch.cuda.synchronize()
+        print(f"host syncs in one {kind} {label} occupancy update: "
+              f"{sum(sites.values())} ({sites})", flush=True)
+        if sites:
+            raise AssertionError(f"{label}: a {kind} occupancy update made "
+                                 f"host syncs {sites}")
     case = pb_weight_inputs(torch, "default", *PB_STEP_SHAPE, 0, 2)
     plain, _ = op_census.count_ops(lambda: pb_weight_run(
         torch, lambda *a: checkpoint.checkpoint(
@@ -3456,6 +4235,8 @@ def phase_training(torch, tmp, profile=False, capture=None):
     trainer._flush_pending_metrics()
     count_step_syncs(torch, trainer, capture=capture)
     trainer._flush_pending_metrics()
+    if capture is not None:
+        capture["occupancy"] = capture_occupancy(trainer)
     census_step(torch, trainer)
     trainer._flush_pending_metrics()
     if profile:
@@ -3463,7 +4244,14 @@ def phase_training(torch, tmp, profile=False, capture=None):
     for path, counts in launches.items():
         print(f"training, {path}: launches {counts}", flush=True)
         check_path_launches(path, counts, trains=True,
-                            filter_steps=3 if path == "filter on" else 0)
+                            filter_steps=3 if path == "filter on" else 0,
+                            sampled=path == "filter off")
+    rc = trainer.params.nerf.render_config
+    for path, want in (("filter off", occupancy_launches(rc, 2, 1)),
+                       ("filter on", occupancy_launches(rc, 3))):
+        if not launches_match(launches[path], want):
+            raise AssertionError(f"training, {path}: occupancy launches "
+                                 f"{launches[path]}, want {want}")
     return launches, trainer, root
 
 
@@ -4007,7 +4795,8 @@ def check_eds_epoch(records, occ_calls, accumulate, rc):
     for r in records:
         occ = r["occupancy"]
         want = encode_launches(1 + (chunks if occ else 0), 1, 1,
-                               render=render_launches(rc))
+                               render=dict(render_launches(rc),
+                                           **occupancy_launches(rc, int(occ))))
         if not launches_match(r["launches"], want):
             raise AssertionError(f"EDS micro-step {r['step']}: launches "
                                  f"{r['launches']}, want {want}")
@@ -4141,6 +4930,8 @@ def phase_eds(torch, tmp, card, profile=False, capture=None):
     count_step_syncs(torch, trainer, "EDS",
                      ("training/optim.py", "training/trainer.py",
                       "training/step.py"), capture=capture)
+    if capture is not None:
+        capture["occupancy"] = capture_occupancy(trainer)
     if profile:
         profile_eds_step(torch, trainer)
     del trainer
@@ -4357,7 +5148,8 @@ def make_r5fix_dataset(torch, root):
     return {"generate_s": gen_s, "raw_events": n_raw, "pack_s": pack_s}
 
 
-def r5fix_step_launches(trainer, occupancy_update, prepass=True):
+def r5fix_step_launches(trainer, occupancy_update, prepass=True,
+                        warmup=True):
     """The kernel launches one r5fix step implies: each field call runs
     one fused encode forward, each field backward one fused encode
     backward. A step with the prepass calls the field in the
@@ -4366,7 +5158,8 @@ def r5fix_step_launches(trainer, occupancy_update, prepass=True):
     (`prepass` False) the full field over K + 1 slots and the prior; each
     in field_chunk pieces when set; the backward runs through the full
     field and the prior; a warmup occupancy update adds one density call
-    per 2^19 cells."""
+    per 2^19 cells (`warmup`; a sampled update one per 2^19 sampled
+    cells); the occupancy kernels as `occupancy_launches` counts them."""
     rc = trainer.params.nerf.render_config
 
     def calls(n):
@@ -4378,10 +5171,13 @@ def r5fix_step_launches(trainer, occupancy_update, prepass=True):
     else:
         field_calls = calls(rc.sample_budget + 1)
         forwards = field_calls + 1
+    n = rc.grid_resolution ** 3
     if occupancy_update:
-        forwards += -(-(rc.grid_resolution ** 3) // (1 << 19))
-    return encode_launches(forwards, field_calls + 1, 1,
-                           render=render_launches(rc, prepasses=int(prepass)))
+        forwards += -(-(n if warmup else 2 * (n // 4)) // (1 << 19))
+    updates = {"warmups" if warmup else "sampled": int(occupancy_update)}
+    return encode_launches(forwards, field_calls + 1, 1, render=dict(
+        render_launches(rc, prepasses=int(prepass)),
+        **occupancy_launches(rc, **updates, **prior_launches(trainer))))
 
 
 def timed_r5fix_step(torch, trainer, card, step_fn, records,
@@ -4395,9 +5191,9 @@ def timed_r5fix_step(torch, trainer, card, step_fn, records,
     rc = trainer.params.nerf.render_config
     occ_cfg = trainer.params.nerf.occ_grid_config
     step = trainer.global_step
+    warmup = step // trainer.accumulate < int(occ_cfg.warmup_steps)
     occupancy_update = step % trainer.accumulate == 0 and (
-        step // trainer.accumulate < int(occ_cfg.warmup_steps)
-        or (step // trainer.accumulate) % int(occ_cfg.n) == 0)
+        warmup or (step // trainer.accumulate) % int(occ_cfg.n) == 0)
     counts = read_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4424,7 +5220,8 @@ def timed_r5fix_step(torch, trainer, card, step_fn, records,
           f"{r['truncated']:.4f}, valid events {r['valid']:.3f}, peak "
           f"{r['peak_gib']:.2f} GiB, launches {r['launches']} on {card}",
           flush=True)
-    want = r5fix_step_launches(trainer, occupancy_update, r["prepass"])
+    want = r5fix_step_launches(trainer, occupancy_update, r["prepass"],
+                               warmup)
     if not launches_match(r["launches"], want):
         raise AssertionError(f"{label} step {r['step']}: launches "
                              f"{r['launches']}, want {want}")
@@ -5815,12 +6612,13 @@ def phase_eds_conversion(tmp, device="cuda"):
 
 
 def kernel_line(name, source, replaces, rows, launches, main_shape,
-                main_kind="uniform"):
+                main_kind="uniform", path="filter on"):
     main = next(r for r in rows if r["shape"] == main_shape
                 and r.get("index_structure", "uniform") == main_kind)
     return {
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches["filter on"][name],
+        "replaces": replaces, "launches": launches[path][name],
+        "launches_path": path,
         "launches_by_path": {p: c[name] for p, c in launches.items()},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -5929,6 +6727,25 @@ def main():
          for name in MARCH_KERNELS]
     # the whole march (its kernels and compactions) beside its plain version
     kernels[-len(MARCH_KERNELS)]["whole_march"] = rows["march"]
+    # the occupancy kernels: the main path (3 warmup updates) launches the
+    # points, EMA and threshold kernels, phase 4a's path (2 warmup updates
+    # and a sampled one) the sampler too; their counts are calls of the
+    # entry points, each launching one or more kernels (the device
+    # launches a call from 3b's profiled updates)
+    for name, kind in (("occ_points", "warmup"), ("occ_ema", "sampled"),
+                       ("occ_threshold", "warmup"),
+                       ("occ_sample_occupied", "sampled")):
+        kernels.append(dict(kernel_line(
+            name, OCC_SOURCE, OCC_REPLACES[name], rows[name], launches,
+            "flagship step's own grid", kind,
+            "filter off" if name == "occ_sample_occupied" else "filter on"),
+            launches_count="calls of the entry point",
+            device_launches_per_call={
+                r["shape"]: r["device_launches"][name]
+                / r["entry_point_calls"][name]
+                for r in rows["occ_update"]
+                if r["entry_point_calls"][name]}))
+    kernels[-len(OCC_KERNELS)]["whole_update"] = rows["occ_update"]
     for path in (p for p in launches if p.startswith("data parallel")):
         check_path_launches(path, launches[path], trains=True,
                             filter_steps=MESH_STEPS)

@@ -7,7 +7,10 @@ warmup every cell is evaluated; afterwards n/4 uniform cells plus n/4
 cells drawn from the occupied distribution get an EMA-max update, each
 sampled cell decaying exactly once; the mask re-thresholds at
 min(mean(occs), occ_thre) with the optional floor, max-relative and
-occupied-fraction caps.
+occupied-fraction caps. `update` runs ops/occupancy.py chunk by chunk of
+the evaluated cells (on the card its kernels, on the CPU their plain
+versions): the cells' points, the field's densities, the EMA, then the
+threshold.
 
 Random draws are inputs (`draw_update`, `draw_occupied_cells` make them
 from a torch.Generator), so tests can feed the JAX package's draws.
@@ -17,8 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import contraction as contraction_lib
-from ..utils.device import constant
+from ..ops import occupancy as occ_ops
 
 
 class OccupancyGridState(NamedTuple):
@@ -32,15 +34,6 @@ def init_state(resolution, device):
         occs=torch.zeros(num_cells, dtype=torch.float32, device=device),
         binary=torch.zeros(num_cells, dtype=torch.bool, device=device),
     )
-
-
-def cell_coords(resolution, device, cells=None):
-    """Integer (M, 3) (x, y, z) coordinates of flat cells (all by default)."""
-    if cells is None:
-        cells = torch.arange(int(resolution) ** 3, device=device)
-    cells = cells.to(torch.int64)
-    r = int(resolution)
-    return torch.stack([cells % r, (cells // r) % r, cells // (r * r)], -1)
 
 
 def grid_index(u, resolution):
@@ -71,14 +64,9 @@ def draw_occupied_cells(generator, num_cells, n, device):
 
 def sample_occupied_cells(binary, draws):
     """Cells ~ the occupied distribution (with replacement) by inverse-CDF
-    over the mask; uniform fallback cells when nothing is occupied."""
-    num_cells = binary.shape[0]
-    cdf = torch.cumsum(binary.to(torch.float32), dim=0)
-    total = cdf[-1]
-    u = draws["u"] * torch.clamp(total, min=1.0)
-    occ_cells = torch.searchsorted(cdf, u, right=True).clamp(0, num_cells - 1)
-    return torch.where(total > 0, occ_cells,
-                       draws["fallback_cells"].to(torch.int64))
+    over the mask; uniform fallback cells when nothing is occupied
+    (ops/occupancy.py `sample_occupied`)."""
+    return occ_ops.sample_occupied(binary, draws)
 
 
 def draw_update(generator, resolution, warmup, device, num_cameras=0):
@@ -105,29 +93,21 @@ def draw_update(generator, resolution, warmup, device, num_cameras=0):
     return draws
 
 
+class OccEval(NamedTuple):
+    """density * step occupancy evaluation: the density call and its step
+    (ops/occupancy.Steps): with a cone angle the step is the march's at
+    each cell's distance from a camera position drawn for it,
+    max(|o - x| * cone, step), zeroed outside (near, far)."""
+    density_fn: object
+    steps: occ_ops.Steps
+
+
 def make_occ_eval_fn(density_fn, render_step_size, cone_angle,
                      near_plane=None, far_plane=None):
-    """density * step occupancy evaluation: occ_eval_fn(x, origins). With
-    a cone angle the step is the march's at each cell's distance from a
-    camera position drawn for it (`origins`, (N, 3)),
-    max(|o - x| * cone, step), zeroed outside (near, far)."""
-
-    def occ_eval_fn(x, origins=None):
-        if cone_angle > 0.0:
-            t = _norm(origins - x)
-            step = torch.clamp(t * cone_angle, min=render_step_size)
-            if near_plane is not None and far_plane is not None:
-                step = torch.where((t > near_plane) & (t < far_plane), step,
-                                   torch.zeros_like(step))
-        else:
-            step = render_step_size
-        return (density_fn(x) * step)[..., 0]
-
-    return occ_eval_fn
-
-
-def _norm(v):
-    return torch.sqrt((v * v).sum(dim=-1, keepdim=True))
+    """The OccEval of a density function (N, 3) -> (N, 1) and the
+    march's step settings."""
+    return OccEval(density_fn, occ_ops.Steps(
+        float(render_step_size), float(cone_angle), near_plane, far_plane))
 
 
 @torch.no_grad()
@@ -135,45 +115,34 @@ def update(state, occ_eval_fn, warmup, draws, *, resolution, aabb,
            contraction_type, occ_thre, ema_decay, thre_floor=0.0,
            max_occupied_fraction=1.0, thre_rel_max=0.0,
            camera_positions=None, chunk=1 << 19):
-    """One occupancy-grid update. `warmup` selects the full-grid update
-    (step < warmup_steps); `draws` comes from `draw_update` (with
-    `cam_ids`, the evaluated cells' cameras among `camera_positions`). The
-    density is evaluated in chunks of `chunk` cells to bound memory."""
-    device = state.occs.device
-    num_cells = state.occs.shape[0]
-    aabb = constant(aabb, torch.float32, device)
-
-    def eval_cells(cells):
-        coords = cell_coords(resolution, device, cells).to(torch.float32)
-        u = (coords + draws["jitter"]) / resolution
-        x = contraction_lib.contract_inv(u, aabb, contraction_type)
-        if "cam_ids" not in draws:
-            return torch.cat([occ_eval_fn(xc) for xc in x.split(chunk)])
-        ids = draws["cam_ids"].to(torch.int64)
-        return torch.cat([
-            occ_eval_fn(xc, camera_positions[ic])
-            for xc, ic in zip(x.split(chunk), ids.split(chunk))])
-
+    """One occupancy-grid update. `occ_eval_fn` comes from
+    `make_occ_eval_fn`; `warmup` selects the full-grid update (step <
+    warmup_steps); `draws` comes from `draw_update` (with `cam_ids`, the
+    evaluated cells' cameras among `camera_positions`). The density is
+    evaluated in chunks of `chunk` cells (rounded down to a multiple of
+    ops/occupancy.TILE) to bound memory, and each chunk's densities go
+    into the EMA before the next is evaluated."""
+    grid = occ_ops.Grid(int(resolution), tuple(float(v) for v in aabb),
+                        contraction_type)
+    steps = occ_eval_fn.steps
     if warmup:
-        occ = eval_cells(torch.arange(num_cells, device=device))
-        occs = torch.maximum(state.occs * ema_decay, occ)
+        cells = ()
     else:
-        cells = torch.cat([
-            draws["uniform_cells"].to(torch.int64),
-            sample_occupied_cells(state.binary, draws["occupied"]),
-        ])
-        occ = eval_cells(cells)
-        sampled = torch.zeros(num_cells, dtype=torch.bool, device=device)
-        sampled[cells] = True
-        occs = torch.where(sampled, state.occs * ema_decay, state.occs)
-        occs = occs.scatter_reduce(0, cells, occ, reduce="amax",
-                                   include_self=True)
-    thre = torch.clamp(occs.mean(), max=occ_thre)
-    if thre_floor > 0.0:
-        thre = torch.clamp(thre, min=thre_floor)
-    if thre_rel_max > 0.0:
-        thre = torch.maximum(thre, thre_rel_max * occs.max())
-    if max_occupied_fraction < 1.0:
-        thre = torch.maximum(
-            thre, torch.quantile(occs, 1.0 - max_occupied_fraction))
-    return OccupancyGridState(occs=occs, binary=occs > thre)
+        cells = (draws["uniform_cells"],
+                 sample_occupied_cells(state.binary, draws["occupied"]))
+    n = draws["jitter"].shape[0]
+    chunk = max(occ_ops.TILE, int(chunk) // occ_ops.TILE * occ_ops.TILE)
+
+    def chunks():
+        for start in range(0, n, chunk):
+            x, step = occ_ops.points(
+                grid, draws["jitter"], start, min(chunk, n - start), cells,
+                steps, draws.get("cam_ids"), camera_positions)
+            yield start, occ_eval_fn.density_fn(x), step
+
+    occs, partials = occ_ops.ema(state.occs, ema_decay, chunks(),
+                                 cells if cells else None,
+                                 steps.render_step_size)
+    binary, _ = occ_ops.threshold(occs, partials, occ_thre, thre_floor,
+                                  thre_rel_max, max_occupied_fraction)
+    return OccupancyGridState(occs=occs, binary=binary)

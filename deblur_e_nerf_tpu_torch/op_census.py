@@ -9,9 +9,14 @@ The layers (LAYERS) are counted by wrapping their entry functions: an
 operator runs in the innermost layer whose call is in progress; in the
 backward, in the layer whose forward made the autograd node being run
 (the nodes a layer's operators and its own result carry are recorded).
-The occupancy update's count includes its density field calls, except
-the hash encode's own (counted under "B1/B2 encode"). The port's own
-CUDA kernels are not operators: their wrappers count their launches.
+The occupancy update's density field calls count under "B7 occupancy
+update: field" (the field's operators within the update, but the hash
+encode's own, counted under "B1/B2 encode"); "B7 occupancy update" counts
+its operators outside the field and, under "launches", the launches of
+its kernels' wrapper calls (ops/occupancy.py) made within it. The port's
+own CUDA kernels are not operators: their wrappers count their calls.
+Another checkout of the port imported under another name (a parent
+commit's) is counted by the same layers with `count_ops(fn, packages)`.
 """
 
 import contextlib
@@ -22,14 +27,24 @@ import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
-# layer: (module of the port, function), ROADMAP Queue B's names
+# layer: (module of the port, function[, the layer it counts within]),
+# ROADMAP Queue B's names; a layer with an outer layer is a layer only
+# while that one runs
 LAYERS = {
     "B1/B2 encode": ("ops.hash_encode", "encode_forward"),
     "B1/B2 encode ": ("ops.hash_encode", "encode_backward"),
     "B4 march": ("models.renderer", "march_rays"),
     "B5 composite": ("models.renderer", "composite"),
     "B7 occupancy update": ("models.occupancy", "update"),
+    "B7 occupancy update: field": ("models.nerf_model", "density_fn",
+                                   "B7 occupancy update"),
     "B8 weight chain": ("ops.pb_weight", "weight"),
+}
+# layer: (module of the port, its kernels' call counts)
+LAUNCHES = {
+    "B7 occupancy update": ("ops.occupancy", (
+        "POINTS_LAUNCHES", "EMA_LAUNCHES", "THRESHOLD_LAUNCHES",
+        "SAMPLE_LAUNCHES")),
 }
 
 
@@ -86,22 +101,57 @@ class _Function(TorchFunctionMode):
         return out
 
 
-@contextlib.contextmanager
-def _wrapped(census):
-    from . import __name__ as package
+def _module(package, name):
+    """package.name, or None where another checkout has no such module."""
+    try:
+        return importlib.import_module(f"{package}.{name}")
+    except ModuleNotFoundError:
+        if package == __package__:
+            raise
+        return None
 
+
+def _entries(packages):
+    """(layer, module, function name, outer layers, (counters' module,
+    their names) or None) of each layer in each package."""
+    for package in (__package__, *packages):
+        for layer, (module_name, name, *outer) in LAYERS.items():
+            module = _module(package, module_name)
+            if module is None or (package != __package__
+                                  and not hasattr(module, name)):
+                continue
+            counted = None
+            if layer in LAUNCHES:
+                counters = _module(package, LAUNCHES[layer][0])
+                if counters is not None:
+                    counted = (counters, LAUNCHES[layer][1])
+            yield layer, module, name, outer, counted
+
+
+@contextlib.contextmanager
+def _wrapped(census, packages):
     saved = []
-    for layer, (module_name, name) in LAYERS.items():
-        module = importlib.import_module(f"{package}.{module_name}")
+    for layer, module, name, outer, counted in _entries(packages):
         real = getattr(module, name)
 
-        def wrapper(*args, _real=real, _layer=layer, **kwargs):
+        def wrapper(*args, _real=real, _layer=layer, _outer=outer,
+                    _counted=counted, **kwargs):
+            if _outer and _outer[0] not in census.stack:
+                return _real(*args, **kwargs)
             census.stack.append(_layer)
+            if _counted:
+                before = [getattr(_counted[0], n) for n in _counted[1]]
             try:
                 out = _real(*args, **kwargs)
                 census.mark(out)
             finally:
                 census.stack.pop()
+                if _counted:
+                    launches = census.counts.setdefault(
+                        _layer, {"forward": 0, "backward": 0}).setdefault(
+                            "launches", dict.fromkeys(_counted[1], 0))
+                    for n, b in zip(_counted[1], before):
+                        launches[n] += getattr(_counted[0], n) - b
             return out
 
         functools.update_wrapper(wrapper, real)
@@ -114,11 +164,14 @@ def _wrapped(census):
             setattr(module, name, real)
 
 
-def count_ops(fn):
+def count_ops(fn, packages=()):
     """({layer: {"forward": n, "backward": n}}, fn's result) of one call
     of fn (its backward runs inside it: a training step). Operators that
-    run in no layer count under "other"."""
+    run in no layer count under "other"; a layer of LAUNCHES has its
+    kernels' wrapper calls under "launches". `packages`: the names of
+    other imported checkouts of the port whose layers count too (those of
+    their modules and functions that exist)."""
     census = _Census()
-    with _wrapped(census), _Function(census), _Dispatch(census):
+    with _wrapped(census, packages), _Function(census), _Dispatch(census):
         out = fn()
     return census.counts, out

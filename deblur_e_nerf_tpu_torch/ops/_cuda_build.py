@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -141,6 +143,28 @@ def ptxas_summary(log):
     return {fn: "; ".join(parts) for fn, parts in found.items()}
 
 
+def carve(device, *specs):
+    """One allocation holding tensors of (numel, dtype) each, every one
+    16-byte aligned: typed views of one byte buffer (a wrapper's outputs
+    and scratch in one allocator call)."""
+    offsets, total = [], 0
+    for n, dtype in specs:
+        offsets.append(total)
+        total += -(-n * dtype.itemsize // 16) * 16
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    return [buf[o:o + n * dtype.itemsize].view(dtype)
+            for o, (n, dtype) in zip(offsets, specs)]
+
+
+def launch(fn, device, *args):
+    """Call the library's entry point fn with args and the current stream
+    of `device`; raise on the CUDA error it returns."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+
+
 def library():
     """The loaded kernel library, built at first use."""
     global _lib
@@ -211,6 +235,24 @@ def library():
         fn.restype = ctypes.c_int
         fn = lib.march_decode
         fn.argtypes = [vp, vp, i64] + [vp] * 8
+        fn.restype = ctypes.c_int
+        f32 = ctypes.c_float
+        fn = lib.occ_points
+        fn.argtypes = [vp, vp, i64, vp, i64, i64, i64, vp, vp, vp, i64, vp,
+                       vp, vp]
+        fn.restype = ctypes.c_int
+        fn = lib.occ_ema
+        fn.argtypes = [i32, vp, vp, vp, i64, f32, vp, i64, vp, f32, vp, i64,
+                       vp, i64, i64, i64, vp, vp, vp]
+        fn.restype = ctypes.c_int
+        fn = lib.occ_ema_begin
+        fn.argtypes = [vp, i64, vp]
+        fn.restype = ctypes.c_int
+        fn = lib.occ_threshold
+        fn.argtypes = [vp] * 9
+        fn.restype = ctypes.c_int
+        fn = lib.occ_sample_occupied
+        fn.argtypes = [vp, i64, vp, vp, i64, vp, vp, vp, vp, vp]
         fn.restype = ctypes.c_int
         fn = lib.l2_reduction_rate
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,

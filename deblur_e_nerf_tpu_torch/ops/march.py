@@ -52,6 +52,7 @@ import torch
 from ..models import contraction as contraction_lib
 from ..models import occupancy
 from ..utils.device import constant
+from ._cuda_build import carve as _carve, launch as _launch
 
 BLOCK_STEPS = 8   # timeline steps per block (~one grid cell)
 SB_BLOCKS = 4     # blocks per superblock
@@ -546,18 +547,6 @@ def _library():
     return _lib
 
 
-def _carve(device, *specs):
-    """One allocation holding tensors of (numel, dtype) each, every one
-    16-byte aligned: typed views of one byte buffer."""
-    offsets, total = [], 0
-    for n, dtype in specs:
-        offsets.append(total)
-        total += -(-n * dtype.itemsize // 16) * 16
-    buf = torch.empty(total, dtype=torch.uint8, device=device)
-    return [buf[o:o + n * dtype.itemsize].view(dtype)
-            for o, (n, dtype) in zip(offsets, specs)]
-
-
 def _require(t, name, dtype, numel, device):
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, the rays on {device}")
@@ -577,13 +566,6 @@ def _check_rays(rays_o, rays_d):
     for name, t in (("rays_o", rays_o), ("rays_d", rays_d)):
         _require(t, name, torch.float32, 3 * R, rays_o.device)
     return R
-
-
-def _launch(fn, device, *args):
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
 
 
 def masks(binary, rc, superblocks):

@@ -25,11 +25,9 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from ..models import (contraction as contraction_lib, event_gen,
-                      nerf_model, occupancy as occupancy_lib,
+from ..models import (event_gen, nerf_model, occupancy as occupancy_lib,
                       pixel_bandwidth, trajectory as trajectory_lib)
-from ..ops import samplers
-from ..utils.device import constant
+from ..ops import occupancy as occupancy_ops, samplers
 from . import loss as loss_lib
 
 
@@ -217,22 +215,20 @@ def render_train_pixels(params, consts, occ_state, sc, ts, ts_delta,
 
 def _sparsity_prior(params, occ_state, draws, level_mask):
     """Mean per-step opacity 1 - exp(-sigma * step) at uniform and
-    occupied-targeted aabb points."""
+    occupied-targeted aabb points (the cells' points through
+    ops/occupancy.py `points`, the targeted cells through its sampler)."""
     model = params.nerf
     rc = model.render_config
-    parts = []
+    cells = []
     if draws["uniform_cells"].numel():
-        parts.append(draws["uniform_cells"].to(torch.int64))
+        cells.append(draws["uniform_cells"])
     if draws["occupied"]["u"].numel():
-        parts.append(occupancy_lib.sample_occupied_cells(
+        cells.append(occupancy_lib.sample_occupied_cells(
             occ_state.binary, draws["occupied"]))
-    cells = torch.cat(parts)
-    res = rc.grid_resolution
-    device = cells.device
-    coords = occupancy_lib.cell_coords(res, device, cells).to(torch.float32)
-    u = (coords + draws["jitter"]) / res
-    aabb = constant(rc.aabb, torch.float32, device)
-    x = contraction_lib.contract_inv(u, aabb, rc.contraction_type)
+    grid = occupancy_ops.Grid(rc.grid_resolution, tuple(rc.aabb),
+                              rc.contraction_type)
+    x, _ = occupancy_ops.points(grid, draws["jitter"], 0,
+                                draws["jitter"].shape[0], tuple(cells))
     sigma = nerf_model.density_fn(model, x, level_mask)
     return torch.mean(1.0 - torch.exp(-sigma[..., 0] * rc.render_step_size))
 

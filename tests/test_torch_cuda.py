@@ -1239,3 +1239,181 @@ def test_march_wrappers_raise_instead_of_falling_back(cuda):
         mo.decode(torch.zeros(9, dtype=torch.int32, device=cuda),
                   torch.zeros(64, device=cuda), None,
                   torch.zeros((), dtype=torch.int64, device=cuda), 64, rc)
+
+
+# the occupancy update (csrc/occupancy.cu)
+
+
+@pytest.mark.parametrize("label,path", chip_smoke.OCC_CONFIGS)
+def test_occupancy_kernels_match_plain(cuda, label, path):
+    """The four occupancy kernels on each config's geometry at 64^3
+    (chip_smoke.occ_cases: warmup, sampled, the sampler's fallback and a
+    planted NaN density): points, steps, EMA, sampler and quantile bit for
+    bit, the threshold within chip_smoke.OCC_MEAN_RTOL with the cells that
+    flip counted, two runs bit for bit, their launches an update, the
+    whole update equal to the plain one."""
+    rows = chip_smoke.occ_cases(torch, f"card test {label}", path,
+                                timed=False, resolution=64)
+    for kernel in chip_smoke.OCC_KERNELS:
+        assert rows[kernel] and all(r["within_rule"] and r["reproducible"]
+                                    for r in rows[kernel])
+
+
+@pytest.mark.parametrize("contraction", list(contraction.ContractionType))
+def test_occupancy_models_on_the_card(cuda, contraction):
+    """The per-lane models with the card's division equal the plain
+    versions on the card and the kernels, bit for bit: the points and the
+    cone step under each contraction, the sampler; and the threshold
+    kernel's quantile equals torch.quantile on the card."""
+    from deblur_e_nerf_tpu_torch.ops import occupancy as oo
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = 48
+    n = res ** 3
+    grid = oo.Grid(res, (-1.0, -2.0, -1.5, 1.0, 2.0, 1.5), contraction)
+    steps = oo.Steps(0.004, 0.004, 0.05, 5.0)
+    jitter = torch.rand((n, 3), generator=gen, device=cuda)
+    cams = torch.rand((9, 3), generator=gen, device=cuda) * 2 - 1
+    cam_ids = torch.randint(0, 9, (n,), generator=gen, device=cuda)
+    cells = (torch.randint(0, n, (n // 4,), generator=gen, device=cuda),
+             torch.randint(0, n, (n // 4,), generator=gen, device=cuda))
+    for listed in ((), cells):
+        lanes = n if not listed else n // 2
+        j = jitter[:lanes].contiguous()
+        c = cam_ids[:lanes].contiguous()
+        args = (grid, j, 7, lanes - 7, listed, steps, c, cams)
+        want = oo.points_reference(*args)
+        model = oo.points_model(*args, cuda_division=True)
+        got = oo.points(*args)
+        for a, b, m in zip(got, want, model):
+            assert torch.equal(a, b) and torch.equal(m, b)
+    binary = torch.rand(n, generator=gen, device=cuda) < 0.05
+    draws = {"u": torch.rand(n // 4, generator=gen, device=cuda),
+             "fallback_cells": torch.randint(0, n, (n // 4,), generator=gen,
+                                             device=cuda)}
+    want = oo.sample_occupied_reference(binary, draws)
+    assert torch.equal(oo.sample_occupied(binary, draws), want)
+    assert torch.equal(oo.sample_occupied_model(binary, draws), want)
+    occs = torch.rand(n, generator=gen, device=cuda) ** 4
+    got_occs, partials = oo.ema(occs, 1.0, [], (cells[0][:0],))
+    assert torch.equal(got_occs, occs)
+    for q in (0.875, 0.5, 1.0 / 3.0):
+        _, got = oo.threshold(occs, partials, float("-inf"), 0.0, 0.0,
+                              1.0 - q)
+        assert torch.equal(got, torch.quantile(occs, q))
+
+
+@pytest.mark.parametrize("warmup", [True, False])
+def test_occupancy_ema_propagates_planted_nan(cuda, warmup):
+    """NaN in a density, or in a cell of the grid, reaches the same cells
+    as torch.maximum and scatter_reduce(amax) take it there (both
+    propagate it), and the threshold is NaN in both (the mask empty)."""
+    from deblur_e_nerf_tpu_torch.ops import occupancy as oo
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n = 32 ** 3
+    occs = torch.rand(n, generator=gen, device=cuda) * 0.01
+    occs[[5, 77, 4096]] = float("nan")
+    if warmup:
+        cells, lanes = None, n
+    else:
+        cells = (torch.randint(0, n, (n // 4,), generator=gen, device=cuda),
+                 torch.tensor([5, 9, 9, 300] * 16, device=cuda))
+        lanes = n // 4 + 64
+    density = torch.rand((lanes, 1), generator=gen, device=cuda)
+    density[[3, lanes - 2]] = float("nan")
+    chunks = [(0, density[:4096], None), (4096, density[4096:], None)]
+    got, partials = oo.ema(occs, 0.95, chunks, cells, 0.02)
+    want, _ = oo.ema_reference(occs, 0.95, chunks, cells, 0.02)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and int(nan.sum()) >= 3
+    assert torch.equal(got[~nan], want[~nan])
+    binary, thre = oo.threshold(got, partials, 0.01)
+    want_b, want_t = oo.threshold_reference(want, 0.01)
+    assert torch.isnan(thre) and torch.isnan(want_t)
+    assert torch.equal(binary, want_b) and not bool(binary.any())
+
+
+def test_occupancy_quantile_beyond_torch_quantile(cuda):
+    """A grid of 2^24 + 1 cells, which torch.quantile refuses: the
+    threshold kernel's quantile (occ_thre -inf) bit for bit against the
+    order statistics torch.kthvalue finds, at torch.quantile's float32
+    rank, interpolated by torch.lerp on the card."""
+    from deblur_e_nerf_tpu_torch.ops import occupancy as oo
+
+    n = (1 << 24) + 1
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    occs = torch.rand(n, generator=gen, device=cuda) ** 3 * 0.1
+    occs[:1000] = 0.05  # ties
+    with pytest.raises(RuntimeError, match="too large"):
+        torch.quantile(occs, 0.5)
+    got_occs, partials = oo.ema(occs, 1.0, [], (torch.zeros(
+        0, dtype=torch.int64, device=cuda),))
+    for frac in (0.125, 0.3, 2.0 / 3.0):
+        q = 1.0 - frac
+        binary, got = oo.threshold(got_occs, partials, float("-inf"), 0.0,
+                                   0.0, frac)
+        rank = np.float32(q) * np.float32(n - 1)
+        below, above = int(rank), int(np.ceil(rank))
+        lo = torch.kthvalue(occs, below + 1).values
+        hi = torch.kthvalue(occs, above + 1).values
+        want = torch.lerp(lo, hi, torch.tensor(np.float32(rank - below),
+                                               device=cuda))
+        assert torch.equal(got, want), (frac, float(got), float(want))
+        assert torch.equal(binary, occs > want)
+
+
+def test_occupancy_update_launches_the_kernels_without_a_sync(cuda):
+    """models/occupancy.update on card tensors launches the points and
+    EMA kernels a chunk, the EMA once more for a sampled update, the
+    threshold once and the sampler once (chip_smoke.occupancy_launches)
+    and makes no host sync."""
+    from deblur_e_nerf_tpu_torch.models import occupancy
+
+    rc, kw = chip_smoke.occ_settings(chip_smoke.OCC_CONFIGS[0][1])
+    occ_eval = chip_smoke.occ_eval_of(rc, chip_smoke.occ_density(torch, rc))
+    state = occupancy.init_state(rc.grid_resolution, cuda)
+    for warmup in (True, False, False):
+        draws, cams = chip_smoke.occ_draws(torch, rc, warmup, 0)
+        chip_smoke.reset_launches()
+        torch.cuda.synchronize()
+        with chip_smoke.sync_sites(torch) as sites:
+            state = occupancy.update(
+                state, occ_eval, warmup, draws, resolution=rc.grid_resolution,
+                aabb=rc.aabb, contraction_type=rc.contraction_type,
+                camera_positions=cams, **kw)
+        torch.cuda.synchronize()
+        got = chip_smoke.read_launches()
+        want = chip_smoke.occupancy_launches(
+            rc, **{"warmups" if warmup else "sampled": 1})
+        assert {k: got[k] for k in want} == want
+        assert not sites
+    assert 0 < float(state.binary.float().mean()) < 1
+
+
+def test_occupancy_wrappers_raise_instead_of_falling_back(cuda):
+    from deblur_e_nerf_tpu_torch.ops import occupancy as oo
+
+    grid = oo.Grid(16, (-1.0,) * 3 + (1.0,) * 3,
+                   contraction.ContractionType.AABB)
+    jitter = torch.rand((4096, 3), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        oo.points(grid, jitter.double(), 0, 4096)
+    with pytest.raises(ValueError, match="lanes"):
+        oo.points(grid, jitter, 4000, 200)
+    with pytest.raises(ValueError, match="cam_ids"):
+        oo.points(grid, jitter, 0, 4096, (), oo.Steps(0.01, 0.1))
+    occs = torch.zeros(4096, device=cuda)
+    with pytest.raises(ValueError, match="covered"):
+        oo.ema(occs, 0.9, [(0, torch.ones(100, device=cuda), None)])
+    with pytest.raises(ValueError, match="multiples"):
+        oo.ema(occs, 0.9, [(100, torch.ones(100, device=cuda), None)])
+    with pytest.raises(TypeError, match="float32"):
+        oo.ema(occs, 0.9, [(0, torch.ones(4096, device=cuda,
+                                          dtype=torch.float64), None)])
+    with pytest.raises(ValueError, match="partials"):
+        oo.threshold(occs, None, 0.01)
+    with pytest.raises(TypeError, match="bool"):
+        oo.sample_occupied(occs, {"u": torch.rand(8, device=cuda),
+                                  "fallback_cells": torch.zeros(
+                                      8, dtype=torch.int64, device=cuda)})

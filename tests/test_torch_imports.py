@@ -22,7 +22,8 @@ for name in names:
 # quality harness, the command line and data parallelism are among them
 for name in ("ops.linalg", "ops.control", "ops.gather_rows",
              "ops.hash_encode", "ops.pb_weight", "ops.compact",
-             "ops.composite", "models.pixel_bandwidth",
+             "ops.composite", "ops.march", "ops.occupancy",
+             "models.pixel_bandwidth",
              "perf_microbench",
              "data.image_io", "data.posed_images", "models.offset_gamma",
              "training.metrics", "training.evaluation",

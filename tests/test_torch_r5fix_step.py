@@ -182,28 +182,40 @@ def test_chip_smoke_r5fix_config_is_the_yaml_with_its_listed_cuts():
         cone_angle=0.0, superblock_budget=0))()
     trainer = type("T", (), {})()
     trainer.params = type("P", (), {"nerf": model})()
+    # the config's sparsity prior: 4096 uniform cells, none targeted
+    loss = want["loss"]
+    trainer.bundle = type("B", (), {"static_config": type("S", (), dict(
+        loss_weight_sparsity=loss["weight"]["density_sparsity"],
+        sparsity_samples=loss["density_sparsity_samples"],
+        sparsity_targeted_fraction=loss[
+            "density_sparsity_targeted_fraction"]))()})()
     # one fused encode forward a field call, one backward a field backward
     # (K1 and K3 launch on no path), one weight-chain forward and backward
     # a step; the render kernels: the march's two compactions (no
     # superblock stage at superblock_budget 0) and its kernels (one masks
     # launch, the dense block stage, the sample stage, the decode), one
     # composite forward and one backward, and with the prepass one more
-    # compaction and one more composite forward (its live mask)
+    # compaction and one more composite forward (its live mask); the
+    # occupancy kernels: the prior's points, and a warmup update's points,
+    # EMA (one chunk of the 64^3 grid) and threshold
 
-    def step_launches(forward, backward, filter_forward, prepass):
+    def step_launches(forward, backward, filter_forward, prepass,
+                      update=False):
         return chip_smoke.encode_launches(
             forward, backward, filter_forward, render={
                 "compact": 2 + prepass, "composite_fwd": 1 + prepass,
                 "composite_bwd": 1, "march_masks": 1, "march_coarse": 1,
-                "march_samples": 1, "march_decode": 1})
+                "march_samples": 1, "march_decode": 1,
+                "occ_points": 1 + update, "occ_ema": int(update),
+                "occ_threshold": int(update), "occ_sample_occupied": 0})
 
     assert chip_smoke.r5fix_step_launches(trainer, True) \
-        == step_launches(4, 2, 1, True)
+        == step_launches(4, 2, 1, True, True)
     assert chip_smoke.r5fix_step_launches(trainer, False) \
         == step_launches(3, 2, 1, True)
     # a step the trainer runs without the prepass: the field over K + 1
     assert chip_smoke.r5fix_step_launches(trainer, True, False) \
-        == step_launches(3, 2, 1, False)
+        == step_launches(3, 2, 1, False, True)
     assert chip_smoke.r5fix_step_launches(trainer, False, False) \
         == step_launches(2, 2, 1, False)
     model.render_config.field_chunk = 1 << 18

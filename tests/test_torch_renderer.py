@@ -18,6 +18,7 @@ from deblur_e_nerf_tpu_torch.models import occupancy as tocc
 from deblur_e_nerf_tpu_torch.models import renderer as tr
 from deblur_e_nerf_tpu_torch.models.contraction import ContractionType
 from deblur_e_nerf_tpu_torch.ops import composite as composite_ops
+from deblur_e_nerf_tpu_torch.ops import occupancy as occ_ops
 
 AABB = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)
 RES = 16
@@ -483,8 +484,11 @@ def test_cone_angle_occupancy_eval_matches_jax():
     t_eval = tocc.make_occ_eval_fn(
         lambda p: 0.5 + torch.sum(p * p, dim=-1, keepdim=True), 0.02, 0.05,
         0.5, 5.0)
-    got = t_eval(torch.from_numpy(x),
-                 torch.from_numpy(CAMERAS)[torch.from_numpy(cam_ids)])
+    # density x step as the update's EMA forms it from occ_points' step
+    step = occ_ops.step_reference(
+        t_eval.steps, torch.from_numpy(x),
+        torch.from_numpy(CAMERAS)[torch.from_numpy(cam_ids)])
+    got = t_eval.density_fn(torch.from_numpy(x))[..., 0] * step
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
     dist = np.linalg.norm(CAMERAS[cam_ids] - x, axis=-1)
     assert np.all(got.numpy()[(dist <= 0.5) | (dist >= 5.0)] == 0)
