@@ -978,9 +978,11 @@ def load_parent(torch, parent_dir):
     against it in turns on the same inputs: that checkout's package
     imported under the name `parent_port`, whose `ops.hash_encode` builds
     its own kernels from its own sources. Returns {"encode": its
-    (encode_forward, encode_backward), "pb": its models.pixel_bandwidth
-    (whose intensity_sample_to_weight is the weight chain as the parent's
-    step ran it), "pb_ops": its ops.pb_weight (the weight chain's
+    (encode_forward, encode_backward), "renderer", "compact" and
+    "composite": its models.renderer, ops.compact and ops.composite (the
+    render layer's scans), "pb": its models.pixel_bandwidth (whose
+    intensity_sample_to_weight is the weight chain as the parent's step
+    ran it), "pb_ops": its ops.pb_weight (the weight chain's
     kernels), "occupancy" and "contraction": its models.occupancy (the
     occupancy update) and models.contraction, "package": the name it is
     imported under}."""
@@ -1002,6 +1004,9 @@ def load_parent(torch, parent_dir):
             "encode": (encode.encode_forward, encode.encode_backward),
             "renderer": importlib.import_module(
                 "parent_port.models.renderer"),
+            "compact": importlib.import_module("parent_port.ops.compact"),
+            "composite": importlib.import_module(
+                "parent_port.ops.composite"),
             "pb": importlib.import_module(
                 "parent_port.models.pixel_bandwidth"),
             "pb_ops": importlib.import_module("parent_port.ops.pb_weight"),
@@ -1297,10 +1302,14 @@ FLAGSHIP_RAYS = 429 * 30 * 4
 
 def check_render_build(ptxas):
     """Print the render and occupancy kernels' registers and spills
-    (-Xptxas -v); fail unless each was built (the composite kernels in
-    float and double, the march's four, the occupancy update's ten)."""
-    kernels = ("compact_count", "compact_scan", "compact_write",
-               "composite_fwd_kernelIfE", "composite_fwd_kernelIdE",
+    (-Xptxas -v); fail unless each was built (the compaction by tile, the
+    composite kernels in float and double, the forward by channel count,
+    the march's four, the occupancy update's ten)."""
+    kernels = ("compact_kernelILi128E", "compact_kernelILi256E",
+               # the forward by type and channels (0: density-only)
+               "composite_fwd_kernelIfLi0E", "composite_fwd_kernelIfLi1E",
+               "composite_fwd_kernelIfLi3E", "composite_fwd_kernelIdLi0E",
+               "composite_fwd_kernelIdLi3E",
                "composite_bwd_kernelIfE", "composite_bwd_kernelIdE",
                "march_masks_kernel", "march_coarse_kernel",
                "march_samples_kernel", "march_decode_kernel",
@@ -1336,14 +1345,17 @@ def compact_inputs(torch, n, fraction, prepass, seed=0):
 
 
 def compact_case(torch, label, kind, flags, payloads, budget, fills,
-                 cutoff=False):
-    """The compaction kernels against their plain version: every buffer bit
+                 cutoff=False, parent=None, launches=False):
+    """The compaction kernel against its plain version: every buffer bit
     for bit, the total and the cutoff equal, two runs bit for bit; the
-    kernels' time beside the plain version's, torch.masked_select's of
+    kernel's time beside the plain version's, torch.masked_select's of
     channel 0 (the library call nearest the function) and the bound (the
     flags read once, the kept lanes' payloads read once and, for the
     cutoff, the dropped lanes' channel 0, every output slot written
-    once)."""
+    once). With `parent` (the parent checkout's ops.compact) the kernel is
+    timed in turns with the parent's on the same inputs; with `launches`
+    each one's device launches a call are counted (`device_launches`: a
+    captured call)."""
     from deblur_e_nerf_tpu_torch.ops import compact as compact_ops
 
     args = (flags, payloads, budget, fills, cutoff)
@@ -1365,7 +1377,9 @@ def compact_case(torch, label, kind, flags, payloads, budget, fills,
     del got, again, plain
     total = int(flags.sum())
     kept = min(total, budget)
-    ms = time_ms(lambda: compact_ops.compact(*args))
+    ms, runs, parent_ms, parent_runs = in_turns(
+        lambda: compact_ops.compact(*args),
+        parent and (lambda: parent.compact(*args)))
     plain_ms = time_ms(lambda: compact_ops.compact_reference(*args),
                        iters=10)
     library_ms = time_ms(lambda: torch.masked_select(payloads[0], flags),
@@ -1384,30 +1398,51 @@ def compact_case(torch, label, kind, flags, payloads, budget, fills,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library_ms,
            "library_call": "torch.masked_select (channel 0)"}
+    text = ""
+    if parent is not None:
+        row.update(runs=runs, parent_ms=parent_ms, parent_runs=parent_runs)
+        text += (f"; in turns with the parent's {parent_ms:.4f} ms (runs "
+                 f"{[round(t, 4) for t in runs]} against "
+                 f"{[round(t, 4) for t in parent_runs]})")
+    if launches:
+        row["device_launches"] = device_launches(
+            torch, lambda: compact_ops.compact(*args))
+        text += (f"; device launches a call (kernels, memsets, the "
+                 f"captured call's replay ms) {row['device_launches']}")
+        if parent is not None:
+            row["parent_device_launches"] = device_launches(
+                torch, lambda: parent.compact(*args))
+            text += f", the parent's {row['parent_device_launches']}"
     print(f"compact {label} ({kind}): {flags.numel()} lanes, {total} "
           f"flagged into {budget} (overflow {total > budget}), channels "
           f"{row['channels']}, cutoff {cutoff}: bit exact {exact}, two runs "
           f"bit for bit {repeat}; kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, masked_select {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+          f"{bound_ms:.4f} ms ({bound_by}){text}", flush=True)
+    if launches and sum(row["device_launches"][:2]) > 2:
+        raise AssertionError(f"compact {label} ({kind}): "
+                             f"{row['device_launches']} device launches a "
+                             f"call, more than 2")
     if not (exact and repeat):
         raise AssertionError(f"compact {label} ({kind}): differs from its "
                              f"plain version or from its own second run")
     return row
 
 
-def composite_inputs(torch, n_slots, n_rays, channels, density, seed=0):
+def composite_inputs(torch, n_slots, n_rays, channels, density, seed=0,
+                     counts=None):
     """A seeded ray-contiguous buffer of `n_slots` slots on the card:
-    `n_rays` rays of half to 3/2 their mean count, 5% more samples than
-    the slots hold (the last rays truncated, the last slot empty); sigma
-    uniform below `density` (sigma dt ~ density / 80 a sample), 32
-    overflowed (inf) and 32 with sigma dt far above 25; rgb and t_mid
-    uniform."""
+    `n_rays` rays of half to 3/2 their mean count (or the given `counts`),
+    5% more samples than the slots hold (the last rays truncated, the last
+    slot empty); sigma uniform below `density` (sigma dt ~ density / 80 a
+    sample), 32 overflowed (inf) and 32 with sigma dt far above 25; rgb
+    and t_mid uniform."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    mean = n_slots * 21 // (20 * n_rays)
-    counts = torch.randint(mean // 2, mean * 3 // 2 + 1, (n_rays,),
-                           generator=gen, device="cuda")
+    if counts is None:
+        mean = n_slots * 21 // (20 * n_rays)
+        counts = torch.randint(mean // 2, mean * 3 // 2 + 1, (n_rays,),
+                               generator=gen, device="cuda")
     filled = min(int(counts.sum()), n_slots - 1)
     ray_idx = torch.full((n_slots,), n_rays, dtype=torch.int64,
                          device="cuda")
@@ -1420,9 +1455,11 @@ def composite_inputs(torch, n_slots, n_rays, channels, density, seed=0):
                                            generator=gen, device="cuda")
 
     sigma = uniform(0.0, density)
-    extreme = torch.randint(0, filled, (64,), generator=gen, device="cuda")
-    sigma[extreme[:32]] = float("inf")
-    sigma[extreme[32:]] = 1e5
+    if filled:
+        extreme = torch.randint(0, filled, (64,), generator=gen,
+                                device="cuda")
+        sigma[extreme[:32]] = float("inf")
+        sigma[extreme[32:]] = 1e5
     return {"sigma": sigma, "rgb": uniform(0.0, 1.0, n_slots, channels),
             "t_mid": torch.where(valid, uniform(1.0, 5.0), 0.0),
             "dt": torch.where(valid, uniform(0.005, 0.02), 0.0),
@@ -1457,7 +1494,7 @@ def _excess(torch, got, want, rtol, atol, scaled):
 
 
 def composite_case(torch, label, kind, case, early_stop_eps, alpha_thre,
-                   cotangents):
+                   cotangents, parent=None):
     """The composite kernels against their plain version on one buffer:
     the forward's colours, opacities and depths within COMPOSITE_FWD_*,
     its live counts equal, the density-only call's live mask and counts
@@ -1467,8 +1504,10 @@ def composite_case(torch, label, kind, case, early_stop_eps, alpha_thre,
     bit. Times of each kernel, the plain forward (no gradient), the plain
     backward alone (torch.autograd.grad on a kept graph) and the bounds
     (the bytes of the slots in ray segments read once, every output
-    written once; about 40 and 60 operations a slot). Returns the
-    forward's and the backward's rows."""
+    written once; about 40 and 60 operations a slot). With `parent` (the
+    parent checkout's ops.composite) the forward and the density-only
+    call are timed in turns with the parent's on the same inputs. Returns
+    the forward's and the backward's rows."""
     from deblur_e_nerf_tpu_torch.ops import composite as composite_ops
 
     c = case
@@ -1519,9 +1558,13 @@ def composite_case(torch, label, kind, case, early_stop_eps, alpha_thre,
     n_live = int(fwd[3].sum())
     ch = c["rgb"].shape[1]
     width = c["sigma"].element_size()
-    ms_f = time_ms(lambda: composite_ops.composite_forward(
-        *args, save_trans=True))
-    ms_live = time_ms(lambda: composite_ops.live_mask(*density_args))
+    ms_f, runs_f, parent_f, parent_runs_f = in_turns(
+        lambda: composite_ops.composite_forward(*args, save_trans=True),
+        parent and (lambda: parent.composite_forward(*args,
+                                                     save_trans=True)))
+    ms_live, runs_live, parent_live, parent_runs_live = in_turns(
+        lambda: composite_ops.live_mask(*density_args),
+        parent and (lambda: parent.live_mask(*density_args)))
     ms_b = time_ms(lambda: composite_ops.composite_backward(
         *args, fwd[4], *cotangents))
 
@@ -1563,6 +1606,19 @@ def composite_case(torch, label, kind, case, early_stop_eps, alpha_thre,
              rtol=COMPOSITE_BWD_RTOL, atol_of_largest=COMPOSITE_BWD_ATOL,
              ms=ms_b, plain_ms=plain_b, bound_ms=bound_b[0],
              bound_by=bound_b[1]))
+    text = ""
+    if parent is not None:
+        rows[0].update(runs=runs_f, parent_ms=parent_f,
+                       parent_runs=parent_runs_f,
+                       density_only_runs=runs_live,
+                       density_only_parent_ms=parent_live,
+                       density_only_parent_runs=parent_runs_live)
+        text = (f"; in turns with the parent's: forward {ms_f:.4f} against "
+                f"{parent_f:.4f} ms (runs {[round(t, 4) for t in runs_f]} "
+                f"against {[round(t, 4) for t in parent_runs_f]}), "
+                f"density-only {ms_live:.4f} against {parent_live:.4f} ms "
+                f"(runs {[round(t, 4) for t in runs_live]} against "
+                f"{[round(t, 4) for t in parent_runs_live]})")
     print(f"composite {label} ({kind}): {n} slots, {n_rays} rays, {segment} "
           f"in ray segments, {n_live} live, ch {ch}, "
           f"{common['dtype']}, alpha_thre {alpha_thre}: forward max_abs_err "
@@ -1575,7 +1631,8 @@ def composite_case(torch, label, kind, case, early_stop_eps, alpha_thre,
           f"{plain_f:.4f}, bound {bound_f[0]:.4f} {bound_f[1]}), "
           f"density-only {ms_live:.4f} ms (plain {plain_live_ms:.4f}, "
           f"bound {bound_live[0]:.4f}), backward {ms_b:.4f} ms (plain "
-          f"{plain_b:.4f}, bound {bound_b[0]:.4f} {bound_b[1]})", flush=True)
+          f"{plain_b:.4f}, bound {bound_b[0]:.4f} {bound_b[1]}){text}",
+          flush=True)
     if not (fwd_excess <= 0 and bwd_excess <= 0 and live_equal and repeat):
         raise AssertionError(f"composite {label} ({kind}): outside its "
                              f"tolerances, live counts or masks differ, or "
@@ -1583,13 +1640,15 @@ def composite_case(torch, label, kind, case, early_stop_eps, alpha_thre,
     return rows
 
 
-def render_kernel_cases(torch):
+def render_kernel_cases(torch, parent=None):
     """Phase 3's synthetic cases of the render kernels: the compaction at
     the flagship's sample and block stages and the r5fix prepass's
-    three-channel put, each below and above its budget; the composite on a
-    dense buffer of the flagship step's size (K + 1 slots, its rays at
-    full batch capacity) with early stop, clamped samples and truncated
-    rays, with alpha_thre 0 and 0.05. Returns {kernel: rows}."""
+    three-channel put, each below and above its budget, with its device
+    launches a call; the composite on a dense buffer of the flagship
+    step's size (K + 1 slots, its rays at full batch capacity) with early
+    stop, clamped samples and truncated rays, with alpha_thre 0 and 0.05.
+    With `parent` (load_parent) each is timed in turns with the parent
+    checkout's kernel. Returns {kernel: rows}."""
     rows = {"compact": [], "composite_fwd": [], "composite_bwd": []}
     stages = (
         ("flagship sample stage", (FLAGSHIP_BLOCK_BUDGET + 1) * 8,
@@ -1604,7 +1663,8 @@ def render_kernel_cases(torch):
                                                     prepass, seed)
             rows["compact"].append(compact_case(
                 torch, label, f"synthetic, {fraction:.0%} flagged", flags,
-                payloads, budget, fills, cutoff))
+                payloads, budget, fills, cutoff, parent and parent["compact"],
+                launches=True))
             del flags, payloads
             torch.cuda.empty_cache()
     # one channel, as the flagship's and EDS's event intensities
@@ -1613,7 +1673,8 @@ def render_kernel_cases(torch):
                                 FLAGSHIP_RAYS, 1, density=6.0)
         fwd, bwd = composite_case(
             torch, "flagship step size", "synthetic, dense", case, 1e-4,
-            alpha_thre, composite_cotangents(torch, FLAGSHIP_RAYS, 1))
+            alpha_thre, composite_cotangents(torch, FLAGSHIP_RAYS, 1),
+            parent and parent["composite"])
         rows["composite_fwd"].append(fwd)
         rows["composite_bwd"].append(bwd)
         del case
@@ -1680,6 +1741,55 @@ def capture_render_inputs(store):
          composite_ops.composite_backward, renderer.march_rays) = real
 
 
+@contextmanager
+def parent_render_scans(parent):
+    """The parent checkout's compaction and composite (its autograd
+    function, and the density-only call) in place of this checkout's
+    while the block runs: the renderer looks them up at each call."""
+    from deblur_e_nerf_tpu_torch.ops import compact as compact_ops
+    from deblur_e_nerf_tpu_torch.ops import composite as composite_ops
+
+    real = (compact_ops.compact, composite_ops.composite,
+            composite_ops.live_mask)
+    compact_ops.compact = parent["compact"].compact
+    composite_ops.composite = parent["composite"].composite
+    composite_ops.live_mask = parent["composite"].live_mask
+    try:
+        yield
+    finally:
+        (compact_ops.compact, composite_ops.composite,
+         composite_ops.live_mask) = real
+
+
+def steps_in_turns(torch, trainer, parent, label, per_turn=3):
+    """A steady step's wall ms with this checkout's render scans in turns
+    with the parent's in their place (parent, change, change, parent;
+    each the median of `per_turn` steps): context for the two kernels'
+    times, not a claim. Returns (change's runs, parent's runs)."""
+    def median_step():
+        times = []
+        for _ in range(per_turn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        trainer._flush_pending_metrics()
+        return sorted(times)[per_turn // 2]
+
+    def parent_step():
+        with parent_render_scans(parent):
+            return median_step()
+
+    runs = [parent_step(), median_step(), median_step(), parent_step()]
+    ours, theirs = runs[1:3], [runs[0], runs[3]]
+    print(f"{label} step in turns with the parent's render scans (median "
+          f"of {per_turn} steps each; parent, change, change, parent): "
+          f"change {[round(t, 3) for t in ours]} ms, parent "
+          f"{[round(t, 3) for t in theirs]} ms", flush=True)
+    return ours, theirs
+
+
 def _to_device(value, device):
     if hasattr(value, "to"):
         return value.to(device)
@@ -1696,7 +1806,10 @@ def render_step_cases(torch, label, captured, parent=None):
     and at half its flagged lanes (an overflow), the composite on the
     step's buffer and cotangents, and the march's kernels on the step's
     rays, mask, jitter and grid at the step's budgets and cut below its
-    demands (`march_cases`). Returns {kernel: rows}."""
+    demands (`march_cases`). With `parent`, the compactions and the
+    composite forward are timed in turns with the parent checkout's and
+    the compactions' device launches a call counted. Returns {kernel:
+    rows}."""
     rows = {"compact": [], "composite_fwd": [], "composite_bwd": []}
     march = captured["march"]
     for kernel, found in march_cases(
@@ -1713,13 +1826,15 @@ def render_step_cases(torch, label, captured, parent=None):
         for kind, b in (("step", budget), ("step, overflow", total // 2)):
             rows["compact"].append(compact_case(
                 torch, f"{label} step's own inputs: {name}", kind, flags,
-                payloads, b, fills, cutoff))
+                payloads, b, fills, cutoff, parent and parent["compact"],
+                launches=kind == "step"))
         del flags, payloads
     case = _to_device(captured["composite"], "cuda")
     eps, alpha_thre = case.pop("early_stop_eps"), case.pop("alpha_thre")
     fwd, bwd = composite_case(
         torch, f"{label} step's own inputs", "step", case, eps, alpha_thre,
-        _to_device(captured["cotangents"], "cuda"))
+        _to_device(captured["cotangents"], "cuda"),
+        parent and parent["composite"])
     rows["composite_fwd"].append(fwd)
     rows["composite_bwd"].append(bwd)
     del case
@@ -2580,14 +2695,13 @@ def capture_occupancy(trainer):
         kw=occ_keywords(model.occ_grid_config))
 
 
-def _profiled_update(torch, fn):
-    """(device ms of all kernels, of the occupancy kernels, of the encode,
-    {occupancy kernel: the device launches of its family (KERNEL_NAMES)},
-    the memsets of every source) of one call of fn under torch.profiler,
-    after one call whose records are dropped: a profile that starts with
-    the call loses the records of its first kernels (one to four of them
-    on an H100 with torch 2.11), and one profile in some held no device
-    record at all: such a profile is taken again, up to three times."""
+def _profiled_call(torch, fn, label="a call"):
+    """The device records (torch.profiler's key averages) of one call of
+    fn, after one call whose records are dropped: a profile that starts
+    with the call loses the records of its first kernels (one to four of
+    them on an H100 with torch 2.11), and one profile in some held no
+    device record at all: such a profile is taken again, up to three
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2605,9 +2719,57 @@ def _profiled_update(torch, fn):
                    if e.device_type == DeviceType.CUDA
                    and not e.key.startswith("ProfilerStep")]
         if kernels:
-            break
-        print(f"profile {attempt + 1} of an update held no device record",
+            return kernels
+        print(f"profile {attempt + 1} of {label} held no device record",
               flush=True)
+    return []
+
+
+GRAPH_KERNEL_NODE = 0  # CUDA's CUgraphNodeType of a kernel node
+
+
+def device_launches(torch, fn):
+    """(kernel launches, memsets and other device work, their device ms)
+    in one call of fn: the nodes of a CUDA graph captured from one call
+    (after a warm-up call), by their CUgraphNodeType, and the graph's
+    replay time between CUDA events. A capture holds every launch of the
+    call, where a profile of one call often held no device record at all
+    (`_profiled_call`); a call with no device work raises."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if libcuda.cuGraphGetNodes(raw, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if libcuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        types.append(kind.value)
+    if not types:
+        raise AssertionError("a captured call held no device work")
+    kernels = types.count(GRAPH_KERNEL_NODE)
+    ms = time_ms(graph.replay)
+    del graph
+    return kernels, len(types) - kernels, ms
+
+
+def _profiled_update(torch, fn):
+    """(device ms of all kernels, of the occupancy kernels, of the encode,
+    {occupancy kernel: the device launches of its family (KERNEL_NAMES)},
+    the memsets of every source) of one call of fn (`_profiled_call`)."""
+    kernels = _profiled_call(torch, fn, "an update")
 
     def ms(match):
         return sum(e.self_device_time_total for e in kernels
@@ -2948,7 +3110,7 @@ def phase_kernels(torch, parent=None):
     pb["pb_weight_conditioning"] = [
         pb_conditioning_check(torch, calib, div)
         for calib, div in PB_CONDITIONING_CASES]
-    return dict(encode, **pb, **render_kernel_cases(torch),
+    return dict(encode, **pb, **render_kernel_cases(torch, parent),
                 **march_kernel_cases(torch, parent),
                 **occ_kernel_cases(torch),
                 scatter_add_rows=scatter, gather_rows=gather,
@@ -3648,7 +3810,8 @@ KERNEL_NAMES = {"scatter_add_rows": "scatter_add_rows_kernel",
                 "hash_encode_bwd": "hash_encode_bwd_kernel",
                 "pb_weight_fwd": "pb_weight_fwd_kernel",
                 "pb_weight_bwd": "pb_weight_bwd_kernel",
-                # the compaction's three kernels: count, scan, write
+                # the compaction's kernel (the first design's three:
+                # compact_count, compact_scan, compact_write)
                 "compact": "compact_",
                 "composite_fwd": "composite_fwd_kernel",
                 "composite_bwd": "composite_bwd_kernel",
@@ -4191,10 +4354,11 @@ def build_trainer(torch, root, tmp, filter_on):
     return trainer
 
 
-def phase_training(torch, tmp, profile=False, capture=None):
+def phase_training(torch, tmp, profile=False, capture=None, parent=None):
     """Both paths; returns ({path: {kernel: launches}}, the flagship
     trainer, the dataset directory). The steady flagship step's encode
-    inputs go into the dict `capture`."""
+    inputs go into the dict `capture`. With `parent`, steady steps are
+    timed in turns with the parent checkout's render scans."""
     from deblur_e_nerf_tpu_torch.data import synthetic
 
     t0 = time.perf_counter()
@@ -4239,6 +4403,8 @@ def phase_training(torch, tmp, profile=False, capture=None):
         capture["occupancy"] = capture_occupancy(trainer)
     census_step(torch, trainer)
     trainer._flush_pending_metrics()
+    if parent is not None:
+        steps_in_turns(torch, trainer, parent, "flagship (filter on)")
     if profile:
         profile_steps(torch, trainer)
     for path, counts in launches.items():
@@ -4855,12 +5021,13 @@ def profile_eds_step(torch, trainer):
           + f"; {_per_call(prof)}", flush=True)
 
 
-def phase_eds(torch, tmp, card, profile=False, capture=None):
+def phase_eds(torch, tmp, card, profile=False, capture=None, parent=None):
     """Phase 7: the real-data (EDS) path at full width. Returns
     {path: launches} for its training, resumed training, evaluation and
     640x480 frame. With `profile`, one steady micro-step's device time
     by kernel too. The steady micro-step's encode inputs go into the dict
-    `capture`."""
+    `capture`. With `parent`, steady micro-steps are timed in turns with
+    the parent checkout's render scans."""
     import numpy as np
 
     from deblur_e_nerf_tpu_torch.data import posed_images
@@ -4932,6 +5099,8 @@ def phase_eds(torch, tmp, card, profile=False, capture=None):
                       "training/step.py"), capture=capture)
     if capture is not None:
         capture["occupancy"] = capture_occupancy(trainer)
+    if parent is not None:
+        steps_in_turns(torch, trainer, parent, "EDS micro-step")
     if profile:
         profile_eds_step(torch, trainer)
     del trainer
@@ -6636,9 +6805,10 @@ def main():
                              "EDS micro-step")
     parser.add_argument("--parent", metavar="DIR",
                         help="a checkout of the parent commit: phase 3 "
-                             "also builds its encode kernels and times "
-                             "them in turns with these on the same inputs "
-                             "(see load_parent)")
+                             "also builds its kernels and times them in "
+                             "turns with these on the same inputs, and "
+                             "phases 4 and 7 time steps in turns with its "
+                             "render scans (see load_parent)")
     args = parser.parse_args()
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(BUDGET_S)
@@ -6661,7 +6831,7 @@ def main():
         with phase("4 training"):
             launches, trainer, root = phase_training(
                 torch, tmp, profile=args.profile,
-                capture=captured["flagship"])
+                capture=captured["flagship"], parent=parent)
         with phase("5 reference"):
             phase_reference(torch, tmp)
         with phase("6 eval"):
@@ -6671,7 +6841,8 @@ def main():
         with phase("7 real-data (EDS) path"):
             launches.update(phase_eds(torch, tmp, card,
                                       profile=args.profile,
-                                      capture=captured["EDS"]))
+                                      capture=captured["EDS"],
+                                      parent=parent))
         torch.cuda.empty_cache()
         with phase("3b kernels vs plain on the step's own inputs"):
             phase_step_inputs(torch, rows, captured, parent)

@@ -128,28 +128,73 @@ def colorize_events(events, bayer_pattern):
     return events
 
 
-def _undistort_plumb_bob(pts, intrinsics, dist, iterations=5):
-    """cv2.undistortPoints(pts, K, dist, P=K): radial-tangential (4, 5, 8,
-    12 or 14 coefficients; no tilt), OpenCV's fixed-point inverse with its
-    default 5 iterations."""
+PLUMB_BOB_COUNTS = (4, 5, 8, 12, 14)  # the coefficient counts cv2 takes
+
+
+def tilt_matrices(tau_x, tau_y):
+    """OpenCV's computeTiltProjectionMatrix(tauX, tauY): (the tilted
+    sensor's projection matrix, its inverse), both (3, 3) float64."""
+    c_x, s_x = np.cos(tau_x), np.sin(tau_x)
+    c_y, s_y = np.cos(tau_y), np.sin(tau_y)
+    rot_x = np.array([[1, 0, 0], [0, c_x, s_x], [0, -s_x, c_x]])
+    rot_y = np.array([[c_y, 0, -s_y], [0, 1, 0], [s_y, 0, c_y]])
+    rot = rot_y @ rot_x
+    proj = np.array([[rot[2, 2], 0, -rot[0, 2]],
+                     [0, rot[2, 2], -rot[1, 2]], [0, 0, 1]])
+    inv = 1.0 / rot[2, 2]
+    inv_proj = np.array([[inv, 0, inv * rot[0, 2]],
+                         [0, inv, inv * rot[1, 2]], [0, 0, 1]])
+    return proj @ rot, rot.T @ inv_proj
+
+
+def apply_homography(m, x, y):
+    """(x, y) through the (3, 3) matrix m and back to z = 1, as OpenCV
+    applies the tilt (a zero z leaves the point unscaled)."""
+    vx = m[0, 0] * x + m[0, 1] * y + m[0, 2]
+    vy = m[1, 0] * x + m[1, 1] * y + m[1, 2]
+    vz = m[2, 0] * x + m[2, 1] * y + m[2, 2]
+    inv = 1.0 / np.where(vz != 0, vz, 1.0)
+    return inv * vx, inv * vy
+
+
+def plumb_bob_coefficients(dist):
+    """The 14 coefficients (k1 k2 p1 p2 k3 k4 k5 k6 s1 s2 s3 s4 tauX tauY)
+    of a plumb_bob vector of 0, 4, 5, 8, 12 or 14, zero-padded."""
+    dist = np.asarray(dist, np.float64).ravel()
+    if dist.size not in (0,) + PLUMB_BOB_COUNTS:
+        raise ValueError(f"plumb_bob takes 0, 4, 5, 8, 12 or 14 distortion "
+                         f"coefficients, got {dist.size}")
     k = np.zeros(14)
-    k[:len(dist)] = dist
-    if np.any(k[12:]):
-        raise NotImplementedError("plumb_bob with tilt coefficients")
+    k[:dist.size] = dist
+    return k
+
+
+def _undistort_plumb_bob(pts, intrinsics, dist, iterations=5):
+    """cv2.undistortPoints(pts, K, dist, P=K): radial-tangential with the
+    thin prism (12 coefficients) and the tilted sensor (14), OpenCV's
+    fixed-point inverse with its default 5 iterations: the inverse tilt
+    first, then the iteration on the untilted point."""
+    k = plumb_bob_coefficients(dist)
     fx, fy = intrinsics[0, 0], intrinsics[1, 1]
     cx, cy = intrinsics[0, 2], intrinsics[1, 2]
     u, v = pts[:, 0], pts[:, 1]
-    x0 = x = (u - cx) * (1.0 / fx)
-    y0 = y = (v - cy) * (1.0 / fy)
+    xn = (u - cx) * (1.0 / fx)
+    yn = (v - cy) * (1.0 / fy)
+    if np.any(k[12:]):
+        x0, y0 = apply_homography(tilt_matrices(k[12], k[13])[1], xn, yn)
+    else:
+        x0, y0 = xn, yn
+    x, y = x0, y0
     done = np.zeros(len(pts), bool)
     for _ in range(iterations):
         r2 = x * x + y * y
         icdist = ((1 + ((k[7] * r2 + k[6]) * r2 + k[5]) * r2)
                   / (1 + ((k[4] * r2 + k[1]) * r2 + k[0]) * r2))
-        # OpenCV falls back to the distorted point where the model folds
+        # OpenCV falls back to the distorted (and still tilted) point
+        # where the model folds
         bad = ~done & (icdist < 0)
-        x = np.where(bad, x0, x)
-        y = np.where(bad, y0, y)
+        x = np.where(bad, xn, x)
+        y = np.where(bad, yn, y)
         done |= bad
         dx = (2 * k[2] * x * y + k[3] * (r2 + 2 * x * x) + k[8] * r2
               + k[9] * r2 * r2)

@@ -9,31 +9,23 @@
     `events._undistort_plumb_bob` (OpenCV's fixed-point inverse).
   - `undistort_image(img, K, D, new_K)` is `cv2.undistort(img, K, D,
     newCameraMatrix=new_K)`: each output pixel's source by the forward
-    radial-tangential model, rounded to OpenCV's 1/32 pixel, then a
-    bilinear remap with constant-zero borders; 8-bit images with OpenCV's
-    15-bit fixed-point weights, 16-bit ones in float32 as OpenCV remaps
-    them. 1 or 3 channels.
+    radial-tangential model with the thin prism and the tilt, rounded to
+    OpenCV's 1/32 pixel, then a bilinear remap with constant-zero borders;
+    8-bit images with OpenCV's 15-bit fixed-point weights, 16-bit ones in
+    float32 as OpenCV remaps them. 1 or 3 channels.
 
-The distortion is plumb_bob (radtan): 0 (none), 4, 5 or 8 coefficients.
+The distortion is plumb_bob (radtan): 0 (none), 4, 5, 8, 12 (the thin
+prism) or 14 (the tilted sensor) coefficients, as cv2 takes them.
 """
 
 import numpy as np
 
-from .events import _undistort_plumb_bob
+from .events import (_undistort_plumb_bob, apply_homography,
+                     plumb_bob_coefficients, tilt_matrices)
 
 _GRID = 9                 # OpenCV's points per side of the image
 _TAB_BITS = 5             # OpenCV's INTER_BITS: 1/32 pixel
 _COEF_BITS = 15           # OpenCV's INTER_REMAP_COEF_BITS (8-bit remap)
-
-
-def _coefficients(dist):
-    k = np.zeros(8)
-    dist = np.asarray(dist, np.float64).ravel()
-    if dist.size not in (0, 4, 5, 8):
-        raise ValueError(f"plumb_bob takes 0, 4, 5 or 8 distortion "
-                         f"coefficients, got {dist.size}")
-    k[:dist.size] = dist
-    return k
 
 
 def _undistort_rectangles(K, D, size, new_K=None):
@@ -45,7 +37,7 @@ def _undistort_rectangles(K, D, size, new_K=None):
     x, y = np.meshgrid(np.arange(_GRID) * (width - 1) / (_GRID - 1),
                        np.arange(_GRID) * (height - 1) / (_GRID - 1))
     pts = np.stack([x.ravel(), y.ravel()], axis=1)
-    und = _undistort_plumb_bob(pts, K, _coefficients(D))
+    und = _undistort_plumb_bob(pts, K, plumb_bob_coefficients(D))
     # back to normalized coordinates (K's own projection undone)
     ny = (und[:, 1] - K[1, 2]) / K[1, 1]
     nx = (und[:, 0] - K[0, 2] - K[0, 1] * ny) / K[0, 0]
@@ -93,7 +85,7 @@ def undistortion_map(K, D, new_K, size):
     each), rounded half to even as cvRound."""
     width, height = size
     K = np.asarray(K, np.float64)
-    k = _coefficients(D)
+    k = plumb_bob_coefficients(D)
     inv = np.linalg.inv(np.asarray(new_K, np.float64))
     j, i = np.meshgrid(np.arange(width, dtype=np.float64),
                        np.arange(height, dtype=np.float64))
@@ -105,8 +97,14 @@ def undistortion_map(K, D, new_K, size):
     r2, xy2 = x2 + y2, 2 * x * y
     kr = ((1 + ((k[4] * r2 + k[1]) * r2 + k[0]) * r2)
           / (1 + ((k[7] * r2 + k[6]) * r2 + k[5]) * r2))
-    u = K[0, 0] * (x * kr + k[2] * xy2 + k[3] * (r2 + 2 * x2)) + K[0, 2]
-    v = K[1, 1] * (y * kr + k[2] * (r2 + 2 * y2) + k[3] * xy2) + K[1, 2]
+    xd = (x * kr + k[2] * xy2 + k[3] * (r2 + 2 * x2) + k[8] * r2
+          + k[9] * r2 * r2)
+    yd = (y * kr + k[2] * (r2 + 2 * y2) + k[3] * xy2 + k[10] * r2
+          + k[11] * r2 * r2)
+    if np.any(k[12:]):
+        xd, yd = apply_homography(tilt_matrices(k[12], k[13])[0], xd, yd)
+    u = K[0, 0] * xd + K[0, 2]
+    v = K[1, 1] * yd + K[1, 2]
     scale = 1 << _TAB_BITS
     return (np.rint(u * scale).astype(np.int64),
             np.rint(v * scale).astype(np.int64))

@@ -210,7 +210,8 @@ def library():
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
                        + [ctypes.c_void_p] * 6 + [ctypes.c_int32] * 3
                        + [ctypes.c_uint64] * 3
-                       + [ctypes.c_int64] + [ctypes.c_void_p] * 4)
+                       + [ctypes.c_int64, ctypes.c_int32]
+                       + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
         shared = ([ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int32]

@@ -9,14 +9,15 @@
     budget are dropped. `total` is the number of flagged lanes, and
     `cutoff` the smallest payload of channel 0 among the dropped lanes
     (its fill when none was), both () int64 device tensors: nothing is
-    read back to the host. On a CUDA tensor it launches the kernels of
-    `csrc/compact.cu` (one to three int64 or float32 channels in one
-    launch) or raises; on a CPU tensor it runs `compact_reference`.
+    read back to the host. On a CUDA tensor it launches the kernel of
+    `csrc/compact.cu` (one to three int64 or float32 channels; a memset
+    of its status words and one single-pass kernel) or raises; on a CPU
+    tensor it runs `compact_reference`.
   - `compact_reference`: the plain version (the march's former
     `_compact` and the prepass's `put`: a cumsum of the flags and a
     scatter to its positions, dropped lanes into a discarded slot).
 
-`LAUNCHES` counts the wrapper's kernel launches.
+`LAUNCHES` counts the wrapper's calls that launch the kernel.
 """
 
 import struct
@@ -26,7 +27,11 @@ import torch
 LAUNCHES = 0  # kernel launches since the last reset (plain int)
 
 MAX_CHANNELS = 3
-TILE = 4096  # lanes a block of the kernels (csrc/compact.cu kTile)
+# the kernel's tile sizes (lanes; csrc/compact.cu Tile<NT>::kSize) and the
+# largest lane count each is chosen for (`tile_lanes`)
+TILES = ((8192, 6 << 20), (16384, None))
+TILE = TILES[-1][0]
+CONTROL_WORDS = 3  # the kernel's ticket, done count and cutoff key
 
 _launch = None  # the kernel library's C entry point, bound at first use
 
@@ -64,6 +69,14 @@ def _fill_bits(value, dtype):
         return struct.unpack("<I", struct.pack("<f", float(value)))[0]
     raise TypeError(f"the kernel takes int64 and float32 payloads, got "
                     f"{dtype}")
+
+
+def tile_lanes(n):
+    """The kernel's tile for n lanes: the smallest whose range holds n
+    (TILES). A call runs its tiles about in one wave, so a tile's chain of
+    dependent steps sets its pace: small calls take small tiles, the
+    large stages the largest, whose flag loads and look-backs are fewer."""
+    return next(t for t, most in TILES if most is None or n <= most)
 
 
 def _bind():
@@ -112,11 +125,13 @@ def compact(flags, payloads, budget, fills, return_cutoff=False):
     bits = [_fill_bits(f, p.dtype) for p, f in zip(payloads, fills)]
     bufs = [torch.empty(budget + 1, dtype=p.dtype, device=device)
             for p in payloads]
-    # the tile counts, the total and the cutoff: one allocation
-    n_tiles = -(-n // TILE)
-    scratch = torch.empty(n_tiles + 2, dtype=torch.int64, device=device)
-    tiles, total = scratch[:n_tiles], scratch[n_tiles]
-    cutoff = scratch[n_tiles + 1] if return_cutoff else None
+    # the control and status words (a tile's), the total and the cutoff:
+    # one allocation
+    tile = tile_lanes(n)
+    words = CONTROL_WORDS - (-n // tile)
+    scratch = torch.empty(words + 2, dtype=torch.int64, device=device)
+    total = scratch[words]
+    cutoff = scratch[words + 1] if return_cutoff else None
     pad = MAX_CHANNELS - len(payloads)
     src = [p.data_ptr() for p in payloads] + [None] * pad
     dst = [b.data_ptr() for b in bufs] + [None] * pad
@@ -125,7 +140,8 @@ def compact(flags, payloads, budget, fills, return_cutoff=False):
     launch = _launch or _bind()
     with torch.cuda.device(device):
         err = launch(flags.data_ptr(), n, len(payloads), *src, *dst, *sizes,
-                     *bits, budget, tiles.data_ptr(), total.data_ptr(),
+                     *bits, budget, tile, scratch.data_ptr(),
+                     total.data_ptr(),
                      None if cutoff is None else cutoff.data_ptr(),
                      torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

@@ -1015,6 +1015,79 @@ def test_compact_kernel_matches_plain_bit_for_bit(cuda, n, fraction,
     assert compact.LAUNCHES > before
 
 
+def _tile_edges():
+    """(n, fraction, budget, cutoff, offset) at each of the kernel's tile
+    sizes (compact.TILES, each chosen for a range of lane counts): one
+    short of, equal to and one past a multiple of the tile, the first
+    such multiple in its range; two tiles and a ragged third with the
+    flags 3 bytes into their tensor; and the same with every lane
+    flagged, 1 byte in."""
+    cases, below = [], 0
+    for tile, most in compact.TILES:
+        m = below // tile + 1
+        cases += [(m * tile + d, 0.5, None, True, 0) for d in (-1, 0, 1)]
+        cases += [((m + 1) * tile + 1, 0.5, None, True, 3),
+                  (m * tile + 1, 1.0, None, False, 1)]
+        below = most
+    return cases
+
+
+@pytest.mark.parametrize("n,fraction,budget,cutoff,offset", [
+    (1, 1.0, 0, True, 0),                     # one lane, dropped
+    (1, 0.0, 3, True, 0),                     # one lane, not flagged
+    *_tile_edges(),
+    (100003, 0.0, 50, True, 0),               # no lane flagged
+    (100003, 1.0, 200000, True, 0),           # every lane, below the budget
+    (100003, 1.0, 100003, False, 0),          # every lane, at the budget
+    (100003, 0.7, 0, True, 0),                # budget 0
+    (100003, 1.0, 0, True, 0),                # budget 0, every lane dropped
+    (100003, 0.6, 1000, True, 0),             # an overflow with the cutoff
+    (100003, 0.6, 1000, False, 0),            # an overflow without it
+])
+def test_compact_edge_cases_bit_for_bit(cuda, n, fraction, budget, cutoff,
+                                        offset):
+    """The single-pass compaction at the edges of its tiles
+    (`_tile_edges`), flags and budget: every buffer, the total and the
+    cutoff bit for bit against the plain version, two runs bit for bit
+    (chip_smoke.compact_case); a budget of None is half the flagged lanes.
+    With an offset the flags and payloads are slices starting that many
+    lanes into their tensors, so the flags are read byte by byte."""
+    flags, payloads, fills = chip_smoke.compact_inputs(
+        torch, n + offset, fraction, False, seed=n % 5)
+    flags, payloads = flags[offset:], [p[offset:] for p in payloads]
+    assert (flags.data_ptr() % 16 != 0) == (offset != 0)
+    if budget is None:
+        budget = int(flags.sum()) // 2
+    row = chip_smoke.compact_case(torch, "card test", "edge", flags,
+                                  payloads, budget, fills, cutoff)
+    assert row["bit_exact"] and row["reproducible"]
+
+
+def test_compact_many_tiles_and_repeated_runs(cuda):
+    """More than 2^16 tiles (the look-back crosses many waves of blocks),
+    an overflow with the cutoff and a float32 second channel: bit for bit
+    against the plain version, and 20 runs with the same bits."""
+    n = (1 << 16) * compact.TILE + 4097
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    flags = torch.rand(n, generator=gen, device=cuda) < 0.05
+    codes = torch.arange(n, dtype=torch.int64, device=cuda) * 5 + 1
+    values = torch.rand(n, generator=gen, device=cuda)
+    total = int(flags.sum())
+    budget = total - total // 10
+    args = (flags, [codes, values], budget, [5 * n + 1, -1.0], True)
+    row = chip_smoke.compact_case(torch, "card test", "2^16 tiles", *args)
+    assert row["bit_exact"] and row["reproducible"]
+    first = compact.compact(*args)
+    for _ in range(20):
+        again = compact.compact(*args)
+        assert all(torch.equal(chip_smoke._bits(torch, a),
+                               chip_smoke._bits(torch, b))
+                   for a, b in zip(first[0], again[0]))
+        assert int(again[1]) == int(first[1]) == total
+        assert int(again[2]) == int(first[2])
+
+
 def test_compact_wrapper_raises_instead_of_falling_back(cuda):
     flags = torch.ones(10, dtype=torch.bool, device=cuda)
     codes = torch.arange(10, device=cuda)
@@ -1077,6 +1150,187 @@ def test_composite_kernels_match_plain(cuda, alpha_thre, channels, dtype,
     assert 0 < fwd["live_samples"] < fwd["segment_slots"]
     assert composite.FORWARD_LAUNCHES > before[0]
     assert composite.BACKWARD_LAUNCHES > before[1]
+
+
+def _edge_counts(kind):
+    """(counts, slots, density) of the composite's edge cases."""
+    rng = np.random.default_rng(7)
+    if kind == "a ray longer than a partition":
+        return [3, 100000, 5], 100009, 0.01
+    if kind == "one-slot rays":
+        return [1] * 50000, 50001, 6.0
+    if kind == "95% empty rays at 983,040":
+        # 5% of the rays carry 200-400 samples, none in the last tenth
+        n_rays = 983040
+        counts = np.zeros(n_rays, np.int64)
+        hit = rng.choice(n_rays * 9 // 10, n_rays // 20, replace=False)
+        counts[hit] = rng.integers(200, 401, hit.size)
+        return counts, int(counts.sum()) + 1, 6.0
+    if kind == "early stop in a ray's first slots":
+        return rng.integers(50, 151, 2000), 200001, 3000.0
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind,alpha_thre,dtype", [
+    ("a ray longer than a partition", 0.0, torch.float32),
+    ("a ray longer than a partition", 0.05, torch.float64),
+    ("one-slot rays", 0.0, torch.float32),
+    ("95% empty rays at 983,040", 0.0, torch.float32),
+    ("95% empty rays at 983,040", 0.05, torch.float32),
+    ("95% empty rays at 983,040", 0.0, torch.float64),
+    ("early stop in a ray's first slots", 0.0, torch.float32),
+    ("early stop in a ray's first slots", 0.05, torch.float64),
+])
+def test_composite_edge_cases(cuda, kind, alpha_thre, dtype):
+    """The partitioned forward where its partitions, rays and early stop
+    meet: held to the plain version as in every case
+    (chip_smoke.composite_case: outputs within COMPOSITE_FWD_*, live
+    counts and the density-only mask equal, the backward reading the new
+    T within COMPOSITE_BWD_*, two runs bit for bit), with inf and 1e5
+    sigmas in every buffer."""
+    counts, n_slots, density = _edge_counts(kind)
+    counts = torch.as_tensor(np.asarray(counts), dtype=torch.int64,
+                             device=cuda)
+    n_rays = counts.numel()
+    case = chip_smoke.composite_inputs(torch, n_slots, n_rays, 3, density,
+                                       seed=5, counts=counts)
+    case["sigma"], case["rgb"] = (case["sigma"].to(dtype),
+                                  case["rgb"].to(dtype))
+    cot = tuple(g.to(dtype) for g in chip_smoke.composite_cotangents(
+        torch, n_rays, 3))
+    fwd, _ = chip_smoke.composite_case(torch, "card test", kind, case, 1e-4,
+                                       alpha_thre, cot)
+    assert fwd["live_equal"] and fwd["reproducible"]
+    assert 0 < fwd["live_samples"] <= fwd["segment_slots"]
+
+
+def test_composite_forward_twenty_runs_bit_for_bit(cuda):
+    """The forward's every output (colours, opacities, depths, live
+    counts, T of the segments' slots) and the density-only call's mask
+    and counts: 20 runs with the same bits, on the 95%-empty batch and on
+    a ray longer than a partition."""
+    for kind in ("95% empty rays at 983,040",
+                 "a ray longer than a partition"):
+        counts, n_slots, density = _edge_counts(kind)
+        counts = torch.as_tensor(np.asarray(counts), dtype=torch.int64,
+                                 device=cuda)
+        c = chip_smoke.composite_inputs(torch, n_slots, counts.numel(), 3,
+                                        density, seed=9, counts=counts)
+        args = (c["sigma"], c["rgb"], c["t_mid"], c["dt"], c["ray_idx"],
+                c["offsets"], c["counts"], c["n_rays"], 1e-4, 0.0)
+        segment = min(int(c["offsets"][-1] + c["counts"][-1]), n_slots)
+
+        def outputs():
+            out = composite.composite_forward(*args, save_trans=True)
+            live = composite.live_mask(c["sigma"], *args[3:])
+            return [chip_smoke._bits(torch, t) for t in
+                    (*out[:4], out[4][:segment], *live)]
+
+        first = outputs()
+        for _ in range(20):
+            assert all(torch.equal(a, b) for a, b in zip(first, outputs()))
+
+
+def _poison_allocator(device, *nbytes):
+    """Free blocks of these byte sizes, filled with 0xAB, so that the next
+    torch.empty of each size likely returns them: an output that a kernel
+    leaves unwritten then reads as garbage, not as zeros."""
+    blocks = [torch.full((b,), 0xAB, dtype=torch.uint8, device=device)
+              for b in nbytes]
+    torch.cuda.synchronize()
+    del blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("counts,n_slots", [
+    ([3] * 1000 + [5, 4, 0, 2], 3001),  # ray 1000 starts at the last slot
+    ([4, 0, 2], 1),                     # a budget of 0: one empty slot
+], ids=["a ray starting at the last slot", "budget 0"])
+def test_composite_ray_starting_at_the_empty_last_slot(cuda, counts,
+                                                       n_slots, dtype):
+    """The march's counts are demands, so a ray may start at the buffer's
+    last slot, which is always empty: it has no sample in the buffer, and
+    its colours, opacity, depth and live count are zeros, as the plain
+    version's; every slot's live flag is the plain version's. The outputs'
+    memory is poisoned first, so an unwritten output shows. Then the
+    whole buffer as every case (chip_smoke.composite_case)."""
+    counts = torch.tensor(counts, dtype=torch.int64, device=cuda)
+    n_rays = counts.numel()
+    case = chip_smoke.composite_inputs(torch, n_slots, n_rays, 3, 6.0,
+                                       seed=3, counts=counts)
+    case["sigma"], case["rgb"] = (case["sigma"].to(dtype),
+                                  case["rgb"].to(dtype))
+    starts = torch.nonzero((case["offsets"] == n_slots - 1)
+                           & (counts > 0)).flatten()
+    assert starts.numel() == 1
+    r = int(starts[0])
+    args = (case["sigma"], case["rgb"], case["t_mid"], case["dt"],
+            case["ray_idx"], case["offsets"], counts, n_rays, 1e-4, 0.0)
+    width = case["sigma"].element_size()
+    _poison_allocator(cuda, n_rays * 3 * width, n_rays * width,
+                      n_rays * width, n_rays * 8, n_slots * width)
+    got = composite.composite_forward(*args, save_trans=True)
+    _poison_allocator(cuda, n_rays * 8, n_slots)
+    live = composite.live_mask(case["sigma"], *args[3:])
+    with torch.no_grad():
+        plain = composite.composite_reference(*args)
+    plain_live = composite.live_mask_reference(case["sigma"], *args[3:])
+    assert float(got[0][r].abs().sum()) == 0.0
+    assert float(got[1][r]) == 0.0 and float(got[2][r]) == 0.0
+    assert int(got[3][r]) == 0 and int(live[1][r]) == 0
+    assert not bool(live[0][n_slots - 1])
+    assert torch.isfinite(got[4]).all()
+    assert torch.equal(got[3], plain[3])
+    assert torch.equal(live[0], plain_live[0])
+    assert torch.equal(live[1], plain_live[1])
+    for a, b in zip(got[:3], plain[:3]):
+        torch.testing.assert_close(a, b, rtol=chip_smoke.COMPOSITE_FWD_RTOL,
+                                   atol=chip_smoke.COMPOSITE_FWD_ATOL,
+                                   equal_nan=True)
+    cot = tuple(g.to(dtype) for g in chip_smoke.composite_cotangents(
+        torch, n_rays, 3))
+    fwd, _ = chip_smoke.composite_case(torch, "card test", "last slot",
+                                       case, 1e-4, 0.0, cot)
+    assert fwd["live_equal"] and fwd["reproducible"]
+
+
+def test_composite_on_a_march_whose_demand_overflows_its_budget(cuda):
+    """A march cut to a sample budget equal to one ray's demand offset: that
+    ray starts at the buffer's last (empty) slot and the rays after it lie
+    past the buffer. The composite and the density-only call on that
+    buffer, held to the plain version as every case
+    (chip_smoke.composite_case)."""
+    import dataclasses
+
+    from deblur_e_nerf_tpu_torch.models import renderer
+
+    rc = chip_smoke.march_render_config(chip_smoke.MARCH_CONFIGS[0][1])
+    n_rays = 4096
+    inputs = chip_smoke.march_inputs(torch, rc, n_rays, 0.3, 0.05)
+    full = renderer.march_rays(*inputs, rc)
+    hit = torch.nonzero((full.counts > 0) & (full.offsets > 0)).flatten()
+    assert hit.numel() > 2
+    r = int(hit[hit.numel() // 2])
+    budget = int(full.offsets[r])
+    cut = dataclasses.replace(rc, sample_budget=budget,
+                              block_budget=rc.block_capacity)
+    samples = renderer.march_rays(*inputs, cut)
+    n = samples.t_mid.shape[0]
+    assert n == budget + 1 and int(samples.num_samples) > budget
+    assert int(samples.offsets[r]) == n - 1 and int(samples.counts[r]) > 0
+    assert int(samples.ray_idx[n - 1]) == n_rays
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    case = {"sigma": torch.rand(n, generator=gen, device=cuda) * 6.0,
+            "rgb": torch.rand((n, 3), generator=gen, device=cuda),
+            "t_mid": samples.t_mid, "dt": samples.dt,
+            "ray_idx": samples.ray_idx, "offsets": samples.offsets,
+            "counts": samples.counts, "n_rays": n_rays}
+    fwd, _ = chip_smoke.composite_case(
+        torch, "card test", "march overflow", case, rc.early_stop_eps,
+        rc.alpha_thre, chip_smoke.composite_cotangents(torch, n_rays, 3))
+    assert fwd["live_equal"] and fwd["reproducible"]
+    assert 0 < fwd["live_samples"] <= n - 1
 
 
 def test_composite_through_the_renderer_launches_the_kernels(cuda):

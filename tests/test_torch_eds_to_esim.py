@@ -237,11 +237,18 @@ def test_committed_eds_events_fixture_is_what_its_generator_writes(
 # ------------------------------------------------------------ undistortion
 CAMERAS = [
     # (size, K, D): the EDS RGB camera's, a DAVIS346-sized one with k3,
+    # the same with the thin prism (12) and with the tilted sensor (14),
     # the test_preprocess fixture's, and no distortion
     ((640, 480), [[560.24, 0, 320.51], [0, 561.12, 240.23], [0, 0, 1]],
      [-0.3622, 0.1358, 0.00062, 0.00051]),
     ((346, 260), [[300., 0, 170.], [0, 300., 130.], [0, 0, 1]],
      [-0.1, 0.02, 0.0005, -0.0003, 0.001]),
+    ((346, 260), [[300., 0, 170.], [0, 300., 130.], [0, 0, 1]],
+     [-0.1, 0.02, 0.0005, -0.0003, 0.001, 0.01, 0.002, 0.001, 1e-3, -5e-4,
+      8e-4, -2e-4]),
+    ((346, 260), [[300., 0, 170.], [0, 300., 130.], [0, 0, 1]],
+     [-0.1, 0.02, 0.0005, -0.0003, 0.001, 0.01, 0.002, 0.001, 1e-3, -5e-4,
+      8e-4, -2e-4, 0.01, -0.02]),
     ((32, 24), [[40., 0, 16.], [0, 40., 12.], [0, 0, 1]],
      [0.1, -0.05, 0.001, -0.002]),
     ((64, 48), [[50., 0, 31.5], [0, 50., 23.5], [0, 0, 1]], [0, 0, 0, 0]),

@@ -206,6 +206,11 @@ def test_event_packing_matches_jax():
     ("plumb_bob", [-0.1, 0.02, 1e-3, -1e-3]),
     ("plumb_bob", [-0.3, 0.1, 1e-3, -1e-3, 0.05]),
     ("plumb_bob", [-0.3, 0.1, 1e-3, -1e-3, 0.05, 0.01, 2e-3, 1e-3]),
+    # the thin prism (s1-s4), then the tilted sensor (tauX, tauY)
+    ("plumb_bob", [-0.3, 0.1, 1e-3, -1e-3, 0.05, 0.01, 2e-3, 1e-3, 2e-3,
+                   -1e-3, 1.5e-3, 5e-4]),
+    ("plumb_bob", [-0.3, 0.1, 1e-3, -1e-3, 0.05, 0.01, 2e-3, 1e-3, 2e-3,
+                   -1e-3, 1.5e-3, 5e-4, 0.02, -0.015]),
     ("equidistant", [0.1, -0.05, 0.01, -2e-3]),
 ])
 def test_undistort_events_matches_jax_cv2(model, coeffs):
