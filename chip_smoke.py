@@ -973,47 +973,47 @@ def check_encode_backward(torch, grad, g, u, levels):
     return float(err.max()), within, int(k.max()), atomics
 
 
-def load_parent(torch, parent_dir):
+def load_parent(torch, parent_dir, name="parent_port"):
     """Another checkout of the port (the parent commit), to time the change
     against it in turns on the same inputs: that checkout's package
-    imported under the name `parent_port`, whose `ops.hash_encode` builds
-    its own kernels from its own sources. Returns {"encode": its
+    imported under `name`, whose `ops.hash_encode` builds its own kernels
+    from its own sources. Returns {"encode": its
     (encode_forward, encode_backward), "renderer", "compact" and
     "composite": its models.renderer, ops.compact and ops.composite (the
     render layer's scans), "pb": its models.pixel_bandwidth (whose
     intensity_sample_to_weight is the weight chain as the parent's step
     ran it), "pb_ops": its ops.pb_weight (the weight chain's
     kernels), "occupancy" and "contraction": its models.occupancy (the
-    occupancy update) and models.contraction, "package": the name it is
-    imported under}."""
+    occupancy update) and models.contraction, "march_ops": its ops.march
+    (the march's stages), "package": the name it is imported under}."""
     import importlib
     import importlib.util
 
     package = os.path.join(parent_dir, "deblur_e_nerf_tpu_torch")
     spec = importlib.util.spec_from_file_location(
-        "parent_port", os.path.join(package, "__init__.py"),
+        name, os.path.join(package, "__init__.py"),
         submodule_search_locations=[package])
-    sys.modules["parent_port"] = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(sys.modules["parent_port"])
-    encode = importlib.import_module("parent_port.ops.hash_encode")
+    sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules[name])
+    encode = importlib.import_module(f"{name}.ops.hash_encode")
     t0 = time.perf_counter()
     encode._library()
     print(f"parent kernels ({parent_dir}) built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    return {"package": "parent_port",
+    return {"package": name,
             "encode": (encode.encode_forward, encode.encode_backward),
-            "renderer": importlib.import_module(
-                "parent_port.models.renderer"),
-            "compact": importlib.import_module("parent_port.ops.compact"),
+            "renderer": importlib.import_module(f"{name}.models.renderer"),
+            "compact": importlib.import_module(f"{name}.ops.compact"),
             "composite": importlib.import_module(
-                "parent_port.ops.composite"),
+                f"{name}.ops.composite"),
             "pb": importlib.import_module(
-                "parent_port.models.pixel_bandwidth"),
-            "pb_ops": importlib.import_module("parent_port.ops.pb_weight"),
+                f"{name}.models.pixel_bandwidth"),
+            "pb_ops": importlib.import_module(f"{name}.ops.pb_weight"),
             "occupancy": importlib.import_module(
-                "parent_port.models.occupancy"),
+                f"{name}.models.occupancy"),
             "contraction": importlib.import_module(
-                "parent_port.models.contraction")}
+                f"{name}.models.contraction"),
+            "march_ops": importlib.import_module(f"{name}.ops.march")}
 
 
 def in_turns(fn, parent_fn, iters=20, timer=None, parent_timer=None):
@@ -1300,19 +1300,27 @@ R5FIX_SAMPLE_BUDGET = 8192 * 30 * 4 * 5 // 4
 FLAGSHIP_RAYS = 429 * 30 * 4
 
 
+# the march kernels that must keep no stack frame and spill nothing
+MARCH_NO_LOCAL = ("march_coarse_rays_kernel", "march_coarse_slots_kernel",
+                  "march_samples_kernel")
+
+
 def check_render_build(ptxas):
     """Print the render and occupancy kernels' registers and spills
     (-Xptxas -v); fail unless each was built (the compaction by tile, the
     composite kernels in float and double, the forward by channel count,
-    the march's four, the occupancy update's ten)."""
+    the march's five, the lane kernels by geometry and division, the
+    occupancy update's ten), or if an instance of MARCH_NO_LOCAL keeps a
+    stack frame or spills."""
     kernels = ("compact_kernelILi128E", "compact_kernelILi256E",
                # the forward by type and channels (0: density-only)
                "composite_fwd_kernelIfLi0E", "composite_fwd_kernelIfLi1E",
                "composite_fwd_kernelIfLi3E", "composite_fwd_kernelIdLi0E",
                "composite_fwd_kernelIdLi3E",
                "composite_bwd_kernelIfE", "composite_bwd_kernelIdE",
-               "march_masks_kernel", "march_coarse_kernel",
-               "march_samples_kernel", "march_decode_kernel",
+               "march_masks_kernel", "march_coarse_rays_kernel",
+               "march_coarse_slots_kernel", "march_samples_kernel",
+               "march_decode_kernel",
                "occ_points_kernel", "occ_ema_tiles_kernel",
                "occ_ema_scatter_kernel", "occ_threshold_finish_kernel",
                "occ_threshold_histogram_kernel",
@@ -1325,6 +1333,13 @@ def check_render_build(ptxas):
             raise AssertionError(f"{kernel}: no such instance in the build")
         for fn in fns:
             print(f"{kernel} ({fn}): ptxas [{ptxas[fn]}]", flush=True)
+            local = [int(x) for x in re.findall(
+                r"(\d+) bytes (?:stack frame|spill stores|spill loads)",
+                ptxas[fn])]
+            if kernel.startswith(MARCH_NO_LOCAL) and (len(local) != 3
+                                                      or any(local)):
+                raise AssertionError(f"{kernel}: a stack frame or spills "
+                                     f"({ptxas[fn]})")
 
 
 def compact_inputs(torch, n, fraction, prepass, seed=0):
@@ -1741,31 +1756,54 @@ def capture_render_inputs(store):
          composite_ops.composite_backward, renderer.march_rays) = real
 
 
+def parent_rc(parent, rc):
+    """`rc` as the parent checkout's RenderConfig, with its own contraction
+    enum (its march wrappers look the contraction up by it)."""
+    import dataclasses
+
+    return parent["renderer"].RenderConfig(**dict(
+        {f.name: getattr(rc, f.name) for f in dataclasses.fields(rc)},
+        contraction_type=parent["renderer"].contraction_lib.ContractionType(
+            rc.contraction_type.value)))
+
+
 @contextmanager
 def parent_render_scans(parent):
     """The parent checkout's compaction and composite (its autograd
-    function, and the density-only call) in place of this checkout's
-    while the block runs: the renderer looks them up at each call."""
+    function, and the density-only call) and its march's coarse and sample
+    stages in place of this checkout's while the block runs: the renderer
+    looks them up at each call."""
     from deblur_e_nerf_tpu_torch.ops import compact as compact_ops
     from deblur_e_nerf_tpu_torch.ops import composite as composite_ops
+    from deblur_e_nerf_tpu_torch.ops import march as march_ops
+
+    def stage(fn):
+        def call(*args, **kwargs):
+            return fn(*[parent_rc(parent, a) if hasattr(a, "contraction_type")
+                        else a for a in args], **kwargs)
+        return call
 
     real = (compact_ops.compact, composite_ops.composite,
-            composite_ops.live_mask)
+            composite_ops.live_mask, march_ops.coarse, march_ops.samples)
     compact_ops.compact = parent["compact"].compact
     composite_ops.composite = parent["composite"].composite
     composite_ops.live_mask = parent["composite"].live_mask
+    march_ops.coarse = stage(parent["march_ops"].coarse)
+    march_ops.samples = stage(parent["march_ops"].samples)
     try:
         yield
     finally:
         (compact_ops.compact, composite_ops.composite,
-         composite_ops.live_mask) = real
+         composite_ops.live_mask, march_ops.coarse,
+         march_ops.samples) = real
 
 
 def steps_in_turns(torch, trainer, parent, label, per_turn=3):
-    """A steady step's wall ms with this checkout's render scans in turns
-    with the parent's in their place (parent, change, change, parent;
-    each the median of `per_turn` steps): context for the two kernels'
-    times, not a claim. Returns (change's runs, parent's runs)."""
+    """A steady step's wall ms with this checkout's render scans and march
+    stages in turns with the parent's in their place (`parent_render_scans`;
+    parent, change, change, parent; each the median of `per_turn` steps):
+    context for those kernels' times, not a claim. Returns (change's runs,
+    parent's runs)."""
     def median_step():
         times = []
         for _ in range(per_turn):
@@ -1783,7 +1821,8 @@ def steps_in_turns(torch, trainer, parent, label, per_turn=3):
 
     runs = [parent_step(), median_step(), median_step(), parent_step()]
     ours, theirs = runs[1:3], [runs[0], runs[3]]
-    print(f"{label} step in turns with the parent's render scans (median "
+    print(f"{label} step in turns with the parent's render scans and march "
+          f"stages (median "
           f"of {per_turn} steps each; parent, change, change, parent): "
           f"change {[round(t, 3) for t in ours]} ms, parent "
           f"{[round(t, 3) for t in theirs]} ms", flush=True)
@@ -1872,11 +1911,13 @@ MARCH_CONFIGS = (
 # fits the config's budgets
 MARCH_SCENES = {"flagship": (0.3, 0.05), "EDS": (0.3, 0.06),
                 "r5fix": (0.3, 0.11)}
-# the float32 operations of a lane, counted from the plain version's
-# operators (the bound's operation count; the bytes bound every stage)
+# float32 operations, counted from the plain version's operators: a
+# timeline value, a point's contraction, a ray's slab test and jitter,
+# and a point o + t d with its grid cell (6 + 12, beside the contraction)
 MARCH_TIMELINE_OPS = {False: 2, True: 11}   # by cone angle
 MARCH_CONTRACT_OPS = {"aabb": 6, "sphere": 35, "tanh": 15}
-MARCH_BOUNDS_OPS = 30  # a ray's slab test and jitter
+MARCH_BOUNDS_OPS = 30
+MARCH_POINT_OPS = 18
 # the operator calls of a steady step's march (op_census "B4 march"): one
 # allocation a stage and one more for each of the two per-ray outputs
 # (the counts, zeroed, and coarse_complete), two a compaction, the
@@ -1980,9 +2021,12 @@ def march_stage_calls(inputs, rc):
 def march_compare(torch, kernel, got, want, cone):
     """(bit exact, within the rule, largest |difference|, largest ulp
     distance, differing elements) of a march kernel's outputs against its
-    plain version's: every output bit for bit (the coarse stage's bounds
-    by value, -0 == +0: no zero's sign reaches a sample), except under a
-    cone angle the decode's t_mid and dt, within 2 ulp (powf)."""
+    plain version's (or a second run's, as `want`): every output bit for
+    bit (the coarse stage's bounds by value, -0 == +0: no zero's sign
+    reaches a sample), the coarse and sample stages' codes where `want`'s
+    flags are set (the kernels' contract: no reader takes another lane's
+    code, and the kernels write none), except under a cone angle the
+    decode's t_mid and dt, within 2 ulp (powf)."""
     exact = ok = True
     err, ulp, differ = 0.0, 0, 0
     for name, a, b in zip(MARCH_OUTPUTS[kernel], got, want):
@@ -1992,6 +2036,8 @@ def march_compare(torch, kernel, got, want, cone):
         if a.dtype != b.dtype or a.shape != b.shape:
             exact = ok = False
             continue
+        if name == "codes":
+            a, b = a[want[0]], b[want[0]]
         if not a.is_floating_point():
             same = torch.equal(a, b)
             differ += int((a != b).sum())
@@ -2018,10 +2064,77 @@ def march_compare(torch, kernel, got, want, cone):
     return exact, ok, err, ulp, differ
 
 
-def march_bound(kernel, args, rc):
-    """The least time of a kernel call: its inputs read once and its
-    outputs written once over 3.35 TB/s, or its float32 operations
-    (MARCH_*_OPS) over 67 TFLOP/s."""
+def march_lanes(kernel, args, rc):
+    """(timelines started, lanes that test their bounds, lanes that pass
+    them) of a coarse or sample stage call, from the plain version's
+    values on its inputs: the work the function needs on this data. A
+    coarse lane of an active ray, or of a live superblock slot, tests its
+    block's bounds; a sample lane of a live block slot below S tests its
+    t_mid; a ray's or slot's first lane starts its timeline, and each
+    later value is the previous block's or step's upper one. The lanes
+    that pass go on to a point, its contraction and its grid cell."""
+    import torch
+    from deblur_e_nerf_tpu_torch.ops import march as M
+
+    R = args[1].shape[0] if kernel == "march_coarse" else args[0].shape[0]
+    n_blocks = M.n_blocks_of(rc)
+    if kernel == "march_samples":
+        t_near, t_far, slots = args[3], args[4], args[5]
+        per, live = n_blocks, args[5] < R * n_blocks
+    elif args[0] == M.BLOCKS_AFTER:
+        t_near, t_far, slots = args[7], args[8], args[9]
+        per = n_blocks // M.SB_BLOCKS
+        live, steps = slots < R * per, M.BLOCK_STEPS
+    else:
+        t_near, t_far = M.bounds_reference(args[1], args[2], args[4], rc)
+        per = n_blocks // M.SB_BLOCKS if args[0] == M.SUPERBLOCKS \
+            else n_blocks
+        slots, live = None, args[3]
+        steps = M.SB_BLOCKS * M.BLOCK_STEPS if args[0] == M.SUPERBLOCKS \
+            else M.BLOCK_STEPS
+    width = per if slots is None else (
+        M.BLOCK_STEPS if kernel == "march_samples" else M.SB_BLOCKS)
+    tested = passing = 0
+    chunk = max(1, (1 << 24) // width)  # rows of lanes at a time
+    for i in range(0, live.numel(), chunk):
+        on = live[i:i + chunk]
+        if slots is None:  # a ray's blocks or superblocks
+            ray = torch.arange(i, i + on.numel(), device=on.device)
+            first = torch.zeros_like(ray)
+        else:  # a slot's 4 blocks or 8 steps from its code
+            c = slots[i:i + chunk]
+            ray = torch.clamp(c // per, max=R - 1)
+            first = c % per * width
+        k = (first[:, None] + torch.arange(width, device=on.device)).to(
+            torch.float32)
+        tn, tf = t_near[ray][:, None], t_far[ray][:, None]
+        if kernel == "march_samples":
+            test = on[:, None] & (k < rc.max_samples_per_ray)
+            t_mid = 0.5 * (M.timeline_at(k, tn, rc)
+                           + M.timeline_at(k + 1.0, tn, rc))
+            pass_ = test & (t_mid < tf) & (t_mid >= tn)
+        else:
+            test = on[:, None].expand(-1, k.shape[1])
+            pass_ = test & (M.timeline_at(k * steps, tn, rc) < tf) & (
+                M.timeline_at((k + 1) * steps, tn, rc) > tn)
+        tested += int(test.sum())
+        passing += int(pass_.sum())
+    return int(live.sum()), tested, passing
+
+
+def march_bound(kernel, args, rc, want):
+    """(least ms, "bytes" or "operations", ms with every lane's code
+    written as the first design counted it, the least bytes' ms alone) of
+    a kernel call: its inputs read once and its outputs written once over
+    3.35 TB/s, or its float32 operations over 67 TFLOP/s. The least work: the
+    coarse and sample stages write a flag byte a lane and an int64 code a
+    flagged lane (`want`: the plain outputs, whose flags say which), read
+    each ray's values once and each buffer slot once, and compute a
+    timeline value a lane that tests its bounds (and one to start each
+    ray or slot), and a point, its contraction and its cell only where a
+    lane passes them (`march_lanes`). The first design wrote every lane's
+    code, and its count gave every lane three timeline values, a
+    contraction and a cell."""
     from deblur_e_nerf_tpu_torch.ops import march as M
 
     cone = rc.cone_angle > 0
@@ -2031,47 +2144,66 @@ def march_bound(kernel, args, rc):
     if kernel == "march_masks":
         binary, _, sb = args
         n = binary.numel()
-        return bound(2 * n + (n // M.POOL ** 3 if sb else 0))
+        least = bound(2 * n + (n // M.POOL ** 3 if sb else 0))
+        return (*least, least[0], least[0])
     if kernel == "march_decode":
         code_buf, t_near = args[:2]
         n, R = code_buf.numel(), t_near.numel()
-        return bound(8 * n + 4 * R + 16 + 16 * n + R, n * (2 * tl + 4))
+        least = bound(8 * n + 4 * R + 16 + 16 * n + R, n * (2 * tl + 4))
+        return (*least, least[0], bound(8 * n + 4 * R + 16 + 16 * n + R)[0])
     o = args[1] if kernel == "march_coarse" else args[0]
     R = o.shape[0]
+    flagged = int(want[0].sum())
+    started, tested, passing = march_lanes(kernel, args, rc)
+    lookup = MARCH_POINT_OPS + contract
     if kernel == "march_samples":
         blk_buf = args[5]
         n = blk_buf.numel() * M.BLOCK_STEPS
-        return bound(8 * blk_buf.numel() + 32 * R + res ** 3 + 9 * n + 8 * R,
-                     n * (2 * tl + 3 + 6 + contract + 12 + 6))
-    mask = args[5]
-    n_blocks = M.n_blocks_of(rc)
-    lane_ops = 3 * tl + 3 + 6 + contract + 12 + 3
-    if args[0] == M.BLOCKS_AFTER:
-        buf = args[-1]
-        n = buf.numel() * M.SB_BLOCKS
-        return bound(8 * buf.numel() + 32 * R + mask.numel() + 9 * n,
-                     n * lane_ops)
-    n = R * (n_blocks // M.SB_BLOCKS if args[0] == M.SUPERBLOCKS
-             else n_blocks)
-    return bound(29 * R + mask.numel() + 9 * n + 8 * R,
-                 n * lane_ops + R * MARCH_BOUNDS_OPS)
+        nbytes = 8 * blk_buf.numel() + 32 * R + res ** 3 + n + 8 * R
+        every_ops = n * (2 * tl + 3 + 6 + contract + 12 + 6)
+        # k + 1, t_mid, its two tests
+        nops = started * tl + tested * (tl + 5) + passing * lookup
+    else:
+        mask = args[5]
+        n_blocks = M.n_blocks_of(rc)
+        lane_ops = 3 * tl + 3 + 6 + contract + 12 + 3
+        if args[0] == M.BLOCKS_AFTER:
+            buf = args[-1]
+            n = buf.numel() * M.SB_BLOCKS
+            nbytes = 8 * buf.numel() + 32 * R + mask.numel() + n
+            every_ops = n * lane_ops
+            nops = 0
+        else:
+            n = R * (n_blocks // M.SB_BLOCKS if args[0] == M.SUPERBLOCKS
+                     else n_blocks)
+            nbytes = 29 * R + mask.numel() + n + 8 * R
+            every_ops = n * lane_ops + R * MARCH_BOUNDS_OPS
+            nops = R * MARCH_BOUNDS_OPS
+        # the upper k and the two tests; k_mid and its timeline value
+        nops += started * tl + tested * (tl + 4) + passing * (tl + 2
+                                                              + lookup)
+    least = bound(nbytes + 8 * flagged, nops)
+    return (*least, bound(nbytes + 8 * n, every_ops)[0],
+            bound(nbytes + 8 * flagged)[0])
 
 
-def _masks_library_ms(torch, binary, rc, sb):
-    """torch.nn.functional.max_pool3d computing the masks on a float copy
-    of the grid: the 3^3 dilation (kernel 3, stride 1, padding 1) and,
-    with superblocks, the 4^3 pool (kernel 4, stride 4) and the pooled
-    radius-2 dilation (kernel 5, stride 1, padding 2)."""
+def _masks_library(torch, binary, rc, sb):
+    """A function of torch.nn.functional.max_pool3d's calls that compute
+    the masks on a float copy of the grid: the 3^3 dilation (kernel 3,
+    stride 1, padding 1) and, with superblocks, the 4^3 pool (kernel 4,
+    stride 4) and the pooled radius-2 dilation (kernel 5, stride 1,
+    padding 2)."""
     import torch.nn.functional as F
 
     res = rc.grid_resolution
     g = binary.reshape(1, 1, res, res, res).float()
-    ms = time_ms(lambda: F.max_pool3d(g, 3, 1, 1))
-    if sb:
-        p = F.max_pool3d(g, 4, 4)
-        ms += time_ms(lambda: F.max_pool3d(g, 4, 4))
-        ms += time_ms(lambda: F.max_pool3d(p, 5, 1, 2))
-    return ms
+
+    def fn():
+        out = F.max_pool3d(g, 3, 1, 1)
+        if sb:
+            out = F.max_pool3d(F.max_pool3d(g, 4, 4), 5, 1, 2)
+        return out
+    return fn
 
 
 def march_case(torch, label, kind, inputs, rc, parent=None, timed=True):
@@ -2081,10 +2213,13 @@ def march_case(torch, label, kind, inputs, rc, parent=None, timed=True):
     a call (the masks: one or three a march); then `march_rays` (the
     kernels and the compactions) against `march_reference` (the plain
     march) output for output. With `timed`, each kernel's ms a march
-    beside its plain version's and its bound, max_pool3d's for the masks,
-    and the whole march in turns with the parent checkout's `march_rays`
-    (with `parent`) and the plain march's. Returns ({kernel: row}, the
-    whole march's row, the demands)."""
+    (wall, and device ms from a captured march's replay,
+    `device_launches`) beside its plain version's and both its bounds
+    (`march_bound`), max_pool3d's for the masks (wall and device), and
+    with `parent` the parent checkout's kernel on the same inputs in turns
+    (wall) and its device ms; the whole march likewise against the parent
+    checkout's `march_rays`, and the plain march's. Returns ({kernel:
+    row}, the whole march's row, the demands)."""
     from deblur_e_nerf_tpu_torch.models import renderer
     from deblur_e_nerf_tpu_torch.ops import march as M
 
@@ -2101,6 +2236,7 @@ def march_case(torch, label, kind, inputs, rc, parent=None, timed=True):
                 "march_samples": "SAMPLES_LAUNCHES",
                 "march_decode": "DECODE_LAUNCHES"}
     sb = renderer.uses_superblocks(rc)
+    p_rc = parent_rc(parent, rc) if timed and parent is not None else None
     rows, failed = {}, []
     for kernel in MARCH_KERNELS:
         mine = [c for c in calls if c[0] == kernel]
@@ -2130,29 +2266,63 @@ def march_case(torch, label, kind, inputs, rc, parent=None, timed=True):
                              else "bit for bit"),
                "launches_a_march": launches // 2,
                "library_ms": None}
+        text = ""
         if timed:
-            row["ms"] = sum(time_ms(lambda a=args: fns[kernel](*a))
-                            for _, _, args, _ in mine)
+            argss = [c[2] for c in mine]
+
+            def run(fn=fns[kernel], argss=argss):
+                for a in argss:
+                    fn(*a)
+            parent_run = None
+            if parent is not None:
+                def parent_run(fn=getattr(parent["march_ops"],
+                                          fns[kernel].__name__),
+                               argss=[tuple(p_rc if a is rc else a
+                                            for a in args)
+                                      for args in argss]):
+                    for a in argss:
+                        fn(*a)
+            row["ms"], row["runs"], row["parent_ms"], row["parent_runs"] = \
+                in_turns(run, parent_run)
+            row["device_launches"] = device_launches(torch, run)
+            row["device_ms"] = row["device_launches"][2]
             row["plain_ms"] = sum(
                 time_ms(lambda a=args: refs[kernel](*a), iters=3, warmup=1)
-                for _, _, args, _ in mine)
-            bounds = [march_bound(kernel, c[2], rc) for c in mine]
+                for args in argss)
+            bounds = [march_bound(kernel, c[2], rc, c[3]) for c in mine]
             row["bound_ms"] = sum(b[0] for b in bounds)
             row["bound_by"] = max(bounds)[1]
+            row["bound_every_code_ms"] = sum(b[2] for b in bounds)
+            row["bound_bytes_ms"] = sum(b[3] for b in bounds)
+            text = (f"; kernel {row['ms']:.4f} ms (device "
+                    f"{row['device_ms']:.4f}, launches "
+                    f"{row['device_launches'][:2]}), plain "
+                    f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+                    f" ms ({row['bound_by']}; its bytes "
+                    f"{row['bound_bytes_ms']:.4f}; every code written: "
+                    f"{row['bound_every_code_ms']:.4f})")
+            if parent is not None:
+                row["parent_device_ms"] = device_launches(torch,
+                                                          parent_run)[2]
+                text += (f"; in turns with the parent's "
+                         f"{row['parent_ms']:.4f} ms (runs "
+                         f"{[round(t, 4) for t in row['runs']]} against "
+                         f"{[round(t, 4) for t in row['parent_runs']]}), its"
+                         f" device {row['parent_device_ms']:.4f}")
             if kernel == "march_masks":
-                row["library_ms"] = _masks_library_ms(torch, inputs[0], rc,
-                                                      sb)
+                library = _masks_library(torch, inputs[0], rc, sb)
+                row["library_ms"] = time_ms(library)
+                row["library_device_ms"] = device_launches(torch,
+                                                           library)[2]
                 row["library_call"] = "torch.nn.functional.max_pool3d"
+                text += (f", max_pool3d {row['library_ms']:.4f} ms (device "
+                         f"{row['library_device_ms']:.4f})")
         rows[kernel] = row
         print(f"{kernel} {label} ({kind}): {row['stages']}, bit exact "
               f"{exact}, within its rule ({row['tolerance']}) {ok}, "
               f"largest ulp {ulp}, differing {differ}, two runs bit for "
               f"bit {repeat}, launches a march {row['launches_a_march']}"
-              + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
-                 f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
-                 + (f", max_pool3d {row['library_ms']:.4f} ms"
-                    if row["library_ms"] is not None else "")
-                 if timed else ""), flush=True)
+              + text, flush=True)
         if not (ok and repeat and launches == want_launches):
             failed.append(kernel)
     del calls
@@ -2185,36 +2355,108 @@ def march_case(torch, label, kind, inputs, rc, parent=None, timed=True):
     if timed:
         parent_fn = None
         if parent is not None:
-            # the parent's render config, with its own contraction enum
-            import dataclasses
-
-            p_rc = parent["renderer"].RenderConfig(**dict(
-                {f.name: getattr(rc, f.name)
-                 for f in dataclasses.fields(rc)},
-                contraction_type=parent["renderer"].contraction_lib
-                .ContractionType(rc.contraction_type.value)))
-
             def parent_fn():
                 return parent["renderer"].march_rays(*inputs, p_rc)
         ms, runs, parent_ms, parent_runs = in_turns(
             lambda: renderer.march_rays(*inputs, rc), parent_fn, iters=5)
         whole.update(ms=ms, runs=runs, parent_ms=parent_ms,
                      parent_runs=parent_runs,
+                     device_ms=device_launches(
+                         torch, lambda: renderer.march_rays(*inputs, rc))[2],
+                     parent_device_ms=parent_fn and device_launches(
+                         torch, parent_fn)[2],
                      plain_ms=time_ms(lambda: renderer.march_reference(
                          *inputs, rc), iters=3, warmup=1))
     print(f"march {label} ({kind}): {inputs[1].shape[0]} rays, demand "
           f"{demand} against budgets {whole['budgets']} (overflow "
           f"{whole['overflow']}); march_rays equal to march_reference "
           f"{not fields} {fields or ''}"
-          + (f"; march_rays {whole['ms']:.4f} ms {whole['runs']}, parent "
-             f"{whole['parent_ms']} {whole['parent_runs']}, plain march "
-             f"{whole['plain_ms']:.4f} ms" if timed else ""), flush=True)
+          + (f"; march_rays {whole['ms']:.4f} ms {whole['runs']} (device "
+             f"{whole['device_ms']:.4f}), parent {whole['parent_ms']} "
+             f"{whole['parent_runs']} (device {whole['parent_device_ms']}), "
+             f"plain march {whole['plain_ms']:.4f} ms" if timed else ""),
+          flush=True)
     _empty_cache(torch, str(inputs[1].device))
     if failed or fields:
         raise AssertionError(f"march {label} ({kind}): {failed} differ from "
                              f"their plain versions, are not reproducible "
                              f"or launched otherwise; march fields {fields}")
     return rows, whole, demand
+
+
+def march_variants(torch, dirs, card):
+    """The march's coarse and sample stages, and the whole march, of this
+    checkout and of the checkouts in `dirs` (copies that each change one
+    design choice) timed in turns on the same inputs: the flagship's and
+    EDS's step-own inputs (captured as for phase 3b) and phase 3's
+    synthetic cases. Each call's device ms by a captured call's replay
+    (`device_launches`), the versions in the order A B .. B A, twice
+    (once for the whole march); every version's stage outputs held to
+    the plain version by `march_compare`. Raises where one differs."""
+    versions = {"this checkout": None}
+    for i, d in enumerate(dirs):
+        versions[d] = load_parent(torch, d, f"variant_{i}_port")
+    captured = {"flagship": {}, "EDS": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_training(torch, tmp, capture=captured["flagship"])
+        torch.cuda.empty_cache()
+        phase_eds(torch, tmp, card, capture=captured["EDS"])
+        torch.cuda.empty_cache()
+    cases = [(f"{label} step's own inputs",
+              _to_device(captured[label]["render"]["march"]["inputs"],
+                         "cuda"), captured[label]["render"]["march"]["rc"])
+             for label in captured]
+    del captured
+    for label, path, n_rays in MARCH_CONFIGS:
+        rc = march_render_config(path)
+        cases.append((f"{label} synthetic", march_inputs(
+            torch, rc, n_rays, *MARCH_SCENES[label]), rc))
+    from deblur_e_nerf_tpu_torch.models import renderer
+    from deblur_e_nerf_tpu_torch.ops import march as M
+
+    def ordered(fns, reps):
+        names = list(fns)
+        times = {name: [] for name in names}
+        for name in (names + names[::-1]) * reps:
+            times[name].append(round(device_launches(torch, fns[name])[2],
+                                     4))
+        return "; ".join(f"{name} {t} (min {min(t):.4f})"
+                         for name, t in times.items())
+
+    failed = []
+    while cases:
+        label, inputs, rc = cases.pop(0)
+        rcs = {name: rc if v is None else parent_rc(v, rc)
+               for name, v in versions.items()}
+        calls, demand = march_stage_calls(inputs, rc)
+        print(f"variants, {label}: {inputs[1].shape[0]} rays, demand "
+              f"{demand}", flush=True)
+        for kernel, stage, args, want in calls:
+            if kernel not in ("march_coarse", "march_samples"):
+                continue
+            fns = {}
+            for name, v in versions.items():
+                fn = getattr(M if v is None else v["march_ops"],
+                             kernel.split("_")[1])
+                a = tuple(rcs[name] if x is rc else x for x in args)
+                if not march_compare(torch, kernel, fn(*a), want,
+                                     rc.cone_angle > 0)[0]:
+                    failed.append((label, stage, name))
+                fns[name] = lambda fn=fn, a=a: fn(*a)
+            print(f"  {stage}: {want[0].numel()} lanes, "
+                  f"{int(want[0].sum())} flagged; device ms "
+                  f"{ordered(fns, 2)}", flush=True)
+        del calls
+        marches = {name: (lambda r=(renderer if v is None
+                                    else v["renderer"]), c=rcs[name]:
+                          r.march_rays(*inputs, c))
+                   for name, v in versions.items()}
+        print(f"  march_rays: device ms {ordered(marches, 1)}", flush=True)
+        del inputs, marches
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"variants differ from the plain version: "
+                             f"{failed}")
 
 
 def cut_budgets(rc, demand):
@@ -3816,7 +4058,7 @@ KERNEL_NAMES = {"scatter_add_rows": "scatter_add_rows_kernel",
                 "composite_fwd": "composite_fwd_kernel",
                 "composite_bwd": "composite_bwd_kernel",
                 "march_masks": "march_masks_kernel",
-                "march_coarse": "march_coarse_kernel",
+                "march_coarse": "march_coarse_",  # rays and slots kernels
                 "march_samples": "march_samples_kernel",
                 "march_decode": "march_decode_kernel",
                 # the occupancy kernels' families (csrc/occupancy.cu)
@@ -6809,6 +7051,12 @@ def main():
                              "turns with these on the same inputs, and "
                              "phases 4 and 7 time steps in turns with its "
                              "render scans (see load_parent)")
+    parser.add_argument("--variant", metavar="DIR", action="append",
+                        help="a copy of this checkout that changes one "
+                             "choice of the march's design: with one or "
+                             "more, the script builds the kernels, times "
+                             "the march's stages of each in turns "
+                             "(`march_variants`) and stops")
     args = parser.parse_args()
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(BUDGET_S)
@@ -6823,6 +7071,10 @@ def main():
         card = phase_environment(torch)
     with phase("2 build"):
         pb_build = phase_build()["pb_build"]
+    if args.variant:
+        with phase("march variants"):
+            march_variants(torch, args.variant, card)
+        return 0
     with phase("3 kernels vs plain"):
         parent = load_parent(torch, args.parent) if args.parent else None
         rows = phase_kernels(torch, parent)

@@ -229,7 +229,7 @@ def library():
         fn.argtypes = [vp, vp, i64, i32, i32, vp]
         fn.restype = ctypes.c_int
         fn = lib.march_coarse
-        fn.argtypes = [vp, i32] + [vp] * 6 + [i64] + [vp] * 5
+        fn.argtypes = [vp, i32] + [vp] * 6 + [i64, i32] + [vp] * 5
         fn.restype = ctypes.c_int
         fn = lib.march_samples
         fn.argtypes = [vp] * 7 + [i64] + [vp] * 4

@@ -13,7 +13,9 @@ the stream compactions of ops/compact.py between them:
     over R x n_superblocks lanes, BLOCKS_DENSE over R x n_blocks lanes
     (both compute each ray's bounds and jitter and return them), or
     BLOCKS_AFTER over the superblock buffer `buf`'s (KSB + 1) x 4 lanes
-    (with the given bounds); a lane's code is its ray x n + its index;
+    (with the given bounds; n_blocks a multiple of 4, as
+    models/renderer.py `uses_superblocks` requires); a lane's code is its
+    ray x n + its index;
   - `samples(rays_o, rays_d, binary, t_near, t_far, blk_buf, rc)` ->
     (flags, codes, counts): the exact per-sample test over the block
     buffer's (KB + 1) x 8 lanes, codes ray x S + step, and each ray's
@@ -25,14 +27,23 @@ the stream compactions of ops/compact.py between them:
     and block compactions).
 
 Flags and codes are flat, in the plain version's row-major lane order
-(ray-major), which the compactions keep. On a CUDA tensor each wrapper
+(ray-major), which the compactions keep. Codes are defined where flags is
+set: the compaction reads a lane's code only where its flag is set, so
+the kernels write no other (an unflagged lane's code is whatever the
+memory held; the plain version computes every lane's, the models give -1
+there). On a CUDA tensor each wrapper
 launches its kernel of `csrc/march.cu` (`masks` one to three times) or
 raises; on a CPU tensor it runs its plain version (`*_reference`, the
 renderer's former code, held to the JAX package by the tests). The
 `*_model` functions are a per-lane model of the kernels' operation order
 in plain float32 torch (each lane's index decode, bounds and tests as
 the kernel forms them, one rounding an operation), which the CPU tests
-hold bit for bit to the plain version. The kernels allocate nothing:
+hold bit for bit to the plain version. Stages 0 and 2 give each
+block of the kernel a run of whole rays (`run_rays`) and divide a lane's
+offset in its run (below 2^31) by n_superblocks or n_blocks with a
+multiply-high and a shift (`divisor`, `fast_div_model`); the slot
+kernels divide a slot's code with a 64-bit division, once a slot. The
+kernels allocate nothing:
 each wrapper makes one allocation for its outputs (typed views of one
 buffer), since every allocator call is an operator call, but for the
 per-ray outputs that outlive the march in RaySamples (the demand counts,
@@ -70,11 +81,37 @@ _CONTRACTIONS = {contraction_lib.ContractionType.AABB: 0,
                  contraction_lib.ContractionType.UN_BOUNDED_SPHERE: 1,
                  contraction_lib.ContractionType.UN_BOUNDED_TANH: 2}
 
+DIV_RANGE = 1 << 31  # `fast_div`'s dividends lie below it
+
 _lib = None  # the kernel library, bound at first use
 
 
 def n_blocks_of(rc):
     return -(-rc.max_samples_per_ray // BLOCK_STEPS)
+
+
+def divisor(d):
+    """(mul, shr) of csrc/march.cu `fast_div` for divisor d: mul =
+    ceil(2^p / d) and shr = p - 32 with p = 31 + ceil(log2 d), so that
+    n // d == (n * mul) >> 32 >> shr for 0 <= n < 2^31; (0, 0), the
+    identity, for d = 1 and for divisors of 2^31 and more (which no
+    launch divides by)."""
+    if d <= 1 or d >= DIV_RANGE:
+        return 0, 0
+    p = 31 + (d - 1).bit_length()
+    return -(-(1 << p) // d), p - 32
+
+
+def fast_div_model(n, mul, shr):
+    """`fast_div` on an int64 tensor or numpy array of n in [0, 2^31)."""
+    return n if mul == 0 else (n * mul) >> (32 + shr)
+
+
+def run_rays(per):
+    """Rays a block of stages 0 and 2 takes, which `coarse` hands
+    csrc/march.cu `march_coarse`: 8,192 lanes' worth (the kernel's staged
+    tile of flags), at least 1, at most 256 (a thread a ray)."""
+    return min(256, max(1, 8192 // per))
 
 
 # ---------------------------------------------------------------------------
@@ -280,11 +317,14 @@ def decode_reference(code_buf, t_near, sb_cut, blk_cut, n_rays, rc):
 def _values(rc, n_rays):
     """The kernels' parameters (csrc/march.cu MarchParams), each number
     formed as the plain version forms it from the render config: the
-    float32 rounding of the Python double it hands PyTorch."""
+    float32 rounding of the Python double it hands PyTorch; the divisors'
+    multipliers."""
     f32 = np.float32
     n_blocks = n_blocks_of(rc)
     step = f32(rc.render_step_size)
     cone = rc.cone_angle > 0.0
+    sb_mul, sb_shr = divisor(n_blocks // SB_BLOCKS)
+    blk_mul, blk_shr = divisor(n_blocks)
     return dict(
         aabb_lo=[f32(v) for v in rc.aabb[:3]],
         aabb_hi=[f32(v) for v in rc.aabb[3:]],
@@ -299,22 +339,41 @@ def _values(rc, n_rays):
         max_samples=int(rc.max_samples_per_ray), n_blocks=n_blocks,
         n_superblocks=n_blocks // SB_BLOCKS,
         resolution=int(rc.grid_resolution),
-        pooled_resolution=int(rc.grid_resolution) // POOL)
+        pooled_resolution=int(rc.grid_resolution) // POOL,
+        sb_mul=sb_mul, sb_shr=sb_shr, blk_mul=blk_mul, blk_shr=blk_shr)
+
+
+def _model_timeline_of(t0, q, cuda_division):
+    """The kernel's `timeline_of`: the terms of t0 alone, (m, t at m) with
+    a cone angle, else None. `cuda_division`: the plain version's `x /
+    step` as torch's CUDA kernel computes it for a Python divisor, a
+    product with the float32 reciprocal (the kernel's form); else as the
+    CPU's, a quotient."""
+    if not q["cone"]:
+        return None
+    x = torch.clamp(q["t_cross"] - t0, min=0.0)
+    m = torch.ceil(x * q["inv_step"] if cuda_division else x / q["step"])
+    return m, t0 + m * q["step"]
+
+
+def _model_timeline_at(k, t0, terms, q):
+    """The kernel's `timeline_at` (`terms` from `_model_timeline_of`)."""
+    uniform = t0 + k * q["step"]
+    if terms is None:
+        return uniform
+    m, at_m = terms
+    geom = at_m * torch.pow(q["growth"], torch.clamp(k - m, min=0.0))
+    return torch.where(k <= m, uniform, geom)
 
 
 def _model_timeline(k, t0, q, cuda_division):
-    """The kernel's `timeline`. `cuda_division`: the plain version's
-    `x / step` as torch's CUDA kernel computes it for a Python divisor, a
-    product with the float32 reciprocal (the kernel's form); else as the
-    CPU's, a quotient."""
-    uniform = t0 + k * q["step"]
-    if not q["cone"]:
-        return uniform
-    x = torch.clamp(q["t_cross"] - t0, min=0.0)
-    m = torch.ceil(x * q["inv_step"] if cuda_division else x / q["step"])
-    geom = (t0 + m * q["step"]) * torch.pow(
-        q["growth"], torch.clamp(k - m, min=0.0))
-    return torch.where(k <= m, uniform, geom)
+    """The kernel's `timeline`, both parts at once."""
+    return _model_timeline_at(k, t0, _model_timeline_of(t0, q, cuda_division),
+                              q)
+
+
+def _model_take(terms, idx):
+    return None if terms is None else tuple(x[idx] for x in terms)
 
 
 def _model_tensors(rc, n_rays, device):
@@ -414,78 +473,125 @@ def masks_model(binary, rc, superblocks):
     return dilated, dilate(pooled, r, 2)
 
 
+def lane_of(lane, per, mul, shr):
+    """Stages 0 and 2's (ray, index) of each lane as the kernel decodes
+    it: its block's first ray (the block takes `run_rays(per)` rays), then
+    its offset in that run over `per` by `fast_div` (with (mul, shr) =
+    `divisor(per)`)."""
+    ray0 = lane // (run_rays(per) * per) * run_rays(per)
+    local = lane - ray0 * per
+    r = fast_div_model(local, mul, shr)
+    return ray0 + r, local - r * per
+
+
 def coarse_model(stage, rays_o, rays_d, ray_mask, jitter, mask, rc,
                  t_near=None, t_far=None, buf=None, cuda_division=False):
-    """The coarse kernel lane by lane (see `_model_timeline` for
-    `cuda_division`)."""
+    """The coarse kernels' order: stages 0 and 2 each ray's bounds and
+    timeline terms once, its lanes by their offset in the block's run of
+    rays (`run_rays`) through `fast_div`; stage 1 by slot, its code divided
+    once, each block's upper timeline value the next one's lower where
+    both are taken at the same k. Codes where flagged, else -1 (see
+    `_model_timeline_of` for `cuda_division`)."""
     device = rays_o.device
     R = rays_o.shape[0]
     q = _model_tensors(rc, R, device)
     if stage == BLOCKS_AFTER:
-        lane = torch.arange(buf.shape[0] * SB_BLOCKS, device=device)
-        c = buf[lane // SB_BLOCKS]
-        ray = torch.clamp(c // q["n_superblocks"], max=R - 1)
-        blk = (c % q["n_superblocks"]) * SB_BLOCKS + lane % SB_BLOCKS
-        active = c < R * q["n_superblocks"]
+        n_sb = q["n_superblocks"]
+        live = buf < R * n_sb
+        ray = buf // n_sb
+        ray = torch.where(live, ray, 0)  # a dead slot reads nothing
+        blk0 = (buf - ray * n_sb) * SB_BLOCKS
         tn, tf = t_near[ray], t_far[ray]
-        code = ray * q["n_blocks"] + blk
-    else:
-        per = q["n_superblocks"] if stage == SUPERBLOCKS else q["n_blocks"]
-        lane = torch.arange(R * per, device=device)
-        ray, blk = lane // per, lane % per
-        active = ray_mask[ray]
-        tn, tf = _model_bounds(q, rays_o[ray], rays_d[ray],
-                               None if jitter is None else jitter[ray])
-        first = blk == 0
-        t_near = torch.empty(R, dtype=torch.float32, device=device)
-        t_far = torch.empty(R, dtype=torch.float32, device=device)
-        t_near[ray[first]] = tn[first]
-        t_far[ray[first]] = tf[first]
-        code = lane
-    b = blk.to(torch.float32)
-    if stage == SUPERBLOCKS:
-        steps = float(SB_BLOCKS * BLOCK_STEPS)
-        res = q["pooled_resolution"]
-    else:
+        terms = _model_timeline_of(tn, q, cuda_division)
+        o, d = rays_o[ray], rays_d[ray]
         steps = float(BLOCK_STEPS)
-        res = q["resolution"]
+        flags, codes = [], []
+        k_prev = blk0.to(torch.float32) * steps
+        t_prev = _model_timeline_at(k_prev, tn, terms, q)
+        for j in range(SB_BLOCKS):
+            b = (blk0 + j).to(torch.float32)
+            k_lo, k_hi = b * steps, (b + 1.0) * steps
+            lo = torch.where(k_lo == k_prev, t_prev,
+                             _model_timeline_at(k_lo, tn, terms, q))
+            hi = _model_timeline_at(k_hi, tn, terms, q)
+            t_mid = _model_timeline_at(k_lo + steps / 2, tn, terms, q)
+            u = _model_contract(q, _model_position(q, o, d, t_mid))
+            cell, _ = _model_cells(u, q["resolution"], q["clamp_hi"])
+            flag = live & (lo < tf) & (hi > tn) & mask[cell]
+            flags.append(flag)
+            codes.append(torch.where(flag, 4 * buf + j, -1))
+            k_prev, t_prev = k_hi, hi
+        return (torch.stack(flags, -1).reshape(-1),
+                torch.stack(codes, -1).reshape(-1), t_near, t_far)
+    per = q["n_superblocks"] if stage == SUPERBLOCKS else q["n_blocks"]
+    mul, shr = ((q["sb_mul"], q["sb_shr"]) if stage == SUPERBLOCKS
+                else (q["blk_mul"], q["blk_shr"]))
+    # each ray's bounds and timeline terms once (the block's shared memory)
+    t_near, t_far = _model_bounds(q, rays_o, rays_d, jitter)
+    terms = _model_timeline_of(t_near, q, cuda_division)
+    lane = torch.arange(R * per, device=device)
+    ray, blk = lane_of(lane, per, mul, shr)
+    tn, tf = t_near[ray], t_far[ray]
+    terms = _model_take(terms, ray)
+    b = blk.to(torch.float32)
+    steps = float(SB_BLOCKS * BLOCK_STEPS if stage == SUPERBLOCKS
+                  else BLOCK_STEPS)
+    res = q["pooled_resolution"] if stage == SUPERBLOCKS else q["resolution"]
     k_lo = b * steps
-    k_mid = k_lo + steps / 2
-    k_hi = (b + 1.0) * steps
-    t_mid = _model_timeline(k_mid, tn, q, cuda_division)
-    t_lo = _model_timeline(k_lo, tn, q, cuda_division)
-    t_hi = _model_timeline(k_hi, tn, q, cuda_division)
+    t_mid = _model_timeline_at(k_lo + steps / 2, tn, terms, q)
+    t_lo = _model_timeline_at(k_lo, tn, terms, q)
+    t_hi = _model_timeline_at((b + 1.0) * steps, tn, terms, q)
     u = _model_contract(q, _model_position(q, rays_o[ray], rays_d[ray],
                                            t_mid))
     cell, _ = _model_cells(u, res, q["clamp_hi"])
-    flags = mask[cell] & (t_lo < tf) & (t_hi > tn) & active
-    return flags, code, t_near, t_far
+    flags = mask[cell] & (t_lo < tf) & (t_hi > tn) & ray_mask[ray]
+    t_near = t_near.expand(R).contiguous()
+    t_far = t_far.expand(R).contiguous()
+    return flags, torch.where(flags, lane, -1), t_near, t_far
 
 
 def samples_model(rays_o, rays_d, binary, t_near, t_far, blk_buf, rc,
                   cuda_division=False):
-    """The sample kernel lane by lane; each ray's count as a sum of its
-    flagged lanes (the kernel's atomic adds)."""
+    """The sample kernel's order: one slot its code divided once and its
+    ray's values and timeline terms once, 9 timeline values for its 8
+    steps (a step's t1 the next one's t0 where both are taken at the same
+    k); each ray's count as a sum of its flagged lanes (the kernel's
+    segmented sums); codes where flagged, else -1."""
     device = rays_o.device
     R = rays_o.shape[0]
+    n_slots = blk_buf.shape[0]
     q = _model_tensors(rc, R, device)
-    lane = torch.arange(blk_buf.shape[0] * BLOCK_STEPS, device=device)
-    c = blk_buf[lane // BLOCK_STEPS]
-    ray = torch.clamp(c // q["n_blocks"], max=R - 1)
-    step = (c % q["n_blocks"]) * BLOCK_STEPS + lane % BLOCK_STEPS
+    nb, S = q["n_blocks"], q["max_samples"]
+    c = blk_buf
+    qt = c // nb
+    ray = torch.clamp(qt, max=R - 1)
+    live = c < R * nb
+    step0 = (c - qt * nb) * BLOCK_STEPS
     tn, tf = t_near[ray], t_far[ray]
-    k = step.to(torch.float32)
-    t0 = _model_timeline(k, tn, q, cuda_division)
-    t1 = _model_timeline(k + 1.0, tn, q, cuda_division)
-    t_mid = 0.5 * (t0 + t1)
-    u = _model_contract(q, _model_position(q, rays_o[ray], rays_d[ray],
-                                           t_mid))
-    cell, in_grid = _model_cells(u, q["resolution"])
-    flags = (binary[cell] & in_grid & (t_mid < tf) & (t_mid >= tn)
-             & (step < q["max_samples"]) & (c < R * q["n_blocks"]))
+    terms = _model_timeline_of(tn, q, cuda_division)
+    o, d = rays_o[ray], rays_d[ray]
+    k = step0.to(torch.float32)
+    t0 = _model_timeline_at(k, tn, terms, q)
+    flags, codes = [], []
+    for j in range(BLOCK_STEPS):
+        step = step0 + j
+        k1 = k + 1.0
+        t1 = _model_timeline_at(k1, tn, terms, q)
+        t_mid = 0.5 * (t0 + t1)
+        u = _model_contract(q, _model_position(q, o, d, t_mid))
+        cell, in_grid = _model_cells(u, q["resolution"])
+        flag = (binary[cell] & in_grid & (t_mid < tf) & (t_mid >= tn)
+                & (step < S) & live)
+        flags.append(flag)
+        codes.append(torch.where(flag, ray * S + step, -1))
+        k_next = (step + 1).to(torch.float32)
+        t0 = torch.where(k_next == k1, t1,
+                         _model_timeline_at(k_next, tn, terms, q))
+        k = k_next
+    flags = torch.stack(flags, -1)
     counts = torch.zeros(R, dtype=torch.int64, device=device).index_add_(
-        0, ray[flags], torch.ones_like(ray[flags]))
-    return flags, ray * q["max_samples"] + step, counts
+        0, ray, flags.sum(-1))
+    return flags.reshape(-1), torch.stack(codes, -1).reshape(-1), counts
 
 
 def decode_model(code_buf, t_near, sb_cut, blk_cut, n_rays, rc,
@@ -524,7 +630,9 @@ class _Params(ctypes.Structure):
                     "contraction", "cone", "stratified")]
                 + [(name, ctypes.c_int64) for name in (
                     "n_rays", "max_samples", "n_blocks", "n_superblocks",
-                    "resolution", "pooled_resolution")])
+                    "resolution", "pooled_resolution")]
+                + [(name, ctypes.c_uint32) for name in (
+                    "sb_mul", "sb_shr", "blk_mul", "blk_shr")])
 
 
 def _params(rc, n_rays):
@@ -614,19 +722,24 @@ def coarse(stage, rays_o, rays_d, ray_mask, jitter, mask, rc, t_near=None,
         if buf is None or buf.dim() != 1:
             raise ValueError("the block stage after superblocks takes the "
                              "superblock buffer")
+        if n_blocks != SB_BLOCKS * n_sb:
+            raise ValueError(f"the block stage after superblocks takes "
+                             f"n_blocks a multiple of {SB_BLOCKS}, got "
+                             f"{n_blocks}")
         _require(buf, "buf", torch.int64, buf.shape[0], device)
         for name, t in (("t_near", t_near), ("t_far", t_far)):
             _require(t, name, torch.float32, R, device)
         n = buf.shape[0] * SB_BLOCKS
         codes, flags = _carve(device, (n, torch.int64), (n, torch.bool))
-        mask_res = res
+        mask_res, rays_a_block = res, 0
     elif stage in (SUPERBLOCKS, BLOCKS_DENSE):
         _require(ray_mask, "ray_mask", torch.bool, R, device)
         if rc.stratified:
             if jitter is None:
                 raise ValueError("a stratified march takes the jitter")
             _require(jitter, "jitter", torch.float32, R, device)
-        n = R * (n_sb if stage == SUPERBLOCKS else n_blocks)
+        per = n_sb if stage == SUPERBLOCKS else n_blocks
+        n, rays_a_block = R * per, run_rays(per)
         codes, t_near, t_far, flags = _carve(
             device, (n, torch.int64), (R, torch.float32),
             (R, torch.float32), (n, torch.bool))
@@ -644,6 +757,7 @@ def coarse(stage, rays_o, rays_d, ray_mask, jitter, mask, rc, t_near=None,
             ptr(ray_mask) if stage != BLOCKS_AFTER else None,
             ptr(jitter) if stage != BLOCKS_AFTER and rc.stratified else None,
             mask.data_ptr(), ptr(buf) if stage == BLOCKS_AFTER else None, n,
+            rays_a_block,
             t_near.data_ptr(), t_far.data_ptr(), flags.data_ptr(),
             codes.data_ptr())
     COARSE_LAUNCHES += 1

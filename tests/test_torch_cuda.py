@@ -1430,10 +1430,10 @@ def test_march_kernels_match_plain_under_tanh_contraction(cuda):
 
 @pytest.mark.parametrize("label,path,n_rays", MARCH_SMALL)
 def test_march_lane_model_on_the_card(cuda, label, path, n_rays):
-    """The per-lane model with the card's division (a product with the
+    """The kernels' model with the card's division (a product with the
     step's float32 reciprocal, as torch's CUDA kernel divides by a Python
-    number) equals the plain version on the card output for output, and
-    so does each kernel."""
+    number) equals the plain version on the card output for output, the
+    codes where the flags are set (the stages' contract)."""
     from deblur_e_nerf_tpu_torch.ops import march as mo
 
     rc = chip_smoke.march_render_config(path)
@@ -1448,6 +1448,8 @@ def test_march_lane_model_on_the_card(cuda, label, path, n_rays):
         extra = {} if kernel == "march_masks" else {"cuda_division": True}
         got = models[kernel](*args, **extra)
         for name, a, b in zip(chip_smoke.MARCH_OUTPUTS[kernel], got, want):
+            if name == "codes":
+                a, b = a[want[0]], b[want[0]]
             assert (a is None and b is None) or torch.equal(a, b), \
                 (kernel, stage, name)
 
@@ -1467,6 +1469,188 @@ def test_march_through_the_renderer_launches_the_kernels(cuda):
     want = chip_smoke.render_launches(rc, trains=False)
     assert {k: got[k] for k in chip_smoke.MARCH_KERNELS + ("compact",)} \
         == {k: want[k] for k in chip_smoke.MARCH_KERNELS + ("compact",)}
+
+
+def _march_rc(index=0, **changes):
+    """A render config of chip_smoke.MARCH_CONFIGS[index] with changes."""
+    import dataclasses
+
+    rc = chip_smoke.march_render_config(chip_smoke.MARCH_CONFIGS[index][1])
+    return dataclasses.replace(rc, **changes)
+
+
+def _march_rows_hold(rows, whole):
+    """Every march kernel within its rule and reproducible, the coarse and
+    sample stages bit for bit, the whole march equal to the plain one."""
+    for kernel in chip_smoke.MARCH_KERNELS:
+        assert rows[kernel]["within_rule"], kernel
+        assert rows[kernel]["reproducible"], kernel
+    assert rows["march_coarse"]["bit_exact"]
+    assert rows["march_samples"]["bit_exact"]
+    assert whole["equal_to_plain"]
+
+
+@pytest.mark.parametrize("label,index,changes,n_rays", [
+    # the step < S edge of the last block, the dense stage
+    ("S = 1021, dense", 0, dict(max_samples_per_ray=1021,
+                                superblock_budget=0), 3001),
+    ("S = 13, dense", 0, dict(max_samples_per_ray=13, superblock_budget=0),
+     5001),
+    # runs of rays that do not fill the 8,192-lane tile: 256 rays of 5
+    # superblocks, 234 rays of 35 superblocks or blocks (8,190 lanes: a
+    # run's flags start off a 16-byte boundary); 3001 rays: the last run
+    # short
+    ("n_superblocks = 5", 0, dict(max_samples_per_ray=160), 3001),
+    ("n_superblocks = 35", 0, dict(max_samples_per_ray=1120), 3001),
+    ("n_blocks = 35, dense", 0, dict(max_samples_per_ray=280,
+                                     superblock_budget=0), 3001),
+    # a ray's lanes past one tile: one ray a block, two chunks
+    ("n_blocks = 8750, dense", 0, dict(max_samples_per_ray=70000,
+                                       superblock_budget=0), 301),
+    # EDS's cone angle and sphere contraction at S not a multiple of 8;
+    # and past the 2,048 powers a block keeps (the rest by powf)
+    ("EDS, S = 1019", 1, dict(max_samples_per_ray=1019), 3001),
+    ("EDS, S = 3000", 1, dict(max_samples_per_ray=3000), 1001),
+])
+def test_march_kernels_at_the_tile_and_step_edges(cuda, label, index,
+                                                  changes, n_rays):
+    """The coarse and sample kernels (and the masks and decode) against
+    their plain versions at the edges of the redesigned kernels' work
+    split, every cell occupied so that every stage flags lanes: flags,
+    the codes of flagged lanes, the bounds and counts bit for bit, two runs
+    bit for bit, march_rays equal to march_reference; and with every
+    budget cut below its demand."""
+    rc = _march_rc(index, **changes)
+    inputs = chip_smoke.march_inputs(torch, rc, n_rays, 1.0, 1.0)
+    rows, whole, demand = chip_smoke.march_case(
+        torch, f"card test {label}", "edge", inputs, rc, timed=False)
+    _march_rows_hold(rows, whole)
+    assert min(demand.values()) > 1, demand
+    rows, whole, _ = chip_smoke.march_case(
+        torch, f"card test {label}", "edge, cut budgets", inputs,
+        chip_smoke.cut_budgets(rc, demand), timed=False)
+    _march_rows_hold(rows, whole)
+    assert all(whole["overflow"].values())
+
+
+def test_march_sample_counts_over_warps_and_ray_segments(cuda):
+    """The sample stage's segmented demand count on a block buffer cut so
+    that a warp's 32 slots hold several rays' blocks and a ray's slots run
+    over two and three warps: each ray keeps its first 1, 2, 3, 5, 40 or 70
+    blocks of the plain block buffer, in turn. Flags, the codes of flagged
+    lanes and the counts against the plain version, bit for bit."""
+    from deblur_e_nerf_tpu_torch.ops import march as mo
+
+    rc = _march_rc()
+    inputs = chip_smoke.march_inputs(torch, rc, 2048, 1.0, 1.0)
+    calls, _ = chip_smoke.march_stage_calls(inputs, rc)
+    (o, d, binary, t_near, t_far, blk_buf, _), _ = [
+        (c[2], c[3]) for c in calls if c[0] == "march_samples"][0]
+    R, n_blocks = o.shape[0], mo.n_blocks_of(rc)
+    live = blk_buf[blk_buf < R * n_blocks]
+    ray = live // n_blocks
+    first = torch.searchsorted(ray, ray, right=False)
+    keep_n = torch.tensor([1, 2, 3, 5, 40, 70], device=cuda)[ray % 6]
+    kept = live[(torch.arange(live.numel(), device=cuda) - first) < keep_n]
+    buf = torch.cat([kept, kept.new_full((1,), R * n_blocks)])
+    kept_ray = (kept // n_blocks).cpu()
+    runs = torch.unique_consecutive(kept_ray, return_counts=True)[1]
+    assert int(runs.max()) > 64  # a ray over three warps
+    warp_rays = [len(set(kept_ray[i:i + 32].tolist()))
+                 for i in range(0, kept_ray.numel(), 32)]
+    assert max(warp_rays) >= 5  # a warp of several rays
+    got = mo.samples(o, d, binary, t_near, t_far, buf, rc)
+    want = mo.samples_reference(o, d, binary, t_near, t_far, buf, rc)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1][want[0]], want[1][want[0]])
+    assert torch.equal(got[2], want[2]) and int(want[2].sum()) > 0
+
+
+def _carved_bytes(*nbytes):
+    """The bytes of ops._cuda_build.carve's one allocation of these sizes."""
+    return sum(-(-b // 16) * 16 for b in nbytes)
+
+
+POISON = int.from_bytes(b"\xab" * 8, "little", signed=True)
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_march_stage_outputs_poisoned_before_the_call(cuda, index):
+    """The coarse and sample stages' output memory filled with 0xAB before
+    each call: their flags and the codes of flagged lanes equal the plain
+    version's, the unflagged lanes' codes are left as the memory held them
+    (the poison shows there: no kernel writes them), and the compaction of
+    the poisoned outputs equals the plain compaction of the plain outputs
+    at the stage's budget and at half its flagged lanes (the cutoff reads
+    dropped flagged lanes only); then the whole march with every stage's
+    memory poisoned equals march_reference (flagship: superblocks; EDS:
+    the dense stage with a cone angle)."""
+    from deblur_e_nerf_tpu_torch.models import renderer
+    from deblur_e_nerf_tpu_torch.ops import march as mo
+
+    rc = _march_rc(index)
+    inputs = chip_smoke.march_inputs(torch, rc, 4096,
+                                     *chip_smoke.MARCH_SCENES[
+                                         chip_smoke.MARCH_CONFIGS[index][0]])
+    R = inputs[1].shape[0]
+    calls, _ = chip_smoke.march_stage_calls(inputs, rc)
+    sizes = []
+    for kernel, stage, args, want in calls:
+        if kernel == "march_coarse":
+            n = want[0].numel()
+            size = (_carved_bytes(8 * n, n) if args[0] == mo.BLOCKS_AFTER
+                    else _carved_bytes(8 * n, 4 * R, 4 * R, n))
+            fn = mo.coarse
+        elif kernel == "march_samples":
+            n = want[0].numel()
+            size = _carved_bytes(8 * n, n)
+            fn = mo.samples
+        else:
+            continue
+        sizes.append(size)
+        _poison_allocator(cuda, size)
+        got = fn(*args)
+        torch.cuda.synchronize()
+        flags = want[0]
+        assert torch.equal(got[0], flags), stage
+        assert torch.equal(got[1][flags], want[1][flags]), stage
+        assert bool((got[1][~flags] == POISON).any()), stage
+        for a, b in zip(got[2:], want[2:]):
+            assert torch.equal(a, b), stage
+        flagged = int(flags.sum())
+        fill = [int(want[1].max()) + 1]
+        for budget in (max(flagged, 1), max(flagged // 2, 1)):
+            a = compact.compact(got[0], [got[1]], budget, fill, True)
+            b = compact.compact_reference(flags, [want[1]], budget, fill,
+                                          True)
+            assert torch.equal(a[0][0], b[0][0]), (stage, budget)
+            assert [int(x) for x in a[1:]] == [int(x) for x in b[1:]]
+    _poison_allocator(cuda, *sizes)
+    got = renderer.march_rays(*inputs, rc)
+    want = renderer.march_reference(*inputs, rc)
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a is None and b is None) or torch.equal(a, b), name
+
+
+def test_march_past_31_bits_takes_the_int64_path(cuda):
+    """R x S just above 2^31 (2^21 + 1 rays of S = 1024, 1% of them
+    active): the codes of the last rays' samples pass 2^31, which the
+    slot kernels' 64-bit division takes, and every kernel holds to its
+    plain version as in every case; march_rays equals march_reference."""
+    rc = _march_rc()
+    R = (1 << 21) + 1
+    assert R * rc.max_samples_per_ray > 1 << 31
+    binary, o, d, _, jitter = chip_smoke.march_inputs(torch, rc, R, 0.3,
+                                                      0.05)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    mask = torch.rand(R, generator=gen, device=cuda) < 0.01
+    rows, whole, demand = chip_smoke.march_case(
+        torch, "card test past 2^31", "wide", (binary, o, d, mask, jitter),
+        rc, timed=False)
+    _march_rows_hold(rows, whole)
+    assert demand["samples"] > 0
 
 
 def test_march_wrappers_raise_instead_of_falling_back(cuda):

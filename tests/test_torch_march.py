@@ -313,14 +313,30 @@ def _assert_equal(got, want, name):
     assert torch.equal(got, want), name
 
 
+def _assert_stage(got, want, names, stage):
+    """A stage's outputs equal but the codes, which are defined where the
+    flags are set (the model gives -1 elsewhere, as no kernel writes
+    there): equal at the plain version's flagged lanes."""
+    flags = want[0]
+    for g, w, n in zip(got, want, names):
+        if n == "codes":
+            assert g.dtype == w.dtype, f"{stage} codes"
+            assert torch.equal(g[flags], w[flags]), f"{stage} codes"
+            assert bool((g[~flags] == -1).all()), f"{stage} codes"
+        else:
+            _assert_equal(g, w, f"{stage} {n}")
+
+
 @pytest.mark.parametrize("geometry,budgets", CASES)
 @pytest.mark.parametrize("seed", [3, 4])
 def test_lane_model_matches_plain_bit_for_bit(geometry, budgets, seed):
-    """The kernels' per-lane order (`coarse_model`, `samples_model`,
-    `decode_model`: each lane's own index decode, its ray's bounds
-    recomputed in the lane, the per-ray counts summed from the flagged
-    lanes, the host-formed float32 parameters) equals the plain version
-    output for output on the same inputs: no tolerance. On the CPU the
+    """The kernels' order (`coarse_model`, `samples_model`,
+    `decode_model`: each lane's index decode by the kernels' multiply-high
+    division, each ray's bounds once, timeline values carried from lane to
+    lane, the per-ray counts summed from the flagged lanes, the
+    host-formed float32 parameters) equals the plain version output for
+    output on the same inputs, the codes where the flags are set: no
+    tolerance. On the CPU the
     plain version divides by the step where the card's multiplies by its
     reciprocal; the model takes the CPU's form here
     (cuda_division=False) and the kernel's on the card."""
@@ -328,23 +344,20 @@ def test_lane_model_matches_plain_bit_for_bit(geometry, budgets, seed):
     o, d, mask, binary, jitter = torch_inputs(seed)
     out = plain_stages(rc, o, d, mask, binary, jitter)
     dilated, pooled = out["masks"]
+    coarse_names = ("flags", "codes", "t_near", "t_far")
     if "superblocks" in out:
         got = mo.coarse_model(mo.SUPERBLOCKS, o, d, mask, jitter, pooled, rc)
-        for g, w, n in zip(got, out["superblocks"], ("flags", "codes",
-                                                     "t_near", "t_far")):
-            _assert_equal(g, w, f"superblocks {n}")
+        _assert_stage(got, out["superblocks"], coarse_names, "superblocks")
         got = mo.coarse_model(mo.BLOCKS_AFTER, o, d, mask, jitter, dilated,
                               rc, out["t_near"], out["t_far"], out["sb_buf"])
     else:
         got = mo.coarse_model(mo.BLOCKS_DENSE, o, d, mask, jitter, dilated,
                               rc)
-    for g, w, n in zip(got, out["blocks"], ("flags", "codes", "t_near",
-                                            "t_far")):
-        _assert_equal(g, w, f"blocks {n}")
+    _assert_stage(got, out["blocks"], coarse_names, "blocks")
     got = mo.samples_model(o, d, binary, out["t_near"], out["t_far"],
                            out["blk_buf"], rc)
-    for g, w, n in zip(got, out["samples"], ("flags", "codes", "counts")):
-        _assert_equal(g, w, f"samples {n}")
+    _assert_stage(got, out["samples"], ("flags", "codes", "counts"),
+                  "samples")
     assert int(got[0].sum()) > 0
     got = mo.decode_model(out["code_buf"], out["t_near"], out["sb_cut"],
                           out["blk_cut"], o.shape[0], rc)
@@ -375,10 +388,14 @@ def test_lane_model_reaches_the_geometric_timeline():
 
 def test_params_struct_layout_matches_the_kernels():
     """csrc/march.cu MarchParams: 15 floats and 3 int32 (72 bytes), then
-    6 int64 (120 bytes), and the numbers formed as the plain version forms
-    them (float32 roundings of the render config's doubles)."""
-    assert ctypes.sizeof(mo._Params) == 120
+    6 int64 (120 bytes) and the two divisors' multipliers and shifts (4
+    uint32), 136 bytes; the numbers formed as the plain version forms
+    them (float32 roundings of the render config's doubles), the
+    multipliers as `divisor` forms them."""
+    assert ctypes.sizeof(mo._Params) == 136
     assert mo._Params.n_rays.offset == 72
+    assert mo._Params.sb_mul.offset == 120
+    assert mo._Params.blk_shr.offset == 132
     _, rc = make_rcs("eds", "ample")
     p = mo._params(rc, 7)
     f32 = np.float32
@@ -388,6 +405,170 @@ def test_params_struct_layout_matches_the_kernels():
     assert (p.contraction, p.cone, p.stratified, p.n_rays) == (1, 1, 1, 7)
     assert (p.max_samples, p.n_blocks, p.n_superblocks, p.resolution,
             p.pooled_resolution) == (1024, 128, 32, RES, RES // 4)
+    assert (p.sb_mul, p.sb_shr) == mo.divisor(32) == (1 << 31, 4)
+    assert (p.blk_mul, p.blk_shr) == mo.divisor(128) == (1 << 31, 6)
+
+
+def _config_divisors():
+    """Every divisor the repo's training configs give the kernels (S,
+    n_blocks, n_superblocks), and the tests' geometries'."""
+    import glob
+
+    import chip_smoke
+
+    found = set()
+    rcs = [chip_smoke.march_render_config(path)
+           for path in sorted(glob.glob("configs/train/*.yaml"))]
+    rcs += [make_rcs(g, "ample")[1] for g in GEOMETRIES]
+    for rc in rcs:
+        n_blocks = mo.n_blocks_of(rc)
+        found |= {rc.max_samples_per_ray, n_blocks, n_blocks // mo.SB_BLOCKS}
+    return sorted(found)
+
+
+def test_fast_divisor_is_exact_near_every_boundary():
+    """csrc/march.cu `fast_div` (modelled by `fast_div_model` on numpy
+    uint64) against integer division for every divisor of the repo's
+    configs (S, n_blocks, n_superblocks) and a few others: at 0, at every
+    multiple of the divisor and one either side of it among the first and
+    the last 2^16 multiples below 2^31, at 2^31 - 1 and 2^31 - 2, and at
+    2^18 seeded random dividends; the quotient and the remainder both."""
+    divisors = _config_divisors()
+    assert {32, 128, 1024} <= set(divisors)
+    rng = np.random.default_rng(0)
+    top = (1 << 31) - 1
+    for d in divisors + [1, 2, 3, 7, 1000, 12345, top]:
+        mul, shr = mo.divisor(d)
+        assert 0 <= mul < 1 << 32 and 0 <= shr < 32
+        k = np.arange(1 << 16, dtype=np.uint64)
+        last = np.uint64(top // d)
+        mults = np.concatenate([k, last - np.minimum(k, last)]) * np.uint64(d)
+        n = np.concatenate([mults - np.uint64(1), mults, mults + 1,
+                            np.array([0, 1, top - 1, top], np.uint64),
+                            rng.integers(0, top, 1 << 18, dtype=np.uint64)])
+        n = n[n <= top]  # mults - 1 at 0 wraps around
+        quot = mo.fast_div_model(n, np.uint64(mul), np.uint64(shr))
+        np.testing.assert_array_equal(quot, n // np.uint64(d), err_msg=d)
+        np.testing.assert_array_equal(n - quot * np.uint64(d),
+                                      n % np.uint64(d), err_msg=d)
+    assert mo.divisor(1) == mo.divisor(1 << 31) == (0, 0)
+
+
+@pytest.mark.parametrize("per", [1, 8, 128, 8192, 20000])
+def test_lane_decode_takes_whole_rays_a_block(per):
+    """Stages 0 and 2 give each block of the kernel `run_rays(per)` whole
+    rays (one to 256, 8,192 lanes' worth where a ray has fewer lanes)
+    and decode a lane's (ray, index) from its offset in that run by
+    `fast_div` (`lane_of`): the row-major (lane // per, lane % per) for
+    every lane of rays that end in a short last run."""
+    rays = mo.run_rays(per)
+    assert 1 <= rays <= 256
+    assert rays == 1 or rays * per <= 8192 < (rays + 1) * per or rays == 256
+    R = 2 * rays + 1 if rays * per <= 1 << 16 else 3
+    lane = torch.arange(R * per, dtype=torch.int64)
+    mul, shr = mo.divisor(per)
+    ray, index = mo.lane_of(lane, per, mul, shr)
+    assert torch.equal(ray, lane // per)
+    assert torch.equal(index, lane % per)
+
+
+def test_carried_timeline_equals_the_timeline_at_k_plus_one():
+    """The sample kernel carries a step's t1 = timeline(float32(k) + 1)
+    forward as the next step's t0 = timeline(float32(k + 1)) where the two
+    steps are equal, and the block stage a block's upper value (float32(b)
+    + 1) x 8 as the next block's lower float32(b + 1) x 8: for every k and
+    b below 2^24 they are equal (so every value is carried and is the
+    timeline at k + 1 bit for bit, with and without a cone angle: the same
+    function at the same float32 argument, `samples_model` against
+    evaluating both directly on a strided grid of k)."""
+    k = np.arange(1 << 24, dtype=np.int64)
+    kf = k.astype(np.float32)
+    assert np.array_equal(kf + np.float32(1), (k + 1).astype(np.float32))
+    eight = np.float32(8)
+    assert np.array_equal((kf + np.float32(1)) * eight,
+                          (k + 1).astype(np.float32) * eight)
+    for geometry in ("flagship", "eds"):
+        _, rc = make_rcs(geometry, "ample")
+        q = mo._model_tensors(rc, 1, "cpu")
+        kt = torch.arange(0, 1 << 24, 4099, dtype=torch.int64)
+        t0 = torch.full(kt.shape, 0.37, dtype=torch.float32)
+        terms = mo._model_timeline_of(t0, q, False)
+        assert (terms is not None) == (geometry == "eds")
+        carried = mo._model_timeline_at(kt.float() + 1.0, t0, terms, q)
+        direct = mo._model_timeline_at((kt + 1).float(), t0, terms, q)
+        assert torch.equal(carried.view(torch.int32),
+                           direct.view(torch.int32))
+        if geometry == "eds":  # the geometric part is reached
+            assert bool((kt.float() > terms[0]).any())
+
+
+def test_chip_smoke_holds_codes_only_where_flagged():
+    """chip_smoke's check follows the stages' contract: `march_compare`
+    holds a stage's codes where the flags of its reference are set (other
+    lanes' codes may be anything, as no reader takes them) and every other
+    output in full; `march_bound`'s least work writes a flag byte a lane
+    and an int64 code a flagged lane, the first design a code every lane."""
+    import chip_smoke
+    from deblur_e_nerf_tpu_torch import perf_microbench
+
+    _, rc = make_rcs("flagship", "ample")
+    o, d, mask, binary, jitter = torch_inputs(3)
+    out = plain_stages(rc, o, d, mask, binary, jitter)
+    want = out["samples"]
+    flags = want[0]
+    assert 0 < int(flags.sum()) < flags.numel()
+    got = (flags.clone(), torch.where(flags, want[1], -7), want[2].clone())
+    assert chip_smoke.march_compare(torch, "march_samples", got, want,
+                                    False)[:2] == (True, True)
+    bad = got[1].clone()
+    bad[int(torch.nonzero(flags)[0])] += 1
+    assert chip_smoke.march_compare(torch, "march_samples",
+                                    (got[0], bad, got[2]), want,
+                                    False)[:2] == (False, False)
+    flipped = got[0].clone()
+    flipped[int(torch.nonzero(~flags)[0])] = True
+    assert not chip_smoke.march_compare(torch, "march_samples",
+                                        (flipped, got[1], got[2]), want,
+                                        False)[0]
+    args = (o, d, binary, out["t_near"], out["t_far"], out["blk_buf"], rc)
+    least, _, every, least_bytes = chip_smoke.march_bound(
+        "march_samples", args, rc, want)
+    R, n, k = o.shape[0], flags.numel(), int(flags.sum())
+    read = 8 * out["blk_buf"].numel() + 32 * R + RES ** 3
+    assert least_bytes == perf_microbench.bound(read + n + 8 * k + 8 * R)[0]
+    assert least <= every
+
+
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_march_bound_counts_the_lanes_that_pass_their_bounds(geometry):
+    """`chip_smoke.march_lanes` counts from the plain version's values
+    the lanes that test their bounds and those that pass them, which the
+    least work's operations count: with every grid cell occupied the
+    passing lanes are the flagged ones; they are at least the flagged
+    lanes and at most the tested ones; and the least work lies below the
+    every-code bound of the first design's count."""
+    import chip_smoke
+
+    _, rc = make_rcs(geometry, "ample")
+    o, d, mask, binary, jitter = torch_inputs(4)
+    calls, _ = chip_smoke.march_stage_calls((binary, o, d, mask, jitter), rc)
+    stages = 0
+    for kernel, stage, args, want in calls:
+        if kernel not in ("march_coarse", "march_samples"):
+            continue
+        stages += 1
+        grid = 2 if kernel == "march_samples" else 5
+        full = list(args)
+        full[grid] = torch.ones_like(args[grid])
+        plain = mo.samples_reference if kernel == "march_samples" \
+            else mo.coarse_reference
+        started, tested, passing = chip_smoke.march_lanes(kernel, args, rc)
+        assert passing == int(plain(*full)[0].sum()), stage
+        assert 0 < int(want[0].sum()) <= passing <= tested, stage
+        assert tested <= want[0].numel() and started <= tested, stage
+        least, _, every, _ = chip_smoke.march_bound(kernel, args, rc, want)
+        assert least <= every, stage
+    assert stages == (3 if tr.uses_superblocks(rc) else 2)
 
 
 # ---------------------------------------------------------------------------
