@@ -18,9 +18,10 @@ Phases, each printing a start and an end line with elapsed seconds:
      fails), and that they run float32 FMAs and no tensor-core
      instruction; the render kernels' registers and spills (the
      compaction's three, the composite's two in float and double, the
-     march's four) and the occupancy update's (its ten: points, the EMA's
-     tile and scatter passes, the threshold's finish, histogram, digit
-     and mask passes, the sampler's count, scan and search);
+     march's four) and the occupancy update's (its eleven: points, the
+     EMA's warmup, scatter and finish passes, the threshold's finish,
+     histogram, digit and mask passes, the sampler's count, scan and
+     search);
   3. kernels: each kernel against its plain PyTorch version on the card
      (the Pallas probes K2/K3's shapes too), with times of the kernel, the
      plain version and the PyTorch library calls computing the same
@@ -141,8 +142,8 @@ Phases, each printing a start and an end line with elapsed seconds:
           one sync planted just before the step must be counted) and
           whose kernel launches must be one fused encode forward and one
           backward, one weight-chain forward and one backward (no K1, no
-          K3), a compaction a march stage, the march's kernels (three
-          masks launches, two coarse stages, one sample stage, one
+          K3), a compaction a march stage, the march's kernels (one
+          masks launch, two coarse stages, one sample stage, one
           decode), one composite forward and one backward; then the
           operator calls by layer (op_census) of one more steady step
           (the weight chain's its wrapper's alone, the march's at most
@@ -985,7 +986,8 @@ def load_parent(torch, parent_dir, name="parent_port"):
     ran it), "pb_ops": its ops.pb_weight (the weight chain's
     kernels), "occupancy" and "contraction": its models.occupancy (the
     occupancy update) and models.contraction, "march_ops": its ops.march
-    (the march's stages), "package": the name it is imported under}."""
+    (the march's stages), "occ_ops": its ops.occupancy (the occupancy
+    kernels), "package": the name it is imported under}."""
     import importlib
     import importlib.util
 
@@ -1013,7 +1015,8 @@ def load_parent(torch, parent_dir, name="parent_port"):
                 f"{name}.models.occupancy"),
             "contraction": importlib.import_module(
                 f"{name}.models.contraction"),
-            "march_ops": importlib.import_module(f"{name}.ops.march")}
+            "march_ops": importlib.import_module(f"{name}.ops.march"),
+            "occ_ops": importlib.import_module(f"{name}.ops.occupancy")}
 
 
 def in_turns(fn, parent_fn, iters=20, timer=None, parent_timer=None):
@@ -1300,9 +1303,11 @@ R5FIX_SAMPLE_BUDGET = 8192 * 30 * 4 * 5 // 4
 FLAGSHIP_RAYS = 429 * 30 * 4
 
 
-# the march kernels that must keep no stack frame and spill nothing
-MARCH_NO_LOCAL = ("march_coarse_rays_kernel", "march_coarse_slots_kernel",
-                  "march_samples_kernel")
+# the march and EMA kernels that must keep no stack frame and spill nothing
+NO_LOCAL_KERNELS = ("march_masks_kernel", "march_coarse_rays_kernel",
+                    "march_coarse_slots_kernel", "march_samples_kernel",
+                    "occ_ema_tiles_kernel", "occ_ema_finish_kernel",
+                    "occ_ema_scatter_kernel")
 
 
 def check_render_build(ptxas):
@@ -1310,8 +1315,8 @@ def check_render_build(ptxas):
     (-Xptxas -v); fail unless each was built (the compaction by tile, the
     composite kernels in float and double, the forward by channel count,
     the march's five, the lane kernels by geometry and division, the
-    occupancy update's ten), or if an instance of MARCH_NO_LOCAL keeps a
-    stack frame or spills."""
+    occupancy update's eleven), or if an instance of NO_LOCAL_KERNELS keeps
+    a stack frame or spills."""
     kernels = ("compact_kernelILi128E", "compact_kernelILi256E",
                # the forward by type and channels (0: density-only)
                "composite_fwd_kernelIfLi0E", "composite_fwd_kernelIfLi1E",
@@ -1322,7 +1327,8 @@ def check_render_build(ptxas):
                "march_coarse_slots_kernel", "march_samples_kernel",
                "march_decode_kernel",
                "occ_points_kernel", "occ_ema_tiles_kernel",
-               "occ_ema_scatter_kernel", "occ_threshold_finish_kernel",
+               "occ_ema_finish_kernel", "occ_ema_scatter_kernel",
+               "occ_threshold_finish_kernel",
                "occ_threshold_histogram_kernel",
                "occ_threshold_digit_kernel", "occ_threshold_binary_kernel",
                "occ_sample_count_kernel", "occ_sample_scan_kernel",
@@ -1336,7 +1342,7 @@ def check_render_build(ptxas):
             local = [int(x) for x in re.findall(
                 r"(\d+) bytes (?:stack frame|spill stores|spill loads)",
                 ptxas[fn])]
-            if kernel.startswith(MARCH_NO_LOCAL) and (len(local) != 3
+            if kernel.startswith(NO_LOCAL_KERNELS) and (len(local) != 3
                                                       or any(local)):
                 raise AssertionError(f"{kernel}: a stack frame or spills "
                                      f"({ptxas[fn]})")
@@ -2210,7 +2216,7 @@ def march_case(torch, label, kind, inputs, rc, parent=None, timed=True):
     """The march kernels against their plain versions on one input set:
     each kernel call on its plain version's inputs (`march_stage_calls`),
     every output held by `march_compare`, two runs bit for bit, one launch
-    a call (the masks: one or three a march); then `march_rays` (the
+    a call; then `march_rays` (the
     kernels and the compactions) against `march_reference` (the plain
     march) output for output. With `timed`, each kernel's ms a march
     (wall, and device ms from a captured march's replay,
@@ -2254,9 +2260,7 @@ def march_case(torch, label, kind, inputs, rc, parent=None, timed=True):
             repeat = repeat and march_compare(torch, kernel, again, got,
                                               False)[0]
             del got, again
-        want_launches = 0 if not inputs[1].is_cuda else (
-            2 * (3 if sb else 1) if kernel == "march_masks"
-            else 2 * len(mine))
+        want_launches = 0 if not inputs[1].is_cuda else 2 * len(mine)
         row = {"shape": label, "index_structure": kind,
                "stages": [c[1] for c in mine], "bit_exact": exact,
                "within_rule": ok, "reproducible": repeat,
@@ -2302,13 +2306,21 @@ def march_case(torch, label, kind, inputs, rc, parent=None, timed=True):
                     f"{row['bound_bytes_ms']:.4f}; every code written: "
                     f"{row['bound_every_code_ms']:.4f})")
             if parent is not None:
-                row["parent_device_ms"] = device_launches(torch,
-                                                          parent_run)[2]
+                (row["device_ms"], row["device_runs"],
+                 row["parent_device_ms"], row["parent_device_runs"]) = \
+                    in_turns(run, parent_run, timer=graph_ms,
+                             parent_timer=graph_ms)
                 text += (f"; in turns with the parent's "
                          f"{row['parent_ms']:.4f} ms (runs "
                          f"{[round(t, 4) for t in row['runs']]} against "
-                         f"{[round(t, 4) for t in row['parent_runs']]}), its"
-                         f" device {row['parent_device_ms']:.4f}")
+                         f"{[round(t, 4) for t in row['parent_runs']]}); "
+                         f"device ms in turns (captured calls' replays) "
+                         f"{row['device_ms']:.4f} "
+                         f"{[round(t, 4) for t in row['device_runs']]} "
+                         f"against the parent's "
+                         f"{row['parent_device_ms']:.4f} "
+                         f"{[round(t, 4) for t in row['parent_device_runs']]}"
+                         )
             if kernel == "march_masks":
                 library = _masks_library(torch, inputs[0], rc, sb)
                 row["library_ms"] = time_ms(library)
@@ -2676,11 +2688,16 @@ def occ_update_inputs(torch, state, occ_eval, warmup, draws, rc, kw, cams,
 
 
 def occ_bounds(kernel, inputs, rc, n_cells):
-    """The least time of a kernel's calls in an update: its inputs read
-    once and its outputs written once over 3.35 TB/s (the sampled EMA's
-    keys and the threshold's partials and select passes are scratch; the
-    sampler reads its fallback cells only when no cell is occupied), or
-    its float32 operations over 67 TFLOP/s."""
+    """(least ms, "bytes" or "operations", the sector-aware least ms) of a
+    kernel's calls in an update: its inputs read once and its outputs
+    written once over 3.35 TB/s (the sampled EMA's keys and the
+    threshold's partials and select passes are scratch; the sampler reads
+    its fallback cells only when no cell is occupied), or its float32
+    operations over 67 TFLOP/s. The sector-aware bound counts each
+    scattered lane access as the 32-byte sector that device memory moves
+    for it: a sampled EMA lane's access to its cell's key (a random cell
+    of a grid larger than a sector), which the least counts as scratch;
+    elsewhere it is the least."""
     lanes = sum(a[3] for a, _ in inputs["points"])
     listed = 8 * lanes if inputs["cells"] else 0
     cone = rc.cone_angle > 0
@@ -2688,35 +2705,46 @@ def occ_bounds(kernel, inputs, rc, n_cells):
     if kernel == "occ_points":
         ops = lanes * (OCC_POINT_OPS[rc.contraction_type.value]
                        + (OCC_STEP_OPS if cone else 0))
-        return bound(listed + 24 * lanes + (8 * lanes if cone else 0)
-                     + step_bytes, ops)
+        least = bound(listed + 24 * lanes + (8 * lanes if cone else 0)
+                      + step_bytes, ops)
+        return (*least, least[0])
     if kernel == "occ_ema":
-        return bound(8 * n_cells + 4 * lanes + step_bytes + listed,
-                     3 * lanes)
+        nbytes = 8 * n_cells + 4 * lanes + step_bytes + listed
+        least = bound(nbytes, 3 * lanes)
+        sectors = 32 * lanes if inputs["cells"] else 0
+        return (*least, bound(nbytes + sectors, 3 * lanes)[0])
     if kernel == "occ_threshold":
-        return bound(5 * n_cells, 2 * n_cells)
+        least = bound(5 * n_cells, 2 * n_cells)
+        return (*least, least[0])
     binary, draws = inputs["sample_args"]
     n = draws["u"].numel()
     # the mask, u (float32) and the cells out (int64)
-    return bound(n_cells + 12 * n + (0 if bool(binary.any()) else 8 * n))
+    least = bound(n_cells + 12 * n + (0 if bool(binary.any()) else 8 * n))
+    return (*least, least[0])
 
 
 def occ_case(torch, label, kind, state, occ_eval, warmup, draws, rc, kw,
-             cams, timed=True):
+             cams, timed=True, parent=None):
     """The four occupancy kernels against their plain versions on one
     update: each call on its plain version's inputs
     (`occ_update_inputs`), points, steps, EMA and sampler bit for bit
     (NaN equal to NaN), the EMA's partials within OCC_PARTIALS_RTOL of
-    partials_model, the threshold within OCC_MEAN_RTOL of the plain one
+    partials_model (and bit for bit against kernel_partials_model, their
+    own order), the threshold within OCC_MEAN_RTOL of the plain one
     with the binary mask equal but for the cells between the two
     thresholds (counted), the quantile (the threshold kernel with occ_thre
     -inf at the config's fraction, else OCC_QUANTILE_FRACTION) bit for bit
     against torch.quantile; two runs bit for bit, one launch a call (the
-    EMA one a chunk and one more for a sampled update); then the whole
+    EMA `ema_launches`); then the whole
     update (models/occupancy.update) against the plain update. With
     `timed`, each kernel's ms an update (its device time, replayed from a
     CUDA graph, and its calls' time with the wrappers' host work) beside
-    its plain version's, its bound and the library call. Returns ({kernel:
+    its plain version's, its bound and the library call; the EMA's also
+    in turns with the parent checkout's EMA (with `parent`), and a
+    sampled EMA's in turns with its scatter in one cell range where it
+    takes more (`ema_range_levers`), and split into its scatter and
+    finish (`ema_parts`); the sampler's device ms in
+    SAMPLER_TURNS alternations with its library call's. Returns ({kernel:
     row}, the new state)."""
     from deblur_e_nerf_tpu_torch.models import occupancy
     from deblur_e_nerf_tpu_torch.ops import occupancy as oo
@@ -2770,17 +2798,20 @@ def occ_case(torch, label, kind, state, occ_eval, warmup, draws, rc, kw,
     (g_occs, partials), n1 = launches_of(
         "occ_ema", lambda: oo.ema(*inputs["ema_args"]))
     again, _ = oo.ema(*inputs["ema_args"])
-    p_err, p_max = 0.0, True  # the plain version has no partials
+    p_err, p_max, p_exact = 0.0, True, True  # the plain version has none
     if partials is not None:
         psum, pmax = oo.partials_model(inputs["occs"])
         p_err = float(((partials[0] - psum).abs()
                        / psum.abs().clamp(min=1e-30)).nan_to_num(0.0).max())
         p_max = _nan_equal(torch, partials[1], pmax)
+        p_exact = _nan_equal(torch, partials[0], oo.kernel_partials_model(
+            inputs["occs"], not warmup)[0])
     ema_row = row("occ_ema", _nan_equal(torch, g_occs, inputs["occs"]),
                   _nan_equal(torch, again, g_occs), n1,
-                  len(inputs["chunks"]) + (0 if warmup else 1),
-                  {"partials_rel_err": p_err, "partials_max_equal": p_max})
-    if not (p_err <= OCC_PARTIALS_RTOL and ema_row["partials_max_equal"]):
+                  ema_launches(len(inputs["chunks"]), warmup),
+                  {"partials_rel_err": p_err, "partials_max_equal": p_max,
+                   "partials_in_kernel_order": p_exact})
+    if not (p_err <= OCC_PARTIALS_RTOL and p_max and p_exact):
         failed.append("occ_ema partials")
     # the threshold on the kernel EMA's outputs
     (binary, thre), n1 = launches_of("occ_threshold", lambda: oo.threshold(
@@ -2857,6 +2888,15 @@ def occ_case(torch, label, kind, state, occ_eval, warmup, draws, rc, kw,
                 k = int(q * (n_cells - 1)) + 1
                 r["kthvalue_ms"] = time_ms(lambda: torch.kthvalue(
                     inputs["occs"], k), iters=5)
+            elif kernel == "occ_ema" and parent is not None:
+                (r["ms"], r["runs"], r["parent_ms"],
+                 r["parent_runs"]) = in_turns(
+                    lambda: oo.ema(*inputs["ema_args"]),
+                    lambda: parent["occ_ops"].ema(*inputs["ema_args"]),
+                    timer=graph_ms, parent_timer=graph_ms)
+                r["call_ms"] = time_ms(lambda: oo.ema(*inputs["ema_args"]))
+                r["plain_ms"] = time_ms(lambda: oo.ema_reference(
+                    *inputs["ema_args"]), iters=5)
             else:
                 r["ms"] = sum(graph_ms(functools.partial(fns[kernel], *a))
                               for a in calls[kernel])
@@ -2867,8 +2907,8 @@ def occ_case(torch, label, kind, state, occ_eval, warmup, draws, rc, kw,
                     time_ms(functools.partial(plain_fns[kernel], *a),
                             iters=5)
                     for a in calls[kernel])
-            r["bound_ms"], r["bound_by"] = occ_bounds(kernel, inputs, rc,
-                                                      n_cells)
+            r["bound_ms"], r["bound_by"], r["sector_bound_ms"] = \
+                occ_bounds(kernel, inputs, rc, n_cells)
         if not warmup:
             cells = torch.cat([c.to(torch.int64) for c in inputs["cells"]])
             occ = torch.cat([d.reshape(-1) * (s if s is not None
@@ -2885,6 +2925,14 @@ def occ_case(torch, label, kind, state, occ_eval, warmup, draws, rc, kw,
                     right=True))
             rows["occ_sample_occupied"]["library_call"] = \
                 "torch.searchsorted over a cumsum"
+            rows["occ_sample_occupied"].update(sampler_turns(
+                torch, lambda: oo.sample_occupied(b, d),
+                lambda: torch.searchsorted(
+                    torch.cumsum(b.to(torch.float32), 0), d["u"],
+                    right=True)))
+            rows["occ_ema"]["range_levers"] = ema_range_levers(
+                torch, lambda: oo.ema(*inputs["ema_args"]), n_cells)
+            rows["occ_ema"]["parts"] = ema_parts(torch, inputs["ema_args"])
     for kernel, r in rows.items():
         print(f"{kernel} {label} ({kind}): bit exact {r['bit_exact']}, "
               f"within its rule ({r['tolerance']}) {r['within_rule']}, two "
@@ -2897,8 +2945,28 @@ def occ_case(torch, label, kind, state, occ_eval, warmup, draws, rc, kw,
                  f"{r['quantile']:.9g} bit for bit "
                  f"{r['quantile_bit_exact']}"
                  if kernel == "occ_threshold" else "")
-              + (f"; partials relative error {r['partials_rel_err']:.2e}"
+              + (f"; partials relative error {r['partials_rel_err']:.2e}, "
+                 f"bit for bit in the kernel's order "
+                 f"{r['partials_in_kernel_order']}"
                  if kernel == "occ_ema" else "")
+              + (f"; sector-aware bound {r['sector_bound_ms']:.4f} ms"
+                 if timed and kernel == "occ_ema" else "")
+              + (f"; in turns (captured calls' replays) {r['ms']:.4f} "
+                 f"{[round(t, 4) for t in r['runs']]} against the parent's "
+                 f"{r['parent_ms']:.4f} "
+                 f"{[round(t, 4) for t in r['parent_runs']]}"
+                 if timed and "parent_ms" in r else "")
+              + (f"; ranges {r['range_levers']}"
+                 if timed and r.get("range_levers") else "")
+              + (f"; the finish alone {r['parts']['finish_ms']:.4f} ms, "
+                 f"the scatter the rest {r['parts']['scatter_ms']:.4f}"
+                 if timed and "parts" in r else "")
+              + (f"; in {SAMPLER_TURNS} alternations (device ms): kernel "
+                 f"median {r['turns_median_ms']:.4f} "
+                 f"{[round(t, 4) for t in r['turns_ms']]}, library median "
+                 f"{r['turns_library_median_ms']:.4f} "
+                 f"{[round(t, 4) for t in r['turns_library_ms']]}"
+                 if timed and "turns_ms" in r else "")
               + (f"; kernel {r['ms']:.4f} ms (graph replay; {r['call_ms']:.4f}"
                  f" ms a call with the host's work), plain "
                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -2920,6 +2988,105 @@ def occ_case(torch, label, kind, state, occ_eval, warmup, draws, rc, kw,
                              f"reproducible or launched otherwise; the "
                              f"whole update equal {whole_ok}")
     return rows, new
+
+
+def ema_inputs(kind, n_chunks, n, seed=0):
+    """A sampled EMA's inputs on the CPU, made with numpy (occs, the two
+    cell lists, the chunks of densities and steps): `kind` "duplicates"
+    (cells drawn with replacement, so that cells repeat within and across
+    chunks), "distinct" (no cell sampled twice), "one cell" (every lane
+    hits one cell) or "nan" (NaN in densities and in cells of the grid,
+    one of them sampled); n / 2 lanes cut into `n_chunks` chunks, the last
+    one shorter; occs with zeros, densities with zeros and ties."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    occs = rng.uniform(size=n).astype(np.float32) ** 3 * 0.01
+    occs[rng.integers(0, n, 64)] = 0.0
+    lanes = n // 2
+    if kind == "distinct":
+        cells = rng.permutation(n)[:lanes]
+    elif kind == "one cell":
+        cells = np.full(lanes, 1234 % n)
+    else:
+        cells = rng.integers(0, n, lanes)
+    density = rng.uniform(size=(lanes, 1)).astype(np.float32) * 2.0
+    density[rng.integers(0, lanes, 32)] = 0.0
+    density[rng.integers(0, lanes, 32)] = 1.5  # ties
+    step = rng.uniform(0.01, 0.03, lanes).astype(np.float32)
+    if kind == "nan":
+        density[[3, lanes // 2, lanes - 2]] = np.nan
+        occs[[5, int(cells[7])]] = np.nan
+    bounds = [lanes * i // n_chunks for i in range(n_chunks)] + [lanes]
+    if n_chunks > 1:
+        bounds[-2] += 1  # the last chunk shorter than the others
+    chunks = [(lo, torch.from_numpy(density[lo:hi]),
+               torch.from_numpy(step[lo:hi]))
+              for lo, hi in zip(bounds, bounds[1:])]
+    cells = torch.from_numpy(cells.astype(np.int64))
+    half = lanes // 2
+    return torch.from_numpy(occs), (cells[:half], cells[half:]), chunks
+
+
+# the sampler against its library call: alternations of each's device ms
+SAMPLER_TURNS = 5
+
+
+def sampler_turns(torch, fn, library_fn):
+    """The sampler's and its library call's device ms (captured calls'
+    replays), SAMPLER_TURNS times each in alternation (the library call
+    first): each's runs and median."""
+    import statistics
+
+    runs, lib_runs = [], []
+    for _ in range(SAMPLER_TURNS):
+        lib_runs.append(graph_ms(library_fn))
+        runs.append(graph_ms(fn))
+    return {"turns_ms": runs, "turns_library_ms": lib_runs,
+            "turns_median_ms": statistics.median(runs),
+            "turns_library_median_ms": statistics.median(lib_runs)}
+
+
+def ema_range_levers(torch, fn, n_cells):
+    """A sampled EMA (fn) whose scatter takes more than one cell range
+    (ops/occupancy.range_cells), in turns with the same call scattering
+    in one range, and in twice as many ranges: {variant: (device ms, the
+    default's in the same turns)}; {} for a grid of one range."""
+    from deblur_e_nerf_tpu_torch.ops import occupancy as oo
+
+    default = oo.EMA_RANGE_BYTES
+    if -(-n_cells // oo.range_cells(n_cells)) < 2:
+        return {}
+
+    def with_bytes(nbytes):
+        def call():
+            oo.EMA_RANGE_BYTES = nbytes
+            try:
+                return fn()
+            finally:
+                oo.EMA_RANGE_BYTES = default
+        return call
+
+    levers = {}
+    for name, nbytes in (("one range", 1 << 62),
+                         ("twice the ranges", default // 2)):
+        ms, _, other, _ = in_turns(fn, with_bytes(nbytes), timer=graph_ms,
+                                   parent_timer=graph_ms)
+        levers[name] = (round(other, 4), round(ms, 4))
+    return levers
+
+
+def ema_parts(torch, ema_args):
+    """A sampled EMA's device ms split: its finish alone (the same call
+    with no chunks, so every key is zero and none is written back) and
+    the scatter as the rest of the whole call's."""
+    from deblur_e_nerf_tpu_torch.ops import occupancy as oo
+
+    occs, decay, _, cells, step_size = ema_args
+    finish = graph_ms(lambda: oo.ema(occs, decay, [], cells, step_size))
+    whole = graph_ms(lambda: oo.ema(*ema_args))
+    return {"finish_ms": finish, "scatter_ms": whole - finish}
 
 
 def capture_occupancy(trainer):
@@ -3118,7 +3285,8 @@ def occ_step_cases(torch, label, got, parent=None):
         draws = occupancy.draw_update(gen, rc.grid_resolution, warmup,
                                       "cuda", cams.shape[0] if cone else 0)
         found, _ = occ_case(torch, f"{label} step's own grid", kind, state,
-                            occ_eval, warmup, draws, rc, kw, cams)
+                            occ_eval, warmup, draws, rc, kw, cams,
+                            parent=parent)
         for k, r in found.items():
             rows[k].append(r)
 
@@ -3159,15 +3327,15 @@ def occ_step_cases(torch, label, got, parent=None):
     return rows
 
 def occ_cases(torch, label, path, timed=True, scale=40.0, resolution=None,
-              device="cuda"):
+              device="cuda", parent=None):
     """Phase 3's occupancy cases on one config's grid with the synthetic
     density (`occ_density`): two warmup updates from an empty grid, a
     sampled update, a sampled update on a grid with nothing occupied (the
     sampler's fallback) and a warmup and a sampled update with NaN planted
     in the density at the blob's core (NaN reaches the same cells, the
     same NaN threshold and an empty mask as in the plain version), at the
-    config's resolution unless `resolution` is given. Returns {kernel:
-    rows}."""
+    config's resolution unless `resolution` is given; the timed cases in
+    turns with `parent`'s EMA (`occ_case`). Returns {kernel: rows}."""
     import dataclasses
 
     from deblur_e_nerf_tpu_torch.models import occupancy
@@ -3183,7 +3351,8 @@ def occ_cases(torch, label, path, timed=True, scale=40.0, resolution=None,
     def run(kind, state, warmup, seed, timed=False, occ_eval=occ_eval):
         draws, cams = occ_draws(torch, rc, warmup, seed, device=device)
         found, new = occ_case(torch, f"{label} synthetic", kind, state,
-                              occ_eval, warmup, draws, rc, kw, cams, timed)
+                              occ_eval, warmup, draws, rc, kw, cams, timed,
+                              parent if timed else None)
         for k, r in found.items():
             rows[k].append(r)
         return new
@@ -3206,12 +3375,13 @@ def occ_cases(torch, label, path, timed=True, scale=40.0, resolution=None,
     return rows
 
 
-def occ_kernel_cases(torch):
+def occ_kernel_cases(torch, parent=None):
     """Phase 3's occupancy cases on each of OCC_CONFIGS. Returns {kernel:
     rows}."""
     rows = {k: [] for k in OCC_KERNELS + ("occ_update",)}
     for label, path in OCC_CONFIGS:
-        for k, found in occ_cases(torch, label, path).items():
+        for k, found in occ_cases(torch, label, path,
+                                  parent=parent).items():
             rows[k] += found
     return rows
 
@@ -3354,7 +3524,7 @@ def phase_kernels(torch, parent=None):
         for calib, div in PB_CONDITIONING_CASES]
     return dict(encode, **pb, **render_kernel_cases(torch, parent),
                 **march_kernel_cases(torch, parent),
-                **occ_kernel_cases(torch),
+                **occ_kernel_cases(torch, parent),
                 scatter_add_rows=scatter, gather_rows=gather,
                 scatter_add_rows_call_split=splits,
                 l2_reduction_rates=l2_rates, library_baselines=library)
@@ -4213,8 +4383,8 @@ def render_launches(rc, renders=1, trains=True, prepasses=0):
     """The render layer's launches for `renders` marches under the render
     config `rc` (two stream compactions each, three with the superblock
     stage; the march's kernels: one masks launch, one coarse stage, one
-    sample stage and one decode, or with superblocks three masks launches
-    and two coarse stages) and composites (one forward each, one backward
+    sample stage and one decode, or with superblocks two coarse stages)
+    and composites (one forward each, one backward
     each if it `trains`), with `prepasses` occlusion prepasses (a
     density-only composite forward and one three-channel compaction
     each)."""
@@ -4224,7 +4394,7 @@ def render_launches(rc, renders=1, trains=True, prepasses=0):
     return {"compact": renders * (3 if sb else 2) + prepasses,
             "composite_fwd": renders + prepasses,
             "composite_bwd": renders if trains else 0,
-            "march_masks": renders * (3 if sb else 1),
+            "march_masks": renders,
             "march_coarse": renders * (2 if sb else 1),
             "march_samples": renders, "march_decode": renders}
 
@@ -4232,18 +4402,27 @@ def render_launches(rc, renders=1, trains=True, prepasses=0):
 def occupancy_launches(rc, warmups=0, sampled=0, priors=0,
                        prior_targeted=False, chunk=1 << 19):
     """The occupancy kernels' launches of `warmups` warmup and `sampled`
-    sampled updates under the render config `rc` (a points and an EMA
-    launch a chunk of `chunk` evaluated cells, one more EMA launch a
-    sampled update, a threshold an update, a sampler a sampled update) and
-    of `priors` sparsity priors (a points launch each, and a sampler
-    launch with targeted cells)."""
+    sampled updates under the render config `rc` (a points launch a chunk
+    of `chunk` evaluated cells; an EMA launch a chunk of a warmup update,
+    `ema_launches` a sampled update; a threshold an update, a sampler a
+    sampled update) and of `priors` sparsity priors (a points launch
+    each, and a sampler launch with targeted cells)."""
     n = rc.grid_resolution ** 3
     w, s = -(-n // chunk), -(-(2 * (n // 4)) // chunk)
     return {"occ_points": warmups * w + sampled * s + priors,
-            "occ_ema": warmups * w + sampled * (s + 1),
+            "occ_ema": warmups * w + sampled * ema_launches(s, False),
             "occ_threshold": warmups + sampled,
             "occ_sample_occupied": sampled + (priors if prior_targeted
                                               else 0)}
+
+
+def ema_launches(n_chunks, warmup):
+    """The EMA's launches for an update of `n_chunks` chunks: one a chunk
+    of a warmup update; a sampled update's scatter, one launch for up to
+    ops/occupancy.MAX_CHUNKS chunks, and its finish."""
+    from deblur_e_nerf_tpu_torch.ops import occupancy as oo
+
+    return n_chunks if warmup else -(-n_chunks // oo.MAX_CHUNKS) + 1
 
 
 def prior_launches(trainer, steps=1):

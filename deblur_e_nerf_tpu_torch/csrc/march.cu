@@ -93,10 +93,13 @@
 //    conjunction either way.
 // The decode writes t_mid, dt and the ray index of each slot (the timeline
 // only in live slots) and each ray's `coarse_complete` from the stages'
-// cutoffs. The masks kernel dilates (any radius; two one-cell dilations
-// are one of radius 2) or 4^3-pools, one thread an output cell, or for
-// the one-cell dilation of a grid whose side is a multiple of 4 four cells
-// along x a thread from 32-bit row loads.
+// cutoffs. The masks kernel takes the one-cell dilation and, with
+// superblocks, the pool and its radius-2 dilation in one launch (its
+// design at march_masks_kernel). Bound: device-memory bytes (the grid read
+// once, the dilated grid written once); the first design's three
+// dependent launches took a launch's floor each, and its 64-bit index
+// division and byte-by-byte neighbourhood reads, not its bytes, set its
+// time.
 //
 // Each entry point launches one kernel on the given stream and returns
 // its CUDA error (cudaErrorInvalidValue for an argument it does not
@@ -117,6 +120,7 @@ constexpr int kTileLanes = 8192;       // lanes a block stages in stages 0, 2
 constexpr int kTileRays = kThreads;    // at most, one thread a ray
 constexpr int64_t kDivRange = 1LL << 31;  // `fast_div`'s dividends
 constexpr int kPowers = 2048;  // growth^n a block keeps, n < kPowers
+constexpr int kMaxMaskRes = 2048;  // the masks' largest side
 
 enum Contraction : int32_t { kAabb = 0, kSphere = 1, kTanh = 2 };
 enum Stage : int32_t { kSuperblocks = 0, kBlocksAfter = 1, kBlocksDense = 2 };
@@ -390,55 +394,279 @@ __device__ __forceinline__ void load3(const float* __restrict__ a, int64_t r,
   for (int i = 0; i < 3; ++i) v[i] = __ldg(a + 3 * r + i);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    march_masks_kernel(const uint8_t* __restrict__ in,
-                       uint8_t* __restrict__ out, int64_t res_out,
-                       int32_t pool, int32_t radius, int32_t words) {
-  const int64_t n = res_out * res_out * res_out;
-  if (words) {
-    // the one-cell dilation, four cells along x a thread: each of the 3^2
-    // rows (y, z) around them one 32-bit load of the four cells' bytes,
-    // shifted a byte each way, and the two bytes beside them
-    const int64_t cell = ((int64_t)blockIdx.x * kThreads + threadIdx.x) * 4;
-    if (cell >= n) return;
-    const int64_t x = cell % res_out, y = (cell / res_out) % res_out,
-                  z = cell / (res_out * res_out);
-    uint32_t any = 0;
-    for (int64_t k = z > 0 ? z - 1 : 0; k <= z + 1 && k < res_out; ++k)
-      for (int64_t j = y > 0 ? y - 1 : 0; j <= y + 1 && j < res_out; ++j) {
-        const uint8_t* row = in + (k * res_out + j) * res_out;
-        const uint32_t w = __ldg((const unsigned int*)(row + x));
-        any |= w | (w << 8) | (w >> 8);
-        if (x > 0) any |= __ldg(row + x - 1);
-        if (x + 4 < res_out) any |= (uint32_t)__ldg(row + x + 4) << 24;
+// The masks, one launch a march. A block takes 4 rows (y) x `bz` planes
+// (z) of the grid, whole rows along x, in chunks of C cells (C = 16: a
+// 16-byte vector, 4: a 32-bit word, 1: a byte; the largest the side and the
+// pointers' alignment allow). First each chunk's OR over the 3 x 3 rows
+// around its row (the one-cell dilation along y and z; vector loads, most
+// from L1, a plane's 3 at a time), then the OR along x, in registers: each
+// 32-bit word ORs its bytes shifted one cell each way (funnel shifts
+// across the chunk's words; the neighbouring chunks' edge bytes by warp
+// shuffles where a block has a chunk a thread and a row's chunks share a
+// warp, as on the flagship's, EDS's and r5fix's grids, else staged in
+// shared memory between the two phases), stored as one vector. Cells are
+// 3-D coordinates from the block and thread indices: no 64-bit division.
+// Registers set the time more than bytes: the instances a chunk a thread
+// keep to 64 so that 4 blocks fit an SM (the flagship's 512 in one wave).
+//
+// With superblocks (side a multiple of 4, r = side / 4): the block's rows
+// cover whole pooled rows (4 y-rows, bz a multiple of 4 planes), so each
+// 4-byte word of a dilated chunk is one pooled cell's 4 x-cells of one row
+// and the 4^3 pool is an OR of bits: the block ORs them into bit rows (32
+// pooled cells a word) in shared memory and writes its pooled rows' words
+// to `rows`. The pooled radius-2 dilation needs every pooled row, so the
+// last block to finish (a ticket from a counter that it resets) takes it:
+// it stages the bit rows in shared memory, ORs the 5 x 5 bit rows around
+// each row, then along x by shifts of 1 and 2 bits, and expands them to
+// bytes. One launch: no second launch and no memset (the counter is zero
+// between launches). The counter is the library's own, so masks calls
+// must not run concurrently on one device (the port issues them on one
+// stream).
+constexpr int kMaskRowsY = kPool;  // y-rows a block (one pooled row's)
+constexpr int kMaskBlocks = 256;  // the fewest blocks a launch aims at
+constexpr int kMaskBlocksPerSm = 4;  // resident blocks an SM (64 registers)
+constexpr size_t kMaxSmem = 227 * 1024;  // shared memory a block, at most
+
+__device__ unsigned int g_masks_ticket = 0;
+
+template <int C>
+struct MaskChunk {
+  static constexpr int kWords = C >= 4 ? C / 4 : 1;
+  uint32_t w[kWords];
+};
+
+template <int C>
+__device__ __forceinline__ void or_chunk(MaskChunk<C>& acc,
+                                         const uint8_t* __restrict__ p) {
+  if constexpr (C == 16) {
+    const uint4 v = __ldg((const uint4*)p);
+    acc.w[0] |= v.x;
+    acc.w[1] |= v.y;
+    acc.w[2] |= v.z;
+    acc.w[3] |= v.w;
+  } else if constexpr (C == 4) {
+    acc.w[0] |= __ldg((const unsigned int*)p);
+  } else {
+    acc.w[0] |= __ldg(p);
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_chunk(uint8_t* p,
+                                            const MaskChunk<C>& c) {
+  if constexpr (C == 16) {
+    *(uint4*)p = make_uint4(c.w[0], c.w[1], c.w[2], c.w[3]);
+  } else if constexpr (C == 4) {
+    *(uint32_t*)p = c.w[0];
+  } else {
+    *p = (uint8_t)c.w[0];
+  }
+}
+
+// the one-cell dilation along x of a chunk whose left neighbour ends in
+// byte `left` and whose right neighbour starts with byte `right` (0 at
+// the grid's faces): bytes of 0 or 1, as the input's
+template <int C>
+__device__ __forceinline__ MaskChunk<C> dilate_x(const MaskChunk<C>& c,
+                                                 uint32_t left,
+                                                 uint32_t right) {
+  MaskChunk<C> out;
+  if constexpr (C == 1) {
+    out.w[0] = c.w[0] | left | right;
+  } else {
+    constexpr int K = MaskChunk<C>::kWords;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const uint32_t prev = i > 0 ? c.w[i - 1] : left << 24;
+      const uint32_t next = i < K - 1 ? c.w[i + 1] : right;
+      out.w[i] = c.w[i] | __funnelshift_l(prev, c.w[i], 8) |
+                 __funnelshift_r(c.w[i], next, 8);
+    }
+  }
+  return out;
+}
+
+// one pooled bit row's OR of the 5 x 5 rows around (qy, qz), word w, of
+// the bit rows staged in shared memory (a plane's 5 rows at a time: the
+// last block's work is small, and unrolled whole it held the kernel's
+// registers up)
+__device__ __forceinline__ uint32_t pooled_rows_or(
+    const uint32_t* __restrict__ rows, int r, int words, int qy, int qz,
+    int w) {
+  uint32_t acc = 0;
+#pragma unroll 1
+  for (int dz = -2; dz <= 2; ++dz) {
+    const int z = qz + dz;
+    if (z < 0 || z >= r) continue;
+#pragma unroll
+    for (int dy = -2; dy <= 2; ++dy) {
+      const int y = qy + dy;
+      if (y >= 0 && y < r) acc |= rows[((size_t)z * r + y) * words + w];
+    }
+  }
+  return acc;
+}
+
+// the last block: the pooled radius-2 dilation of the staged bit rows into
+// bytes
+__device__ void pooled_dilation(const uint32_t* __restrict__ rows,
+                                uint8_t* __restrict__ pooled, int r) {
+  const int words = (r + 31) / 32;
+  for (int row = threadIdx.x; row < r * r; row += blockDim.x) {
+    const int qy = row % r, qz = row / r;
+    uint32_t prev = 0, cur = pooled_rows_or(rows, r, words, qy, qz, 0);
+    uint8_t* out = pooled + (size_t)row * r;
+    for (int w = 0; w < words; ++w) {
+      const uint32_t next =
+          w + 1 < words ? pooled_rows_or(rows, r, words, qy, qz, w + 1) : 0;
+      // cell x takes x - 2 .. x + 2: bits moved up take the lower cells
+      const uint32_t d = cur | (cur << 1) | (cur << 2) | (prev >> 31) |
+                         (prev >> 30) | (cur >> 1) | (cur >> 2) |
+                         (next << 31) | (next << 30);
+      const int x0 = 32 * w, n = r - x0 < 32 ? r - x0 : 32;
+      if ((n & 3) == 0 && (r & 3) == 0) {
+        for (int k = 0; k < n; k += 4)
+          *(uint32_t*)(out + x0 + k) = ((d >> k) & 1u) |
+                                       (((d >> (k + 1)) & 1u) << 8) |
+                                       (((d >> (k + 2)) & 1u) << 16) |
+                                       (((d >> (k + 3)) & 1u) << 24);
+      } else {
+        for (int k = 0; k < n; ++k) out[x0 + k] = (d >> k) & 1u;
       }
-    *(uint32_t*)(out + cell) = any;  // bytes of 0 or 1, as the input's
-    return;
+      prev = cur;
+      cur = next;
+    }
   }
-  const int64_t cell = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (cell >= n) return;
-  const int64_t x = cell % res_out, y = (cell / res_out) % res_out,
-                z = cell / (res_out * res_out);
-  uint8_t any = 0;
-  if (pool) {  // the 4^3 block of a grid kPool times finer
-    const int64_t res_in = res_out * kPool;
-    for (int64_t k = z * kPool; k < (z + 1) * kPool; ++k)
-      for (int64_t j = y * kPool; j < (y + 1) * kPool; ++j)
-        for (int64_t i = x * kPool; i < (x + 1) * kPool; ++i)
-          any |= __ldg(in + (k * res_in + j) * res_in + i);
-  } else {  // the (2 radius + 1)^3 neighbourhood, cut at the grid's faces
-    const int64_t z0 = z - radius < 0 ? 0 : z - radius;
-    const int64_t z1 = z + radius > res_out - 1 ? res_out - 1 : z + radius;
-    const int64_t y0 = y - radius < 0 ? 0 : y - radius;
-    const int64_t y1 = y + radius > res_out - 1 ? res_out - 1 : y + radius;
-    const int64_t x0 = x - radius < 0 ? 0 : x - radius;
-    const int64_t x1 = x + radius > res_out - 1 ? res_out - 1 : x + radius;
-    for (int64_t k = z0; k <= z1; ++k)
-      for (int64_t j = y0; j <= y1; ++j)
-        for (int64_t i = x0; i <= x1; ++i)
-          any |= __ldg(in + (k * res_out + j) * res_out + i);
+}
+
+// a chunk's OR over the 3 x 3 rows around its row (y, z) (0 where not live)
+template <int C>
+__device__ __forceinline__ MaskChunk<C> rows_or(const uint8_t* __restrict__ in,
+                                                int res, int y, int z, int cx,
+                                                bool live) {
+  MaskChunk<C> acc;
+#pragma unroll
+  for (int i = 0; i < MaskChunk<C>::kWords; ++i) acc.w[i] = 0;
+  if (!live) return acc;
+  // a plane's 3 rows at a time: 3 loads in flight a thread keep the
+  // registers low enough for 4 resident blocks an SM (the flagship's 512
+  // blocks in one wave)
+#pragma unroll 1
+  for (int dz = -1; dz <= 1; ++dz)
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int zz = z + dz, yy = y + dy;
+      if (zz >= 0 && zz < res && yy >= 0 && yy < res)
+        or_chunk<C>(acc, in + ((size_t)zz * res + yy) * res + (size_t)cx * C);
+    }
+  return acc;
+}
+
+// a chunk's OR along x (its neighbours' edge bytes `left` and `right`)
+// stored, and with `pool` its pooled cells' bits ORed into the block's bit
+// rows (row: the chunk's row within the block)
+template <int C>
+__device__ __forceinline__ void store_dilated(
+    uint8_t* __restrict__ out, uint32_t* bits, bool pool, int res, int y,
+    int z, int cx, int row, int per_row, int words, const MaskChunk<C>& c,
+    uint32_t left, uint32_t right) {
+  constexpr int K = MaskChunk<C>::kWords;
+  const MaskChunk<C> d = dilate_x<C>(c, left, right);
+  store_chunk<C>(out + ((size_t)z * res + y) * res + (size_t)cx * C, d);
+  if constexpr (C >= 4) {
+    if (pool) {
+      uint32_t b = 0;
+#pragma unroll
+      for (int i = 0; i < K; ++i) b |= (uint32_t)(d.w[i] != 0u) << i;
+      if (b) {
+        const int px = cx * K;  // the chunk's first pooled cell
+        atomicOr(bits + (row / kMaskRowsY / kPool) * words + px / 32,
+                 b << (px % 32));
+      }
+    }
   }
-  out[cell] = any != 0;
+}
+
+template <int C, bool kSingle>
+__global__ void __launch_bounds__(kThreads, kSingle ? kMaskBlocksPerSm : 2)
+    march_masks_kernel(const uint8_t* __restrict__ in,
+                       uint8_t* __restrict__ out,
+                       uint32_t* __restrict__ rows,
+                       uint8_t* __restrict__ pooled, int res, int bz) {
+  extern __shared__ __align__(16) unsigned char masks_smem[];
+  constexpr int K = MaskChunk<C>::kWords;
+  const int per_row = res / C;  // chunks a row
+  const int n_rows = kMaskRowsY * bz;
+  const int items = n_rows * per_row;
+  const int y0 = blockIdx.x * kMaskRowsY, z0 = blockIdx.y * bz;
+  const int words = (res / kPool + 31) / 32;  // a pooled row's bit words
+  // kSingle: one chunk a thread, a row's chunks on neighbouring lanes of
+  // one warp: the x-neighbours' edge words by shuffles, no staging
+  MaskChunk<C>* yz = (MaskChunk<C>*)masks_smem;
+  uint32_t* bits = (uint32_t*)(masks_smem +
+                               (kSingle ? 0 : sizeof(MaskChunk<C>) * items));
+  if (pooled != nullptr)
+    for (int i = threadIdx.x; i < bz / kPool * words; i += blockDim.x)
+      bits[i] = 0;
+  if constexpr (kSingle) {
+    const int it = threadIdx.x;
+    const int row = it / per_row, cx = it - row * per_row;
+    const int y = y0 + row % kMaskRowsY, z = z0 + row / kMaskRowsY;
+    const bool live = it < items && y < res && z < res;
+    const MaskChunk<C> acc = rows_or<C>(in, res, y, z, cx, live);
+    const uint32_t left = __shfl_up_sync(kFull, acc.w[K - 1], 1);
+    const uint32_t right = __shfl_down_sync(kFull, acc.w[0], 1);
+    if (pooled != nullptr) __syncthreads();  // the bits zeroed
+    if (live)
+      store_dilated<C>(out, bits, pooled != nullptr, res, y, z, cx, row,
+                       per_row, words, acc,
+                       cx > 0 ? left >> (C == 1 ? 0 : 24) : 0,
+                       cx + 1 < per_row ? right & 0xffu : 0);
+  } else {
+    // phase A: the OR over the 3 x 3 rows around each chunk's row
+    for (int it = threadIdx.x; it < items; it += blockDim.x) {
+      const int row = it / per_row, cx = it - row * per_row;
+      const int y = y0 + row % kMaskRowsY, z = z0 + row / kMaskRowsY;
+      yz[it] = rows_or<C>(in, res, y, z, cx, y < res && z < res);
+    }
+    __syncthreads();
+    // phase B: the OR along x, stored; the pooled bits
+    for (int it = threadIdx.x; it < items; it += blockDim.x) {
+      const int row = it / per_row, cx = it - row * per_row;
+      const int y = y0 + row % kMaskRowsY, z = z0 + row / kMaskRowsY;
+      if (y >= res || z >= res) continue;
+      store_dilated<C>(
+          out, bits, pooled != nullptr, res, y, z, cx, row, per_row, words,
+          yz[it], cx > 0 ? yz[it - 1].w[K - 1] >> (C == 1 ? 0 : 24) : 0,
+          cx + 1 < per_row ? yz[it + 1].w[0] & 0xffu : 0);
+    }
+  }
+  if (pooled == nullptr) return;
+  __syncthreads();
+  const int r = res / kPool;
+  const int py = blockIdx.x;  // y0 / 4
+  for (int i = threadIdx.x; i < bz / kPool * words; i += blockDim.x) {
+    const int pz = z0 / kPool + i / words;
+    if (pz < r) rows[((size_t)pz * r + py) * words + i % words] = bits[i];
+  }
+  // the last block to finish takes the pooled dilation
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned blocks = gridDim.x * gridDim.y;
+    last = atomicAdd(&g_masks_ticket, 1u) == blocks - 1;
+    if (last) g_masks_ticket = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the bit rows into shared memory first: one L2 round trip
+  uint32_t* staged = (uint32_t*)masks_smem;
+  for (int i = threadIdx.x; i < r * r * words; i += blockDim.x)
+    staged[i] = __ldcg(rows + i);
+  __syncthreads();
+  pooled_dilation(staged, pooled, r);
 }
 
 // a run's rays in shared memory, and its staged flags (byte l of the
@@ -768,20 +996,79 @@ int with_geometry(const MarchParams& p, F&& f) {
 
 }  // namespace
 
-// in: a (res_out * 4)^3 mask with pool, else res_out^3; out: res_out^3
-// bytes. pool: 0 dilates by `radius` cells, 1 takes the 4^3 max-pool.
-extern "C" int march_masks(const void* in, void* out, int64_t res_out,
-                           int32_t pool, int32_t radius, void* stream) {
-  if (in == nullptr || out == nullptr || res_out < 1 || radius < 0 ||
-      res_out > (1 << 20))
+struct MaskArgs {
+  const uint8_t* in;
+  uint8_t* dilated;
+  uint32_t* rows;
+  uint8_t* pooled;
+  int res, bz;
+};
+
+template <int C, bool kSingle>
+int launch_masks(dim3 grid, size_t smem, cudaStream_t s, const MaskArgs& a) {
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(march_masks_kernel<C, kSingle>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
     return (int)cudaErrorInvalidValue;
-  const int64_t n = res_out * res_out * res_out;
-  const int32_t words = !pool && radius == 1 && res_out % 4 == 0 &&
-                        (uintptr_t)in % 4 == 0 && (uintptr_t)out % 4 == 0;
-  march_masks_kernel<<<blocks_for(words ? n / 4 : n), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      (const uint8_t*)in, (uint8_t*)out, res_out, pool, radius, words);
+  march_masks_kernel<C, kSingle><<<grid, kThreads, smem, s>>>(
+      a.in, a.dilated, a.rows, a.pooled, a.res, a.bz);
   return (int)cudaGetLastError();
+}
+
+// in: a res^3 mask; dilated: res^3 bytes, its one-cell dilation. With
+// superblocks (res a multiple of 4, r = res / 4): pooled, r^3 bytes, the
+// 4^3 max-pool of dilated dilated by two pooled cells, and rows, r^2 x
+// ceil(r / 32) uint32 of scratch (the pooled bit rows); else both null.
+// One kernel launch.
+extern "C" int march_masks(const void* in, void* dilated, void* pooled,
+                           void* rows, int64_t res, void* stream) {
+  const bool sb = pooled != nullptr;
+  if (in == nullptr || dilated == nullptr || res < 1 || res > kMaxMaskRes ||
+      (sb && (rows == nullptr || res % kPool != 0)) ||
+      (!sb && rows != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int n = (int)res;
+  const uintptr_t a = (uintptr_t)in | (uintptr_t)dilated;
+  const int C = n % 16 == 0 && a % 16 == 0 ? 16
+                : n % 4 == 0 && a % 4 == 0 ? 4 : 1;
+  if (sb && C == 1) return (int)cudaErrorInvalidValue;
+  if (sb && (uintptr_t)pooled % 4 != 0) return (int)cudaErrorInvalidValue;
+  // bz planes a block, a multiple of 4 (whole pooled rows): about one
+  // chunk a thread, fewer where that leaves fewer than kMaskBlocks blocks
+  const int per_row = n / C;
+  const int y_blocks = (n + kMaskRowsY - 1) / kMaskRowsY;
+  int bz = kThreads / (kMaskRowsY * per_row) / kPool * kPool;
+  while (bz > kPool &&
+         (int64_t)y_blocks * ((n + bz - 1) / bz) < kMaskBlocks)
+    bz -= kPool;
+  bz = bz < kPool ? kPool : bz;
+  const int words = (n / kPool + 31) / 32;
+  size_t smem = (size_t)kMaskRowsY * bz * per_row * (C >= 4 ? C : 4) +
+                (sb ? (size_t)bz / kPool * words * 4 : 0);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  // the last block stages the pooled bit rows (a 256^3 grid's 32 KB; more
+  // than 48 KB takes the attribute, up to the SM's 227 KB)
+  if (sb) {
+    const size_t staged = (size_t)(n / kPool) * (n / kPool) * words * 4;
+    smem = staged > smem ? staged : smem;
+  }
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const dim3 grid(y_blocks, (n + bz - 1) / bz);
+  const MaskArgs args{(const uint8_t*)in, (uint8_t*)dilated,
+                      (uint32_t*)rows, (uint8_t*)pooled, n, bz};
+  cudaStream_t s = (cudaStream_t)stream;
+  // a chunk a thread where a block's chunks fit its threads and a row's
+  // chunks one warp
+  const bool single = kMaskRowsY * bz * per_row <= kThreads &&
+                      32 % per_row == 0;
+  if (C == 16)
+    return single ? launch_masks<16, true>(grid, smem, s, args)
+                  : launch_masks<16, false>(grid, smem, s, args);
+  if (C == 4)
+    return single ? launch_masks<4, true>(grid, smem, s, args)
+                  : launch_masks<4, false>(grid, smem, s, args);
+  return launch_masks<1, false>(grid, smem, s, args);
 }
 
 // stage 0 (superblocks) and 2 (dense blocks): lanes of R x n_superblocks

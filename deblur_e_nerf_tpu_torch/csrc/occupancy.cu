@@ -37,7 +37,10 @@
 // float32 operations; the EMA reads a cell and a density (and a step) and
 // writes the cell; the threshold must read the grid once and write the
 // mask; the sampler must read the mask and its variates and write the
-// cells.
+// cells. A sampled EMA lane's access to its cell's key is scattered: a
+// 32-byte sector where the keys exceed the L2, and an L2 atomic even
+// where they do not, so its scatter is bound by those (chip_smoke's
+// sector-aware bound counts the sectors).
 //
 // The design, simple first:
 //  - occ_points: one thread a lane of the evaluated cell list (a
@@ -45,17 +48,33 @@
 //    of up to two int64 lists, read in place: no copy of the
 //    concatenation), the cell's x-fastest coordinates, jitter, the
 //    reciprocal product, contract_inv; the step from the lane's camera.
-//  - occ_ema, one launch a chunk of the field's densities (the update
-//    holds no concatenation of them): a warmup chunk writes
+//  - occ_ema, a warmup update: one launch a chunk of the field's
+//    densities (the update holds no concatenation of them), writing
 //    max(occs x decay, density x step) over its contiguous range, one
-//    block a tile of kTile cells, and each block writes its tile's float64
-//    sum and its maximum; a sampled chunk takes an atomicMax of an
-//    order-preserving uint32 key of density x step into a key per cell
-//    (zeroed at the update's start; 0 is below every float's key, so a
-//    non-zero key flags a sampled cell): integer maxima, the same in any
-//    order; the sampled update's last launch decays each flagged cell
-//    exactly once and takes the max with its key's float, one block a
-//    tile, writing the partials.
+//    block a tile of kTile cells, and each block its tile's float64 sum
+//    and its maximum.
+//  - occ_ema, a sampled update: two launches whatever the number of
+//    chunks (up to kMaxChunks a scatter launch). The scatter takes every
+//    chunk from a table of the chunks' pointers and lane ranges (a
+//    __grid_constant__ argument: still no concatenation of densities),
+//    a thread kScatterLanes lanes: an atomicMax of an order-preserving
+//    uint32 key of density x step into its cell's key (0 is below every
+//    float's key, so a non-zero key flags a sampled cell): integer maxima,
+//    the same in any order. The keys are a buffer the wrapper keeps zeroed between
+//    updates: the finish pass, which reads every key anyway, writes 0 back
+//    where it found one set, so no update memsets them. On a grid whose
+//    keys exceed the L2 cache (EDS's 256^3: 67 MB against 50 MB) a lane's
+//    scattered access was a random device-memory sector read and written
+//    back; the scatter's blocks are therefore ordered by cell range (the
+//    grid's z, the slowest index: every chunk's blocks of range 0, then
+//    of range 1, ...), each range's keys small enough to stay in L2 while
+//    its blocks run, and the lanes' cells, densities and steps are read
+//    with evict-first loads (__ldcs). A block reads its lanes' cells for
+//    every range, a density only for a lane of its range. The finish pass
+//    decays each flagged cell exactly
+//    once and takes the max with its key's float, one block a tile, 4
+//    cells a thread by 16-byte loads and stores, writing the partials
+//    (each thread's 4 cells summed in order, then the block's tree).
 //  - occ_threshold: one block finishes the partials in a fixed order (no
 //    float atomics: two runs, and two data-parallel ranks, give the same
 //    bits) into the threshold with its floor and max-relative caps; with
@@ -99,8 +118,21 @@ constexpr int kDigits = 4;               // 8-bit digits of a 32-bit key
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Contraction : int32_t { kAabb = 0, kSphere = 1, kTanh = 2 };
-enum EmaMode : int32_t { kWarmupChunk = 0, kSampledChunk = 1,
-                         kSampledFinish = 2 };
+constexpr int kMaxChunks = 64;          // chunks a scatter launch
+constexpr int kScatterLanes = 4;        // lanes a thread of the scatter
+
+// A sampled update's chunks of the field's densities: lanes start ..
+// start + count of the evaluated cell list, density i at density + i x
+// stride, its step at step + i (null: step_scalar).
+struct EmaChunks {
+  const float* density[kMaxChunks];
+  const float* step[kMaxChunks];
+  int64_t stride[kMaxChunks];
+  int64_t start[kMaxChunks];
+  int64_t count[kMaxChunks];
+  int32_t n;
+  float step_scalar;
+};
 
 // The points' parameters, each formed on the host as the plain version
 // forms it (ops/occupancy.py `_values`): float32 roundings of the Python
@@ -295,11 +327,10 @@ __device__ __forceinline__ void block_partials(double s, float m,
 }
 
 // a warmup chunk (cells start .. start + count, start a multiple of
-// kTile) or the sampled update's last pass (every cell), one block a tile
+// kTile), one block a tile
 __global__ void __launch_bounds__(kThreads)
-    occ_ema_tiles_kernel(int32_t mode, const float* __restrict__ old,
-                         float* __restrict__ out,
-                         const uint32_t* __restrict__ keys, float decay,
+    occ_ema_tiles_kernel(const float* __restrict__ old,
+                         float* __restrict__ out, float decay,
                          const float* __restrict__ density,
                          int64_t density_stride,
                          const float* __restrict__ step, float step_scalar,
@@ -315,16 +346,10 @@ __global__ void __launch_bounds__(kThreads)
     if (i >= count) break;
     const int64_t c = start + i;
     const float decayed = __fmul_rn(__ldg(old + c), decay);
-    float v;
-    if (mode == kWarmupChunk) {
-      const float occ = __fmul_rn(__ldg(density + i * density_stride),
-                                  step != nullptr ? __ldg(step + i)
-                                                  : step_scalar);
-      v = max_nan(decayed, occ);
-    } else {
-      const uint32_t k = __ldg(keys + c);
-      v = k != 0 ? max_nan(decayed, key_value(k)) : __ldg(old + c);
-    }
+    const float occ = __fmul_rn(__ldg(density + i * density_stride),
+                                step != nullptr ? __ldg(step + i)
+                                                : step_scalar);
+    const float v = max_nan(decayed, occ);
     out[c] = v;
     s += (double)v;
     m = max_nan(m, v);
@@ -332,21 +357,92 @@ __global__ void __launch_bounds__(kThreads)
   block_partials(s, m, psum, pmax, start / kTile + blockIdx.x);
 }
 
-// a sampled chunk: each lane's density x step into its cell's key
+// the sampled update's finish, one block a tile, 4 cells a thread (16-byte
+// loads and stores where `vec`): out = key ? max(old x decay, key's float)
+// : old, the tile's partials, and the keys set zeroed again
 __global__ void __launch_bounds__(kThreads)
-    occ_ema_scatter_kernel(uint32_t* __restrict__ keys,
-                           const float* __restrict__ density,
-                           int64_t density_stride,
-                           const float* __restrict__ step, float step_scalar,
+    occ_ema_finish_kernel(const float* __restrict__ old,
+                          float* __restrict__ out,
+                          uint32_t* __restrict__ keys, float decay,
+                          int64_t n, int32_t vec,
+                          double* __restrict__ psum,
+                          float* __restrict__ pmax) {
+  const int64_t c0 = (int64_t)blockIdx.x * kTile + 4 * threadIdx.x;
+  double s = 0.0;
+  float m = -INFINITY;
+  if (vec && c0 + 4 <= n) {
+    const float4 o = __ldcs((const float4*)(old + c0));
+    const uint4 k = *(const uint4*)(keys + c0);
+    const float ov[4] = {o.x, o.y, o.z, o.w};
+    const uint32_t kv[4] = {k.x, k.y, k.z, k.w};
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[i] = kv[i] != 0 ? max_nan(__fmul_rn(ov[i], decay), key_value(kv[i]))
+                        : ov[i];
+      s += (double)v[i];
+      m = max_nan(m, v[i]);
+    }
+    if (k.x | k.y | k.z | k.w)
+      *(uint4*)(keys + c0) = make_uint4(0u, 0u, 0u, 0u);
+    __stcs((float4*)(out + c0), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    for (int64_t c = c0; c < c0 + 4 && c < n; ++c) {
+      const uint32_t k = keys[c];
+      const float o = __ldg(old + c);
+      if (k != 0) keys[c] = 0;  // zero again for the next update
+      const float v = k != 0 ? max_nan(__fmul_rn(o, decay), key_value(k))
+                             : o;
+      out[c] = v;
+      s += (double)v;
+      m = max_nan(m, v);
+    }
+  }
+  block_partials(s, m, psum, pmax, blockIdx.x);
+}
+
+// a sampled update's scatter: blockIdx.y a chunk of the table, blockIdx.z
+// a range of range_cells cells; kScatterLanes lanes of the chunk a thread
+// (their cells loaded first, then the densities and steps of those in the
+// block's range, then their atomics: more loads in flight a thread), each
+// lane whose cell lies in the range putting density x step into its
+// cell's key
+__global__ void __launch_bounds__(kThreads)
+    occ_ema_scatter_kernel(const __grid_constant__ EmaChunks t,
+                           uint32_t* __restrict__ keys,
                            const int64_t* __restrict__ a, int64_t n_a,
-                           const int64_t* __restrict__ b, int64_t start,
-                           int64_t count) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= count) return;
-  const int64_t cell = list_cell(a, n_a, b, start + i);
-  const float occ = __fmul_rn(__ldg(density + i * density_stride),
-                              step != nullptr ? __ldg(step + i) : step_scalar);
-  atomicMax(keys + cell, order_key(occ));
+                           const int64_t* __restrict__ b,
+                           int64_t range_cells) {
+  const int c = blockIdx.y;
+  const int64_t count = t.count[c];
+  const int64_t base =
+      (int64_t)blockIdx.x * kThreads * kScatterLanes + threadIdx.x;
+  const int64_t lo = (int64_t)blockIdx.z * range_cells;
+  int64_t cell[kScatterLanes];
+  bool in[kScatterLanes];
+#pragma unroll
+  for (int j = 0; j < kScatterLanes; ++j) {
+    const int64_t i = base + j * kThreads;
+    in[j] = i < count;
+    if (in[j]) {
+      const int64_t g = t.start[c] + i;
+      cell[j] = g < n_a ? __ldcs((const long long*)a + g)
+                        : __ldcs((const long long*)b + (g - n_a));
+      in[j] = cell[j] >= lo && cell[j] < lo + range_cells;
+    }
+  }
+  float occ[kScatterLanes];
+#pragma unroll
+  for (int j = 0; j < kScatterLanes; ++j) {
+    const int64_t i = base + j * kThreads;
+    if (in[j])
+      occ[j] = __fmul_rn(__ldcs(t.density[c] + i * t.stride[c]),
+                         t.step[c] != nullptr ? __ldcs(t.step[c] + i)
+                                              : t.step_scalar);
+  }
+#pragma unroll
+  for (int j = 0; j < kScatterLanes; ++j)
+    if (in[j]) atomicMax(keys + cell[j], order_key(occ[j]));
 }
 
 // torch.lerp(self, end, weight)
@@ -661,54 +757,73 @@ extern "C" int occ_points(const void* params, const void* cells_a,
   return (int)cudaGetLastError();
 }
 
-// mode 0, a warmup chunk: out[start + i] = max(old * decay, density_i *
-// step_i) for i < count (start a multiple of kTile), with the chunk's
-// tiles' partials. Mode 1, a sampled chunk: keys[cell] = max(keys[cell],
-// key(density_i x step_i)) over lanes start .. start + count of the cell
-// list (keys zeroed by occ_ema_begin). Mode 2, the sampled update's last
-// pass over every cell: out = key ? max(old x decay, key's float) : old,
-// with every tile's partials. step null: step_scalar for every lane.
-extern "C" int occ_ema(int32_t mode, const void* old, void* out, void* keys,
-                       int64_t n_cells, float decay, const void* density,
-                       int64_t density_stride, const void* step,
-                       float step_scalar, const void* cells_a, int64_t n_a,
-                       const void* cells_b, int64_t n_b, int64_t start,
-                       int64_t count, void* psum, void* pmax, void* stream) {
-  if (n_cells < 1 || start < 0 || count < 0 || old == nullptr ||
-      out == nullptr || psum == nullptr || pmax == nullptr ||
-      mode < kWarmupChunk || mode > kSampledFinish ||
-      (mode != kWarmupChunk && keys == nullptr) ||
-      (mode != kSampledFinish && (density == nullptr || count < 1)))
+// a warmup chunk: out[start + i] = max(old * decay, density_i x step_i)
+// for i < count (start a multiple of kTile), with the chunk's tiles'
+// partials; step null: step_scalar for every lane
+extern "C" int occ_ema_warmup(const void* old, void* out, int64_t n_cells,
+                              float decay, const void* density,
+                              int64_t density_stride, const void* step,
+                              float step_scalar, int64_t start,
+                              int64_t count, void* psum, void* pmax,
+                              void* stream) {
+  if (n_cells < 1 || start < 0 || count < 1 || old == nullptr ||
+      out == nullptr || density == nullptr || psum == nullptr ||
+      pmax == nullptr || start % kTile != 0 || start + count > n_cells)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (mode == kWarmupChunk) {
-    if (start % kTile != 0 || start + count > n_cells)
-      return (int)cudaErrorInvalidValue;
-    occ_ema_tiles_kernel<<<blocks_for(count, kTile), kThreads, 0, s>>>(
-        mode, (const float*)old, (float*)out, nullptr, decay,
-        (const float*)density, density_stride, (const float*)step,
-        step_scalar, start, count, (double*)psum, (float*)pmax);
-  } else if (mode == kSampledChunk) {
-    if (n_a < 0 || n_b < 0 || (n_a > 0 && cells_a == nullptr) ||
-        (n_b > 0 && cells_b == nullptr) || start + count > n_a + n_b)
-      return (int)cudaErrorInvalidValue;
-    occ_ema_scatter_kernel<<<blocks_for(count), kThreads, 0, s>>>(
-        (uint32_t*)keys, (const float*)density, density_stride,
-        (const float*)step, step_scalar, (const int64_t*)cells_a, n_a,
-        (const int64_t*)cells_b, start, count);
-  } else {
-    occ_ema_tiles_kernel<<<blocks_for(n_cells, kTile), kThreads, 0, s>>>(
-        mode, (const float*)old, (float*)out, (const uint32_t*)keys, decay,
-        nullptr, 0, nullptr, 0.f, 0, n_cells, (double*)psum, (float*)pmax);
-  }
+  occ_ema_tiles_kernel<<<blocks_for(count, kTile), kThreads, 0,
+                         (cudaStream_t)stream>>>(
+      (const float*)old, (float*)out, decay, (const float*)density,
+      density_stride, (const float*)step, step_scalar, start, count,
+      (double*)psum, (float*)pmax);
   return (int)cudaGetLastError();
 }
 
-// zero the sampled update's keys (n_cells uint32), on the stream
-extern "C" int occ_ema_begin(void* keys, int64_t n_cells, void* stream) {
-  if (keys == nullptr || n_cells < 1) return (int)cudaErrorInvalidValue;
-  cudaMemsetAsync(keys, 0, (size_t)n_cells * sizeof(uint32_t),
-                  (cudaStream_t)stream);
+// a sampled update's scatter of the chunks in `chunks` (an EmaChunks,
+// host memory; lanes of the cell list cells_a then cells_b, int64) into
+// keys (n_cells uint32, zero where no lane of this update has put a key),
+// its blocks ordered by range of range_cells cells
+extern "C" int occ_ema_scatter(const void* chunks, void* keys,
+                               int64_t n_cells, const void* cells_a,
+                               int64_t n_a, const void* cells_b,
+                               int64_t n_b, int64_t range_cells,
+                               void* stream) {
+  const EmaChunks* t = (const EmaChunks*)chunks;
+  if (t == nullptr || keys == nullptr || n_cells < 1 || t->n < 1 ||
+      t->n > kMaxChunks || n_a < 0 || n_b < 0 ||
+      (n_a > 0 && cells_a == nullptr) || (n_b > 0 && cells_b == nullptr) ||
+      range_cells < 1)
+    return (int)cudaErrorInvalidValue;
+  int64_t most = 0;
+  for (int c = 0; c < t->n; ++c) {
+    if (t->density[c] == nullptr || t->count[c] < 1 || t->start[c] < 0 ||
+        t->start[c] + t->count[c] > n_a + n_b)
+      return (int)cudaErrorInvalidValue;
+    most = t->count[c] > most ? t->count[c] : most;
+  }
+  const int64_t ranges = (n_cells + range_cells - 1) / range_cells;
+  if (ranges > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_for(most, kThreads * kScatterLanes),
+                  (unsigned)t->n, (unsigned)ranges);
+  occ_ema_scatter_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      *t, (uint32_t*)keys, (const int64_t*)cells_a, n_a,
+      (const int64_t*)cells_b, range_cells);
+  return (int)cudaGetLastError();
+}
+
+// a sampled update's finish over every cell: out = key ? max(old x decay,
+// key's float) : old, every tile's partials, and the keys zeroed again
+extern "C" int occ_ema_finish(const void* old, void* out, void* keys,
+                              int64_t n_cells, float decay, void* psum,
+                              void* pmax, void* stream) {
+  if (n_cells < 1 || old == nullptr || out == nullptr || keys == nullptr ||
+      psum == nullptr || pmax == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int32_t vec =
+      (((uintptr_t)old | (uintptr_t)out | (uintptr_t)keys) & 15) == 0;
+  occ_ema_finish_kernel<<<blocks_for(n_cells, kTile), kThreads, 0,
+                          (cudaStream_t)stream>>>(
+      (const float*)old, (float*)out, (uint32_t*)keys, decay, n_cells, vec,
+      (double*)psum, (float*)pmax);
   return (int)cudaGetLastError();
 }
 

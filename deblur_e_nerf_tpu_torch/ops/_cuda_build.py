@@ -226,7 +226,7 @@ def library():
         fn.restype = ctypes.c_int
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
         fn = lib.march_masks
-        fn.argtypes = [vp, vp, i64, i32, i32, vp]
+        fn.argtypes = [vp, vp, vp, vp, i64, vp]
         fn.restype = ctypes.c_int
         fn = lib.march_coarse
         fn.argtypes = [vp, i32] + [vp] * 6 + [i64, i32] + [vp] * 5
@@ -242,12 +242,15 @@ def library():
         fn.argtypes = [vp, vp, i64, vp, i64, i64, i64, vp, vp, vp, i64, vp,
                        vp, vp]
         fn.restype = ctypes.c_int
-        fn = lib.occ_ema
-        fn.argtypes = [i32, vp, vp, vp, i64, f32, vp, i64, vp, f32, vp, i64,
-                       vp, i64, i64, i64, vp, vp, vp]
+        fn = lib.occ_ema_warmup
+        fn.argtypes = [vp, vp, i64, f32, vp, i64, vp, f32, i64, i64, vp, vp,
+                       vp]
         fn.restype = ctypes.c_int
-        fn = lib.occ_ema_begin
-        fn.argtypes = [vp, i64, vp]
+        fn = lib.occ_ema_scatter
+        fn.argtypes = [vp, vp, i64, vp, i64, vp, i64, i64, vp]
+        fn.restype = ctypes.c_int
+        fn = lib.occ_ema_finish
+        fn.argtypes = [vp, vp, vp, i64, f32, vp, vp, vp]
         fn.restype = ctypes.c_int
         fn = lib.occ_threshold
         fn.argtypes = [vp] * 9

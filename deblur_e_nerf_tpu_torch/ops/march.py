@@ -32,7 +32,7 @@ set: the compaction reads a lane's code only where its flag is set, so
 the kernels write no other (an unflagged lane's code is whatever the
 memory held; the plain version computes every lane's, the models give -1
 there). On a CUDA tensor each wrapper
-launches its kernel of `csrc/march.cu` (`masks` one to three times) or
+launches its kernel of `csrc/march.cu` (one launch each) or
 raises; on a CPU tensor it runs its plain version (`*_reference`, the
 renderer's former code, held to the JAX package by the tests). The
 `*_model` functions are a per-lane model of the kernels' operation order
@@ -442,35 +442,39 @@ def _model_position(q, o, d, t):
 
 
 def masks_model(binary, rc, superblocks):
-    """The masks kernel's form: each cell the OR of its (2 radius + 1)^3
-    neighbourhood cut at the faces (radius 2 at the pooled resolution in
-    place of two one-cell dilations), and the 4^3 pool cell by cell."""
-    def dilate(g, res, radius):
-        g = g.reshape(res, res, res)
+    """The masks kernel's decomposition: the one-cell dilation as the OR
+    over the 3 x 3 rows (y, z) around each row, then along x by one cell
+    each way; with superblocks the 4^3 pool as bits (each 4-cell group of
+    a dilated row nonzero or not, ORed over the pooled cell's 4 x 4 rows),
+    and the pooled radius-2 dilation as the OR over the 5 x 5 bit rows
+    around each pooled row, then along x by shifts of 1 and 2 cells."""
+    def rows_or(g, radius):  # over (z, y) of a (z, y, x) grid, cut at faces
+        n_z, n_y = g.shape[:2]
         out = torch.zeros_like(g)
         for dz in range(-radius, radius + 1):
             for dy in range(-radius, radius + 1):
-                for dx in range(-radius, radius + 1):
-                    src = g[max(dz, 0):res + min(dz, 0),
-                            max(dy, 0):res + min(dy, 0),
-                            max(dx, 0):res + min(dx, 0)]
-                    out[max(-dz, 0):res + min(-dz, 0),
-                        max(-dy, 0):res + min(-dy, 0),
-                        max(-dx, 0):res + min(-dx, 0)] |= src
-        return out.reshape(-1)
+                out[max(-dz, 0):n_z + min(-dz, 0),
+                    max(-dy, 0):n_y + min(-dy, 0)] |= \
+                    g[max(dz, 0):n_z + min(dz, 0),
+                      max(dy, 0):n_y + min(dy, 0)]
+        return out
+
+    def along_x(g, radius):  # cell x takes x - radius .. x + radius
+        out = g.clone()
+        n = g.shape[2]
+        for d in range(1, radius + 1):
+            out[:, :, d:] |= g[:, :, :n - d]
+            out[:, :, :n - d] |= g[:, :, d:]
+        return out
 
     res = rc.grid_resolution
-    dilated = dilate(binary, res, 1)
+    dilated = along_x(rows_or(binary.reshape(res, res, res), 1), 1)
     if not superblocks:
-        return dilated, None
+        return dilated.reshape(-1), None
     r = res // POOL
-    pooled = torch.zeros(r ** 3, dtype=torch.bool, device=binary.device)
-    g = dilated.reshape(res, res, res)
-    for k in range(POOL):
-        for j in range(POOL):
-            for i in range(POOL):
-                pooled |= g[k::POOL, j::POOL, i::POOL].reshape(-1)
-    return dilated, dilate(pooled, r, 2)
+    groups = dilated.reshape(res, res, r, POOL).any(dim=3)  # a word a cell
+    bits = groups.reshape(r, POOL, r, POOL, r).any(dim=3).any(dim=1)
+    return dilated.reshape(-1), along_x(rows_or(bits, 2), 2).reshape(-1)
 
 
 def lane_of(lane, per, mul, shr):
@@ -677,32 +681,24 @@ def _check_rays(rays_o, rays_d):
 
 
 def masks(binary, rc, superblocks):
-    """(dilated, pooled or None); see the module docstring."""
+    """(dilated, pooled or None); see the module docstring. One launch."""
     global MASKS_LAUNCHES
     if not binary.is_cuda:
         return masks_reference(binary, rc, superblocks)
     device, res = binary.device, rc.grid_resolution
     _require(binary, "binary", torch.bool, res ** 3, device)
-    fn = _library().march_masks
-    if not superblocks:
-        (dilated,) = _carve(device, (res ** 3, torch.bool))
-        _launch(fn, device, binary.data_ptr(), dilated.data_ptr(), res, 0, 1)
-        MASKS_LAUNCHES += 1
-        return dilated, None
-    if res % POOL:
+    if superblocks and res % POOL:
         raise ValueError(f"resolution {res} is not a multiple of {POOL}")
-    r = res // POOL
-    dilated, pooled_once, pooled = _carve(
+    r = res // POOL if superblocks else 0
+    # the pooled mask, and the kernel's scratch: its pooled bit rows
+    dilated, pooled, rows = _carve(
         device, (res ** 3, torch.bool), (r ** 3, torch.bool),
-        (r ** 3, torch.bool))
-    # the dilation, the pool, then two pooled dilations as one of radius 2
-    for src, dst, size, pool, radius in (
-            (binary, dilated, res, 0, 1), (dilated, pooled_once, r, 1, 0),
-            (pooled_once, pooled, r, 0, 2)):
-        _launch(fn, device, src.data_ptr(), dst.data_ptr(), size, pool,
-                radius)
-        MASKS_LAUNCHES += 1
-    return dilated, pooled
+        (r * r * -(-r // 32), torch.int32))
+    _launch(_library().march_masks, device, binary.data_ptr(),
+            dilated.data_ptr(), pooled.data_ptr() if superblocks else None,
+            rows.data_ptr() if superblocks else None, res)
+    MASKS_LAUNCHES += 1
+    return dilated, (pooled if superblocks else None)
 
 
 def coarse(stage, rays_o, rays_d, ray_mask, jitter, mask, rc, t_near=None,

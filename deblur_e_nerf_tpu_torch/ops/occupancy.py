@@ -31,20 +31,22 @@ or raises; on a CPU tensor it runs its plain version (`*_reference`, the
 port's former update code, held to the JAX package by the tests). The
 `*_model` functions model the kernels' operation order in plain torch
 (the points lane by lane, the sampler's group search, the quantile's
-radix select, the threshold's partials), which the CPU tests hold to the
-plain versions. The kernels allocate nothing: each wrapper makes one
+radix select, the sampled EMA's keys, the EMA's partials in the kernels'
+order), which the CPU tests hold to the plain versions. The kernels allocate nothing: each wrapper makes one
 allocation for its outputs and scratch (typed views of one buffer), since
 every allocator call is an operator call. No wrapper reads a device value
 back: the threshold stays on the card.
 
 `POINTS_LAUNCHES`, `EMA_LAUNCHES`, `THRESHOLD_LAUNCHES` and
-`SAMPLE_LAUNCHES` count the calls of the library's entry points
-(`occ_ema` one a chunk, and one more for a sampled update's last pass),
-not the device launches: `occ_points` and `occ_ema` launch one kernel a
-call (a sampled update's EMA first clears its keys with a memset,
-`occ_ema_begin`, uncounted), `occ_threshold` two, or with the quantile a
-memset and ten (two for each of DIGITS passes), `occ_sample_occupied`
-three.
+`SAMPLE_LAUNCHES` count the calls of the library's entry points, each of
+which launches one kernel but `occ_threshold` (two, or with the quantile a
+memset and ten: two for each of DIGITS passes) and `occ_sample_occupied`
+(three): `occ_points` one a chunk; the EMA `occ_ema_warmup` one a chunk of
+a warmup update, and for a sampled update `occ_ema_scatter` one for up to
+MAX_CHUNKS chunks and `occ_ema_finish` one (two for the default chunks).
+The sampled EMA's keys are a buffer kept zero between updates (by device
+and grid size, for the process's life): its finish pass zeroes the keys
+it reads set, so no update memsets them.
 """
 
 import ctypes
@@ -63,9 +65,14 @@ TILE = 1024          # cells a partial of the EMA (csrc/occupancy.cu kTile)
 SAMPLE_TILE = 4096   # cells a tile of the sampler (kSampleTile)
 GROUP = 128          # cells a group of the sampler's tile (kGroup)
 DIGITS = 4    # the radix select's 8-bit digits
+MAX_CHUNKS = 64      # chunks a scatter launch of the sampled EMA (kMaxChunks)
+# the sampled EMA scatter's cell ranges: at most this many bytes of keys a
+# range, so that a range's keys stay in the H100's 50 MB L2 while its
+# blocks run
+EMA_RANGE_BYTES = 32 << 20
 
 POINTS_LAUNCHES = 0     # occ_points calls since the last reset
-EMA_LAUNCHES = 0        # occ_ema calls
+EMA_LAUNCHES = 0        # occ_ema_warmup, _scatter and _finish calls
 THRESHOLD_LAUNCHES = 0  # occ_threshold calls
 SAMPLE_LAUNCHES = 0     # occ_sample_occupied calls
 
@@ -73,7 +80,6 @@ _CONTRACTIONS = {contraction_lib.ContractionType.AABB: 0,
                  contraction_lib.ContractionType.UN_BOUNDED_SPHERE: 1,
                  contraction_lib.ContractionType.UN_BOUNDED_TANH: 2}
 _EPS = 1e-6  # contraction.contract_inv's clamps
-_WARMUP_CHUNK, _SAMPLED_CHUNK, _SAMPLED_FINISH = 0, 1, 2
 
 
 class Grid(NamedTuple):
@@ -374,6 +380,44 @@ def partials_model(occs):
     return psum, pmax
 
 
+def ema_model(occs, decay, chunks, cells=None, step_size=0.0):
+    """The EMA kernels' form (the warmup chunk as the plain version): a
+    sampled update's contributions as `order_keys`, their maximum a cell
+    (integer maxima, in any order: the scatter's atomicMax), then each
+    cell with a key max(occs x decay, the key's float), the others occs."""
+    if cells is None:
+        return ema_reference(occs, decay, chunks, None, step_size)
+    cells = torch.cat([c.to(torch.int64) for c in cells])
+    keys = torch.zeros(occs.shape[0], dtype=torch.int64, device=occs.device)
+    for start, density, step in chunks:
+        n = density.shape[0]
+        keys.scatter_reduce_(0, cells[start:start + n], order_keys(
+            _contributions(density, step, step_size)), reduce="amax")
+    return torch.where(keys != 0, torch.maximum(occs * decay,
+                                                key_values(keys)),
+                       occs), None
+
+
+def kernel_partials_model(occs, sampled):
+    """The EMA kernels' partials in their own order, bit for bit: each of
+    a tile's 256 threads sums its 4 cells in float64 in order (a sampled
+    update's finish: 4 consecutive cells; a warmup chunk: cells t, t +
+    256, t + 512, t + 768), then the block halves its threads' sums
+    pairwise (s[t] += s[t + w], w = 128 .. 1); the maxima as
+    `partials_model`'s."""
+    pad = -(-occs.shape[0] // TILE) * TILE - occs.shape[0]
+    x = torch.nn.functional.pad(occs.double(), (0, pad)).reshape(
+        -1, TILE)
+    x = x.reshape(-1, 256, 4) if sampled \
+        else x.reshape(-1, 4, 256).transpose(1, 2)
+    s = ((x[..., 0] + x[..., 1]) + x[..., 2]) + x[..., 3]
+    w = 128
+    while w:
+        s = s[:, :w] + s[:, w:2 * w]
+        w //= 2
+    return s[:, 0], partials_model(occs)[1]
+
+
 def threshold_model(occs, occ_thre, thre_floor=0.0, thre_rel_max=0.0,
                     max_occupied_fraction=1.0):
     """(binary, thre) with the mean from `partials_model`'s float64 sums
@@ -513,56 +557,104 @@ def _chunk_inputs(density, step, device):
     return n, density.stride(0)
 
 
+class _EmaChunks(ctypes.Structure):
+    """csrc/occupancy.cu EmaChunks."""
+    _fields_ = [("density", ctypes.c_void_p * MAX_CHUNKS),
+                ("step", ctypes.c_void_p * MAX_CHUNKS),
+                ("stride", ctypes.c_int64 * MAX_CHUNKS),
+                ("start", ctypes.c_int64 * MAX_CHUNKS),
+                ("count", ctypes.c_int64 * MAX_CHUNKS),
+                ("n", ctypes.c_int32), ("step_scalar", ctypes.c_float)]
+
+
+# the sampled EMA's keys by (device, cells): [uint32 buffer, dirty]. The
+# finish pass leaves them zero; `dirty` marks a scatter whose finish was
+# not issued (an exception between them), and the next update zeroes them
+_KEYS = {}
+
+
+def _keys(device, n_cells):
+    entry = _KEYS.get((device, n_cells))
+    if entry is None:
+        entry = _KEYS[(device, n_cells)] = [
+            torch.zeros(n_cells, dtype=torch.int32, device=device), False]
+    elif entry[1]:
+        entry[0].zero_()
+    return entry
+
+
+def range_cells(n_cells):
+    """The sampled scatter's cell range (its blocks run range by range):
+    the grid in the fewest ranges whose keys take at most EMA_RANGE_BYTES,
+    each a multiple of 32 cells."""
+    ranges = max(1, -(-4 * n_cells // EMA_RANGE_BYTES))
+    per = -(-n_cells // ranges)
+    return -(-per // 32) * 32
+
+
 def ema(occs, decay, chunks, cells=None, step_size=0.0):
     """(occs, partials); see the module docstring. `chunks` yields (start,
     density, step); a warmup update's chunks must cover every cell, each
-    starting at a multiple of TILE."""
+    starting at a multiple of TILE. A sampled update holds every chunk's
+    densities until its one scatter launch."""
     global EMA_LAUNCHES
     if not occs.is_cuda:
         return ema_reference(occs, decay, chunks, cells, step_size)
     device, n_cells = occs.device, occs.shape[0]
     _require(occs, "occs", torch.float32, n_cells, device)
     n_tiles = -(-n_cells // TILE)
-    sampled = cells is not None
-    out, keys, psum, pmax = _carve(
-        device, (n_cells, torch.float32),
-        (n_cells if sampled else 0, torch.int32), (n_tiles, torch.float64),
+    out, psum, pmax = _carve(
+        device, (n_cells, torch.float32), (n_tiles, torch.float64),
         (n_tiles, torch.float32))
-    fn = library().occ_ema
+    lib = library()
     f_decay, f_step = float(np.float32(decay)), float(np.float32(step_size))
-    if sampled:
-        (a, b), keep = _cell_lists(cells, device)
-        _launch(library().occ_ema_begin, device, keys.data_ptr(), n_cells)
-    covered = 0
-    for start, density, step in chunks:
-        n, stride = _chunk_inputs(density, step, device)
-        step_ptr = None if step is None else step.data_ptr()
-        if sampled:
-            _launch(fn, device, _SAMPLED_CHUNK, occs.data_ptr(),
-                    out.data_ptr(), keys.data_ptr(), n_cells, f_decay,
-                    density.data_ptr(), stride, step_ptr, f_step, a[0], a[1],
-                    b[0], b[1], start, n, psum.data_ptr(), pmax.data_ptr())
-        else:
+    if cells is None:
+        covered = 0
+        for start, density, step in chunks:
+            n, stride = _chunk_inputs(density, step, device)
             if start != covered or start % TILE:
                 raise ValueError(f"a warmup chunk at {start}: chunks must "
                                  f"follow each other from 0 in multiples "
                                  f"of {TILE}")
-            _launch(fn, device, _WARMUP_CHUNK, occs.data_ptr(),
-                    out.data_ptr(), None, n_cells, f_decay,
-                    density.data_ptr(), stride, step_ptr, f_step, None, 0,
-                    None, 0, start, n, psum.data_ptr(), pmax.data_ptr())
-        covered = start + n
+            _launch(lib.occ_ema_warmup, device, occs.data_ptr(),
+                    out.data_ptr(), n_cells, f_decay, density.data_ptr(),
+                    stride, None if step is None else step.data_ptr(),
+                    f_step, start, n, psum.data_ptr(), pmax.data_ptr())
+            covered = start + n
+            EMA_LAUNCHES += 1
+        if covered != n_cells:
+            raise ValueError(f"the warmup chunks covered {covered} of "
+                             f"{n_cells} cells")
+        return out, (psum, pmax)
+    (a, b), keep = _cell_lists(cells, device)
+    held = list(chunks)
+    for start, density, step in held:
+        n, _ = _chunk_inputs(density, step, device)
+        if start < 0 or start + n > a[1] + b[1]:
+            raise ValueError(f"lanes {start} .. {start + n} of "
+                             f"{a[1] + b[1]} listed cells")
+    keys = _keys(device, n_cells)
+    keys[1] = True
+    for first in range(0, len(held), MAX_CHUNKS):
+        table = _EmaChunks(n=len(held[first:first + MAX_CHUNKS]),
+                           step_scalar=f_step)
+        for i, (start, density, step) in enumerate(
+                held[first:first + MAX_CHUNKS]):
+            table.density[i] = density.data_ptr()
+            table.step[i] = None if step is None else step.data_ptr()
+            table.stride[i] = density.stride(0)
+            table.start[i] = start
+            table.count[i] = density.shape[0]
+        _launch(lib.occ_ema_scatter, device, ctypes.addressof(table),
+                keys[0].data_ptr(), n_cells, a[0], a[1], b[0], b[1],
+                range_cells(n_cells))
         EMA_LAUNCHES += 1
-    if sampled:
-        _launch(fn, device, _SAMPLED_FINISH, occs.data_ptr(),
-                out.data_ptr(), keys.data_ptr(), n_cells, f_decay, None, 0,
-                None, 0.0, None, 0, None, 0, 0, 0, psum.data_ptr(),
-                pmax.data_ptr())
-        EMA_LAUNCHES += 1
-        del keep
-    elif covered != n_cells:
-        raise ValueError(f"the warmup chunks covered {covered} of "
-                         f"{n_cells} cells")
+    _launch(lib.occ_ema_finish, device, occs.data_ptr(), out.data_ptr(),
+            keys[0].data_ptr(), n_cells, f_decay, psum.data_ptr(),
+            pmax.data_ptr())
+    EMA_LAUNCHES += 1
+    keys[1] = False
+    del keep, held
     return out, (psum, pmax)
 
 

@@ -1455,9 +1455,9 @@ def test_march_lane_model_on_the_card(cuda, label, path, n_rays):
 
 
 def test_march_through_the_renderer_launches_the_kernels(cuda):
-    """march_rays on card tensors launches the masks (three with
-    superblocks), two coarse stages, the samples and the decode once each,
-    and three compactions (chip_smoke.render_launches' march counts)."""
+    """march_rays on card tensors launches the masks once, two coarse
+    stages, the samples and the decode once each, and three compactions
+    (chip_smoke.render_launches' march counts)."""
     from deblur_e_nerf_tpu_torch.models import renderer
 
     rc = chip_smoke.march_render_config(chip_smoke.MARCH_CONFIGS[0][1])
@@ -1469,6 +1469,40 @@ def test_march_through_the_renderer_launches_the_kernels(cuda):
     want = chip_smoke.render_launches(rc, trains=False)
     assert {k: got[k] for k in chip_smoke.MARCH_KERNELS + ("compact",)} \
         == {k: want[k] for k in chip_smoke.MARCH_KERNELS + ("compact",)}
+
+
+# (side, superblocks): the flagship's 128^3 with superblocks, EDS's 256^3
+# (and with superblocks), r5fix's 64^3 (and with), a side a multiple of 4
+# but not of 16 (32-bit chunks), one not a multiple of 4 (bytes, no pool)
+MASK_SIZES = [(128, True), (256, False), (256, True), (64, False),
+              (64, True), (36, True), (36, False), (50, False)]
+
+
+@pytest.mark.parametrize("fill", ["random", "full", "empty"])
+@pytest.mark.parametrize("res,superblocks", MASK_SIZES)
+def test_masks_kernel_matches_plain(cuda, res, superblocks, fill):
+    """The masks kernel (one launch) against masks_reference bit for bit,
+    dilated and pooled, on a random grid occupied in a ball (the pooled
+    mask neither empty nor full), a full and an empty one; two runs bit
+    for bit."""
+    from deblur_e_nerf_tpu_torch.ops import march as mo
+
+    rc = _march_rc(grid_resolution=res)
+    if fill == "random":
+        binary = chip_smoke.march_inputs(torch, rc, 8, 0.3, 0.2)[0]
+    else:
+        binary = torch.full((res ** 3,), fill == "full", device=cuda)
+    before = mo.MASKS_LAUNCHES
+    got = mo.masks(binary, rc, superblocks)
+    again = mo.masks(binary, rc, superblocks)
+    torch.cuda.synchronize()
+    assert mo.MASKS_LAUNCHES == before + 2
+    want = mo.masks_reference(binary, rc, superblocks)
+    for a, b, c in zip(got, want, again):
+        assert (a is None and b is None and c is None) or (
+            torch.equal(a, b) and torch.equal(c, b))
+    if superblocks and fill == "random":
+        assert 0 < int(got[1].sum()) < got[1].numel()
 
 
 def _march_rc(index=0, **changes):
@@ -1770,6 +1804,61 @@ def test_occupancy_ema_propagates_planted_nan(cuda, warmup):
     want_b, want_t = oo.threshold_reference(want, 0.01)
     assert torch.isnan(thre) and torch.isnan(want_t)
     assert torch.equal(binary, want_b) and not bool(binary.any())
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 16, 70])
+@pytest.mark.parametrize("kind", ["duplicates", "distinct", "one cell",
+                                  "nan"])
+def test_occupancy_ema_chunk_tables_match_plain(cuda, kind, n_chunks):
+    """A sampled EMA over a table of 1, 2, 16 or 70 chunks (two scatter
+    launches) bit for bit against ema_reference (NaN equal to NaN), on
+    duplicate cells within and across chunks, distinct cells, every lane
+    on one cell and NaN densities and cells (chip_smoke.ema_inputs); its
+    launches (chip_smoke.ema_launches), the partials within
+    chip_smoke.OCC_PARTIALS_RTOL of partials_model, two runs bit for bit,
+    and the keys zero again after each update."""
+    from deblur_e_nerf_tpu_torch.ops import occupancy as oo
+
+    n = 48 ** 3
+    occs, cells, chunks = chip_smoke.ema_inputs(kind, n_chunks, n)
+    occs, cells = occs.to(cuda), tuple(c.to(cuda) for c in cells)
+    chunks = [(i, d.to(cuda), st.to(cuda)) for i, d, st in chunks]
+    before = oo.EMA_LAUNCHES
+    got, (psum, pmax) = oo.ema(occs, 0.95, chunks, cells, 0.02)
+    again, _ = oo.ema(occs, 0.95, chunks, cells, 0.02)
+    torch.cuda.synchronize()
+    assert oo.EMA_LAUNCHES - before == 2 * chip_smoke.ema_launches(
+        n_chunks, False)
+    want, _ = oo.ema_reference(occs, 0.95, chunks, cells, 0.02)
+    assert chip_smoke._nan_equal(torch, got, want)
+    assert chip_smoke._nan_equal(torch, again, got)
+    want_sum, want_max = oo.partials_model(want)
+    rel = ((psum - want_sum).abs() / want_sum.abs().clamp(min=1e-30))
+    assert float(rel.nan_to_num(0.0).max()) <= chip_smoke.OCC_PARTIALS_RTOL
+    assert chip_smoke._nan_equal(torch, pmax, want_max)
+    # the partials in the kernel's own order, bit for bit
+    exact, _ = oo.kernel_partials_model(want, True)
+    assert chip_smoke._nan_equal(torch, psum, exact)
+    keys, dirty = oo._KEYS[(occs.device, n)]
+    assert not dirty and not bool(keys.any())
+
+
+@pytest.mark.parametrize("range_bytes", [4096, 1 << 16, 1 << 20])
+def test_occupancy_ema_scatter_in_cell_ranges(cuda, monkeypatch,
+                                              range_bytes):
+    """The sampled scatter run range by range (EMA_RANGE_BYTES cut so that
+    a 64^3 grid takes 256, 16 and 1 ranges, the last one shorter) gives
+    the plain update bit for bit."""
+    from deblur_e_nerf_tpu_torch.ops import occupancy as oo
+
+    monkeypatch.setattr(oo, "EMA_RANGE_BYTES", range_bytes)
+    n = 64 ** 3 + 5
+    occs, cells, chunks = chip_smoke.ema_inputs("duplicates", 3, n, seed=4)
+    occs, cells = occs.to(cuda), tuple(c.to(cuda) for c in cells)
+    chunks = [(i, d.to(cuda), st.to(cuda)) for i, d, st in chunks]
+    got, _ = oo.ema(occs, 0.95, chunks, cells, 0.02)
+    want, _ = oo.ema_reference(occs, 0.95, chunks, cells, 0.02)
+    assert chip_smoke._nan_equal(torch, got, want)
 
 
 def test_occupancy_quantile_beyond_torch_quantile(cuda):

@@ -124,17 +124,25 @@ CASES = [(g, b) for g in GEOMETRIES for b in BUDGETS]
 # the plain versions against the JAX package
 
 
-@pytest.mark.parametrize("res", [16, 32])
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("res", [4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("seed", [0, 1, "full", "empty"])
 def test_masks_match_jax_bit_for_bit(res, seed):
     """The one-cell dilation, the 4^3 pool and the two pooled dilations:
     equal to JAX `_dilate_binary` / `_maxpool_binary` cell for cell
-    (booleans: no tolerance), at 16^3 and 32^3; the masks kernel's form
-    (`masks_model`: one radius-2 dilation for the two) equal too."""
-    rng = np.random.default_rng(seed)
-    # occupied cells in one corner, so that the pooled mask is not full
-    g = rng.uniform(size=(res,) * 3) < 0.3
-    g[res // 8:] = g[:, res // 8:] = g[:, :, res // 8:] = False
+    (booleans: no tolerance); the masks kernel's decomposition
+    (`masks_model`: the rows' OR over y and z, then x; the pool as bits;
+    one radius-2 dilation of the bit rows for the two) equal too. Grids of
+    4^3 and 8^3 (a pooled grid of 1 or 2 cells, the radius-2 dilation cut
+    at every face) up to the flagship's 128^3; `seed` makes a random grid
+    occupied in one corner (so that the pooled mask is not full), or
+    names a grid that is all occupied or empty."""
+    if seed in ("full", "empty"):
+        g = np.full((res,) * 3, seed == "full")
+    else:
+        rng = np.random.default_rng(seed)
+        g = rng.uniform(size=(res,) * 3) < 0.3
+        corner = max(res // 8, 1)
+        g[corner:] = g[:, corner:] = g[:, :, corner:] = False
     binary = g.reshape(-1)
     dil_j = np.asarray(jr._dilate_binary(jnp.asarray(binary), res))
     pooled_j = jr._maxpool_binary(jnp.asarray(dil_j), res, 4)
@@ -146,9 +154,14 @@ def test_masks_match_jax_bit_for_bit(res, seed):
     dil, pooled = mo.masks_reference(t, rc, True)
     np.testing.assert_array_equal(dil.numpy(), dil_j)
     np.testing.assert_array_equal(pooled.numpy(), np.asarray(pooled_j))
-    assert 0 < int(pooled.sum()) < pooled.numel()
+    if seed in ("full", "empty"):
+        assert bool(pooled.all()) == bool(dil.all()) == (seed == "full")
+        assert bool(pooled.any()) == (seed == "full")
+    elif res >= 16:
+        assert 0 < int(pooled.sum()) < pooled.numel()
     dil_m, pooled_m = mo.masks_model(t, rc, True)
     assert torch.equal(dil_m, dil) and torch.equal(pooled_m, pooled)
+    assert torch.equal(mo.masks_model(t, rc, False)[0], dil)
     assert mo.masks_reference(t, rc, False)[1] is None
 
 

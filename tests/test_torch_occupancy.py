@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from deblur_e_nerf_tpu.models import occupancy as jocc
 from deblur_e_nerf_tpu.models.contraction import ContractionType as JCT
 from deblur_e_nerf_tpu_torch.models import occupancy as tocc
@@ -294,6 +295,56 @@ def test_sample_occupied_model_matches_plain_bit_for_bit():
                        torch.full((3000,), N_CELLS - 1))
 
 
+def _nan_equal(a, b):
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a).view(torch.int32),
+        torch.where(nan, 0.0, b).view(torch.int32))
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 16, oo.MAX_CHUNKS + 6])
+@pytest.mark.parametrize("kind", ["duplicates", "distinct", "one cell",
+                                  "nan"])
+def test_ema_model_matches_plain_bit_for_bit(kind, n_chunks):
+    """The sampled EMA kernels' form (`ema_model`: the contributions'
+    order-preserving keys, their maximum a cell, then max(occs x decay,
+    the key's float) where a key is set) bit for bit against the plain
+    update (NaN equal to NaN), for tables of 1, 2 and 16 chunks and more
+    than one scatter launch takes (MAX_CHUNKS), with duplicate cells
+    within and across chunks, no cell sampled twice, every lane on one
+    cell, and NaN densities and cells (chip_smoke.ema_inputs); the
+    partials are the plain `partials_model`'s. The warmup form is the
+    plain one."""
+    occs, cells, chunks = chip_smoke.ema_inputs(kind, n_chunks, N_CELLS)
+    assert len(chunks) == n_chunks
+    want, _ = oo.ema_reference(occs, DECAY, chunks, cells, STEP)
+    got, _ = oo.ema_model(occs, DECAY, chunks, cells, STEP)
+    assert _nan_equal(got, want)
+    changed = int((got != occs).sum())
+    assert changed > 0 if kind != "one cell" else changed == 1
+    if kind == "nan":
+        assert int(torch.isnan(want).sum()) >= 3
+    chunks = [(0, torch.from_numpy(np.random.default_rng(1).uniform(
+        size=N_CELLS).astype(np.float32)), None)]
+    assert _nan_equal(oo.ema_model(occs, DECAY, chunks, None, STEP)[0],
+                      oo.ema_reference(occs, DECAY, chunks, None, STEP)[0])
+
+
+@pytest.mark.parametrize("res", [16, 64, 128, 256, 512])
+def test_ema_scatter_ranges_cover_the_grid(res):
+    """The sampled scatter's cell ranges (`range_cells`): multiples of 32
+    cells, as few as keep a range's keys within EMA_RANGE_BYTES, and
+    together the whole grid (one range up to the flagship's 128^3, two at
+    EDS's 256^3)."""
+    n = res ** 3
+    cells = oo.range_cells(n)
+    ranges = -(-n // cells)
+    assert cells % 32 == 0 and ranges * cells >= n > (ranges - 1) * cells
+    assert 4 * cells <= oo.EMA_RANGE_BYTES or cells < 32
+    assert ranges == max(1, -(-4 * n // oo.EMA_RANGE_BYTES))
+    assert ranges == {16: 1, 64: 1, 128: 1, 256: 2, 512: 16}[res]
+
+
 @pytest.mark.parametrize("caps", [ALL_CAPS, R5FIX_CAPS, {}])
 def test_threshold_model_within_tolerance_of_plain(caps):
     """threshold_model (the kernel's float64 partials by tile, the radix
@@ -316,6 +367,34 @@ def test_threshold_model_within_tolerance_of_plain(caps):
         assert float(thre) == pytest.approx(float(want_t), rel=THRE_RTOL)
         differ = binary != want_b
         assert not differ[(occs - want_t).abs() > THRE_RTOL * want_t].any()
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_kernel_partials_model_holds_the_jax_mean(r5fix_update, sampled):
+    """The EMA kernels' partials in their own order (`kernel_partials_model`:
+    a thread's 4 cells, strided for a warmup chunk and consecutive for a
+    sampled update's finish, then the block's pairwise tree): each tile's
+    sum within 1e-12 of a float64 sum, the two orders' tile sums within
+    1e-12 of each other, and the mean from them within
+    chip_smoke.OCC_MEAN_RTOL of the JAX update's jnp.mean on the same
+    occs, on a warmup and a sampled update's grid and on a grid whose last
+    tile is partial."""
+    js = jocc.init_state(RES)
+    for i, step in enumerate([0, 1, WARMUP + int(sampled)]):
+        js = r5fix_update(js, jax.random.PRNGKey(60 + i), jnp.asarray(step),
+                          0.08, 5e-4)
+    occs = np.asarray(js.occs)
+    for grid in (occs, occs[:oo.TILE + 5]):
+        t = torch.from_numpy(grid.copy())
+        psum, pmax = oo.kernel_partials_model(t, sampled)
+        other, _ = oo.kernel_partials_model(t, not sampled)
+        want, want_max = oo.partials_model(t)
+        np.testing.assert_allclose(psum.numpy(), want.numpy(), rtol=1e-12)
+        np.testing.assert_allclose(other.numpy(), psum.numpy(), rtol=1e-12)
+        assert torch.equal(pmax, want_max)
+        mean = float(psum.sum()) / grid.shape[0]
+        assert mean == pytest.approx(float(jnp.mean(jnp.asarray(grid))),
+                                     rel=chip_smoke.OCC_MEAN_RTOL)
 
 
 def test_census_splits_the_field_from_the_update():
